@@ -1,0 +1,129 @@
+"""Configuration for the ported slice: the dataclass fields the MViTv2-S
+audio-visual inference path reads.
+
+Counterpart of `mspi_tpu/config.py` (same field names and defaults, so a
+dict of overrides means the same thing to both packages). Only `mvitv2s`
+is ported; its settings encode configs/MVITv2_S_16x4.yaml.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+MOTION_ENCODERS = ("mvitv2s",)
+
+# Channel dims and temporal lengths of the [v1..v4] feature pyramid for a
+# 16-frame clip, and whether each lateral decoder layer applies a
+# temporal-stride conv.
+MOTION_ENCODER_EMBEDS = {"mvitv2s": (96, 192, 384, 768)}
+MOTION_ENCODER_TDIMS = {"mvitv2s": (8, 8, 8, 8)}
+LATERAL_BOOL = {"mvitv2s": (True, True, True, True)}
+
+
+@dataclass
+class DataConfig:
+    num_frames: int = 16
+    resolution: Tuple[int, int] = (224, 384)
+
+
+@dataclass
+class MViTConfig:
+    """MViTv2-S 16x4 (configs/MVITv2_S_16x4.yaml): conv pooling, decomposed
+    spatial + temporal rel-pos bias and residual pooling always on."""
+
+    depth: int = 16
+    num_heads: int = 1
+    embed_dim: int = 96
+    patch_kernel: Tuple[int, int, int] = (3, 7, 7)
+    patch_stride: Tuple[int, int, int] = (2, 4, 4)
+    patch_padding: Tuple[int, int, int] = (1, 3, 3)
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    dim_mul: Tuple[Tuple[int, float], ...] = ((1, 2.0), (3, 2.0), (14, 2.0))
+    head_mul: Tuple[Tuple[int, float], ...] = ((1, 2.0), (3, 2.0), (14, 2.0))
+    pool_kvq_kernel: Tuple[int, int, int] = (3, 3, 3)
+    pool_kv_stride_adaptive: Tuple[int, int, int] = (1, 8, 8)
+    pool_q_stride: Tuple[Tuple[int, int, int, int], ...] = (
+        (0, 1, 1, 1), (1, 1, 2, 2), (2, 1, 1, 1), (3, 1, 2, 2),
+        (4, 1, 1, 1), (5, 1, 1, 1), (6, 1, 1, 1), (7, 1, 1, 1),
+        (8, 1, 1, 1), (9, 1, 1, 1), (10, 1, 1, 1), (11, 1, 1, 1),
+        (12, 1, 1, 1), (13, 1, 1, 1), (14, 1, 2, 2), (15, 1, 1, 1),
+    )
+    # feature-pyramid tap points
+    out_indices: Tuple[int, int, int, int] = (0, 2, 13, 15)
+
+
+@dataclass
+class ModelConfig:
+    motion_encoder: str = "mvitv2s"
+    de_embed_dim: int = 192
+    aud_embed_dim: int = 512
+    sync_num_blocks: int = 3
+    sync_num_heads: int = 4
+    simsiam_hidden: int = 2048
+    mvit: MViTConfig = field(default_factory=MViTConfig)
+
+    @property
+    def embed_dims(self) -> Tuple[int, int, int, int]:
+        return MOTION_ENCODER_EMBEDS[self.motion_encoder]
+
+    @property
+    def lateral_bool(self) -> Tuple[bool, bool, bool, bool]:
+        return LATERAL_BOOL[self.motion_encoder]
+
+    @property
+    def lateral_stride(self) -> Tuple[int, int, int, int]:
+        return (2, 2, 2, 2)
+
+    @property
+    def pyramid_tdims(self) -> Tuple[int, int, int, int]:
+        return MOTION_ENCODER_TDIMS[self.motion_encoder]
+
+
+@dataclass
+class MSPIConfig:
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+
+    def num_vis_tokens(self) -> int:
+        """Tokens entering SyncBlock: T4 * H/32 * W/32 (672 for MViTv2-S at
+        16x224x384)."""
+        h, w = self.data.resolution
+        t4 = max(1, self.model.pyramid_tdims[3] * self.data.num_frames // 16)
+        return t4 * (h // 32) * (w // 32)
+
+
+def _merge_into_dataclass(obj: Any, overrides: Dict[str, Any]) -> Any:
+    """Overlay a dict onto a dataclass tree (case-insensitive keys; unknown
+    keys are ignored, as in the JAX package)."""
+    if not dataclasses.is_dataclass(obj):
+        return overrides
+    names = {f.name.lower(): f.name for f in dataclasses.fields(obj)}
+    updates = {}
+    for key, value in overrides.items():
+        name = names.get(key.lower())
+        if name is None:
+            continue
+        current = getattr(obj, name)
+        if dataclasses.is_dataclass(current) and isinstance(value, dict):
+            updates[name] = _merge_into_dataclass(current, value)
+        else:
+            if isinstance(current, tuple) and isinstance(value, list):
+                value = tuple(tuple(v) if isinstance(v, list) else v for v in value)
+            updates[name] = value
+    return dataclasses.replace(obj, **updates)
+
+
+def get_config(motion_encoder: str = "mvitv2s",
+               overrides: Optional[Dict[str, Any]] = None) -> MSPIConfig:
+    """The full config for a motion encoder, with optional dict overrides."""
+    if motion_encoder not in MOTION_ENCODERS:
+        raise NotImplementedError(
+            f"motion encoder {motion_encoder!r} not yet ported "
+            f"(ported: {MOTION_ENCODERS})")
+    cfg = MSPIConfig()
+    if overrides:
+        cfg = _merge_into_dataclass(cfg, overrides)
+    return cfg

@@ -1,0 +1,451 @@
+// Flash-style attention body shared by attention_rel.cu (MViT pooled attention
+// with the decomposed relative-position bias) and self_attention.cu
+// (SyncBlock multi-head self-attention).
+//
+// One block computes BQ = 64 query rows of one (batch, head) and walks the
+// keys in tiles of BK = 64 with an online softmax (fp32 running max and sum
+// per row), so the [Nq, Nk] score matrix never reaches device memory and
+// shared memory does not depend on Nk. Ragged query and key tiles are masked
+// in the kernel: out-of-range queries are computed on zeros and not written,
+// out-of-range keys get a score of -inf.
+//
+// Tensors are addressed through (batch, head, token) element strides with the
+// head's D features contiguous, so the same body reads head-major [B, H, N, D]
+// (MViT) and packed token-major [B, N, H*D] / [B, N, 2*H*D] (SyncBlock) in
+// place, without transpose copies.
+//
+// With REL, the bias of query i and key j is rebuilt from the narrow per-query
+// projections rel [.., Nq, R] (R = kt + kh + kw, columns t | h | w) and the
+// key's row-major (t, h, w) index:
+//   bias = rel[i, t(j)] + rel[i, kt + h(j)] + rel[i, kt + kh + w(j)]
+// which equals rel . E^T for the 0/1 expansion E that the TPU kernel
+// multiplies in (mspi_tpu/models/mvit.py::_onehot_rows).
+//
+// Thread layout (256 threads): ty = tid / 16 owns query rows ty*4 .. ty*4+3,
+// tx = tid % 16 owns keys tx*4 .. tx*4+3 of the score tile and output columns
+// tx + 16*dd of the [64, D] accumulator. A row's 16 owners sit in one half
+// warp, so row max and row sum are 4 xor-shuffles. The softmax update and
+// the accumulator are the same in both paths:
+//   bf16: Q K^T and P V on the tensor cores (WMMA 16x16x16, fp32
+//         accumulate) through shared memory: the score tile and each tile's
+//         P V product land in fp32 shared memory, where the threads apply
+//         scale, bias, mask and the online softmax (P rounded to bf16 for
+//         P V, as the TPU kernel rounds probs to v's dtype).
+//   fp32: both products on the fp32 FMA pipes (tensor cores would round to
+//         TF32), 4x4 register tiles per thread.
+//
+// What bounds it on the card: 4*D flops per (query, key) pair; q, k, v and
+// rel are read once per query tile, which at D = 96 and BQ = 64 keeps it far
+// above the memory roofline. The bf16 path syncs the block four times per
+// key tile, so at these small tiles it is bounded by shared-memory traffic
+// and synchronisation rather than by the tensor cores.
+#pragma once
+
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace mspi {
+
+constexpr int kBQ = 64;
+constexpr int kBK = 64;
+constexpr int kPitch = 68;  // padded row pitch (floats) of qs, ks and ps
+constexpr int kAttnThreads = 256;
+
+struct AttnStrides {
+  int64_t b, h, n;  // element strides of batch, head and token; features contiguous
+};
+
+struct AttnArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* rel;  // [.., Nq, R] with strides rs, or null
+  void* out;
+  AttnStrides qs, ks, vs, rs, os;
+  int heads, nq, nk;
+  int r, kt, kh, kw;  // rel width and key grid (REL only)
+  float scale;
+};
+
+// Scale, bias and mask the thread's 4x4 scores (rows ty*4+i, keys
+// k0+tx*4+jj), fold them into the running max m_run and sum l_run, and turn
+// them into unnormalised probabilities; alpha[i] rescales row i's accumulator.
+template <bool REL>
+__device__ __forceinline__ void softmax_update(const AttnArgs& a, const float* rels, int k0,
+                                               int tx, int ty, float (&s)[4][4],
+                                               float (&m_run)[4], float (&l_run)[4],
+                                               float (&alpha)[4]) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int kj = k0 + tx * 4 + jj;
+    if (kj >= a.nk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i][jj] = -INFINITY;
+      continue;
+    }
+    int ct = 0, ch = 0, cw = 0;
+    if (REL) {
+      ct = kj / (a.kh * a.kw);
+      ch = a.kt + (kj / a.kw) % a.kh;
+      cw = a.kt + a.kh + kj % a.kw;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v = s[i][jj] * a.scale;
+      if (REL) {
+        const float* rr = rels + (ty * 4 + i) * a.r;
+        v += rr[ct] + rr[ch] + rr[cw];
+      }
+      s[i][jj] = v;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m_run[i], mx);  // finite: key k0 is in range
+    alpha[i] = expf(m_run[i] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      s[i][jj] = expf(s[i][jj] - m_new);
+      sum += s[i][jj];
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    l_run[i] = l_run[i] * alpha[i] + sum;
+    m_run[i] = m_new;
+  }
+}
+
+// The block's rel rows [kBQ, R] into shared memory (fp32, zeros past Nq).
+template <typename T, bool REL>
+__device__ __forceinline__ void load_rel_rows(const AttnArgs& a, int b, int h, int q0,
+                                              float* rels) {
+  if (!REL) return;
+  const T* rp = static_cast<const T*>(a.rel) + b * a.rs.b + h * a.rs.h;
+  for (int e = threadIdx.x; e < kBQ * a.r; e += kAttnThreads) {
+    const int r = e / a.r, c = e % a.r;
+    const int i = q0 + r;
+    rels[e] = (i < a.nq) ? to_f(rp[i * a.rs.n + c]) : 0.f;
+  }
+}
+
+// out rows ty*4+i, columns tx+16*dd = o / l.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(const AttnArgs& a, int b, int h, int q0, int tx,
+                                           int ty, const float (&o)[4][D / 16],
+                                           const float (&l_run)[4]) {
+  T* op = static_cast<T*>(a.out) + b * a.os.b + h * a.os.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi < a.nq) {
+      const float inv = 1.f / l_run[i];
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd)
+        op[qi * a.os.n + tx + 16 * dd] = from_f<T>(o[i][dd] * inv);
+    }
+  }
+}
+
+// ---- fp32: FMA pipes ---------------------------------------------------------
+
+template <int D>
+constexpr size_t attn_smem_bytes(int r) {
+  return (static_cast<size_t>(D) * kPitch * 2  // qs, ks (transposed)
+          + static_cast<size_t>(kBK) * D       // vs
+          + static_cast<size_t>(kBQ) * kPitch  // ps
+          + static_cast<size_t>(kBQ) * r)      // rels
+         * sizeof(float);
+}
+
+template <int D, bool REL>
+__global__ void __launch_bounds__(kAttnThreads) flash_attention_kernel(AttnArgs a) {
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr int DPT = D / 16;  // output columns per thread
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qs = smem_f32;             // [D][kPitch]: qs[d][row]
+  float* ks = qs + D * kPitch;      // [D][kPitch]: ks[d][key]
+  float* vs = ks + D * kPitch;      // [kBK][D]
+  float* ps = vs + kBK * D;         // [kBQ][kPitch]
+  float* rels = ps + kBQ * kPitch;  // [kBQ][R]
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
+  const int q0 = blockIdx.x * kBQ;
+  const float* qp = static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const float* kp = static_cast<const float*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const float* vp = static_cast<const float*>(a.v) + b * a.vs.b + h * a.vs.h;
+
+  for (int e = tid; e < kBQ * D; e += kAttnThreads) {
+    const int r = e / D, d = e % D;
+    const int i = q0 + r;
+    qs[d * kPitch + r] = (i < a.nq) ? qp[i * a.qs.n + d] : 0.f;
+  }
+  load_rel_rows<float, REL>(a, b, h, q0, rels);
+
+  float m_run[4], l_run[4], o[4][DPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd) o[i][dd] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < a.nk; k0 += kBK) {
+    __syncthreads();  // previous tile's ks / vs / ps reads are done
+    for (int e = tid; e < kBK * D; e += kAttnThreads) {
+      const int j = e / D, d = e % D;
+      const int kj = k0 + j;
+      const bool ok = kj < a.nk;
+      ks[d * kPitch + j] = ok ? kp[kj * a.ks.n + d] : 0.f;
+      vs[j * D + d] = ok ? vp[kj * a.vs.n + d] : 0.f;
+    }
+    __syncthreads();
+
+    // scores s[i][jj] for rows ty*4+i, keys tx*4+jj
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float4 qv = *reinterpret_cast<const float4*>(qs + d * kPitch + ty * 4);
+      const float4 kv = *reinterpret_cast<const float4*>(ks + d * kPitch + tx * 4);
+      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(qa[i], ka[jj], s[i][jj]);
+    }
+
+    float alpha[4];
+    softmax_update<REL>(a, rels, k0, tx, ty, s, m_run, l_run, alpha);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int dd = 0; dd < DPT; ++dd) o[i][dd] *= alpha[i];
+      *reinterpret_cast<float4*>(ps + (ty * 4 + i) * kPitch + tx * 4) =
+          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+    }
+    __syncthreads();
+
+    // o += p v
+#pragma unroll 4
+    for (int j = 0; j < kBK; ++j) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = ps[(ty * 4 + i) * kPitch + j];
+#pragma unroll
+      for (int dd = 0; dd < DPT; ++dd) {
+        const float vv = vs[j * D + tx + 16 * dd];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[i][dd] = fmaf(p[i], vv, o[i][dd]);
+      }
+    }
+  }
+  store_rows<float, D>(a, b, h, q0, tx, ty, o, l_run);
+}
+
+// ---- bf16: tensor cores --------------------------------------------------------
+
+namespace wmma = nvcuda::wmma;
+using bf16 = __nv_bfloat16;
+
+template <int D>
+struct TcLayout {
+  static constexpr int LDT = D + 8;    // bf16 pitch of qs, ks, vs (rows = tokens)
+  static constexpr int LDS = kBK + 4;  // fp32 pitch of the score tile
+  static constexpr int LDP = kBK + 8;  // bf16 pitch of the probability tile
+  static constexpr int LDO = D + 4;    // fp32 pitch of the P V tile
+  static constexpr size_t kQ = 0;
+  static constexpr size_t kK = kQ + sizeof(bf16) * kBQ * LDT;
+  static constexpr size_t kV = kK + sizeof(bf16) * kBK * LDT;
+  static constexpr size_t kS = kV + sizeof(bf16) * kBK * LDT;
+  static constexpr size_t kP = kS + sizeof(float) * kBQ * LDS;
+  static constexpr size_t kO = kP + sizeof(bf16) * kBQ * LDP;
+  static constexpr size_t kRel = kO + sizeof(float) * kBQ * LDO;
+  static size_t bytes(int r) { return kRel + sizeof(float) * kBQ * r; }
+  // every region starts on a 32-byte boundary, as WMMA loads need
+  static_assert(kK % 32 == 0 && kV % 32 == 0 && kS % 32 == 0 && kP % 32 == 0 &&
+                    kO % 32 == 0 && kRel % 32 == 0,
+                "WMMA tiles need 32-byte aligned shared memory");
+};
+
+// rows [t0, t0+64) of a token-major [N, D] bf16 operand into dst [64][LDT],
+// 16 bytes per load (the wrapper passes 16-byte aligned rows); zeros past n.
+template <int D>
+__device__ __forceinline__ void load_tile_bf16(const bf16* src, int64_t stride, int t0, int n,
+                                               bf16* dst) {
+  constexpr int VEC = D / 8;  // 16-byte vectors per row
+  for (int e = threadIdx.x; e < 64 * VEC; e += kAttnThreads) {
+    const int r = e / VEC, c = (e % VEC) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (t0 + r < n) v = *reinterpret_cast<const uint4*>(src + (t0 + r) * stride + c);
+    *reinterpret_cast<uint4*>(dst + r * TcLayout<D>::LDT + c) = v;
+  }
+}
+
+template <int D, bool REL>
+__global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnArgs a) {
+  using L = TcLayout<D>;
+  constexpr int DPT = D / 16;
+  constexpr int NOT = (kBQ / 16) * (D / 16);  // 16x16 tiles of P V
+  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc + L::kQ);
+  bf16* ks = reinterpret_cast<bf16*>(smem_tc + L::kK);
+  bf16* vs = reinterpret_cast<bf16*>(smem_tc + L::kV);
+  float* ss = reinterpret_cast<float*>(smem_tc + L::kS);
+  bf16* ps = reinterpret_cast<bf16*>(smem_tc + L::kP);
+  float* os = reinterpret_cast<float*>(smem_tc + L::kO);
+  float* rels = reinterpret_cast<float*>(smem_tc + L::kRel);
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5;
+  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
+  const int q0 = blockIdx.x * kBQ;
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
+
+  load_tile_bf16<D>(qp, a.qs.n, q0, a.nq, qs);
+  load_rel_rows<bf16, REL>(a, b, h, q0, rels);
+
+  float m_run[4], l_run[4], o[4][DPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd) o[i][dd] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < a.nk; k0 += kBK) {
+    load_tile_bf16<D>(kp, a.ks.n, k0, a.nk, ks);
+    load_tile_bf16<D>(vp, a.vs.n, k0, a.nk, vs);
+    __syncthreads();
+
+    // S = Q K^T: warp -> row tile warp/2, column tiles (warp%2)*2 + {0, 1}
+    {
+      const int rt = warp >> 1;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int ct = (warp & 1) * 2 + c;
+        FragC acc;
+        wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+        for (int d = 0; d < D; d += 16) {
+          FragA qa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
+          wmma::load_matrix_sync(qa, qs + rt * 16 * L::LDT + d, L::LDT);
+          wmma::load_matrix_sync(kb, ks + ct * 16 * L::LDT + d, L::LDT);
+          wmma::mma_sync(acc, qa, kb, acc);
+        }
+        wmma::store_matrix_sync(ss + rt * 16 * L::LDS + ct * 16, acc, L::LDS,
+                                wmma::mem_row_major);
+      }
+    }
+    __syncthreads();
+
+    float s[4][4], alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(ss + (ty * 4 + i) * L::LDS + tx * 4);
+      s[i][0] = v.x;
+      s[i][1] = v.y;
+      s[i][2] = v.z;
+      s[i][3] = v.w;
+    }
+    softmax_update<REL>(a, rels, k0, tx, ty, s, m_run, l_run, alpha);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        ps[(ty * 4 + i) * L::LDP + tx * 4 + jj] = __float2bfloat16(s[i][jj]);
+    __syncthreads();
+
+    // P V: tiles warp + 8*i of the [64, D] product
+#pragma unroll
+    for (int i = 0; i < (NOT + 7) / 8; ++i) {
+      const int t = warp + 8 * i;
+      if (t < NOT) {
+        const int rt = t / (D / 16), ct = t % (D / 16);
+        FragC acc;
+        wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+        for (int j = 0; j < kBK; j += 16) {
+          FragA pa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
+          wmma::load_matrix_sync(pa, ps + rt * 16 * L::LDP + j, L::LDP);
+          wmma::load_matrix_sync(vb, vs + j * L::LDT + ct * 16, L::LDT);
+          wmma::mma_sync(acc, pa, vb, acc);
+        }
+        wmma::store_matrix_sync(os + rt * 16 * L::LDO + ct * 16, acc, L::LDO,
+                                wmma::mem_row_major);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int dd = 0; dd < DPT; ++dd)
+        o[i][dd] = o[i][dd] * alpha[i] + os[(ty * 4 + i) * L::LDO + tx + 16 * dd];
+    // the next tile's loads touch ks / vs only; ss, ps and os are rewritten
+    // after the next __syncthreads, when every thread is done with them here
+  }
+  store_rows<bf16, D>(a, b, h, q0, tx, ty, o, l_run);
+}
+
+template <typename T, int D, bool REL>
+cudaError_t launch_flash_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
+  const dim3 grid((a.nq + kBQ - 1) / kBQ, batch * a.heads);
+  const int r = REL ? a.r : 0;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = TcLayout<D>::bytes(r);
+    cudaError_t err = allow_smem(flash_attention_tc_kernel<D, REL>, smem);
+    if (err != cudaSuccess) return err;
+    flash_attention_tc_kernel<D, REL><<<grid, kAttnThreads, smem, stream>>>(a);
+  } else {
+    const size_t smem = attn_smem_bytes<D>(r);
+    cudaError_t err = allow_smem(flash_attention_kernel<D, REL>, smem);
+    if (err != cudaSuccess) return err;
+    flash_attention_kernel<D, REL><<<grid, kAttnThreads, smem, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+template <bool REL>
+cudaError_t dispatch_flash_attention(const AttnArgs& a, int batch, int d, int dtype,
+                                     cudaStream_t s) {
+  if (dtype == kFloat32) {
+    switch (d) {
+      case 96: return launch_flash_attention<float, 96, REL>(a, batch, s);
+      case 128: return launch_flash_attention<float, 128, REL>(a, batch, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype == kBFloat16) {
+    switch (d) {
+      case 96: return launch_flash_attention<__nv_bfloat16, 96, REL>(a, batch, s);
+      case 128: return launch_flash_attention<__nv_bfloat16, 128, REL>(a, batch, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace mspi

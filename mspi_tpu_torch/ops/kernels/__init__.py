@@ -1,0 +1,154 @@
+"""Hand-written Hopper kernels: build, load, dispatch rule and launch counts.
+
+Counterpart of `mspi_tpu/ops/pallas/`. Every CUDA source under
+`mspi_tpu_torch/csrc/*.cu` is compiled by one `nvcc` call for `sm_90a` into
+`build/mspi_tpu_torch/libmspi_kernels.so` at the repository root, at the
+first CUDA launch (or by an explicit `build()`), and loaded with ctypes. The
+library has a plain C interface: pointers from `tensor.data_ptr()`, PyTorch's
+current stream, scalars as C ints and floats; each entry returns a
+`cudaError_t` that the wrapper turns into an exception.
+
+Dispatch rule of every public kernel function (`dispatch_device`): CUDA
+tensors launch the kernel or raise; CPU tensors run the plain PyTorch version
+that sits beside the kernel in the same module; any other device raises.
+There is no switch and no fallback.
+
+`launches` counts the kernel launches of each wrapper; a run resets it with
+`reset_launch_counts()` and reads it afterwards to show which kernels its
+path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "mspi_tpu_torch"
+LIB_PATH = BUILD_DIR / "libmspi_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches: Dict[str, int] = {"attention_rel": 0, "ln_mlp": 0,
+                            "ln_mlp_prior": 0, "self_attention": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # name: argtypes (all entries return int cudaError_t)
+    "mspi_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "mspi_attention_rel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _I, _P],
+    "mspi_self_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(nvcc).exists():
+        raise RuntimeError("nvcc not found: the kernels build only where the "
+                           "CUDA toolkit is installed")
+    return nvcc
+
+
+def build() -> float:
+    """Compile every csrc/*.cu into LIB_PATH with one nvcc call; returns the
+    build's wall seconds. Raises with nvcc's output when it fails. A library
+    that is already loaded in this process stays loaded."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LIB_PATH.with_name(LIB_PATH.name + ".tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    tmp.replace(LIB_PATH)
+    return seconds
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC_DIR.iterdir())
+    return LIB_PATH.stat().st_mtime < newest
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if missing or older than csrc/."""
+    global _lib
+    if _lib is None:
+        if _stale():
+            build()
+        handle = ctypes.CDLL(str(LIB_PATH))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.mspi_error_string.argtypes = [ctypes.c_int]
+        handle.mspi_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if err != 0:
+        msg = lib().mspi_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dispatch_device(*tensors: torch.Tensor) -> bool:
+    """The dispatch rule: True when every tensor lies on one CUDA device
+    (launch the kernel), False when every tensor lies on the CPU (run the
+    plain version); raise on anything else, including a mix."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("kernel operands lie on different devices: "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel and no plain path for device {dev}")
+
+
+def check_operands(name: str, *tensors: torch.Tensor) -> int:
+    """Check what every kernel needs of its operands; returns the dtype code."""
+    dtype = tensors[0].dtype
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {dtype} not supported (fp32 or bf16)")
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operand of shape {tuple(t.shape)} is "
+                             "not contiguous")
+    return DTYPE_CODES[dtype]
