@@ -1,25 +1,39 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,backward,...]
 
 Runs the port's phases in order, one line each, and exits non-zero on the
 first failure (there is no CPU path):
 
 1. device: the card's name and `nvidia-smi` name and power limit;
-2. build: compiles every kernel in mspi_tpu_torch/csrc with nvcc (sm_90a);
-3. kernels: each kernel against its plain PyTorch version at the flagship's
-   shapes (batch 8), in fp32 and bf16, with CUDA-event times of both;
+2. build: compiles every kernel in mspi_tpu_torch/csrc with nvcc (sm_90a),
+   one process per source;
+3. kernels: each forward kernel against its plain PyTorch version at the
+   flagship's inference shapes (batch 8), in fp32 and bf16, with CUDA-event
+   times of both and of the library call that computes the same function;
 4. main path: `predict_video` of the bf16 MViTv2-S AudioVisualSaliencyModel
    at 224x384 (seeded random weights) on 31 synthetic frames and a 16 kHz
    waveform; checks the maps and each kernel's launch count;
 5. parity: one window in fp32 on the card (kernels) against the CPU (plain
-   versions), by the correlation of the log-density maps.
+   versions), by the correlation of the log-density maps;
+6. backward: each backward kernel against its plain version at the
+   flagship's training shapes (batch 2), fp32 and bf16, with times;
+7. training path: `make_train_step` on the MViTv2-S flagship at 224x384,
+   batch 2, bf16 compute with fp32 weights, STEPS steps on synthetic
+   batches; checks finite loss and gradient norm, trainable weights moved,
+   frozen weights and statistics bit-identical, and the launch counts;
+8. training parity: one fp32 step on the card against the same step on the
+   CPU (plain versions) from the same weights, batch and drop-path draws:
+   loss, each aux value and the cosine of the gradient vectors.
 
 The last two lines are the kernels' JSON record and the device JSON record.
+`--phases` runs a subset (2 always runs; the records then cover only what
+ran and no device record is printed).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import statistics
@@ -38,12 +52,26 @@ KERNELS = {
     "ln_mlp_prior": ("mspi_tpu_torch/csrc/ln_mlp.cu", "mspi_tpu/ops/pallas/mlp.py:751"),
     "self_attention": ("mspi_tpu_torch/csrc/self_attention.cu",
                        "mspi_tpu/ops/pallas/pooled_attention.py:761"),
+    "attention_rel_bwd": ("mspi_tpu_torch/csrc/attention_bwd.cu",
+                          "mspi_tpu/ops/pallas/pooled_attention.py:385"),
+    "attention_bwd": ("mspi_tpu_torch/csrc/attention_bwd.cu",
+                      "mspi_tpu/ops/pallas/pooled_attention.py:172"),
+    "ln_mlp_bwd": ("mspi_tpu_torch/csrc/ln_mlp_bwd.cu", "mspi_tpu/ops/pallas/mlp.py:445"),
 }
 # launches per forward of the flagship model
 PER_FORWARD = {"attention_rel": 16, "ln_mlp": 23, "ln_mlp_prior": 18, "self_attention": 3}
+# launches per training step
+PER_STEP = {**PER_FORWARD, "attention_rel_bwd": 16, "ln_mlp_bwd": 23, "attention_bwd": 3}
+PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity")
 BATCH = 8
+TRAIN_BATCH = 2
+STEPS = 5
 RES = (224, 384)
+SPECTRO = (257, 111)
 N_FRAMES, FPS, SAMPLE_RATE = 31, 30.0, 16000
+# published H100 SXM peaks (dense): bf16 tensor cores, fp32 outside them, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(phase: str, msg: str) -> None:
@@ -66,36 +94,114 @@ def time_ms(fn, warmup: int = 2, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
+def tolerance(dtype: torch.dtype, ref: torch.Tensor, floor: float = 1.0) -> float:
     """fp32: 1e-4 relative to the output scale (only the summation order
     differs). bf16: three bf16 steps (2^-8 each) relative to the output
     scale -- inputs, the rounded intermediates and the output are bf16,
-    the reference is fp32 on the same bf16-rounded inputs."""
-    scale = max(1.0, ref.abs().max().item())
+    the reference is fp32 on the same bf16-rounded inputs. The scale is
+    max|ref|, at least `floor`."""
+    scale = max(floor, ref.abs().max().item())
     return (1e-4 if dtype == torch.float32 else 3 * 2.0 ** -8) * scale
 
 
-def check_kernel(records, name, label, kernel_fn, plain_fn, inputs, dtype):
-    """Run one kernel at one shape against its plain version; record the
-    error and both times."""
-    xs = [t.to(dtype) for t in inputs]
-    out = kernel_fn(*xs)
-    torch.cuda.synchronize()
-    ref = plain_fn(*(t.float() for t in xs))
-    err = (out.float() - ref).abs().max().item()
-    tol = tolerance(dtype, ref)
-    ms = time_ms(lambda: kernel_fn(*xs))
-    plain_ms = time_ms(lambda: plain_fn(*xs))
-    ok = math.isfinite(err) and err <= tol
-    log("kernels", f"{name} {label} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-                   f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+def new_record() -> dict:
+    return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bound_by": None, "library_ms": None, "_bytes_ms": 0.0, "_ops_ms": 0.0}
+
+
+def add_bound(rec, dtype, n_bytes: float, flops: float) -> None:
+    """The least time of the work on the card: the larger of its bytes (each
+    input read once, each output written once) over HBM's rate and its
+    flops over the dtype's peak. Recorded for the bf16 runs, whose times
+    the record sums."""
+    if dtype != torch.bfloat16:
+        return
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    rec["bound_ms"] += max(t_bytes, t_ops)
+    rec["_bytes_ms"] += t_bytes
+    rec["_ops_ms"] += t_ops
+    rec["bound_by"] = "bytes" if rec["_bytes_ms"] > rec["_ops_ms"] else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def record(records, name, label, dtype, errs_tols, ms, plain_ms, library_ms=None):
+    err = max(e for e, _ in errs_tols)
+    ok = all(math.isfinite(e) and e <= t for e, t in errs_tols)
+    worst = max(e / t for e, t in errs_tols)  # each output against its own tolerance
+    lib = "" if library_ms is None else f" library {library_ms:.3f} ms"
+    log("kernels", f"{name} {label} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+                   f"(worst err/tol {worst:.3f}) "
+                   f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms{lib} {'ok' if ok else 'FAIL'}")
     rec = records[name]
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
     if dtype == torch.bfloat16:
         rec["ms"] += ms
         rec["plain_ms"] += plain_ms
+        if library_ms is not None:
+            rec["library_ms"] = (rec["library_ms"] or 0.0) + library_ms
     if not ok:
-        raise AssertionError(f"{name} {label} {dtype}: error {err} above {tol}")
+        raise AssertionError(f"{name} {label} {dtype}: error {err} above tolerance")
+
+
+def check_kernel(records, name, label, kernel_fn, plain_fn, inputs, dtype, library_fn=None):
+    """Run one forward kernel at one shape against its plain version; record
+    the error and the times."""
+    xs = [t.to(dtype) for t in inputs]
+    out = kernel_fn(*xs)
+    torch.cuda.synchronize()
+    ref = plain_fn(*(t.float() for t in xs))
+    err = (out.float() - ref).abs().max().item()
+    ms = time_ms(lambda: kernel_fn(*xs))
+    plain_ms = time_ms(lambda: plain_fn(*xs))
+    lib_ms = None
+    if library_fn is not None and dtype == torch.bfloat16:
+        with torch.no_grad():
+            lib_ms = time_ms(library_fn(*xs))
+    record(records, name, label, dtype, [(err, tolerance(dtype, ref))], ms, plain_ms, lib_ms)
+    return xs, out
+
+
+def randn_on(gen):
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+    return randn
+
+
+def mlp_inputs(randn, M, C):
+    H = 4 * C
+    return [randn(M, C), 1 + randn(C, scale=0.1), randn(C, scale=0.1),
+            randn(H, C, scale=C ** -0.5), randn(H, scale=0.1),
+            randn(C, H, scale=H ** -0.5), randn(C, scale=0.1)]
+
+
+def rel_mask(rel, k_shape):
+    """rel E^T: the bias as the dense float mask a library call takes."""
+    from mspi_tpu_torch.ops.kernels.pooled_attention import key_expansion
+
+    E = torch.from_numpy(key_expansion(k_shape)).to(rel.device, rel.dtype)
+    return rel @ E.T
+
+
+def heads_major(t, heads):
+    B, N, C = t.shape
+    return t.reshape(B, N, heads, C // heads).transpose(1, 2).contiguous()
+
+
+def sdpa(q, k, v, mask=None, scale=None):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+
+# K1 shapes per clip: label, Nq, key grid, heads (D = 96)
+ATTN_REL_SHAPES = (("blk0", 43008, (8, 7, 12), 1), ("blk1", 10752, (8, 14, 24), 2),
+                   ("blk4", 2688, (8, 7, 12), 4))
+# K2 shapes per clip: label, tokens, C, eps
+LN_MLP_SHAPES = (("mvit-s1", 43008, 96, 1e-6), ("mvit-s2", 10752, 192, 1e-6),
+                 ("mvit-s3", 2688, 384, 1e-6), ("mvit-s4", 672, 768, 1e-6),
+                 ("sync", 708, 512, 1e-5), ("decoder0", 21504, 192, 1e-5))
 
 
 def phase_kernels(records) -> None:
@@ -103,52 +209,152 @@ def phase_kernels(records) -> None:
     from mspi_tpu_torch.ops.kernels.pooled_attention import (
         attention_rel, attention_rel_reference, self_attention, self_attention_reference)
 
-    gen = torch.Generator().manual_seed(1)
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen) * scale).cuda()
-
-    def mlp_inputs(M, C):
-        H = 4 * C
-        return [randn(M, C), 1 + randn(C, scale=0.1), randn(C, scale=0.1),
-                randn(H, C, scale=C ** -0.5), randn(H, scale=0.1),
-                randn(C, H, scale=H ** -0.5), randn(C, scale=0.1)]
-
-    # K1: block 0, block 1, a stage-3 block (per clip: Nq, key grid, heads)
-    for label, nq, k_shape, heads in (("blk0", 43008, (8, 7, 12), 1),
-                                      ("blk1", 10752, (8, 14, 24), 2),
-                                      ("blk4", 2688, (8, 7, 12), 4)):
+    randn = randn_on(torch.Generator().manual_seed(1))
+    for label, nq, k_shape, heads in ATTN_REL_SHAPES:
         nk, r = math.prod(k_shape), sum(k_shape)
         inputs = [randn(BATCH, heads, nq, 96), randn(BATCH, heads, nk, 96),
                   randn(BATCH, heads, nk, 96), randn(BATCH, heads, nq, r)]
         for dtype in (torch.float32, torch.bfloat16):
-            check_kernel(records, "attention_rel", label,
-                         lambda q, k, v, rel, ks=k_shape: attention_rel(q, k, v, rel, ks, 96 ** -0.5),
-                         lambda q, k, v, rel, ks=k_shape: attention_rel_reference(
-                             q, k, v, rel, ks, 96 ** -0.5),
-                         inputs, dtype)
-    # K2: MViT stages (eps 1e-6), SyncBlock (1e-5), decoder level 0 (1e-5)
-    for label, tokens, C, eps in (("mvit-s1", 43008, 96, 1e-6), ("mvit-s2", 10752, 192, 1e-6),
-                                  ("mvit-s3", 2688, 384, 1e-6), ("mvit-s4", 672, 768, 1e-6),
-                                  ("sync", 708, 512, 1e-5), ("decoder0", 21504, 192, 1e-5)):
-        inputs = mlp_inputs(BATCH * tokens, C)
+            def library(q, k, v, rel, ks=k_shape):
+                mask = rel_mask(rel, ks)
+                return lambda: sdpa(q, k, v, mask, 96 ** -0.5)
+            xs, out = check_kernel(
+                records, "attention_rel", label,
+                lambda q, k, v, rel, ks=k_shape: attention_rel(q, k, v, rel, ks, 96 ** -0.5),
+                lambda q, k, v, rel, ks=k_shape: attention_rel_reference(
+                    q, k, v, rel, ks, 96 ** -0.5),
+                inputs, dtype, library)
+            add_bound(records["attention_rel"], dtype, nbytes(*xs, out),
+                      4.0 * BATCH * heads * nq * nk * 96)
+    for label, tokens, C, eps in LN_MLP_SHAPES:
+        inputs = mlp_inputs(randn, BATCH * tokens, C)
         for dtype in (torch.float32, torch.bfloat16):
-            check_kernel(records, "ln_mlp", label,
-                         lambda *a, e=eps: ln_mlp(*a, e),
-                         lambda *a, e=eps: ln_mlp_reference(*a, e), inputs, dtype)
+            xs, out = check_kernel(records, "ln_mlp", label, lambda *a, e=eps: ln_mlp(*a, e),
+                                   lambda *a, e=eps: ln_mlp_reference(*a, e), inputs, dtype)
+            add_bound(records["ln_mlp"], dtype, nbytes(*xs, out), 4.0 * BATCH * tokens * C * 4 * C)
     # K3's call site: the prior's four stages, 16 frames per clip
     for label, tokens, C in (("prior-s0", 5376, 96), ("prior-s1", 1344, 192),
                              ("prior-s2", 336, 384), ("prior-s3", 84, 768)):
-        inputs = mlp_inputs(BATCH * 16 * tokens, C)
+        inputs = mlp_inputs(randn, BATCH * 16 * tokens, C)
         for dtype in (torch.float32, torch.bfloat16):
-            check_kernel(records, "ln_mlp_prior", label,
-                         lambda *a: ln_mlp_prior(*a, 1e-6),
-                         lambda *a: ln_mlp_reference(*a, 1e-6), inputs, dtype)
+            xs, out = check_kernel(records, "ln_mlp_prior", label,
+                                   lambda *a: ln_mlp_prior(*a, 1e-6),
+                                   lambda *a: ln_mlp_reference(*a, 1e-6), inputs, dtype)
+            add_bound(records["ln_mlp_prior"], dtype, nbytes(*xs, out),
+                      4.0 * BATCH * 16 * tokens * C * 4 * C)
     # K4: SyncBlock, N = 672 + 36
     inputs = [randn(BATCH, 708, 512), randn(BATCH, 708, 1024)]
     for dtype in (torch.float32, torch.bfloat16):
-        check_kernel(records, "self_attention", "sync", lambda q, kv: self_attention(q, kv, 4),
-                     lambda q, kv: self_attention_reference(q, kv, 4), inputs, dtype)
+        def library(q, kv):
+            qh, kh, vh = (heads_major(t, 4) for t in (q, kv[..., :512], kv[..., 512:]))
+            return lambda: sdpa(qh, kh, vh)
+        xs, out = check_kernel(records, "self_attention", "sync",
+                               lambda q, kv: self_attention(q, kv, 4),
+                               lambda q, kv: self_attention_reference(q, kv, 4), inputs, dtype,
+                               library)
+        add_bound(records["self_attention"], dtype, nbytes(*xs, out),
+                  4.0 * BATCH * 4 * 708 * 708 * 128)
+
+
+def compare_grads(names, got, want, dtype):
+    """Per-gradient (error, tolerance) pairs, each against its own scale
+    max|ref| with no floor, so a sub-unit gradient is held to its own size;
+    logs each gradient's error and scale."""
+    out, parts = [], []
+    for name, g, w in zip(names, got, want):
+        w = w.float()
+        err, scale = (g.float() - w).abs().max().item(), w.abs().max().item()
+        out.append((err, tolerance(dtype, w, floor=0.0)))
+        parts.append(f"{name} {err:.1e}/{scale:.1e}")
+    log("kernels", f"  {str(dtype)[6:]} err/scale: " + " ".join(parts))
+    return out
+
+
+def split_kv(grads, C):
+    """(dq, dkv) -> (dq, dk, dv): the two lanes of dkv have their own scales."""
+    dq, dkv = grads
+    return dq, dkv[..., :C], dkv[..., C:]
+
+
+def library_grad(fn, inputs, dout):
+    """fwd + bwd of one library call on leaf copies of `inputs`."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+
+    def run():
+        torch.autograd.grad(fn(*leaves), leaves, dout)
+    return run
+
+
+def phase_backward(records) -> None:
+    from mspi_tpu_torch.ops.kernels import ln_mlp as K2
+    from mspi_tpu_torch.ops.kernels import pooled_attention as PA
+
+    randn = randn_on(torch.Generator().manual_seed(11))
+    B = TRAIN_BATCH
+    rec = records["attention_rel_bwd"]
+    for label, nq, k_shape, heads in ATTN_REL_SHAPES:
+        nk, r = math.prod(k_shape), sum(k_shape)
+        scale = 96 ** -0.5
+        inputs = [randn(B, heads, nq, 96), randn(B, heads, nk, 96), randn(B, heads, nk, 96),
+                  randn(B, heads, nq, r), randn(B, heads, nq, 96)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, rel, dout = (t.to(dtype) for t in inputs)
+            out, lse = PA._attention_rel_fwd(q, k, v, rel, k_shape, scale, with_lse=True)
+            bwd = lambda: PA.attention_rel_backward(q, k, v, rel, out, lse, k_shape, scale, dout)
+            got = bwd()
+            torch.cuda.synchronize()
+            want = PA.attention_rel_backward_reference(*(t.float() for t in (q, k, v, rel)),
+                                                       k_shape, scale, dout.float())
+            errs = compare_grads(("dq", "dk", "dv", "drel"), got, want, dtype)
+            ms = time_ms(bwd)
+            plain_ms = time_ms(lambda: PA.attention_rel_backward_reference(
+                q, k, v, rel, k_shape, scale, dout))
+            lib_ms = None
+            if dtype == torch.bfloat16:
+                mask = rel_mask(rel, k_shape)
+                lib_ms = time_ms(library_grad(lambda *a: sdpa(*a, scale), (q, k, v, mask), dout))
+                del mask
+            record(records, "attention_rel_bwd", label, dtype, errs, ms, plain_ms, lib_ms)
+            add_bound(rec, dtype, nbytes(q, k, v, rel, out, lse, dout, *got),
+                      10.0 * B * heads * nq * nk * 96)
+            del got, want, out, lse
+    # the bias-free backward at the SyncBlock shape: N = 672 + 36, C 512, 4 heads
+    N, C, heads = 708, 512, 4
+    inputs = [randn(B, N, C), randn(B, N, 2 * C), randn(B, N, C)]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kv, dout = (t.to(dtype) for t in inputs)
+        out, lse = PA._self_attention_fwd(q, kv, heads, with_lse=True)
+        bwd = lambda: PA.self_attention_backward(q, kv, out, lse, heads, dout)
+        got = bwd()
+        torch.cuda.synchronize()
+        want = PA.self_attention_backward_reference(q.float(), kv.float(), heads, dout.float())
+        errs = compare_grads(("dq", "dk", "dv"), split_kv(got, C), split_kv(want, C), dtype)
+        ms = time_ms(bwd)
+        plain_ms = time_ms(lambda: PA.self_attention_backward_reference(q, kv, heads, dout))
+        lib_ms = None
+        if dtype == torch.bfloat16:
+            qh, kh, vh, doh = (heads_major(t, heads) for t in
+                               (q, kv[..., :C], kv[..., C:], dout))
+            lib_ms = time_ms(library_grad(sdpa, (qh, kh, vh), doh))
+        record(records, "attention_bwd", "sync", dtype, errs, ms, plain_ms, lib_ms)
+        add_bound(records["attention_bwd"], dtype, nbytes(q, kv, out, lse, dout, *got),
+                  10.0 * B * heads * N * N * (C // heads))
+    for label, tokens, C, eps in LN_MLP_SHAPES:
+        M = B * tokens
+        inputs = mlp_inputs(randn, M, C) + [randn(M, C)]
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = [t.to(dtype) for t in inputs]
+            bwd = lambda: K2.ln_mlp_backward(*xs[:7], eps, xs[7])
+            got = bwd()
+            torch.cuda.synchronize()
+            want = K2.ln_mlp_backward_reference(*(t.float() for t in xs[:7]), eps,
+                                                xs[7].float())
+            errs = compare_grads(("dx", "dg", "db", "dw1", "db1", "dw2", "db2"), got, want,
+                                 dtype)
+            ms = time_ms(bwd)
+            plain_ms = time_ms(lambda: K2.ln_mlp_backward_reference(*xs[:7], eps, xs[7]))
+            record(records, "ln_mlp_bwd", label, dtype, errs, ms, plain_ms)
+            add_bound(records["ln_mlp_bwd"], dtype, nbytes(*xs, *got), 10.0 * M * C * 4 * C)
 
 
 def synthetic_video(seed: int):
@@ -189,10 +395,10 @@ def phase_main_path() -> dict:
     if not ((flat.min(axis=1) == 0).all() and (flat.max(axis=1) == 255).all()):
         raise AssertionError("a map is constant or not min-max normalised "
                              "(non-finite log-density)")
-    for name, per in PER_FORWARD.items():
-        if counts[name] != forwards * per:
-            raise AssertionError(f"{name}: {counts[name]} launches, expected "
-                                 f"{forwards} x {per}")
+    for name in KERNELS:
+        want = forwards * PER_FORWARD.get(name, 0)
+        if counts[name] != want:
+            raise AssertionError(f"{name}: {counts[name]} launches, expected {want}")
 
     clips = torch.from_numpy(np.stack([frames[i:i + 16] for i in range(BATCH)])).cuda()
     auds = torch.randn(BATCH, 257, 111, 1, generator=torch.Generator().manual_seed(2)).cuda()
@@ -235,7 +441,109 @@ def phase_parity() -> None:
         raise AssertionError(f"end-to-end CC {cc} below 0.9999")
 
 
+def _frozen_snapshot(model):
+    from mspi_tpu_torch.train.engine import FROZEN_TOPLEVEL
+
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.split(".", 1)[0] in FROZEN_TOPLEVEL}
+
+
+def phase_training() -> dict:
+    from mspi_tpu_torch.config import get_config
+    from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
+    from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.train import engine
+    from mspi_tpu_torch.train.synthetic import make_batch
+
+    cfg = get_config("mvitv2s")
+    model = AudioVisualSaliencyModel(cfg, device="cuda", dtype=torch.float32,
+                                     generator=torch.Generator().manual_seed(0))
+    state = engine.create_train_state(cfg, model)
+    step = engine.make_train_step(cfg.train.gamma, compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(5)
+    batches = [engine.to_device(make_batch(rng, TRAIN_BATCH, 16, RES, SPECTRO), "cuda")
+               for _ in range(STEPS)]
+    frozen = _frozen_snapshot(model)
+    before = [p.detach().clone() for p in engine.trainable_parameters(state)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()
+    history, walls = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        history.append(step(state, batch, cfg.solver.lr))  # ends in a sync
+        walls.append(time.perf_counter() - t0)
+    counts = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(walls[1:])
+    log("training", f"{STEPS} steps bf16 batch {TRAIN_BATCH} {RES[0]}x{RES[1]}: first "
+                    f"{walls[0]:.2f} s, then median {steady * 1e3:.1f} ms = "
+                    f"{1 / steady:.3f} steps/s = {TRAIN_BATCH / steady:.2f} clips/s (host clock "
+                    f"around synced steps); peak memory {peak:.2f} GiB")
+    for i, m in enumerate(history):
+        log("training", f"step {i}: " + " ".join(f"{k} {v:.5f}" for k, v in m.items()))
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in history):
+        raise AssertionError("non-finite loss or gradient norm")
+    for name in KERNELS:
+        want = STEPS * PER_STEP[name]
+        if counts[name] != want:
+            raise AssertionError(f"{name}: {counts[name]} launches in training, expected {want}")
+    moved = sum(not torch.equal(a, p) for a, p in zip(before, engine.trainable_parameters(state)))
+    log("training", f"launches {counts}; {moved} of {len(before)} trainable tensors moved")
+    if moved < len(before):
+        raise AssertionError(f"only {moved} of {len(before)} trainable tensors changed")
+    after = _frozen_snapshot(model)
+    changed = [k for k in frozen if not torch.equal(frozen[k], after[k])]
+    if changed:
+        raise AssertionError(f"frozen tensors changed: {changed[:5]}")
+    log("training", f"{len(frozen)} frozen tensors bit-identical")
+    del model, state, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_parity() -> None:
+    from mspi_tpu_torch.config import get_config
+    from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
+    from mspi_tpu_torch.train import engine
+    from mspi_tpu_torch.train.synthetic import make_batch
+
+    cfg = get_config("mvitv2s")
+    batch = make_batch(np.random.default_rng(6), TRAIN_BATCH, 16, RES, SPECTRO)
+    results = []
+    for device in ("cuda", "cpu"):
+        model = AudioVisualSaliencyModel(cfg, device=device, dtype=torch.float32,
+                                         generator=torch.Generator().manual_seed(0))
+        state = engine.create_train_state(cfg, model, seed=9)
+        step = engine.make_train_step(cfg.train.gamma)
+        t0 = time.perf_counter()
+        metrics = step(state, engine.to_device(batch, device), cfg.solver.lr)
+        grads = torch.cat([p.grad.detach().double().flatten().cpu()
+                           for p in engine.trainable_parameters(state)])
+        log("train_parity", f"fp32 step on {device}: {time.perf_counter() - t0:.1f} s; "
+                            + " ".join(f"{k} {v:.6f}" for k, v in metrics.items()))
+        results.append((metrics, grads))
+        del model, state
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = results
+    cos = (g_gpu @ g_cpu / (g_gpu.norm() * g_cpu.norm())).item()
+    diffs = {k: abs(m_gpu[k] - m_cpu[k]) for k in m_cpu}
+    log("train_parity", f"{RES[0]}x{RES[1]} card vs CPU: gradient cosine {cos:.8f} "
+                        f"(need >= 0.9999); |diff| " +
+        " ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
+    if not cos >= 0.9999:
+        raise AssertionError(f"gradient cosine {cos} below 0.9999")
+    for k in ("loss", "kl", "cc", "sim", "loss_va"):
+        if not diffs[k] <= 1e-3 * max(1.0, abs(m_cpu[k])):
+            raise AssertionError(f"{k}: card {m_gpu[k]} vs CPU {m_cpu[k]}")
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help=f"comma-separated subset of {PHASES}")
+    args = parser.parse_args()
+    phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this test "
                          "needs an NVIDIA GPU")
@@ -255,15 +563,29 @@ def main() -> None:
     log("build", f"nvcc sm_90a build of {len(list(kernels.CSRC_DIR.glob('*.cu')))} sources "
                  f"in {seconds:.1f} s -> {kernels.LIB_PATH.name}")
 
-    records = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for name in KERNELS}
-    phase_kernels(records)
-    counts = phase_main_path()
-    phase_parity()
+    records = {name: new_record() for name in KERNELS}
+    counts = {name: 0 for name in KERNELS}
+    if "kernels" in phases:
+        phase_kernels(records)
+    if "main" in phases:
+        counts = phase_main_path()
+    if "parity" in phases:
+        phase_parity()
+    if "backward" in phases:
+        phase_backward(records)
+    if "training" in phases:
+        train_counts = phase_training()
+        counts = {k: counts[k] + train_counts[k] for k in KERNELS}
+    if "train_parity" in phases:
+        phase_train_parity()
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], **records[name]}
+         "launches": counts[name],
+         **{k: v for k, v in records[name].items() if not k.startswith("_")}}
         for name, (src, rep) in KERNELS.items()]}), flush=True)
+    if phases != set(PHASES):
+        raise SystemExit(f"chip_smoke: ran only {sorted(phases)}; no device record")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

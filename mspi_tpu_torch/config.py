@@ -1,5 +1,5 @@
 """Configuration for the ported slice: the dataclass fields the MViTv2-S
-audio-visual inference path reads.
+audio-visual inference and training paths read.
 
 Counterpart of `mspi_tpu/config.py` (same field names and defaults, so a
 dict of overrides means the same thing to both packages). Only `mvitv2s`
@@ -24,8 +24,25 @@ LATERAL_BOOL = {"mvitv2s": (True, True, True, True)}
 
 @dataclass
 class DataConfig:
+    root: str = "./AuViDataset"
     num_frames: int = 16
+    use_sound: bool = True
     resolution: Tuple[int, int] = (224, 384)
+
+
+@dataclass
+class TrainConfig:
+    batch_size: int = 2
+    gamma: float = 1.0  # weight of the SimSiam AV-alignment loss
+    seed: int = 2023
+
+
+@dataclass
+class SolverConfig:
+    lr: float = 1e-4
+    max_epoch: int = 120
+    weight_decay: float = 0.0
+    monitored_epochs: Tuple[int, ...] = (60, 80, 100, 120)
 
 
 @dataclass
@@ -63,6 +80,10 @@ class ModelConfig:
     sync_num_blocks: int = 3
     sync_num_heads: int = 4
     simsiam_hidden: int = 2048
+    # Released torch checkpoints, loaded when present.
+    motion_encoder_weight: str = ""
+    audio_encoder_weight: str = ""
+    image_saliency_encoder_weight: str = ""
     mvit: MViTConfig = field(default_factory=MViTConfig)
 
     @property
@@ -86,6 +107,8 @@ class ModelConfig:
 class MSPIConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    solver: SolverConfig = field(default_factory=SolverConfig)
 
     def num_vis_tokens(self) -> int:
         """Tokens entering SyncBlock: T4 * H/32 * W/32 (672 for MViTv2-S at

@@ -13,7 +13,12 @@
 
 Kernels: [I, O] -> [O, I] (Linear), [k, I, O] -> [O, I, k] (Conv1d),
 [kh, kw, I, O] -> [O, I, kh, kw], [kt, kh, kw, I, O] -> [O, I, kt, kh, kw].
-The input is a nested dict of numpy arrays; nothing here imports JAX.
+
+`adamw_state_dict_from_jax` carries the training state across as well: the
+optax AdamW moments of a JAX TrainState (`count`, `mu`, `nu`, trees shaped
+like the trainable params) become a `torch.optim.AdamW.state_dict()` through
+the same name and axis mapping, so a JAX run resumes in the port.
+The inputs are nested dicts of numpy arrays; nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -81,4 +86,25 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> "OrderedDict[str, torch
                 raise ValueError(f"cannot place params leaf {where}")
             else:
                 put(f"{prefix}.{leaf}" if prefix else leaf, arr)
+    return sd
+
+
+def adamw_state_dict_from_jax(count, mu: Mapping[str, Any], nu: Mapping[str, Any],
+                              optimizer: torch.optim.Optimizer, param_names) -> Dict[str, Any]:
+    """optax AdamW state -> `optimizer.state_dict()` for the port's AdamW
+    over the trainable parameters `param_names` (in the optimizer's order).
+    count: the Adam step count; mu, nu: first and second moments with the
+    params' tree structure. The optimizer's param_groups (LR, betas, eps,
+    weight decay) are kept."""
+    exp_avg = state_dict_from_jax({"params": mu})
+    exp_avg_sq = state_dict_from_jax({"params": nu})
+    names = list(param_names)
+    if set(exp_avg) != set(names):
+        missing, extra = set(names) - set(exp_avg), set(exp_avg) - set(names)
+        raise ValueError(f"moments do not match the trainable parameters: missing "
+                         f"{sorted(missing)[:5]}, extra {sorted(extra)[:5]}")
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {"step": step.clone(), "exp_avg": exp_avg[n].float(),
+                       "exp_avg_sq": exp_avg_sq[n].float()} for i, n in enumerate(names)}
     return sd

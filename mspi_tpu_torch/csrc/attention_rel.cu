@@ -18,16 +18,19 @@
 
 #include "flash_attention.cuh"
 
+// lse: [B*H, Nq] fp32 row log-sum-exp, written when not null (the training
+// forward keeps it for attention_bwd.cu).
 extern "C" int mspi_attention_rel(const void* q, const void* k, const void* v,
-                                  const void* rel, void* out, int B, int H, int Nq, int Nk,
-                                  int D, int R, int kt, int kh, int kw, float scale,
-                                  int dtype, void* stream) {
+                                  const void* rel, void* out, float* lse, int B, int H,
+                                  int Nq, int Nk, int D, int R, int kt, int kh, int kw,
+                                  float scale, int dtype, void* stream) {
   mspi::AttnArgs a{};
   a.q = q;
   a.k = k;
   a.v = v;
   a.rel = rel;
   a.out = out;
+  a.lse = lse;
   const int64_t hq = static_cast<int64_t>(Nq) * D, hk = static_cast<int64_t>(Nk) * D;
   a.qs = {H * hq, hq, D};
   a.ks = {H * hk, hk, D};

@@ -65,6 +65,7 @@ struct AttnArgs {
   const void* v;
   const void* rel;  // [.., Nq, R] with strides rs, or null
   void* out;
+  float* lse;  // [batch * heads, Nq] row log-sum-exp for the backward, or null
   AttnStrides qs, ks, vs, rs, os;
   int heads, nq, nk;
   int r, kt, kh, kw;  // rel width and key grid (REL only)
@@ -137,17 +138,20 @@ __device__ __forceinline__ void load_rel_rows(const AttnArgs& a, int b, int h, i
   }
 }
 
-// out rows ty*4+i, columns tx+16*dd = o / l.
+// out rows ty*4+i, columns tx+16*dd = o / l; with a.lse, also the rows'
+// log-sum-exp m + log(l) (each row's 16 owners hold the same m and l).
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(const AttnArgs& a, int b, int h, int q0, int tx,
                                            int ty, const float (&o)[4][D / 16],
-                                           const float (&l_run)[4]) {
+                                           const float (&m_run)[4], const float (&l_run)[4]) {
   T* op = static_cast<T*>(a.out) + b * a.os.b + h * a.os.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
     if (qi < a.nq) {
       const float inv = 1.f / l_run[i];
+      if (a.lse != nullptr && tx == 0)
+        a.lse[(static_cast<int64_t>(b) * a.heads + h) * a.nq + qi] = m_run[i] + logf(l_run[i]);
 #pragma unroll
       for (int dd = 0; dd < D / 16; ++dd)
         op[qi * a.os.n + tx + 16 * dd] = from_f<T>(o[i][dd] * inv);
@@ -255,7 +259,7 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_kernel(AttnArgs 
       }
     }
   }
-  store_rows<float, D>(a, b, h, q0, tx, ty, o, l_run);
+  store_rows<float, D>(a, b, h, q0, tx, ty, o, m_run, l_run);
 }
 
 // ---- bf16: tensor cores --------------------------------------------------------
@@ -407,7 +411,7 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
     // the next tile's loads touch ks / vs only; ss, ps and os are rewritten
     // after the next __syncthreads, when every thread is done with them here
   }
-  store_rows<bf16, D>(a, b, h, q0, tx, ty, o, l_run);
+  store_rows<bf16, D>(a, b, h, q0, tx, ty, o, m_run, l_run);
 }
 
 template <typename T, int D, bool REL>

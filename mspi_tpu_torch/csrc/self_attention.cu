@@ -15,8 +15,9 @@
 
 #include "flash_attention.cuh"
 
-extern "C" int mspi_self_attention(const void* q, const void* kv, void* out, int B, int N,
-                                   int C, int heads, int dtype, void* stream) {
+// lse: [B*heads, N] fp32 row log-sum-exp, written when not null.
+extern "C" int mspi_self_attention(const void* q, const void* kv, void* out, float* lse,
+                                   int B, int N, int C, int heads, int dtype, void* stream) {
   if (heads <= 0 || C % heads != 0) return cudaErrorInvalidValue;
   const int D = C / heads;
   mspi::AttnArgs a{};
@@ -26,6 +27,7 @@ extern "C" int mspi_self_attention(const void* q, const void* kv, void* out, int
                                            (dtype == mspi::kBFloat16 ? 2 : 4);
   a.rel = nullptr;
   a.out = out;
+  a.lse = lse;
   const int64_t n = N;
   a.qs = {n * C, D, C};
   a.ks = {n * 2 * C, D, 2 * C};

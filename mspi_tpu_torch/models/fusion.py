@@ -11,10 +11,14 @@ Kernels on this path: SyncBlock attention runs K4 (`self_attention`); the
 SyncBlock and decoder ConvNextBlock3d MLPs run K2 (`ln_mlp`); the MViT
 backbone and the ConvNeXt prior bring K1, K2 and K3's call site.
 
-The models are inference modules: BatchNorm always uses running
-statistics. They are built on the CPU, drawn from an explicit
-`torch.Generator`, then moved to `device` and `dtype` (the compute dtype,
-e.g. torch.bfloat16; the log-density output and the loss are fp32).
+The models serve inference (eval mode, BatchNorm on running statistics) and
+training (train mode: BatchNorm on batch statistics, MViT drop-path). The
+frozen encoders `audnet` and `image_encoder` (`FROZEN`) always run in eval
+mode under `torch.no_grad()`, so nothing flows back through them and K3's
+call site needs no backward. The models are built on the CPU, drawn from an
+explicit `torch.Generator`, then moved to `device` and `dtype` (the
+parameter dtype: fp32 for training, with bf16 compute under autocast, or
+bf16 for inference; the log-density output and the loss are fp32).
 """
 
 from __future__ import annotations
@@ -320,6 +324,9 @@ def _init_weights(model: nn.Module, gen: torch.Generator) -> None:
             nn.init.zeros_(m[12].bias)
 
 
+FROZEN = ("audnet", "image_encoder")  # the JAX package's FROZEN_TOPLEVEL (train/engine.py)
+
+
 def _finish(model: nn.Module, generator: Optional[torch.Generator], device, dtype):
     _init_weights(model, generator if generator is not None
                   else torch.Generator().manual_seed(0))
@@ -329,6 +336,15 @@ def _finish(model: nn.Module, generator: Optional[torch.Generator], device, dtyp
 
 class _SaliencyDecoder(nn.Module):
     """The shared prior + decoder of both saliency models."""
+
+    def train(self, mode: bool = True):
+        """Train or eval mode for the trainable parts; the frozen encoders
+        stay in eval mode."""
+        super().train(mode)
+        for name in FROZEN:
+            if hasattr(self, name):
+                getattr(self, name).eval()
+        return self
 
     def _build_decoder(self, cfg: MSPIConfig, lat3_in: int):
         mc = cfg.model
@@ -350,7 +366,9 @@ class _SaliencyDecoder(nn.Module):
 
     def _masks(self, x):
         B, T, H, W, C = x.shape
-        return self.adapter(self.image_encoder(x.reshape(B * T, H, W, C)))
+        with torch.no_grad():
+            feats = self.image_encoder(x.reshape(B * T, H, W, C))
+        return self.adapter(feats)
 
     def _decode(self, v1, v2, v3, v4, masks) -> torch.Tensor:
         s3 = self.latlayer_3(v4)
@@ -394,7 +412,8 @@ class AudioVisualSaliencyModel(_SaliencyDecoder):
         _finish(self, generator, device, dtype)
 
     def forward_encoder(self, clips, audios):
-        aud_features = self.audnet(audios)
+        with torch.no_grad():
+            aud_features = self.audnet(audios)
         v1, v2, v3, v4 = self.visnet(clips)
         B, t, h, w, _ = v4.shape
         ha = aud_features.shape[1]

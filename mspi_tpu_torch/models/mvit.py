@@ -10,7 +10,11 @@ cls token, no absolute positions. The pyramid is tapped after blocks
 {0,2,13,15}.
 
 Tokens are [B, N, C] with a tracked (T,H,W). Attention runs through the K1
-kernel (`attention_rel`), each block's LN + MLP through K2 (`ln_mlp`).
+kernel (`attention_rel`), each block's LN + MLP through K2 (`ln_mlp`); both
+are differentiable through their backward kernels, and autograd through
+`rel_projections` stays plain PyTorch. In train mode both residual adds of
+block i pass through drop-path at rate 0.2 * i / (depth - 1), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from torch import nn
 from mspi_tpu_torch.config import MViTConfig
 from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp
 from mspi_tpu_torch.ops.kernels.pooled_attention import attention_rel
-from mspi_tpu_torch.ops.layers import Conv3d, max_pool
+from mspi_tpu_torch.ops.layers import Conv3d, DropPath, max_pool
 
 
 def round_width(width, multiplier, min_width=1, divisor=1):
@@ -143,9 +147,11 @@ class MultiScaleBlock(nn.Module):
     proj(norm1(x)) max-pooled by the q stride."""
 
     def __init__(self, dim: int, dim_out: int, num_heads: int, input_size, mlp_ratio: float,
-                 qkv_bias: bool, kernel_q, kernel_kv, stride_q, stride_kv):
+                 qkv_bias: bool, kernel_q, kernel_kv, stride_q, stride_kv,
+                 drop_path: float = 0.0):
         super().__init__()
         self.dim, self.dim_out = dim, dim_out
+        self.drop_path = DropPath(drop_path)
         self.stride_q = tuple(stride_q)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = MultiScaleAttention(dim, dim_out, input_size, num_heads, qkv_bias,
@@ -169,11 +175,11 @@ class MultiScaleBlock(nn.Module):
         x_block, thw_new = self.attn(x_norm, thw)
         if self.dim != self.dim_out:
             x = self.proj(x_norm)
-        x = (self._pool_skip(x, thw) + x_block).contiguous()
+        x = (self._pool_skip(x, thw) + self.drop_path(x_block)).contiguous()
         y = ln_mlp(x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
                    self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
                    self.norm2.eps)
-        return x + y, thw_new
+        return x + self.drop_path(y), thw_new
 
 
 class PatchEmbedMViT(nn.Module):
@@ -214,6 +220,7 @@ class MViTFeatures(nn.Module):
         input_size = [16 // c.patch_stride[0], 224 // c.patch_stride[1],
                       224 // c.patch_stride[2]]
         embed_dim, num_heads = c.embed_dim, c.num_heads
+        dpr = [0.2 * i / (depth - 1) for i in range(depth)]
         blocks = []
         for i in range(depth):
             num_heads = round_width(num_heads, head_mul[i])
@@ -221,7 +228,7 @@ class MViTFeatures(nn.Module):
                                   divisor=round_width(num_heads, head_mul[i]))
             blocks.append(MultiScaleBlock(
                 embed_dim, dim_out, num_heads, tuple(input_size), c.mlp_ratio,
-                c.qkv_bias, kernel, kernel, stride_q[i], stride_kv[i]))
+                c.qkv_bias, kernel, kernel, stride_q[i], stride_kv[i], dpr[i]))
             if math.prod(stride_q[i]) > 1:
                 input_size = [s // st for s, st in zip(input_size, stride_q[i])]
             embed_dim = dim_out

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels: build, load, dispatch rule and launch counts.
 
 Counterpart of `mspi_tpu/ops/pallas/`. Every CUDA source under
-`mspi_tpu_torch/csrc/*.cu` is compiled by one `nvcc` call for `sm_90a` into
+`mspi_tpu_torch/csrc/*.cu` is compiled for `sm_90a` by its own `nvcc`
+process, all started together, and the objects are linked into
 `build/mspi_tpu_torch/libmspi_kernels.so` at the repository root, at the
 first CUDA launch (or by an explicit `build()`), and loaded with ctypes. The
 library has a plain C interface: pointers from `tensor.data_ptr()`, PyTorch's
@@ -34,12 +35,13 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mspi_tpu_torch"
 LIB_PATH = BUILD_DIR / "libmspi_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches: Dict[str, int] = {"attention_rel": 0, "ln_mlp": 0,
-                            "ln_mlp_prior": 0, "self_attention": 0}
+launches: Dict[str, int] = {"attention_rel": 0, "ln_mlp": 0, "ln_mlp_prior": 0,
+                            "self_attention": 0, "attention_rel_bwd": 0,
+                            "attention_bwd": 0, "ln_mlp_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,9 +49,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (all entries return int cudaError_t)
     "mspi_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "mspi_attention_rel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _I, _P],
-    "mspi_self_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mspi_attention_rel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _F, _I, _P],
+    "mspi_self_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mspi_ln_mlp_bwd": [_P] * 15 + [_I, _I, _I, _F, _I, _I, _P],
+    "mspi_ln_mlp_bwd_rows": [_I, _I],
+    "mspi_attention_rel_bwd": [_P] * 14 + [_I] * 10 + [_F, _I, _P],
+    "mspi_self_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -73,20 +79,36 @@ def _nvcc() -> str:
 
 
 def build() -> float:
-    """Compile every csrc/*.cu into LIB_PATH with one nvcc call; returns the
-    build's wall seconds. Raises with nvcc's output when it fails. A library
-    that is already loaded in this process stays loaded."""
+    """Compile every csrc/*.cu (one nvcc process per source, in parallel)
+    and link LIB_PATH; returns the build's wall seconds. nvcc's output goes
+    to BUILD_DIR/nvcc.log; a failed step raises with it. A library that is
+    already loaded in this process stays loaded."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(LIB_PATH.name + ".tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    failed, logs = [], []
+    for obj, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {obj.stem}.cu\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{obj.stem}.cu: nvcc exit {proc.returncode}\n{out}")
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = LIB_PATH.with_name(LIB_PATH.name + ".tmp")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for o, _ in jobs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed with code {link.returncode}:\n"
+                           f"{link.stdout}\n{link.stderr}")
     tmp.replace(LIB_PATH)
-    return seconds
+    return time.perf_counter() - t0
 
 
 def _stale() -> bool:
@@ -123,6 +145,27 @@ def check(err: int, name: str) -> None:
 
 def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device pointer for a nullable C argument."""
+    return None if t is None else t.data_ptr()
+
+
+def num_sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def cast_for_autocast(*tensors: torch.Tensor):
+    """Under CUDA autocast, every floating operand in the autocast dtype
+    (torch.bfloat16 in training): the kernel wrappers take one dtype, and
+    autocast leaves LayerNorm outputs and residual sums in fp32. The casts
+    are ordinary autograd ops, so fp32 parameters get fp32 gradients.
+    Without autocast the operands pass through unchanged."""
+    if tensors[0].device.type != "cuda" or not torch.is_autocast_enabled("cuda"):
+        return tensors
+    dt = torch.get_autocast_dtype("cuda")
+    return tuple(t.to(dt) if t.is_floating_point() else t for t in tensors)
 
 
 def dispatch_device(*tensors: torch.Tensor) -> bool:

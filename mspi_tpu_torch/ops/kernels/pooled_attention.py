@@ -1,16 +1,23 @@
 """Attention kernels: K1 `attention_rel` (MViT pooled attention with the
 decomposed rel-pos bias) and K4 `self_attention` (SyncBlock packed
-multi-head self-attention).
+multi-head self-attention), each with its backward.
 
 Counterparts of `mspi_tpu/ops/pallas/pooled_attention.py::
-fused_attention_rel` and `::fused_self_attention`. Kernel sources:
+fused_attention_rel` and `::fused_self_attention` and their custom VJPs
+(`_bwd_impl_rel`, `_bwd_impl`). Kernel sources:
 `mspi_tpu_torch/csrc/attention_rel.cu`, `csrc/self_attention.cu` and their
-shared flash body `csrc/flash_attention.cuh`.
+shared flash body `csrc/flash_attention.cuh`; the backward of both in
+`csrc/attention_bwd.cu`.
+
+`attention_rel` and `self_attention` are `torch.autograd.Function`s: on the
+card the forward kernel also writes the rows' log-sum-exp when a gradient
+is needed, and the backward kernel rebuilds the probabilities from it. On
+the CPU both directions run the plain versions below.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +25,7 @@ import torch
 from mspi_tpu_torch.ops import kernels
 
 SUPPORTED_D = (96, 128)  # MViT heads, SyncBlock heads
+BWD_TILE = 64  # query and key tile of the backward kernels
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
@@ -39,6 +47,22 @@ def key_expansion(k_shape: Sequence[int]) -> np.ndarray:
     return E
 
 
+def _segments(q: torch.Tensor, nq: int, nk: int, bh: int) -> int:
+    """Query-tile segments of the dk/dv pass: enough blocks for two waves
+    on the card's SMs, each segment at least one tile."""
+    q_tiles = -(-nq // BWD_TILE)
+    blocks = -(-nk // BWD_TILE) * bh
+    return max(1, min(q_tiles, -(-2 * kernels.num_sms(q) // blocks)))
+
+
+def _softmax_backward(p, v, dout, out):
+    """dv = P^T dO and dS = P (dP - rowsum(dO O)) in fp32."""
+    dv = p.transpose(-1, -2) @ dout
+    dp = dout @ v.transpose(-1, -2)
+    ds = p * (dp - (dout * out).sum(-1, keepdim=True))
+    return dv, ds
+
+
 def attention_rel_reference(q, k, v, rel, k_shape, scale: float) -> torch.Tensor:
     """Plain version: softmax(scale * q k^T + rel E^T) v in fp32."""
     E = torch.from_numpy(key_expansion(k_shape)).to(q.device)
@@ -46,13 +70,19 @@ def attention_rel_reference(q, k, v, rel, k_shape, scale: float) -> torch.Tensor
     return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
 
 
-def attention_rel(q, k, v, rel, k_shape, scale: float) -> torch.Tensor:
-    """K1. q [B,H,Nq,D], k/v [B,H,Nk,D] (k_shape = (kt, kh, kw) of the
-    pooled key grid), rel [B,H,Nq,kt+kh+kw] -> [B,H,Nq,D]."""
-    if not kernels.dispatch_device(q, k, v, rel):
-        return attention_rel_reference(q, k, v, rel, k_shape, scale)
-    name = "attention_rel"
-    dtype = kernels.check_operands(name, q, k, v, rel)
+def attention_rel_backward_reference(q, k, v, rel, k_shape, scale: float, dout):
+    """Plain version of the K1 backward in fp32: (dq, dk, dv, drel) with
+    dq = scale dS k, dk = scale dS^T q, drel = dS E."""
+    E = torch.from_numpy(key_expansion(k_shape)).to(q.device)
+    qf, kf, vf, do = (t.float() for t in (q, k, v, dout))
+    s = scale * qf @ kf.transpose(-1, -2) + rel.float() @ E.T
+    p = torch.softmax(s, dim=-1)
+    dv, ds = _softmax_backward(p, vf, do, p @ vf)
+    grads = (scale * ds @ kf, scale * ds.transpose(-1, -2) @ qf, dv, ds @ E)
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v, rel)))
+
+
+def _rel_geometry(name, q, k, v, rel, k_shape):
     B, H, Nq, D = q.shape
     kt, kh, kw = (int(s) for s in k_shape)
     Nk, R = kt * kh * kw, kt + kh + kw
@@ -63,15 +93,85 @@ def attention_rel(q, k, v, rel, k_shape, scale: float) -> torch.Tensor:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} rel {tuple(rel.shape)} do not "
                          f"match k_shape {tuple(k_shape)}")
+    return B, H, Nq, Nk, D, R, kt, kh, kw
+
+
+def _attention_rel_fwd(q, k, v, rel, k_shape, scale: float, with_lse: bool = False
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1 forward: (out, lse) on the card (lse [B*H, Nq] fp32 when asked
+    for, else None); (plain out, None) on the CPU."""
+    if not kernels.dispatch_device(q, k, v, rel):
+        return attention_rel_reference(q, k, v, rel, k_shape, scale), None
+    name = "attention_rel"
+    dtype = kernels.check_operands(name, q, k, v, rel)
+    B, H, Nq, Nk, D, R, kt, kh, kw = _rel_geometry(name, q, k, v, rel, k_shape)
     _check_aligned(name, q, k, v, rel)
     out = torch.empty_like(q)
+    lse = q.new_empty((B * H, Nq), dtype=torch.float32) if with_lse else None
     err = kernels.lib().mspi_attention_rel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(),
-        B, H, Nq, Nk, D, R, kt, kh, kw, float(scale), dtype,
+        kernels.ptr(lse), B, H, Nq, Nk, D, R, kt, kh, kw, float(scale), dtype,
         kernels.stream_handle(q))
     kernels.check(err, name)
     kernels.launches[name] += 1
-    return out
+    return out, lse
+
+
+def attention_rel_backward(q, k, v, rel, out, lse, k_shape, scale: float, dout):
+    """K1 backward -> (dq, dk, dv, drel). On the card: the kernel, from the
+    forward's out and lse; on the CPU: the plain version (out and lse are
+    not needed there)."""
+    if not kernels.dispatch_device(q, k, v, rel, dout):
+        return attention_rel_backward_reference(q, k, v, rel, k_shape, scale, dout)
+    name = "attention_rel_bwd"
+    dtype = kernels.check_operands(name, q, k, v, rel, out, dout)
+    B, H, Nq, Nk, D, R, kt, kh, kw = _rel_geometry(name, q, k, v, rel, k_shape)
+    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape):
+        raise ValueError(f"{name}: out {tuple(out.shape)} / dout {tuple(dout.shape)} "
+                         f"for q {tuple(q.shape)}")
+    if lse is None or lse.dtype != torch.float32 or tuple(lse.shape) != (B * H, Nq):
+        raise ValueError(f"{name}: needs the forward's fp32 lse [{B * H}, {Nq}]")
+    _check_aligned(name, q, k, v, rel, out, dout)
+    segments = _segments(q, Nq, Nk, B * H)
+    f32 = dict(device=q.device, dtype=torch.float32)
+    delta = torch.empty((B * H, Nq), **f32)
+    dk_part = torch.empty((segments, B * H, Nk, D), **f32)
+    dv_part = torch.empty_like(dk_part)
+    dq, dk, dv, drel = (torch.empty_like(t) for t in (q, k, v, rel))
+    err = kernels.lib().mspi_attention_rel_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        drel.data_ptr(), delta.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
+        segments, B, H, Nq, Nk, D, R, kt, kh, kw, float(scale), dtype,
+        kernels.stream_handle(q))
+    kernels.check(err, name)
+    kernels.launches[name] += 1
+    return dq, dk, dv, drel
+
+
+class _AttentionRel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, rel, k_shape, scale):
+        out, lse = _attention_rel_fwd(q, k, v, rel, k_shape, scale,
+                                      with_lse=any(ctx.needs_input_grad[:4]))
+        ctx.k_shape, ctx.scale = k_shape, scale
+        ctx.save_for_backward(q, k, v, rel, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, rel, out, lse = ctx.saved_tensors
+        grads = attention_rel_backward(q, k, v, rel, out, lse, ctx.k_shape, ctx.scale,
+                                       dout.contiguous())
+        return (*grads, None, None)
+
+
+def attention_rel(q, k, v, rel, k_shape, scale: float) -> torch.Tensor:
+    """K1. q [B,H,Nq,D], k/v [B,H,Nk,D] (k_shape = (kt, kh, kw) of the
+    pooled key grid), rel [B,H,Nq,kt+kh+kw] -> [B,H,Nq,D]; differentiable
+    in q, k, v and rel."""
+    q, k, v, rel = kernels.cast_for_autocast(q, k, v, rel)
+    return _AttentionRel.apply(q, k, v, rel, tuple(int(s) for s in k_shape), float(scale))
 
 
 def self_attention_reference(q, kv, num_heads: int) -> torch.Tensor:
@@ -88,23 +188,106 @@ def self_attention_reference(q, kv, num_heads: int) -> torch.Tensor:
     return out.transpose(1, 2).reshape(B, N, C).to(q.dtype)
 
 
-def self_attention(q, kv, num_heads: int) -> torch.Tensor:
-    """K4. q [B,N,C], kv [B,N,2C] head-major lanes -> [B,N,C]."""
-    if not kernels.dispatch_device(q, kv):
-        return self_attention_reference(q, kv, num_heads)
-    name = "self_attention"
-    dtype = kernels.check_operands(name, q, kv)
+def self_attention_backward_reference(q, kv, num_heads: int, dout):
+    """Plain version of the K4 backward in fp32 -> (dq [B,N,C], dkv
+    [B,N,2C])."""
+    B, N, C = q.shape
+    D = C // num_heads
+    scale = D ** -0.5
+
+    def heads(t):
+        return t.float().reshape(B, -1, num_heads, D).transpose(1, 2)
+
+    def packed(t):
+        return t.transpose(1, 2).reshape(B, -1, C)
+
+    qh, kh, vh, do = heads(q), heads(kv[..., :C]), heads(kv[..., C:]), heads(dout)
+    p = torch.softmax(qh @ kh.transpose(-1, -2) * scale, dim=-1)
+    dv, ds = _softmax_backward(p, vh, do, p @ vh)
+    dq = packed(scale * ds @ kh)
+    dkv = torch.cat([packed(scale * ds.transpose(-1, -2) @ qh), packed(dv)], dim=-1)
+    return dq.to(q.dtype), dkv.to(kv.dtype)
+
+
+def _self_geometry(name, q, kv, num_heads):
     B, N, C = q.shape
     if C % num_heads or C // num_heads not in SUPPORTED_D:
         raise ValueError(f"{name}: C={C} / {num_heads} heads gives an "
                          f"uncompiled head dim (have {SUPPORTED_D})")
     if tuple(kv.shape) != (B, N, 2 * C):
         raise ValueError(f"{name}: kv {tuple(kv.shape)} for q {tuple(q.shape)}")
+    return B, N, C
+
+
+def _self_attention_fwd(q, kv, num_heads: int, with_lse: bool = False
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K4 forward: (out, lse [B*heads, N] fp32 or None) on the card,
+    (plain out, None) on the CPU."""
+    if not kernels.dispatch_device(q, kv):
+        return self_attention_reference(q, kv, num_heads), None
+    name = "self_attention"
+    dtype = kernels.check_operands(name, q, kv)
+    B, N, C = _self_geometry(name, q, kv, num_heads)
     _check_aligned(name, q, kv)
     out = torch.empty_like(q)
+    lse = q.new_empty((B * num_heads, N), dtype=torch.float32) if with_lse else None
     err = kernels.lib().mspi_self_attention(
-        q.data_ptr(), kv.data_ptr(), out.data_ptr(), B, N, C, num_heads, dtype,
-        kernels.stream_handle(q))
+        q.data_ptr(), kv.data_ptr(), out.data_ptr(), kernels.ptr(lse), B, N, C, num_heads,
+        dtype, kernels.stream_handle(q))
     kernels.check(err, name)
     kernels.launches[name] += 1
-    return out
+    return out, lse
+
+
+def self_attention_backward(q, kv, out, lse, num_heads: int, dout):
+    """K4 backward -> (dq [B,N,C], dkv [B,N,2C]): the bias-free attention
+    backward kernel on the packed lanes on the card, the plain version on
+    the CPU."""
+    if not kernels.dispatch_device(q, kv, dout):
+        return self_attention_backward_reference(q, kv, num_heads, dout)
+    name = "attention_bwd"
+    dtype = kernels.check_operands(name, q, kv, out, dout)
+    B, N, C = _self_geometry(name, q, kv, num_heads)
+    if tuple(out.shape) != (B, N, C) or tuple(dout.shape) != (B, N, C):
+        raise ValueError(f"{name}: out {tuple(out.shape)} / dout {tuple(dout.shape)} "
+                         f"for q {tuple(q.shape)}")
+    if lse is None or lse.dtype != torch.float32 or tuple(lse.shape) != (B * num_heads, N):
+        raise ValueError(f"{name}: needs the forward's fp32 lse [{B * num_heads}, {N}]")
+    _check_aligned(name, q, kv, out, dout)
+    bh = B * num_heads
+    segments = _segments(q, N, N, bh)
+    f32 = dict(device=q.device, dtype=torch.float32)
+    delta = torch.empty((bh, N), **f32)
+    dk_part = torch.empty((segments, bh, N, C // num_heads), **f32)
+    dv_part = torch.empty_like(dk_part)
+    dq, dkv = torch.empty_like(q), torch.empty_like(kv)
+    err = kernels.lib().mspi_self_attention_bwd(
+        q.data_ptr(), kv.data_ptr(), out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dkv.data_ptr(), delta.data_ptr(), dk_part.data_ptr(),
+        dv_part.data_ptr(), segments, B, N, C, num_heads, dtype, kernels.stream_handle(q))
+    kernels.check(err, name)
+    kernels.launches[name] += 1
+    return dq, dkv
+
+
+class _SelfAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, kv, num_heads):
+        out, lse = _self_attention_fwd(q, kv, num_heads,
+                                       with_lse=any(ctx.needs_input_grad[:2]))
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, kv, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, kv, out, lse = ctx.saved_tensors
+        dq, dkv = self_attention_backward(q, kv, out, lse, ctx.num_heads, dout.contiguous())
+        return dq, dkv, None
+
+
+def self_attention(q, kv, num_heads: int) -> torch.Tensor:
+    """K4. q [B,N,C], kv [B,N,2C] head-major lanes -> [B,N,C];
+    differentiable in q and kv."""
+    q, kv = kernels.cast_for_autocast(q, kv)
+    return _SelfAttention.apply(q, kv, int(num_heads))

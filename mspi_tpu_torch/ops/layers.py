@@ -8,9 +8,11 @@ unchanged. A conv runs on the permuted view of a channels-last tensor, which
 is torch's channels_last(_3d) memory format, so no layout copy is made.
 
 Numerics (as in the JAX package): erf GELU (`F.gelu`); LayerNorm eps 1e-5
-unless a module says 1e-6; BatchNorm with running statistics (the port is the
-inference path); max pooling pads with -inf; linear resizes are half-pixel
-(`align_corners=False`) without antialias.
+unless a module says 1e-6; BatchNorm with running statistics in eval mode and
+flax's batch statistics in train mode (see `BatchNorm`); max pooling pads
+with -inf; linear resizes are half-pixel (`align_corners=False`) without
+antialias. `DropPath` draws its per-sample masks from an explicit
+`torch.Generator`.
 
 Initialisers take an explicit `torch.Generator` and mirror the JAX
 package's: torch's kaiming-uniform default for convs and linears,
@@ -59,12 +61,56 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over the trailing channel axis with running statistics
-    (torch BatchNorm{1,2,3}d state-dict names)."""
+    """BatchNorm over the trailing channel axis (torch BatchNorm{1,2,3}d
+    state-dict names). Eval mode normalises with the running statistics.
+    Train mode follows the JAX package's flax BatchNorm rather than torch:
+    fp32 batch statistics with the fast biased variance E[x^2] - mean^2
+    (clipped at 0), used both to normalise and to update the running
+    variance (torch would update it with the unbiased one), and
+    running = (1 - momentum) * running + momentum * batch with the module's
+    own torch-convention momentum."""
 
     def forward(self, x):
-        return _to_cl(F.batch_norm(_to_ncl(x), self.running_mean, self.running_var,
-                                   self.weight, self.bias, False, 0.0, self.eps))
+        if not self.training:
+            return _to_cl(F.batch_norm(_to_ncl(x), self.running_mean, self.running_var,
+                                       self.weight, self.bias, False, 0.0, self.eps))
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach().to(self.running_mean.dtype),
+                                                 alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach().to(self.running_var.dtype),
+                                                alpha=m)
+            self.num_batches_tracked.add_(1)
+        y = (xf - mean) * (self.weight.float() * torch.rsqrt(var + self.eps)) + self.bias.float()
+        return y.to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (`mspi_tpu.ops.layers.DropPath`): in
+    train mode with rate > 0, each sample of the batch is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), else zeroed. The
+    masks come from `generator`, a CPU `torch.Generator` that the trainer
+    sets (so a run is reproducible on any device)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: torch.Generator = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("DropPath in train mode needs a generator "
+                               "(mspi_tpu_torch.train.engine sets it)")
+        keep = 1.0 - self.rate
+        mask = torch.rand((x.shape[0],), generator=self.generator) < keep
+        mask = mask.to(x.device, non_blocking=True).view(-1, *([1] * (x.dim() - 1)))
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def max_pool(x: torch.Tensor, kernel_size: IntOrTuple, stride: IntOrTuple = None,

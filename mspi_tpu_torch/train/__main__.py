@@ -1,0 +1,150 @@
+"""Training CLI of the port: counterpart of the repository's `train.py`.
+
+    python -m mspi_tpu_torch.train --data_root ./AuViDataset --split 1 [--bf16]
+
+The same arguments, seed (2023), 6-dataset mixture, frozen encoders,
+AdamW (lr 1e-4, weight decay 0), step LR schedule, validation at the
+monitored epochs, JSONL logs, periodic `ckpt_{epoch}` checkpoints and
+auto-resume; a non-finite loss stops the run with "Loss is NaN.". It runs
+on one CUDA device unless `--device cpu` is given. The JAX CLI's mesh
+options (`--dp`, `--tp`) and `--remat` have no counterpart yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import math
+import os
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--session_name", default="s1_mspi_torch_epoch120_batch2_16_224_384")
+    p.add_argument("--start_epoch", default=0, type=int)
+    p.add_argument("--split", default=1, type=int)
+    p.add_argument("--num_workers", default=4, type=int)
+    p.add_argument("--dataset", default="sound", type=str)
+    p.add_argument("--weights", type=str, default="")
+    p.add_argument("--log_dir", type=str, default="./training_logs")
+    p.add_argument("--save_ckpt", default=True, type=bool)
+    p.add_argument("--save_ckpt_freq", default=10, type=int)
+    p.add_argument("--gamma", default=1.0, type=float)
+    p.add_argument("--motion_encoder", default="mvitv2s", type=str)
+    p.add_argument("--data_root", default="./AuViDataset", type=str)
+    p.add_argument("--batch_size", default=None, type=int)
+    p.add_argument("--epochs", default=None, type=int)
+    p.add_argument("--auto_resume", default=True, type=bool)
+    p.add_argument("--resolution", default=None, nargs=2, type=int,
+                   help="override (H W), e.g. for smoke runs")
+    p.add_argument("--monitored_epochs", default=None, nargs="+", type=int)
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (parameters and optimizer stay fp32)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def _mean(rows):
+    sums = defaultdict(float)
+    for row in rows:
+        for k, v in row.items():
+            sums[k] += v
+    return {k: v / max(1, len(rows)) for k, v in sums.items()}
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    from mspi_tpu_torch.config import get_config
+    from mspi_tpu_torch.data.datasets import build_training_datasets
+    from mspi_tpu_torch.data.loader import DataLoader
+    from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel, VisualSaliencyModel
+    from mspi_tpu_torch.train import checkpoints as ckpt_lib
+    from mspi_tpu_torch.train.engine import (create_train_state, make_eval_step,
+                                             make_train_step, step_lr_schedule, to_device)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device; pass --device cpu to train on the CPU")
+    cfg = get_config(args.motion_encoder, overrides={
+        "data": {"root": args.data_root,
+                 **({"resolution": tuple(args.resolution)} if args.resolution else {})},
+        "train": {"gamma": args.gamma,
+                  **({"batch_size": args.batch_size} if args.batch_size else {})},
+        "solver": {**({"max_epoch": args.epochs} if args.epochs else {}),
+                   **({"monitored_epochs": tuple(args.monitored_epochs)}
+                      if args.monitored_epochs else {})},
+    })
+    use_sound = cfg.data.use_sound and args.dataset == "sound"
+    seed = cfg.train.seed
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    compute_dtype = torch.bfloat16 if args.bf16 else None
+
+    log_dir = os.path.join(args.log_dir, time.strftime(args.session_name + "_%Y%m%d-%H%M%S"))
+    checkpoint_dir = os.path.join(log_dir, "checkpoints")
+    log_path = os.path.join(log_dir, "log")
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    os.makedirs(log_path, exist_ok=True)
+
+    dataset_train, dataset_val = build_training_datasets(
+        cfg.data.root, args.split, cfg.data.num_frames, use_sound, cfg.data.resolution,
+        seed=seed)
+    loader_train = DataLoader(dataset_train, cfg.train.batch_size, shuffle=True, drop_last=True,
+                              num_workers=args.num_workers, seed=seed)
+    loader_val = DataLoader(dataset_val, 1, num_workers=args.num_workers)
+
+    model_cls = AudioVisualSaliencyModel if use_sound else VisualSaliencyModel
+    model = model_cls(cfg, device=device, dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(seed))
+    ckpt_lib.load_pretrained_encoders(cfg, model)
+    if args.weights:
+        model.load_state_dict(ckpt_lib.load_torch_checkpoint(args.weights), strict=False)
+    state = create_train_state(cfg, model)
+
+    start_epoch = args.start_epoch
+    if args.auto_resume:
+        latest = ckpt_lib.latest_checkpoint(checkpoint_dir)
+        if latest:
+            state, start_epoch = ckpt_lib.restore_checkpoint(latest, state)
+            print(f"Auto-resumed from {latest} at epoch {start_epoch}")
+
+    train_step = make_train_step(args.gamma, use_sound=use_sound, compute_dtype=compute_dtype)
+    eval_step = make_eval_step(use_sound=use_sound, compute_dtype=compute_dtype)
+    lr_by_epoch = step_lr_schedule(cfg.solver.lr, cfg.solver.max_epoch)
+    n_parameters = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"trainable parameters: {n_parameters / 1e6:.2f}M on {device}")
+
+    start_time = time.time()
+    for epoch in range(start_epoch, cfg.solver.max_epoch):
+        lr = lr_by_epoch[epoch]
+        rows = []
+        for i, batch in enumerate(loader_train):
+            metrics = train_step(state, to_device(batch, device), lr)
+            if not math.isfinite(metrics["loss"]):
+                raise RuntimeError("Loss is NaN.")
+            rows.append(dict(metrics, lr=lr))
+            if i % 10 == 0:
+                print(f"Epoch: [{epoch}] [{i}/{len(loader_train)}] "
+                      + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()), flush=True)
+        state.epoch = epoch + 1
+        if args.save_ckpt and ((epoch + 1) % args.save_ckpt_freq == 0
+                               or epoch + 1 == cfg.solver.max_epoch):
+            ckpt_lib.save_checkpoint(checkpoint_dir, state, epoch + 1)
+        log_stats = {f"train_{k}": v for k, v in _mean(rows).items()}
+        if epoch + 1 in set(cfg.solver.monitored_epochs):
+            val = [eval_step(state, to_device(batch, device))[1] for batch in loader_val]
+            log_stats.update({f"val_{k}": v for k, v in _mean(val).items()})
+        log_stats.update(epoch=epoch, n_parameters=n_parameters)
+        with open(os.path.join(log_path, "log.txt"), "a") as f:
+            f.write(json.dumps(log_stats) + "\n")
+    print(f"Training time {datetime.timedelta(seconds=int(time.time() - start_time))}")
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,8 @@
 - the full MViTv2-S AudioVisualSaliencyModel (production depth 16) at
   64x96, batch 1, uint8 clips; JAX runs its default CPU path (Pallas off);
 - the inference post-processing, window schedule and host spectrogram;
-- the port's imports stay free of jax, flax and mspi_tpu.
+- the port's imports (inference, training and data modules) stay free of
+  jax, flax and mspi_tpu.
 """
 
 import subprocess
@@ -124,7 +125,10 @@ def test_port_imports_no_jax():
     code = ("import sys; before = set(sys.modules); "
             "import mspi_tpu_torch, mspi_tpu_torch.inference, mspi_tpu_torch.convert, "
             "mspi_tpu_torch.models.fusion, mspi_tpu_torch.data.video, "
-            "mspi_tpu_torch.data.datasets; "
+            "mspi_tpu_torch.data.datasets, mspi_tpu_torch.data.loader, "
+            "mspi_tpu_torch.train.engine, mspi_tpu_torch.train.loss, "
+            "mspi_tpu_torch.train.metrics, mspi_tpu_torch.train.checkpoints, "
+            "mspi_tpu_torch.train.synthetic, mspi_tpu_torch.train.__main__; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'flax', 'mspi_tpu')); "
             "assert not bad, bad")

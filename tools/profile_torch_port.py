@@ -1,15 +1,18 @@
-"""Device-time breakdown of one forward of the PyTorch/CUDA port on a GPU.
+"""Device-time breakdown of one forward, or one training step, of the
+PyTorch/CUDA port on a GPU.
 
     python tools/profile_torch_port.py [--batch 8] [--dtype bf16] [--steps 2] \
-        [--table PATH]
+        [--train] [--table PATH]
 
 Builds the flagship AudioVisualSaliencyModel (MViTv2-S, 16x224x384, seeded
 random weights) on cuda, warms up, then traces `--steps` forwards with
-torch.profiler. Prints the card's name and power limit, the wall time per
-forward (CUDA events), the summed device-kernel time per forward, the idle
-share of the device, and the kernels grouped by family (the port's own
-kernels by name, cuDNN/cuBLAS, elementwise, other), largest first. With
-`--table`, the full key_averages table is written to PATH.
+torch.profiler. With `--train` it traces `make_train_step` instead (fp32
+weights, bf16 autocast compute with `--dtype bf16`) on a synthetic batch.
+Prints the card's name and power limit, the wall time per forward or step
+(CUDA events), the summed device-kernel time, the idle share of the device,
+and the kernels grouped by family (the port's own kernels by name,
+cuDNN/cuBLAS, elementwise, other), largest first. With `--table`, the full
+key_averages table is written to PATH.
 """
 
 from __future__ import annotations
@@ -26,8 +29,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from mspi_tpu_torch.config import get_config  # noqa: E402
 from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel  # noqa: E402
+from mspi_tpu_torch.train import engine  # noqa: E402
+from mspi_tpu_torch.train.synthetic import make_batch  # noqa: E402
 
 FAMILIES = (
+    ("K1/K4 attention backward", ("attn_bwd",)),
+    ("K2 ln_mlp backward", ("ln_mlp_bwd",)),
+    ("K2 ln_mlp backward", ("atb_kernel",)),
+    ("K2 ln_mlp backward", ("sum_segments",)),
     ("K1 attention_rel", ("flash_attention", "true>")),
     ("K4 self_attention", ("flash_attention", "false>")),
     ("K2/K3 ln_mlp", ("ln_mlp",)),
@@ -54,6 +63,7 @@ def main() -> None:
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     p.add_argument("--steps", type=int, default=2)
+    p.add_argument("--train", action="store_true", help="profile training steps")
     p.add_argument("--table", default="", help="write the full key_averages table here")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -65,25 +75,42 @@ def main() -> None:
                          check=True).stdout.strip()
     print(smi)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    model = AudioVisualSaliencyModel(get_config("mvitv2s"), device="cuda", dtype=dtype,
+    cfg = get_config("mvitv2s")
+    model = AudioVisualSaliencyModel(cfg, device="cuda",
+                                     dtype=torch.float32 if args.train else dtype,
                                      generator=torch.Generator().manual_seed(0))
-    gen = torch.Generator().manual_seed(1)
-    clips = torch.randint(0, 256, (args.batch, 16, 224, 384, 3), generator=gen,
-                          dtype=torch.uint8).cuda()
-    auds = torch.randn(args.batch, 257, 111, 1, generator=gen).cuda()
+    if args.train:
+        import numpy as np
 
-    with torch.no_grad():
-        for _ in range(2):
-            model(clips, auds)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            start.record()
-            for _ in range(args.steps):
+        state = engine.create_train_state(cfg, model)
+        step = engine.make_train_step(cfg.train.gamma,
+                                      compute_dtype=dtype if args.dtype == "bf16" else None)
+        batch = engine.to_device(make_batch(np.random.default_rng(1), args.batch, 16,
+                                            cfg.data.resolution, (257, 111)), "cuda")
+
+        def run():
+            step(state, batch, cfg.solver.lr)
+    else:
+        gen = torch.Generator().manual_seed(1)
+        clips = torch.randint(0, 256, (args.batch, 16, 224, 384, 3), generator=gen,
+                              dtype=torch.uint8).cuda()
+        auds = torch.randn(args.batch, 257, 111, 1, generator=gen).cuda()
+
+        def run():
+            with torch.no_grad():
                 model(clips, auds)
-            end.record()
-            torch.cuda.synchronize()
+
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        start.record()
+        for _ in range(args.steps):
+            run()
+        end.record()
+        torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end) / args.steps
 
     by_family = defaultdict(float)
@@ -97,9 +124,10 @@ def main() -> None:
         ms = t / 1000.0 / args.steps
         device_ms += ms
         by_family[family(evt.key)] += ms
-    print(f"batch {args.batch} {args.dtype}: wall {wall_ms:.1f} ms/forward "
+    what = "train step" if args.train else "forward"
+    print(f"batch {args.batch} {args.dtype}: wall {wall_ms:.1f} ms/{what} "
           f"({args.batch * 1000 / wall_ms:.2f} clips/s), device kernels "
-          f"{device_ms:.1f} ms/forward, device idle share "
+          f"{device_ms:.1f} ms/{what}, device idle share "
           f"{max(0.0, 1 - device_ms / wall_ms):.1%}")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:20s} {ms:8.2f} ms  {ms / max(device_ms, 1e-9):6.1%}")
