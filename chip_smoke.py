@@ -9,23 +9,28 @@ first failure (there is no CPU path):
 2. build: compiles every kernel in mspi_tpu_torch/csrc with nvcc (sm_90a),
    one process per source;
 3. kernels: each forward kernel against its plain PyTorch version at the
-   flagship's inference shapes (batch 8), in fp32 and bf16, with CUDA-event
-   times of both and of the library call that computes the same function;
+   inference shapes (batch 8) of the MViTv2-S and VideoSwin-S models, in
+   fp32 and bf16, with CUDA-event times of both and of the library call
+   that computes the same function;
 4. main path: `predict_video` of the bf16 MViTv2-S AudioVisualSaliencyModel
    at 224x384 (seeded random weights) on 31 synthetic frames and a 16 kHz
    waveform; checks the maps and each kernel's launch count;
 5. parity: one window in fp32 on the card (kernels) against the CPU (plain
    versions), by the correlation of the log-density maps;
 6. backward: each backward kernel against its plain version at the
-   flagship's training shapes (batch 2), fp32 and bf16, with times;
-7. training path: `make_train_step` on the MViTv2-S flagship at 224x384,
+   training shapes (batch 2) of both models, fp32 and bf16, with times;
+7. training path: `make_train_step` on the MViTv2-S model at 224x384,
    batch 2, bf16 compute with fp32 weights, STEPS steps on synthetic
    batches; checks finite loss and gradient norm, trainable weights moved,
    frozen weights and statistics bit-identical, and the launch counts;
 8. training parity: one fp32 step on the card against the same step on the
    CPU (plain versions) from the same weights, batch and drop-path draws:
-   loss, each aux value and the cosine of the gradient vectors.
+   loss, each aux value and the cosine of the gradient vectors;
+9-12. swin_main, swin_parity, swin_training, swin_train_parity: phases 4,
+   5, 7 and 8 on the VideoSwin-S model.
 
+Each path (4, 7, 9, 11) sets the launch counts to 0 just before it and
+reads them just after; the kernels' record sums the four.
 The last two lines are the kernels' JSON record and the device JSON record.
 `--phases` runs a subset (2 always runs; the records then cover only what
 ran and no device record is printed).
@@ -57,12 +62,35 @@ KERNELS = {
     "attention_bwd": ("mspi_tpu_torch/csrc/attention_bwd.cu",
                       "mspi_tpu/ops/pallas/pooled_attention.py:172"),
     "ln_mlp_bwd": ("mspi_tpu_torch/csrc/ln_mlp_bwd.cu", "mspi_tpu/ops/pallas/mlp.py:445"),
+    "window_attention": ("mspi_tpu_torch/csrc/window_attention.cu",
+                         "mspi_tpu/ops/pallas/attention.py:423"),
+    # rows 16 (:233, stages 1-2) and 17 (:332, stages 3-4): one kernel here
+    "window_attention_bwd": ("mspi_tpu_torch/csrc/attention_bwd.cu",
+                             "mspi_tpu/ops/pallas/attention.py:233"),
 }
-# launches per forward of the flagship model
-PER_FORWARD = {"attention_rel": 16, "ln_mlp": 23, "ln_mlp_prior": 18, "self_attention": 3}
+# launches per forward of each model (ln_mlp: backbone blocks + 3 SyncBlock
+# + 4 decoder blocks; ln_mlp_prior: the ConvNeXt prior's 18 blocks)
+PER_FORWARD = {
+    "mvitv2s": {"attention_rel": 16, "ln_mlp": 23, "ln_mlp_prior": 18, "self_attention": 3},
+    "videoswins": {"window_attention": 24, "ln_mlp": 31, "ln_mlp_prior": 18,
+                   "self_attention": 3},
+}
 # launches per training step
-PER_STEP = {**PER_FORWARD, "attention_rel_bwd": 16, "ln_mlp_bwd": 23, "attention_bwd": 3}
-PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity")
+PER_STEP = {
+    "mvitv2s": {**PER_FORWARD["mvitv2s"], "attention_rel_bwd": 16, "ln_mlp_bwd": 23,
+                "attention_bwd": 3},
+    "videoswins": {**PER_FORWARD["videoswins"], "window_attention_bwd": 24, "ln_mlp_bwd": 31,
+                   "attention_bwd": 3},
+}
+PATH_PHASES = {  # phase -> (path kind, motion encoder)
+    "main": ("main", "mvitv2s"), "parity": ("parity", "mvitv2s"),
+    "training": ("training", "mvitv2s"), "train_parity": ("train_parity", "mvitv2s"),
+    "swin_main": ("main", "videoswins"), "swin_parity": ("parity", "videoswins"),
+    "swin_training": ("training", "videoswins"),
+    "swin_train_parity": ("train_parity", "videoswins"),
+}
+PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity", "swin_main",
+          "swin_parity", "swin_training", "swin_train_parity")
 BATCH = 8
 TRAIN_BATCH = 2
 STEPS = 5
@@ -204,6 +232,42 @@ LN_MLP_SHAPES = (("mvit-s1", 43008, 96, 1e-6), ("mvit-s2", 10752, 192, 1e-6),
                  ("sync", 708, 512, 1e-5), ("decoder0", 21504, 192, 1e-5))
 
 
+# VideoSwin-S window attention per clip (N = 8*7*7 = 392, D = 32): label,
+# windows per clip, heads, C, and the shift mask's padded grid and shift
+# (None: an unshifted block, no mask)
+SWIN_SHAPES = (("s1-shift", 112, 3, 96, (8, 56, 98), (0, 3, 3)),
+               ("s2", 28, 6, 192, None, None),
+               ("s3-shift", 8, 12, 384, (8, 14, 28), (0, 3, 3)),
+               ("s4-shift", 2, 24, 768, (8, 7, 14), (0, 0, 3)))
+SWIN_N, SWIN_D = 392, 32
+
+
+def window_inputs(randn, batch, nw, heads, C, grid, shift):
+    """[qkv, bias] (+ the stage's real shift mask) for `batch` clips."""
+    from mspi_tpu_torch.models.videoswin import _attn_mask
+
+    inputs = [randn(batch * nw, SWIN_N, 3 * C), randn(heads, SWIN_N, SWIN_N, scale=0.5)]
+    if grid is not None:
+        mask = torch.from_numpy(_attn_mask(*grid, (8, 7, 7), shift)).cuda()
+        if mask.shape[0] != nw:
+            raise AssertionError(f"mask of {mask.shape[0]} windows, expected {nw}")
+        inputs.append(mask)
+    return inputs
+
+
+def window_library_operands(qkv, bias, mask, heads, nw):
+    """q, k, v and the float mask (bias + shift mask) for one SDPA call: the
+    windows of a clip folded into the head axis, [B_/nW, nW*H, N, D], so the
+    mask [1, nW*H, N, N] broadcasts over the clips."""
+    from mspi_tpu_torch.ops.kernels.window_attention import _split
+
+    B = qkv.shape[0]
+    q, k, v = (t.reshape(B // nw, nw * heads, SWIN_N, SWIN_D).contiguous()
+               for t in _split(qkv, heads))
+    m = bias[None] if mask is None else bias[None] + mask[:, None]
+    return q, k, v, m.reshape(1, nw * heads, SWIN_N, SWIN_N).contiguous()
+
+
 def phase_kernels(records) -> None:
     from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp, ln_mlp_prior, ln_mlp_reference
     from mspi_tpu_torch.ops.kernels.pooled_attention import (
@@ -254,6 +318,27 @@ def phase_kernels(records) -> None:
                                library)
         add_bound(records["self_attention"], dtype, nbytes(*xs, out),
                   4.0 * BATCH * 4 * 708 * 708 * 128)
+    # row 15: the four VideoSwin stages, shifted blocks with their mask
+    from mspi_tpu_torch.ops.kernels.window_attention import (window_attention,
+                                                             window_attention_reference)
+
+    for label, nw, heads, C, grid, shift in SWIN_SHAPES:
+        inputs = window_inputs(randn, BATCH, nw, heads, C, grid, shift)
+        n = nw if grid is not None else 1
+        for dtype in (torch.float32, torch.bfloat16):
+            def library(qkv, bias, *mask, h=heads, w=n):
+                q, k, v, m = window_library_operands(qkv, bias, mask[0] if mask else None, h, w)
+                return lambda: sdpa(q, k, v, m, SWIN_D ** -0.5)
+            xs, out = check_kernel(
+                records, "window_attention", label,
+                lambda qkv, bias, *m, h=heads, w=n: window_attention(
+                    qkv, bias, m[0] if m else None, h, w),
+                lambda qkv, bias, *m, h=heads, w=n: window_attention_reference(
+                    qkv, bias, m[0] if m else None, h, w),
+                inputs, dtype, library)
+            add_bound(records["window_attention"], dtype, nbytes(*xs, out),
+                      4.0 * BATCH * nw * heads * SWIN_N * SWIN_N * SWIN_D)
+        del inputs, xs, out
 
 
 def compare_grads(names, got, want, dtype):
@@ -355,6 +440,46 @@ def phase_backward(records) -> None:
             plain_ms = time_ms(lambda: K2.ln_mlp_backward_reference(*xs[:7], eps, xs[7]))
             record(records, "ln_mlp_bwd", label, dtype, errs, ms, plain_ms)
             add_bound(records["ln_mlp_bwd"], dtype, nbytes(*xs, *got), 10.0 * M * C * 4 * C)
+    # rows 16/17: the window backward at the four VideoSwin stages
+    from mspi_tpu_torch.ops.kernels import window_attention as WA
+
+    for label, nw, heads, C, grid, shift in SWIN_SHAPES:
+        inputs = window_inputs(randn, B, nw, heads, C, grid, shift)
+        dout32 = randn(B * nw, SWIN_N, C)
+        n = nw if grid is not None else 1
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, bias = (t.to(dtype) for t in inputs[:2])
+            mask = inputs[2].to(dtype) if grid is not None else None
+            dout = dout32.to(dtype)
+            out, lse = WA._window_attention_fwd(qkv, bias, mask, heads, n, with_lse=True)
+            bwd = lambda: WA.window_attention_backward(qkv, bias, mask, out, lse, heads, n, dout)
+            got = bwd()
+            torch.cuda.synchronize()
+            want = WA.window_attention_backward_reference(
+                qkv.float(), bias.float(), None if mask is None else mask.float(), heads, n,
+                dout.float())
+
+            def parts(g):  # dq, dk, dv lanes and dbias, each to its own scale
+                dqkv, dbias = g
+                return dqkv[..., :C], dqkv[..., C:2 * C], dqkv[..., 2 * C:], dbias
+            errs = compare_grads(("dq", "dk", "dv", "dbias"), parts(got), parts(want), dtype)
+            ms = time_ms(bwd)
+            plain_ms = time_ms(lambda: WA.window_attention_backward_reference(
+                qkv, bias, mask, heads, n, dout))
+            lib_ms = None
+            if dtype == torch.bfloat16:
+                q, k, v, m = window_library_operands(qkv, bias, mask, heads, n)
+                doh = dout.reshape(B * nw, SWIN_N, heads, SWIN_D).transpose(1, 2).reshape(
+                    q.shape).contiguous()
+                lib_ms = time_ms(library_grad(lambda *a: sdpa(*a, SWIN_D ** -0.5),
+                                              (q, k, v, m), doh))
+                del q, k, v, m, doh
+            record(records, "window_attention_bwd", label, dtype, errs, ms, plain_ms, lib_ms)
+            add_bound(records["window_attention_bwd"], dtype,
+                      nbytes(qkv, bias, *(() if mask is None else (mask,)), out, lse, dout,
+                             *got),
+                      10.0 * B * nw * heads * SWIN_N * SWIN_N * SWIN_D)
+            del got, want, out, lse
 
 
 def synthetic_video(seed: int):
@@ -366,13 +491,13 @@ def synthetic_video(seed: int):
     return frames, audio
 
 
-def phase_main_path() -> dict:
+def phase_main_path(tag: str, encoder: str) -> dict:
     from mspi_tpu_torch.config import get_config
     from mspi_tpu_torch.inference import predict_video, sliding_window_jobs
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
     from mspi_tpu_torch.ops import kernels
 
-    cfg = get_config("mvitv2s")
+    cfg = get_config(encoder)
     model = AudioVisualSaliencyModel(cfg, device="cuda", dtype=torch.bfloat16,
                                      generator=torch.Generator().manual_seed(0))
     frames, audio = synthetic_video(0)
@@ -385,8 +510,8 @@ def phase_main_path() -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernels.launches)
-    log("main", f"predict_video: {n_windows} windows in {forwards} forwards of {BATCH}, "
-                f"{wall:.2f} s wall (first call), launches {counts}")
+    log(tag, f"{encoder} predict_video: {n_windows} windows in {forwards} forwards of "
+             f"{BATCH}, {wall:.2f} s wall (first call), launches {counts}")
 
     if maps.shape != (N_FRAMES, 480, 640) or maps.dtype != np.uint8:
         raise AssertionError(f"maps {maps.shape} {maps.dtype}, expected "
@@ -396,7 +521,7 @@ def phase_main_path() -> dict:
         raise AssertionError("a map is constant or not min-max normalised "
                              "(non-finite log-density)")
     for name in KERNELS:
-        want = forwards * PER_FORWARD.get(name, 0)
+        want = forwards * PER_FORWARD[encoder].get(name, 0)
         if counts[name] != want:
             raise AssertionError(f"{name}: {counts[name]} launches, expected {want}")
 
@@ -407,18 +532,19 @@ def phase_main_path() -> dict:
         if not (torch.isfinite(out).all() and torch.isfinite(loss)):
             raise AssertionError("non-finite model output")
         ms = time_ms(lambda: model(clips, auds), warmup=1, reps=3)
-    log("main", f"forward bf16 batch {BATCH}: {ms:.1f} ms = {BATCH * 1000 / ms:.2f} clips/s "
-                f"(CUDA events, median of 3); map {N_FRAMES} x 480 x 640 uint8 ok")
+    log(tag, f"{encoder} forward bf16 batch {BATCH}: {ms:.1f} ms = "
+             f"{BATCH * 1000 / ms:.2f} clips/s (CUDA events, median of 3); "
+             f"map {N_FRAMES} x 480 x 640 uint8 ok")
     del model
     torch.cuda.empty_cache()
     return counts
 
 
-def phase_parity() -> None:
+def phase_parity(tag: str, encoder: str) -> None:
     from mspi_tpu_torch.config import get_config
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
 
-    cfg = get_config("mvitv2s")
+    cfg = get_config(encoder)
     frames, _ = synthetic_video(3)
     clip = torch.from_numpy(frames[None, :16].copy())
     aud = torch.randn(1, 257, 111, 1, generator=torch.Generator().manual_seed(4))
@@ -430,13 +556,13 @@ def phase_parity() -> None:
         with torch.no_grad():
             out, _ = model(clip.to(device), aud.to(device))
         outs.append(out.cpu().double())
-        log("parity", f"fp32 forward on {device}: {time.perf_counter() - t0:.1f} s")
+        log(tag, f"{encoder} fp32 forward on {device}: {time.perf_counter() - t0:.1f} s")
         del model
     a, b = (o.flatten() for o in outs)
     cc = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
     diff = (a - b).abs().max().item()
-    log("parity", f"log-density {RES[0]}x{RES[1]} card vs CPU: CC {cc:.8f} "
-                  f"(need >= 0.9999), max abs diff {diff:.3e}")
+    log(tag, f"{encoder} log-density {RES[0]}x{RES[1]} card vs CPU: CC {cc:.8f} "
+             f"(need >= 0.9999), max abs diff {diff:.3e}")
     if not cc >= 0.9999:
         raise AssertionError(f"end-to-end CC {cc} below 0.9999")
 
@@ -448,14 +574,14 @@ def _frozen_snapshot(model):
             if k.split(".", 1)[0] in FROZEN_TOPLEVEL}
 
 
-def phase_training() -> dict:
+def phase_training(tag: str, encoder: str) -> dict:
     from mspi_tpu_torch.config import get_config
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
     from mspi_tpu_torch.ops import kernels
     from mspi_tpu_torch.train import engine
     from mspi_tpu_torch.train.synthetic import make_batch
 
-    cfg = get_config("mvitv2s")
+    cfg = get_config(encoder)
     model = AudioVisualSaliencyModel(cfg, device="cuda", dtype=torch.float32,
                                      generator=torch.Generator().manual_seed(0))
     state = engine.create_train_state(cfg, model)
@@ -477,39 +603,39 @@ def phase_training() -> dict:
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = statistics.median(walls[1:])
-    log("training", f"{STEPS} steps bf16 batch {TRAIN_BATCH} {RES[0]}x{RES[1]}: first "
-                    f"{walls[0]:.2f} s, then median {steady * 1e3:.1f} ms = "
-                    f"{1 / steady:.3f} steps/s = {TRAIN_BATCH / steady:.2f} clips/s (host clock "
-                    f"around synced steps); peak memory {peak:.2f} GiB")
+    log(tag, f"{encoder} {STEPS} steps bf16 batch {TRAIN_BATCH} {RES[0]}x{RES[1]}: first "
+             f"{walls[0]:.2f} s, then median {steady * 1e3:.1f} ms = "
+             f"{1 / steady:.3f} steps/s = {TRAIN_BATCH / steady:.2f} clips/s (host clock "
+             f"around synced steps); peak memory {peak:.2f} GiB")
     for i, m in enumerate(history):
-        log("training", f"step {i}: " + " ".join(f"{k} {v:.5f}" for k, v in m.items()))
+        log(tag, f"step {i}: " + " ".join(f"{k} {v:.5f}" for k, v in m.items()))
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in history):
         raise AssertionError("non-finite loss or gradient norm")
     for name in KERNELS:
-        want = STEPS * PER_STEP[name]
+        want = STEPS * PER_STEP[encoder].get(name, 0)
         if counts[name] != want:
             raise AssertionError(f"{name}: {counts[name]} launches in training, expected {want}")
     moved = sum(not torch.equal(a, p) for a, p in zip(before, engine.trainable_parameters(state)))
-    log("training", f"launches {counts}; {moved} of {len(before)} trainable tensors moved")
+    log(tag, f"launches {counts}; {moved} of {len(before)} trainable tensors moved")
     if moved < len(before):
         raise AssertionError(f"only {moved} of {len(before)} trainable tensors changed")
     after = _frozen_snapshot(model)
     changed = [k for k in frozen if not torch.equal(frozen[k], after[k])]
     if changed:
         raise AssertionError(f"frozen tensors changed: {changed[:5]}")
-    log("training", f"{len(frozen)} frozen tensors bit-identical")
+    log(tag, f"{len(frozen)} frozen tensors bit-identical")
     del model, state, batches
     torch.cuda.empty_cache()
     return counts
 
 
-def phase_train_parity() -> None:
+def phase_train_parity(tag: str, encoder: str) -> None:
     from mspi_tpu_torch.config import get_config
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
     from mspi_tpu_torch.train import engine
     from mspi_tpu_torch.train.synthetic import make_batch
 
-    cfg = get_config("mvitv2s")
+    cfg = get_config(encoder)
     batch = make_batch(np.random.default_rng(6), TRAIN_BATCH, 16, RES, SPECTRO)
     results = []
     for device in ("cuda", "cpu"):
@@ -521,16 +647,15 @@ def phase_train_parity() -> None:
         metrics = step(state, engine.to_device(batch, device), cfg.solver.lr)
         grads = torch.cat([p.grad.detach().double().flatten().cpu()
                            for p in engine.trainable_parameters(state)])
-        log("train_parity", f"fp32 step on {device}: {time.perf_counter() - t0:.1f} s; "
-                            + " ".join(f"{k} {v:.6f}" for k, v in metrics.items()))
+        log(tag, f"{encoder} fp32 step on {device}: {time.perf_counter() - t0:.1f} s; "
+                 + " ".join(f"{k} {v:.6f}" for k, v in metrics.items()))
         results.append((metrics, grads))
         del model, state
     (m_gpu, g_gpu), (m_cpu, g_cpu) = results
     cos = (g_gpu @ g_cpu / (g_gpu.norm() * g_cpu.norm())).item()
     diffs = {k: abs(m_gpu[k] - m_cpu[k]) for k in m_cpu}
-    log("train_parity", f"{RES[0]}x{RES[1]} card vs CPU: gradient cosine {cos:.8f} "
-                        f"(need >= 0.9999); |diff| " +
-        " ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
+    log(tag, f"{encoder} {RES[0]}x{RES[1]} card vs CPU: gradient cosine {cos:.8f} "
+             f"(need >= 0.9999); |diff| " + " ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
     if not cos >= 0.9999:
         raise AssertionError(f"gradient cosine {cos} below 0.9999")
     for k in ("loss", "kl", "cc", "sim", "loss_va"):
@@ -565,19 +690,20 @@ def main() -> None:
 
     records = {name: new_record() for name in KERNELS}
     counts = {name: 0 for name in KERNELS}
-    if "kernels" in phases:
-        phase_kernels(records)
-    if "main" in phases:
-        counts = phase_main_path()
-    if "parity" in phases:
-        phase_parity()
-    if "backward" in phases:
-        phase_backward(records)
-    if "training" in phases:
-        train_counts = phase_training()
-        counts = {k: counts[k] + train_counts[k] for k in KERNELS}
-    if "train_parity" in phases:
-        phase_train_parity()
+    runners = {"main": phase_main_path, "parity": phase_parity, "training": phase_training,
+               "train_parity": phase_train_parity}
+    for phase in PHASES:
+        if phase not in phases:
+            continue
+        if phase == "kernels":
+            phase_kernels(records)
+        elif phase == "backward":
+            phase_backward(records)
+        else:
+            path_kind, encoder = PATH_PHASES[phase]
+            path_counts = runners[path_kind](phase, encoder)
+            if path_counts is not None:  # a path: its launches count
+                counts = {k: counts[k] + path_counts[k] for k in KERNELS}
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

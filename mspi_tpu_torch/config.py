@@ -1,9 +1,10 @@
-"""Configuration for the ported slice: the dataclass fields the MViTv2-S
-audio-visual inference and training paths read.
+"""Configuration for the ported slices: the dataclass fields the MViTv2-S
+and VideoSwin-S audio-visual inference and training paths read.
 
 Counterpart of `mspi_tpu/config.py` (same field names and defaults, so a
-dict of overrides means the same thing to both packages). Only `mvitv2s`
-is ported; its settings encode configs/MVITv2_S_16x4.yaml.
+dict of overrides means the same thing to both packages). `mvitv2s`
+encodes configs/MVITv2_S_16x4.yaml, `videoswins` the mmaction
+swin_small_patch244_window877_kinetics400_1k backbone.
 """
 
 from __future__ import annotations
@@ -12,14 +13,14 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
-MOTION_ENCODERS = ("mvitv2s",)
+MOTION_ENCODERS = ("mvitv2s", "videoswins")
 
 # Channel dims and temporal lengths of the [v1..v4] feature pyramid for a
 # 16-frame clip, and whether each lateral decoder layer applies a
 # temporal-stride conv.
-MOTION_ENCODER_EMBEDS = {"mvitv2s": (96, 192, 384, 768)}
-MOTION_ENCODER_TDIMS = {"mvitv2s": (8, 8, 8, 8)}
-LATERAL_BOOL = {"mvitv2s": (True, True, True, True)}
+MOTION_ENCODER_EMBEDS = {"mvitv2s": (96, 192, 384, 768), "videoswins": (96, 192, 384, 768)}
+MOTION_ENCODER_TDIMS = {"mvitv2s": (8, 8, 8, 8), "videoswins": (8, 8, 8, 8)}
+LATERAL_BOOL = {"mvitv2s": (True, True, True, True), "videoswins": (True, True, True, True)}
 
 
 @dataclass
@@ -73,6 +74,20 @@ class MViTConfig:
 
 
 @dataclass
+class VideoSwinConfig:
+    """VideoSwin-S (swin_small_patch244_window877_kinetics400_1k). The
+    patch embed has no norm, as the JAX backbone builds it."""
+
+    patch_size: Tuple[int, int, int] = (2, 4, 4)
+    embed_dim: int = 96
+    depths: Tuple[int, int, int, int] = (2, 2, 18, 2)
+    num_heads: Tuple[int, int, int, int] = (3, 6, 12, 24)
+    window_size: Tuple[int, int, int] = (8, 7, 7)
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+
+
+@dataclass
 class ModelConfig:
     motion_encoder: str = "mvitv2s"
     de_embed_dim: int = 192
@@ -85,6 +100,7 @@ class ModelConfig:
     audio_encoder_weight: str = ""
     image_saliency_encoder_weight: str = ""
     mvit: MViTConfig = field(default_factory=MViTConfig)
+    videoswin: VideoSwinConfig = field(default_factory=VideoSwinConfig)
 
     @property
     def embed_dims(self) -> Tuple[int, int, int, int]:
@@ -111,8 +127,8 @@ class MSPIConfig:
     solver: SolverConfig = field(default_factory=SolverConfig)
 
     def num_vis_tokens(self) -> int:
-        """Tokens entering SyncBlock: T4 * H/32 * W/32 (672 for MViTv2-S at
-        16x224x384)."""
+        """Tokens entering SyncBlock: T4 * H/32 * W/32 (672 for MViTv2-S and
+        VideoSwin-S at 16x224x384)."""
         h, w = self.data.resolution
         t4 = max(1, self.model.pyramid_tdims[3] * self.data.num_frames // 16)
         return t4 * (h // 32) * (w // 32)
@@ -147,6 +163,8 @@ def get_config(motion_encoder: str = "mvitv2s",
             f"motion encoder {motion_encoder!r} not yet ported "
             f"(ported: {MOTION_ENCODERS})")
     cfg = MSPIConfig()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                             motion_encoder=motion_encoder))
     if overrides:
         cfg = _merge_into_dataclass(cfg, overrides)
     return cfg

@@ -1,14 +1,23 @@
-// Attention backward for the two flash forwards of flash_attention.cuh:
-//   rel  (K1 attention_rel): S = scale * q k^T + rel E^T
-//   self (K4 self_attention): S = q k^T / sqrt(D), packed heads
+// Attention backward for the three flash forwards of flash_attention.cuh:
+//   rel    (K1 attention_rel): S = scale * q k^T + rel E^T
+//   self   (K4 self_attention): S = q k^T / sqrt(D), packed heads
+//   window (window_attention): S = q_s k^T + bias[h] (+ mask[b mod nW]), with
+//          q_s = q * scale rounded to the storage type, packed qkv
 // with P = softmax(S), O = P v, and dO given:
 //   dv = P^T dO,  dP = dO v^T,  dS = P * (dP - rowsum(dO * O)),
-//   dq = scale * dS k,  dk = scale * dS^T q,  drel = dS E   (rel only).
+//   dq = scale * dS k,  dk = scale * dS^T q (window: dS^T q_s),
+//   drel = dS E   (rel only),  dbias = sum over windows of dS  (window only).
 //
 // Replaces: mspi_tpu/ops/pallas/pooled_attention.py::_bwd_impl_rel (kernel
 // _bwd_kernel_rel, the backward of fused_attention_rel, 16 MViTv2-S blocks)
 // and ::_bwd_impl (kernel _bwd_kernel, which fused_self_attention's backward
 // runs on head-major copies; 3 SyncBlock blocks). E takes no gradient.
+// Also mspi_tpu/ops/pallas/attention.py::_packed_bwd_impl (kernel
+// _packed_bwd_kernel, VideoSwin stages 1-2) and ::_bwd_impl_perhead (kernel
+// _perhead_bwd_kernel, stages 3-4): the same function, which the TPU splits
+// only because a resident fp32 [H, N, N] dbias does not fit in VMEM at 12
+// and 24 heads; one kernel serves every stage here. The mask takes no
+// gradient.
 //
 // The TPU kernel recomputes a whole [TQ, Nk] probability tile per q-tile and
 // carries dk/dv across its sequential grid in VMEM. Blocks on the card run in
@@ -24,9 +33,18 @@
 //      partials (segments keep the card busy when Nk is small next to Nq);
 //   4. reduce: sums the segments in a fixed order, scales dk, and writes dk
 //      and dv in the storage type through their strides.
+// The window backward sums dS over all B_ windows for dbias. The TPU carries
+// a resident fp32 accumulator across its sequential grid; here, without
+// atomics and in a fixed order:
+//   2'. dq/dbias pass: one block per (64-query tile, head, group of windows)
+//       walks its group's windows in order, writes each window's dq, and
+//       keeps its [64 x N] fp32 dbias rows in shared memory (N <= 448), each
+//       element owned by one thread; it writes them once, as a partial;
+//   3'. the dkv pass above with one segment (windows x heads fill the card);
+//   5.  a last pass sums the groups' partials in order into dbias.
 // q, k, v, dO and the outputs are read and written in place through (batch,
-// head, token) strides, so K4's packed [B, N, C] / [B, N, 2C] lanes need no
-// head transposes.
+// head, token) strides, so K4's packed [B, N, C] / [B, N, 2C] lanes and the
+// windows' packed [B_, N, 3C] qkv need no head transposes.
 //   bf16: every product on the tensor cores (WMMA 16x16x16, fp32 accumulate);
 //         P and dS rounded to bf16 where they enter a product, as the TPU
 //         kernel rounds them to v's dtype.
@@ -59,6 +77,10 @@ struct BwdArgs {
   AttnStrides dks;
   void* dv;
   AttnStrides dvs;
+  float dq_scale, dk_scale;  // dq = dq_scale dS k, dk = dk_scale dS^T q
+  void* dbias;               // window: [heads, Nq, Nk] in the storage type
+  float* dbias_part;         // window: [groups, heads, Nq, Nk] fp32 scratch
+  int windows;               // window: B_
 };
 
 using bf16 = __nv_bfloat16;
@@ -84,7 +106,7 @@ struct Path<bf16, D> {
 };
 
 struct Layout {
-  size_t q, dout, k, v, s, dp, p, ds, stage, rel, drel, kidx, lse, delta, total;
+  size_t q, dout, k, v, s, dp, p, ds, stage, rel, drel, kidx, lse, delta, dbias, total;
 };
 
 __host__ __device__ inline size_t take(size_t& at, size_t bytes) {
@@ -93,9 +115,10 @@ __host__ __device__ inline size_t take(size_t& at, size_t bytes) {
   return here;
 }
 
-// Byte offsets of every shared-memory region (r = rel width, 0 without rel).
+// Byte offsets of every shared-memory region (r = rel width, 0 without rel;
+// wide = columns of the window dbias rows, 0 outside the dq/dbias pass).
 template <typename T, int D>
-__host__ __device__ inline Layout layout(int r) {
+__host__ __device__ inline Layout layout(int r, int wide = 0) {
   using P = Path<T, D>;
   const size_t op = sizeof(typename P::Op) * BM * P::LD;
   const size_t score = sizeof(float) * BM * LDS;
@@ -116,30 +139,32 @@ __host__ __device__ inline Layout layout(int r) {
   L.kidx = take(at, sizeof(int) * 3 * BM);
   L.lse = take(at, sizeof(float) * BM);
   L.delta = take(at, sizeof(float) * BM);
+  L.dbias = take(at, sizeof(float) * BM * wide);
   L.total = at;
   return L;
 }
 
 // rows [t0, t0+64) of a token-major operand (row stride `stride`, D features
-// contiguous) into dst [64][LD]; zeros past n.
+// contiguous) into dst [64][LD]; zeros past n. scale != 1 multiplies every
+// value, rounded to T (the window backward's q_s).
 template <typename T, int D>
 __device__ __forceinline__ void load_op(const T* src, int64_t stride, int t0, int n,
-                                        typename Path<T, D>::Op* dst) {
+                                        typename Path<T, D>::Op* dst, float scale = 1.f) {
   constexpr int LD = Path<T, D>::LD;
   if constexpr (Path<T, D>::kTc) {
-    constexpr int VEC = D / 8;  // 16-byte vectors per row
-    for (int e = threadIdx.x; e < BM * VEC; e += THREADS) {
-      const int r = e / VEC, c = (e % VEC) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (t0 + r < n) v = *reinterpret_cast<const uint4*>(src + (t0 + r) * stride + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-    }
+    load_rows_bf16<D, THREADS>(src, stride, t0, n, dst, LD, scale);
   } else {
     for (int e = threadIdx.x; e < BM * D; e += THREADS) {
       const int r = e / D, d = e % D;
-      dst[r * LD + d] = (t0 + r < n) ? src[(t0 + r) * stride + d] : 0.f;
+      dst[r * LD + d] = (t0 + r < n) ? src[(t0 + r) * stride + d] * scale : 0.f;
     }
   }
+}
+
+// The factor load_op applies to q: the window backward's q_s, else none.
+template <typename T, int BIAS>
+__device__ __forceinline__ float q_load_scale(const AttnArgs& a) {
+  return BIAS == kDenseBias ? round_to<T>(a.qscale) : 1.f;
 }
 
 // C[64][LDS] = A[64][D] B[64][D]^T (rows of A against rows of B).
@@ -330,26 +355,32 @@ __device__ __forceinline__ void load_row_stats(const BwdArgs& g, int bh, int q0,
 }
 
 // ss (scores) -> P = exp(scale*s + bias - lse) and dps (dO v^T) -> dS, in
-// place in fp32; the bf16 path also writes the rounded operand copies.
-template <typename T, int D, bool REL>
-__device__ __forceinline__ void probs_and_ds(const AttnArgs& a, int q0, int k0,
+// place in fp32; the bf16 path also writes the rounded operand copies. With
+// dbias (the window dq/dbias pass), dS also accumulates into dbias[r][k0+c]
+// of the block's [64][ldb] rows; element (r, c) always belongs to thread
+// (64 r + c) % THREADS, so the sum over windows has one fixed order.
+template <typename T, int D, int BIAS>
+__device__ __forceinline__ void probs_and_ds(const AttnArgs& a, int b, int h, int q0, int k0,
                                              const float* rels, const int* kidx,
                                              const float* lse_s, const float* delta_s,
                                              float* ss, float* dps,
                                              typename Path<T, D>::Op* pb,
-                                             typename Path<T, D>::Op* dsb) {
+                                             typename Path<T, D>::Op* dsb,
+                                             float* dbias = nullptr, int ldb = 0) {
   constexpr int LDP = Path<T, D>::LDP;
   for (int e = threadIdx.x; e < BM * BM; e += THREADS) {
     const int r = e >> 6, c = e & 63;
     float p = 0.f, ds = 0.f;
     if (q0 + r < a.nq && k0 + c < a.nk) {
       float s = ss[r * LDS + c] * a.scale;
-      if (REL) {
+      if (BIAS == kRelBias) {
         const float* rr = rels + r * a.r;
         s += rr[kidx[c]] + rr[kidx[BM + c]] + rr[kidx[2 * BM + c]];
       }
+      if (BIAS == kDenseBias) s = add_dense_bias<T>(a, b, h, q0 + r, k0 + c, s);
       p = expf(s - lse_s[r]);
       ds = p * (dps[r * LDS + c] - delta_s[r]);
+      if (dbias != nullptr) dbias[r * ldb + k0 + c] += ds;
     }
     ss[r * LDS + c] = p;
     dps[r * LDS + c] = ds;
@@ -364,11 +395,11 @@ template <typename T, int D>
 struct Tiles {
   using Op = typename Path<T, D>::Op;
   Op *q, *dout, *k, *v, *p, *ds;
-  float *s, *dp, *stage, *rel, *drel, *lse, *delta;
+  float *s, *dp, *stage, *rel, *drel, *lse, *delta, *dbias;
   int* kidx;
 
-  __device__ Tiles(unsigned char* base, int r) {
-    const Layout L = layout<T, D>(r);
+  __device__ Tiles(unsigned char* base, int r, int wide = 0) {
+    const Layout L = layout<T, D>(r, wide);
     q = reinterpret_cast<Op*>(base + L.q);
     dout = reinterpret_cast<Op*>(base + L.dout);
     k = reinterpret_cast<Op*>(base + L.k);
@@ -388,6 +419,7 @@ struct Tiles {
     kidx = reinterpret_cast<int*>(base + L.kidx);
     lse = reinterpret_cast<float*>(base + L.lse);
     delta = reinterpret_cast<float*>(base + L.delta);
+    dbias = reinterpret_cast<float*>(base + L.dbias);
   }
 };
 
@@ -406,9 +438,10 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_delta_kernel(BwdArgs g, int 
   if (lane == 0) g.delta[static_cast<int64_t>(bh) * a.nq + row] = s;
 }
 
-template <typename T, int D, bool REL>
+template <typename T, int D, int BIAS>
 __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(BwdArgs g) {
   constexpr int LDP = Path<T, D>::LDP;
+  constexpr bool REL = BIAS == kRelBias;
   extern __shared__ __align__(128) unsigned char smem_bwd[];
   const AttnArgs& a = g.f;
   Tiles<T, D> t(smem_bwd, REL ? a.r : 0);
@@ -419,9 +452,9 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(BwdArgs g) {
   const T* vp = static_cast<const T*>(a.v) + b * a.vs.b + h * a.vs.h;
   const T* dop = static_cast<const T*>(g.dout) + b * g.dos.b + h * g.dos.h;
 
-  load_op<T, D>(qp, a.qs.n, q0, a.nq, t.q);
+  load_op<T, D>(qp, a.qs.n, q0, a.nq, t.q, q_load_scale<T, BIAS>(a));
   load_op<T, D>(dop, g.dos.n, q0, a.nq, t.dout);
-  load_rel_rows<T, REL>(a, b, h, q0, t.rel);
+  load_rel_rows<T, BIAS>(a, b, h, q0, t.rel);
   if (REL)
     for (int e = threadIdx.x; e < BM * a.r; e += THREADS) t.drel[e] = 0.f;
   load_row_stats(g, bh, q0, t.lse, t.delta);
@@ -437,14 +470,15 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(BwdArgs g) {
     scores<T, D>(t.q, t.k, t.s);
     scores<T, D>(t.dout, t.v, t.dp);
     __syncthreads();
-    probs_and_ds<T, D, REL>(a, q0, k0, t.rel, t.kidx, t.lse, t.delta, t.s, t.dp, t.p, t.ds);
+    probs_and_ds<T, D, BIAS>(a, b, h, q0, k0, t.rel, t.kidx, t.lse, t.delta, t.s, t.dp, t.p,
+                             t.ds);
     __syncthreads();
     dq.template add<false>(t.ds, LDP, t.k);  // dq += dS k
     if (REL) accumulate_drel(a, k0, t.dp, t.drel);
   }
 
   T* dqp = static_cast<T*>(g.dq) + b * g.dqs.b + h * g.dqs.h;
-  const float scale = a.scale;
+  const float scale = g.dq_scale;
   const int nq = a.nq;
   const int64_t dq_n = g.dqs.n;
   dq.emit(t.stage, [&](int r, int c, float v) {
@@ -459,9 +493,10 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(BwdArgs g) {
   }
 }
 
-template <typename T, int D, bool REL>
+template <typename T, int D, int BIAS>
 __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(BwdArgs g) {
   constexpr int LDP = Path<T, D>::LDP;
+  constexpr bool REL = BIAS == kRelBias;
   extern __shared__ __align__(128) unsigned char smem_bwd[];
   const AttnArgs& a = g.f;
   Tiles<T, D> t(smem_bwd, REL ? a.r : 0);
@@ -485,15 +520,16 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(BwdArgs g) {
   for (int qt = qt0; qt < qt1; ++qt) {
     const int q0 = qt * BM;
     __syncthreads();  // the previous tile's reads are done
-    load_op<T, D>(qp, a.qs.n, q0, a.nq, t.q);
+    load_op<T, D>(qp, a.qs.n, q0, a.nq, t.q, q_load_scale<T, BIAS>(a));
     load_op<T, D>(dop, g.dos.n, q0, a.nq, t.dout);
-    load_rel_rows<T, REL>(a, b, h, q0, t.rel);
+    load_rel_rows<T, BIAS>(a, b, h, q0, t.rel);
     load_row_stats(g, bh, q0, t.lse, t.delta);
     __syncthreads();
     scores<T, D>(t.q, t.k, t.s);
     scores<T, D>(t.dout, t.v, t.dp);
     __syncthreads();
-    probs_and_ds<T, D, REL>(a, q0, k0, t.rel, t.kidx, t.lse, t.delta, t.s, t.dp, t.p, t.ds);
+    probs_and_ds<T, D, BIAS>(a, b, h, q0, k0, t.rel, t.kidx, t.lse, t.delta, t.s, t.dp, t.p,
+                             t.ds);
     __syncthreads();
     dv.template add<true>(t.p, LDP, t.dout);  // dv += P^T dO
     dk.template add<true>(t.ds, LDP, t.q);    // dk += dS^T q
@@ -513,7 +549,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(BwdArgs g) {
   });
 }
 
-// dk = scale * sum over segments, dv = sum over segments, in a fixed order.
+// dk = dk_scale * sum over segments, dv = sum over segments, in a fixed order.
 template <typename T>
 __global__ void attn_bwd_reduce_kernel(BwdArgs g, int D, int bh_count) {
   const AttnArgs& a = g.f;
@@ -529,13 +565,14 @@ __global__ void attn_bwd_reduce_kernel(BwdArgs g, int D, int bh_count) {
       sk += g.dk_part[s * n + i];
       sv += g.dv_part[s * n + i];
     }
-    static_cast<T*>(g.dk)[b * g.dks.b + h * g.dks.h + j * g.dks.n + d] = from_f<T>(sk * a.scale);
+    static_cast<T*>(g.dk)[b * g.dks.b + h * g.dks.h + j * g.dks.n + d] = from_f<T>(sk * g.dk_scale);
     static_cast<T*>(g.dv)[b * g.dvs.b + h * g.dvs.h + j * g.dvs.n + d] = from_f<T>(sv);
   }
 }
 
-template <typename T, int D, bool REL>
+template <typename T, int D, int BIAS>
 cudaError_t launch_bwd(BwdArgs g, int batch, cudaStream_t stream) {
+  constexpr bool REL = BIAS == kRelBias;
   const AttnArgs& a = g.f;
   const int bh = batch * a.heads;
   const int qtiles = (a.nq + BM - 1) / BM, ktiles = (a.nk + BM - 1) / BM;
@@ -544,11 +581,11 @@ cudaError_t launch_bwd(BwdArgs g, int batch, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = layout<T, D>(REL ? a.r : 0).total;
-  if ((err = allow_smem(attn_bwd_dq_kernel<T, D, REL>, smem)) != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T, D, REL><<<dim3(qtiles, bh), THREADS, smem, stream>>>(g);
+  if ((err = allow_smem(attn_bwd_dq_kernel<T, D, BIAS>, smem)) != cudaSuccess) return err;
+  attn_bwd_dq_kernel<T, D, BIAS><<<dim3(qtiles, bh), THREADS, smem, stream>>>(g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = allow_smem(attn_bwd_dkv_kernel<T, D, REL>, smem)) != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<T, D, REL><<<dim3(ktiles, bh, g.segments), THREADS, smem, stream>>>(g);
+  if ((err = allow_smem(attn_bwd_dkv_kernel<T, D, BIAS>, smem)) != cudaSuccess) return err;
+  attn_bwd_dkv_kernel<T, D, BIAS><<<dim3(ktiles, bh, g.segments), THREADS, smem, stream>>>(g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int64_t n = static_cast<int64_t>(bh) * a.nk * D;
   const int64_t blocks = (n + 255) / 256;
@@ -557,24 +594,129 @@ cudaError_t launch_bwd(BwdArgs g, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool REL>
+template <int BIAS>
 cudaError_t dispatch_bwd(const BwdArgs& g, int batch, int d, int dtype, cudaStream_t s) {
   if (g.segments <= 0) return cudaErrorInvalidValue;
   if (dtype == kFloat32) {
     switch (d) {
-      case 96: return launch_bwd<float, 96, REL>(g, batch, s);
-      case 128: return launch_bwd<float, 128, REL>(g, batch, s);
+      case 96: return launch_bwd<float, 96, BIAS>(g, batch, s);
+      case 128: return launch_bwd<float, 128, BIAS>(g, batch, s);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype == kBFloat16) {
     switch (d) {
-      case 96: return launch_bwd<bf16, 96, REL>(g, batch, s);
-      case 128: return launch_bwd<bf16, 128, REL>(g, batch, s);
+      case 96: return launch_bwd<bf16, 96, BIAS>(g, batch, s);
+      case 128: return launch_bwd<bf16, 128, BIAS>(g, batch, s);
       default: return cudaErrorInvalidValue;
     }
   }
   return cudaErrorInvalidValue;
+}
+
+// ---- window attention: dq/dbias pass and the dbias reduction ------------------
+
+// Columns of a block's dbias rows: Nk rounded up to whole key tiles.
+__host__ __device__ inline int dbias_cols(int nk) { return (nk + BM - 1) / BM * BM; }
+
+// One block per (64-query tile, head, group of windows): walks its windows in
+// order, writes each window's dq, and sums dS over them into [64][ldb] fp32
+// rows in shared memory, written once to the group's partial.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) window_bwd_dq_kernel(BwdArgs g) {
+  constexpr int LDP = Path<T, D>::LDP;
+  extern __shared__ __align__(128) unsigned char smem_bwd[];
+  const AttnArgs& a = g.f;
+  const int ldb = dbias_cols(a.nk);
+  Tiles<T, D> t(smem_bwd, 0, ldb);
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, grp = blockIdx.z;
+  const int per = (g.windows + gridDim.z - 1) / gridDim.z;
+  const int w0 = grp * per, w1 = min(g.windows, w0 + per);
+  const float qscale = q_load_scale<T, kDenseBias>(a);
+  const int nq = a.nq;
+  const float dq_scale = g.dq_scale;
+  for (int e = threadIdx.x; e < BM * ldb; e += THREADS) t.dbias[e] = 0.f;
+
+  for (int b = w0; b < w1; ++b) {
+    const int bh = b * a.heads + h;
+    const T* qp = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
+    const T* kp = static_cast<const T*>(a.k) + b * a.ks.b + h * a.ks.h;
+    const T* vp = static_cast<const T*>(a.v) + b * a.vs.b + h * a.vs.h;
+    const T* dop = static_cast<const T*>(g.dout) + b * g.dos.b + h * g.dos.h;
+    __syncthreads();  // the previous window's reads are done
+    load_op<T, D>(qp, a.qs.n, q0, nq, t.q, qscale);
+    load_op<T, D>(dop, g.dos.n, q0, nq, t.dout);
+    load_row_stats(g, bh, q0, t.lse, t.delta);
+    Acc<T, D> dq;
+    dq.zero();
+    for (int k0 = 0; k0 < a.nk; k0 += BM) {
+      __syncthreads();
+      load_op<T, D>(kp, a.ks.n, k0, a.nk, t.k);
+      load_op<T, D>(vp, a.vs.n, k0, a.nk, t.v);
+      __syncthreads();
+      scores<T, D>(t.q, t.k, t.s);
+      scores<T, D>(t.dout, t.v, t.dp);
+      __syncthreads();
+      probs_and_ds<T, D, kDenseBias>(a, b, h, q0, k0, nullptr, nullptr, t.lse, t.delta, t.s,
+                                     t.dp, t.p, t.ds, t.dbias, ldb);
+      __syncthreads();
+      dq.template add<false>(t.ds, LDP, t.k);  // dq += dS k
+    }
+    T* dqp = static_cast<T*>(g.dq) + b * g.dqs.b + h * g.dqs.h;
+    const int64_t dq_n = g.dqs.n;
+    dq.emit(t.stage, [&](int r, int c, float v) {
+      if (q0 + r < nq) dqp[(q0 + r) * dq_n + c] = from_f<T>(v * dq_scale);
+    });
+  }
+
+  __syncthreads();
+  const int nk = a.nk;
+  float* part = g.dbias_part + (static_cast<int64_t>(grp) * a.heads + h) * nq * nk;
+  for (int e = threadIdx.x; e < BM * nk; e += THREADS) {
+    const int r = e / nk, c = e % nk;
+    if (q0 + r < nq) part[static_cast<int64_t>(q0 + r) * nk + c] = t.dbias[r * ldb + c];
+  }
+}
+
+// dbias = the sum of the groups' partials, in group order, in the storage type.
+template <typename T>
+__global__ void window_dbias_reduce_kernel(const float* part, T* dbias, int groups, int64_t n) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float s = 0.f;
+    for (int grp = 0; grp < groups; ++grp) s += part[grp * n + i];
+    dbias[i] = from_f<T>(s);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_window_bwd(BwdArgs g, int groups, cudaStream_t stream) {
+  const AttnArgs& a = g.f;
+  const int bh = g.windows * a.heads;
+  const int qtiles = (a.nq + BM - 1) / BM, ktiles = (a.nk + BM - 1) / BM;
+  g.segments = 1;
+  g.qtiles_per_seg = qtiles;
+  attn_bwd_delta_kernel<T><<<dim3((a.nq + 7) / 8, bh), THREADS, 0, stream>>>(g, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem_dq = layout<T, D>(0, dbias_cols(a.nk)).total;
+  if ((err = allow_smem(window_bwd_dq_kernel<T, D>, smem_dq)) != cudaSuccess) return err;
+  window_bwd_dq_kernel<T, D><<<dim3(qtiles, a.heads, groups), THREADS, smem_dq, stream>>>(g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem = layout<T, D>(0).total;
+  if ((err = allow_smem(attn_bwd_dkv_kernel<T, D, kDenseBias>, smem)) != cudaSuccess) return err;
+  attn_bwd_dkv_kernel<T, D, kDenseBias><<<dim3(ktiles, bh, 1), THREADS, smem, stream>>>(g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t n = static_cast<int64_t>(bh) * a.nk * D;
+  int64_t blocks = (n + 255) / 256;
+  attn_bwd_reduce_kernel<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
+                              stream>>>(g, D, bh);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t nb = static_cast<int64_t>(a.heads) * a.nq * a.nk;
+  blocks = (nb + 255) / 256;
+  window_dbias_reduce_kernel<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
+                                  stream>>>(g.dbias_part, static_cast<T*>(g.dbias), groups, nb);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -628,7 +770,9 @@ extern "C" int mspi_attention_rel_bwd(const void* q, const void* k, const void* 
   g.dks = a.ks;
   g.dv = dv;
   g.dvs = a.vs;
-  return mspi::dispatch_bwd<true>(g, B, D, dtype, static_cast<cudaStream_t>(stream));
+  g.dq_scale = scale;
+  g.dk_scale = scale;
+  return mspi::dispatch_bwd<mspi::kRelBias>(g, B, D, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // K4 backward on packed lanes. q, out, dout, dq [B,N,C]; kv, dkv [B,N,2C]
@@ -673,5 +817,50 @@ extern "C" int mspi_self_attention_bwd(const void* q, const void* kv, const void
   g.dks = a.ks;
   g.dv = static_cast<char*>(dkv) + C * es;
   g.dvs = a.vs;
-  return mspi::dispatch_bwd<false>(g, B, D, dtype, static_cast<cudaStream_t>(stream));
+  g.dq_scale = a.scale;
+  g.dk_scale = a.scale;
+  return mspi::dispatch_bwd<mspi::kNoBias>(g, B, D, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// Window attention backward on packed qkv. qkv, dqkv [B_, N, 3C] (lane order
+// 3, head, D); bias, dbias [heads, N, N]; mask [nw, N, N] or null; out (the
+// forward's O) and dout [B_, N, C]; lse (from the forward) and delta
+// (scratch) [B_*heads, N] fp32; dk_part, dv_part [B_*heads, N, D] fp32
+// scratch; dbias_part [groups, heads, N, N] fp32 scratch. N <= 448.
+extern "C" int mspi_window_attention_bwd(const void* qkv, const void* bias, const void* mask,
+                                         const void* out, float* lse, const void* dout,
+                                         void* dqkv, void* dbias, float* delta,
+                                         float* dk_part, float* dv_part, float* dbias_part,
+                                         int groups, int B, int N, int C, int heads, int nw,
+                                         int dtype, void* stream) {
+  if (heads <= 0 || C % heads != 0 || groups <= 0 || N > 7 * mspi::BM)
+    return cudaErrorInvalidValue;
+  if (mask != nullptr && (nw <= 0 || B % nw != 0)) return cudaErrorInvalidValue;
+  const int D = C / heads;
+  const size_t es = dtype == mspi::kBFloat16 ? 2 : 4;
+  mspi::BwdArgs g{};
+  g.f = mspi::window_attn_args(qkv, bias, mask, const_cast<void*>(out), lse, N, C, heads,
+                               nw, dtype);
+  const mspi::AttnArgs& a = g.f;
+  g.dout = dout;
+  g.dos = a.os;
+  g.dq = dqkv;
+  g.dqs = a.qs;
+  g.delta = delta;
+  g.dk_part = dk_part;
+  g.dv_part = dv_part;
+  g.dk = static_cast<char*>(dqkv) + C * es;
+  g.dks = a.qs;
+  g.dv = static_cast<char*>(dqkv) + 2 * C * es;
+  g.dvs = a.qs;
+  g.dq_scale = a.qscale;
+  g.dk_scale = 1.f;  // q_s already carries the scale
+  g.dbias = dbias;
+  g.dbias_part = dbias_part;
+  g.windows = B;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D != 32) return cudaErrorInvalidValue;
+  if (dtype == mspi::kFloat32) return mspi::launch_window_bwd<float, 32>(g, groups, s);
+  if (dtype == mspi::kBFloat16) return mspi::launch_window_bwd<__nv_bfloat16, 32>(g, groups, s);
+  return cudaErrorInvalidValue;
 }

@@ -47,6 +47,6 @@ extern "C" int mspi_attention_rel(const void* q, const void* k, const void* v,
   a.kw = kw;
   a.scale = scale;
   if (R != kt + kh + kw || kt * kh * kw != Nk) return cudaErrorInvalidValue;
-  return mspi::dispatch_flash_attention<true>(a, B, D, dtype,
+  return mspi::dispatch_flash_attention<mspi::kRelBias>(a, B, D, dtype,
                                               static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
 // Flash-style attention body shared by attention_rel.cu (MViT pooled attention
-// with the decomposed relative-position bias) and self_attention.cu
-// (SyncBlock multi-head self-attention).
+// with the decomposed relative-position bias), self_attention.cu (SyncBlock
+// multi-head self-attention) and window_attention.cu (VideoSwin window
+// attention with a dense bias and shift mask).
 //
 // One block computes BQ = 64 query rows of one (batch, head) and walks the
 // keys in tiles of BK = 64 with an online softmax (fp32 running max and sum
@@ -14,12 +15,19 @@
 // (MViT) and packed token-major [B, N, H*D] / [B, N, 2*H*D] (SyncBlock) in
 // place, without transpose copies.
 //
-// With REL, the bias of query i and key j is rebuilt from the narrow per-query
-// projections rel [.., Nq, R] (R = kt + kh + kw, columns t | h | w) and the
-// key's row-major (t, h, w) index:
-//   bias = rel[i, t(j)] + rel[i, kt + h(j)] + rel[i, kt + kh + w(j)]
-// which equals rel . E^T for the 0/1 expansion E that the TPU kernel
-// multiplies in (mspi_tpu/models/mvit.py::_onehot_rows).
+// The bias mode (template argument BIAS):
+//   kNoBias:    S = scale * q k^T.
+//   kRelBias:   the bias of query i and key j is rebuilt from the narrow
+//               per-query projections rel [.., Nq, R] (R = kt + kh + kw,
+//               columns t | h | w) and the key's row-major (t, h, w) index:
+//                 bias = rel[i, t(j)] + rel[i, kt + h(j)] + rel[i, kt + kh + w(j)]
+//               which equals rel . E^T for the 0/1 expansion E that the TPU
+//               kernel multiplies in (mspi_tpu/models/mvit.py::_onehot_rows).
+//   kDenseBias: S = q_s k^T + bias[h, i, j] (+ mask[b mod nw, i, j] when mask
+//               is not null), both [.., Nq, Nk] contiguous in the storage
+//               type and read from device memory (L2) per score; q_s = q *
+//               qscale rounded to the storage type as q is loaded, as the TPU
+//               window kernel scales q before Q K^T (scale is then 1).
 //
 // Thread layout (256 threads): ty = tid / 16 owns query rows ty*4 .. ty*4+3,
 // tx = tid % 16 owns keys tx*4 .. tx*4+3 of the score tile and output columns
@@ -55,6 +63,8 @@ constexpr int kBK = 64;
 constexpr int kPitch = 68;  // padded row pitch (floats) of qs, ks and ps
 constexpr int kAttnThreads = 256;
 
+enum BiasMode : int { kNoBias = 0, kRelBias = 1, kDenseBias = 2 };
+
 struct AttnStrides {
   int64_t b, h, n;  // element strides of batch, head and token; features contiguous
 };
@@ -63,21 +73,39 @@ struct AttnArgs {
   const void* q;
   const void* k;
   const void* v;
-  const void* rel;  // [.., Nq, R] with strides rs, or null
+  const void* rel;   // [.., Nq, R] with strides rs, or null
+  const void* bias;  // kDenseBias: [heads, Nq, Nk]
+  const void* mask;  // kDenseBias: [nw, Nq, Nk] for window b mod nw, or null
   void* out;
   float* lse;  // [batch * heads, Nq] row log-sum-exp for the backward, or null
   AttnStrides qs, ks, vs, rs, os;
   int heads, nq, nk;
-  int r, kt, kh, kw;  // rel width and key grid (REL only)
-  float scale;
+  int r, kt, kh, kw;  // rel width and key grid (kRelBias only)
+  int nw;             // mask windows (kDenseBias only)
+  float scale;        // multiplies q k^T
+  float qscale;       // kDenseBias: multiplies q as it is loaded, in the storage type
 };
 
-// Scale, bias and mask the thread's 4x4 scores (rows ty*4+i, keys
+// kDenseBias: bias (+ mask) of query qi and key kj for window b, head h,
+// added to s one term at a time as the TPU kernel adds them (0 past Nq).
+template <typename T>
+__device__ __forceinline__ float add_dense_bias(const AttnArgs& a, int b, int h, int qi, int kj,
+                                                float s) {
+  if (qi >= a.nq) return s;
+  const int64_t at = static_cast<int64_t>(qi) * a.nk + kj;
+  s += to_f(static_cast<const T*>(a.bias)[static_cast<int64_t>(h) * a.nq * a.nk + at]);
+  if (a.mask != nullptr)
+    s += to_f(static_cast<const T*>(a.mask)[static_cast<int64_t>(b % a.nw) * a.nq * a.nk + at]);
+  return s;
+}
+
+// Scale, bias and mask the thread's 4x4 scores (rows q0+ty*4+i, keys
 // k0+tx*4+jj), fold them into the running max m_run and sum l_run, and turn
 // them into unnormalised probabilities; alpha[i] rescales row i's accumulator.
-template <bool REL>
-__device__ __forceinline__ void softmax_update(const AttnArgs& a, const float* rels, int k0,
-                                               int tx, int ty, float (&s)[4][4],
+template <typename T, int BIAS>
+__device__ __forceinline__ void softmax_update(const AttnArgs& a, const float* rels, int b,
+                                               int h, int q0, int k0, int tx, int ty,
+                                               float (&s)[4][4],
                                                float (&m_run)[4], float (&l_run)[4],
                                                float (&alpha)[4]) {
 #pragma unroll
@@ -89,7 +117,7 @@ __device__ __forceinline__ void softmax_update(const AttnArgs& a, const float* r
       continue;
     }
     int ct = 0, ch = 0, cw = 0;
-    if (REL) {
+    if (BIAS == kRelBias) {
       ct = kj / (a.kh * a.kw);
       ch = a.kt + (kj / a.kw) % a.kh;
       cw = a.kt + a.kh + kj % a.kw;
@@ -97,10 +125,11 @@ __device__ __forceinline__ void softmax_update(const AttnArgs& a, const float* r
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float v = s[i][jj] * a.scale;
-      if (REL) {
+      if (BIAS == kRelBias) {
         const float* rr = rels + (ty * 4 + i) * a.r;
         v += rr[ct] + rr[ch] + rr[cw];
       }
+      if (BIAS == kDenseBias) v = add_dense_bias<T>(a, b, h, q0 + ty * 4 + i, kj, v);
       s[i][jj] = v;
     }
   }
@@ -126,10 +155,10 @@ __device__ __forceinline__ void softmax_update(const AttnArgs& a, const float* r
 }
 
 // The block's rel rows [kBQ, R] into shared memory (fp32, zeros past Nq).
-template <typename T, bool REL>
+template <typename T, int BIAS>
 __device__ __forceinline__ void load_rel_rows(const AttnArgs& a, int b, int h, int q0,
                                               float* rels) {
-  if (!REL) return;
+  if (BIAS != kRelBias) return;
   const T* rp = static_cast<const T*>(a.rel) + b * a.rs.b + h * a.rs.h;
   for (int e = threadIdx.x; e < kBQ * a.r; e += kAttnThreads) {
     const int r = e / a.r, c = e % a.r;
@@ -170,7 +199,7 @@ constexpr size_t attn_smem_bytes(int r) {
          * sizeof(float);
 }
 
-template <int D, bool REL>
+template <int D, int BIAS>
 __global__ void __launch_bounds__(kAttnThreads) flash_attention_kernel(AttnArgs a) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int DPT = D / 16;  // output columns per thread
@@ -189,12 +218,13 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_kernel(AttnArgs 
   const float* kp = static_cast<const float*>(a.k) + b * a.ks.b + h * a.ks.h;
   const float* vp = static_cast<const float*>(a.v) + b * a.vs.b + h * a.vs.h;
 
+  const float qscale = BIAS == kDenseBias ? a.qscale : 1.f;
   for (int e = tid; e < kBQ * D; e += kAttnThreads) {
     const int r = e / D, d = e % D;
     const int i = q0 + r;
-    qs[d * kPitch + r] = (i < a.nq) ? qp[i * a.qs.n + d] : 0.f;
+    qs[d * kPitch + r] = (i < a.nq) ? qp[i * a.qs.n + d] * qscale : 0.f;
   }
-  load_rel_rows<float, REL>(a, b, h, q0, rels);
+  load_rel_rows<float, BIAS>(a, b, h, q0, rels);
 
   float m_run[4], l_run[4], o[4][DPT];
 #pragma unroll
@@ -235,7 +265,7 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_kernel(AttnArgs 
     }
 
     float alpha[4];
-    softmax_update<REL>(a, rels, k0, tx, ty, s, m_run, l_run, alpha);
+    softmax_update<float, BIAS>(a, rels, b, h, q0, k0, tx, ty, s, m_run, l_run, alpha);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -287,21 +317,39 @@ struct TcLayout {
                 "WMMA tiles need 32-byte aligned shared memory");
 };
 
-// rows [t0, t0+64) of a token-major [N, D] bf16 operand into dst [64][LDT],
+// Eight bf16 values of a 16-byte vector times s, each product rounded to bf16.
+__device__ __forceinline__ uint4 scale_bf16x8(uint4 v, float s) {
+  bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * s);
+  return v;
+}
+
+// rows [t0, t0+64) of a token-major [N, D] bf16 operand into dst [64][ld],
 // 16 bytes per load (the wrapper passes 16-byte aligned rows); zeros past n.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(const bf16* src, int64_t stride, int t0, int n,
-                                               bf16* dst) {
+// scale != 1 multiplies every value in bf16 (the window kernels' q).
+template <int D, int THREADS>
+__device__ __forceinline__ void load_rows_bf16(const bf16* src, int64_t stride, int t0, int n,
+                                               bf16* dst, int ld, float scale) {
   constexpr int VEC = D / 8;  // 16-byte vectors per row
-  for (int e = threadIdx.x; e < 64 * VEC; e += kAttnThreads) {
+  for (int e = threadIdx.x; e < 64 * VEC; e += THREADS) {
     const int r = e / VEC, c = (e % VEC) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (t0 + r < n) v = *reinterpret_cast<const uint4*>(src + (t0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * TcLayout<D>::LDT + c) = v;
+    if (t0 + r < n) {
+      v = *reinterpret_cast<const uint4*>(src + (t0 + r) * stride + c);
+      if (scale != 1.f) v = scale_bf16x8(v, scale);
+    }
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
   }
 }
 
-template <int D, bool REL>
+template <int D>
+__device__ __forceinline__ void load_tile_bf16(const bf16* src, int64_t stride, int t0, int n,
+                                               bf16* dst, float scale = 1.f) {
+  load_rows_bf16<D, kAttnThreads>(src, stride, t0, n, dst, TcLayout<D>::LDT, scale);
+}
+
+template <int D, int BIAS>
 __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnArgs a) {
   using L = TcLayout<D>;
   constexpr int DPT = D / 16;
@@ -326,8 +374,9 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
   const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
   const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
 
-  load_tile_bf16<D>(qp, a.qs.n, q0, a.nq, qs);
-  load_rel_rows<bf16, REL>(a, b, h, q0, rels);
+  load_tile_bf16<D>(qp, a.qs.n, q0, a.nq, qs,
+                    BIAS == kDenseBias ? round_to<bf16>(a.qscale) : 1.f);
+  load_rel_rows<bf16, BIAS>(a, b, h, q0, rels);
 
   float m_run[4], l_run[4], o[4][DPT];
 #pragma unroll
@@ -374,7 +423,7 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
       s[i][2] = v.z;
       s[i][3] = v.w;
     }
-    softmax_update<REL>(a, rels, k0, tx, ty, s, m_run, l_run, alpha);
+    softmax_update<bf16, BIAS>(a, rels, b, h, q0, k0, tx, ty, s, m_run, l_run, alpha);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -414,42 +463,72 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
   store_rows<bf16, D>(a, b, h, q0, tx, ty, o, m_run, l_run);
 }
 
-template <typename T, int D, bool REL>
+template <typename T, int D, int BIAS>
 cudaError_t launch_flash_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
   const dim3 grid((a.nq + kBQ - 1) / kBQ, batch * a.heads);
-  const int r = REL ? a.r : 0;
+  const int r = BIAS == kRelBias ? a.r : 0;
   if constexpr (std::is_same<T, bf16>::value) {
     const size_t smem = TcLayout<D>::bytes(r);
-    cudaError_t err = allow_smem(flash_attention_tc_kernel<D, REL>, smem);
+    cudaError_t err = allow_smem(flash_attention_tc_kernel<D, BIAS>, smem);
     if (err != cudaSuccess) return err;
-    flash_attention_tc_kernel<D, REL><<<grid, kAttnThreads, smem, stream>>>(a);
+    flash_attention_tc_kernel<D, BIAS><<<grid, kAttnThreads, smem, stream>>>(a);
   } else {
     const size_t smem = attn_smem_bytes<D>(r);
-    cudaError_t err = allow_smem(flash_attention_kernel<D, REL>, smem);
+    cudaError_t err = allow_smem(flash_attention_kernel<D, BIAS>, smem);
     if (err != cudaSuccess) return err;
-    flash_attention_kernel<D, REL><<<grid, kAttnThreads, smem, stream>>>(a);
+    flash_attention_kernel<D, BIAS><<<grid, kAttnThreads, smem, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
-template <bool REL>
-cudaError_t dispatch_flash_attention(const AttnArgs& a, int batch, int d, int dtype,
-                                     cudaStream_t s) {
-  if (dtype == kFloat32) {
-    switch (d) {
-      case 96: return launch_flash_attention<float, 96, REL>(a, batch, s);
-      case 128: return launch_flash_attention<float, 128, REL>(a, batch, s);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (dtype == kBFloat16) {
-    switch (d) {
-      case 96: return launch_flash_attention<__nv_bfloat16, 96, REL>(a, batch, s);
-      case 128: return launch_flash_attention<__nv_bfloat16, 128, REL>(a, batch, s);
-      default: return cudaErrorInvalidValue;
-    }
+// Head dims by bias mode: 96 and 128 (MViT, SyncBlock) without a dense bias,
+// 32 (VideoSwin) with it.
+template <typename T, int BIAS>
+cudaError_t launch_flash_attention_d(const AttnArgs& a, int batch, int d, cudaStream_t s) {
+  if constexpr (BIAS == kDenseBias) {
+    if (d == 32) return launch_flash_attention<T, 32, BIAS>(a, batch, s);
+  } else {
+    if (d == 96) return launch_flash_attention<T, 96, BIAS>(a, batch, s);
+    if (d == 128) return launch_flash_attention<T, 128, BIAS>(a, batch, s);
   }
   return cudaErrorInvalidValue;
+}
+
+template <int BIAS>
+cudaError_t dispatch_flash_attention(const AttnArgs& a, int batch, int d, int dtype,
+                                     cudaStream_t s) {
+  if (dtype == kFloat32) return launch_flash_attention_d<float, BIAS>(a, batch, d, s);
+  if (dtype == kBFloat16) return launch_flash_attention_d<__nv_bfloat16, BIAS>(a, batch, d, s);
+  return cudaErrorInvalidValue;
+}
+
+// The window kernels' arguments (forward and backward): packed qkv [B_, N, 3C]
+// in lane order (3, head, D) read in place, out [B_, N, C], a dense bias
+// [heads, N, N] and mask [nw, N, N] or null; q_s = q * D^-0.5.
+inline AttnArgs window_attn_args(const void* qkv, const void* bias, const void* mask, void* out,
+                                 float* lse, int N, int C, int heads, int nw, int dtype) {
+  const int D = C / heads;
+  const size_t es = dtype == kBFloat16 ? 2 : 4;
+  AttnArgs a{};
+  a.q = qkv;
+  a.k = static_cast<const char*>(qkv) + C * es;
+  a.v = static_cast<const char*>(qkv) + 2 * C * es;
+  a.bias = bias;
+  a.mask = mask;
+  a.nw = nw;
+  a.out = out;
+  a.lse = lse;
+  const int64_t n = N;
+  a.qs = {n * 3 * C, D, 3 * C};
+  a.ks = a.qs;
+  a.vs = a.qs;
+  a.os = {n * C, D, C};
+  a.heads = heads;
+  a.nq = N;
+  a.nk = N;
+  a.scale = 1.f;
+  a.qscale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
+  return a;
 }
 
 }  // namespace mspi

@@ -38,6 +38,6 @@ extern "C" int mspi_self_attention(const void* q, const void* kv, void* out, flo
   a.nq = N;
   a.nk = N;
   a.scale = 1.f / sqrtf(static_cast<float>(D));
-  return mspi::dispatch_flash_attention<false>(a, B, D, dtype,
+  return mspi::dispatch_flash_attention<mspi::kNoBias>(a, B, D, dtype,
                                                static_cast<cudaStream_t>(stream));
 }

@@ -11,7 +11,8 @@ clip and flipped audio, then an 11x11 Gaussian blur -> exp -> resize to
 it with file I/O:
 
     python -m mspi_tpu_torch.inference --path_data ./AuViDataset --dataset AVAD \
-        --split 2 --save_path ./output [--weight port_state_dict.pt] [--bf16]
+        --split 2 --save_path ./output [--motion_encoder videoswins] \
+        [--weight port_state_dict.pt] [--bf16]
 """
 
 from __future__ import annotations
@@ -114,6 +115,8 @@ def predict_video(model, frames_u8: np.ndarray, audio_16k: Optional[np.ndarray],
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--motion_encoder", default="mvitv2s", type=str,
+                   help="backbone of the model (mvitv2s or videoswins)")
     p.add_argument("--weight", default="", type=str,
                    help="torch state_dict of the port (e.g. via "
                         "mspi_tpu_torch.convert); random seeded weights if empty")
@@ -140,7 +143,7 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise RuntimeError("the port's inference runs on a CUDA device")
-    cfg = get_config("mvitv2s")
+    cfg = get_config(args.motion_encoder)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = AudioVisualSaliencyModel(cfg, device="cuda", dtype=dtype)
     if args.weight:

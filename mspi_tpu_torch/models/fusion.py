@@ -9,7 +9,8 @@ package's variables and a released checkpoint loads with `load_state_dict`.
 
 Kernels on this path: SyncBlock attention runs K4 (`self_attention`); the
 SyncBlock and decoder ConvNextBlock3d MLPs run K2 (`ln_mlp`); the MViT
-backbone and the ConvNeXt prior bring K1, K2 and K3's call site.
+backbone brings K1 and K2, the VideoSwin backbone the window-attention
+kernel and K2, and the ConvNeXt prior K3's call site.
 
 The models serve inference (eval mode, BatchNorm on running statistics) and
 training (train mode: BatchNorm on batch statistics, MViT drop-path). The
@@ -36,6 +37,7 @@ from mspi_tpu_torch.models.convnext import ConvNeXtBlock2d, ConvNeXtTinyFeatures
 from mspi_tpu_torch.models.mvit import MultiScaleAttention
 from mspi_tpu_torch.models.registry import build_backbone
 from mspi_tpu_torch.models.s3d import BasicConv3d, SepConv3d
+from mspi_tpu_torch.models.videoswin import WindowAttention3D
 from mspi_tpu_torch.ops import layers
 from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp
 from mspi_tpu_torch.ops.kernels.pooled_attention import self_attention
@@ -292,7 +294,8 @@ class Readout(nn.Sequential):
 def _init_weights(model: nn.Module, gen: torch.Generator) -> None:
     """Draw every parameter from `gen` with the JAX package's initialisers:
     torch's default for convs and linears, xavier for the fusion
-    transformer, truncated normal(0.02) for ConvNeXt and the rel-pos tables,
+    transformer, truncated normal(0.02) for ConvNeXt, the rel-pos tables and
+    the window-attention bias tables,
     zero biases where the JAX module asks for them."""
     layers.init_default(model, gen)
     for m in model.modules():
@@ -319,6 +322,8 @@ def _init_weights(model: nn.Module, gen: torch.Generator) -> None:
         elif isinstance(m, MultiScaleAttention):
             for t in (m.rel_pos_h, m.rel_pos_w, m.rel_pos_t):
                 layers.trunc_normal_(t, 0.02, gen)
+        elif isinstance(m, WindowAttention3D):
+            layers.trunc_normal_(m.relative_position_bias_table, 0.02, gen)
         elif isinstance(m, Readout):
             layers.trunc_normal_(m[12].weight, 1.0 / math.sqrt(m[12].weight[0].numel()), gen)
             nn.init.zeros_(m[12].bias)

@@ -41,7 +41,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches: Dict[str, int] = {"attention_rel": 0, "ln_mlp": 0, "ln_mlp_prior": 0,
                             "self_attention": 0, "attention_rel_bwd": 0,
-                            "attention_bwd": 0, "ln_mlp_bwd": 0}
+                            "attention_bwd": 0, "ln_mlp_bwd": 0, "window_attention": 0,
+                            "window_attention_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +57,8 @@ _SIGNATURES = {
     "mspi_ln_mlp_bwd_rows": [_I, _I],
     "mspi_attention_rel_bwd": [_P] * 14 + [_I] * 10 + [_F, _I, _P],
     "mspi_self_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
+    "mspi_window_attention": [_P] * 5 + [_I] * 6 + [_P],
+    "mspi_window_attention_bwd": [_P] * 12 + [_I] * 7 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -68,7 +68,10 @@ def load_torch_checkpoint(path: str):
 def load_pretrained_encoders(cfg: MSPIConfig, model: torch.nn.Module) -> torch.nn.Module:
     """Load the released audio, image-saliency and motion encoder weights
     into `audnet`, `image_encoder` and `visnet` when their files exist;
-    missing files are skipped (random initialisation stays)."""
+    missing files are skipped (random initialisation stays). mmaction
+    VideoSwin checkpoints prefix the trunk with 'backbone.'
+    (video_swin_transformer.py:593-605), which is stripped for
+    `videoswins`."""
     mc = cfg.model
     for path, name in ((mc.audio_encoder_weight, "audnet"),
                        (mc.image_saliency_encoder_weight, "image_encoder"),
@@ -76,6 +79,9 @@ def load_pretrained_encoders(cfg: MSPIConfig, model: torch.nn.Module) -> torch.n
         if path and os.path.exists(path) and hasattr(model, name):
             module = getattr(model, name)
             sd = load_torch_checkpoint(path)
+            if name == "visnet" and mc.motion_encoder == "videoswins":
+                sd = {k[len("backbone."):] if k.startswith("backbone.") else k: v
+                      for k, v in sd.items()}
             ref = next(module.parameters())
             module.load_state_dict({k: v.to(ref.dtype) if v.is_floating_point() else v
                                     for k, v in sd.items()}, strict=False)

@@ -124,7 +124,8 @@ def test_predict_video_shapes_and_order(rng):
 def test_port_imports_no_jax():
     code = ("import sys; before = set(sys.modules); "
             "import mspi_tpu_torch, mspi_tpu_torch.inference, mspi_tpu_torch.convert, "
-            "mspi_tpu_torch.models.fusion, mspi_tpu_torch.data.video, "
+            "mspi_tpu_torch.models.fusion, mspi_tpu_torch.models.videoswin, "
+            "mspi_tpu_torch.ops.kernels.window_attention, mspi_tpu_torch.data.video, "
             "mspi_tpu_torch.data.datasets, mspi_tpu_torch.data.loader, "
             "mspi_tpu_torch.train.engine, mspi_tpu_torch.train.loss, "
             "mspi_tpu_torch.train.metrics, mspi_tpu_torch.train.checkpoints, "

@@ -1,11 +1,12 @@
 """Device-time breakdown of one forward, or one training step, of the
 PyTorch/CUDA port on a GPU.
 
-    python tools/profile_torch_port.py [--batch 8] [--dtype bf16] [--steps 2] \
-        [--train] [--table PATH]
+    python tools/profile_torch_port.py [--motion_encoder mvitv2s|videoswins] \
+        [--batch 8] [--dtype bf16] [--steps 2] [--train] [--table PATH]
 
-Builds the flagship AudioVisualSaliencyModel (MViTv2-S, 16x224x384, seeded
-random weights) on cuda, warms up, then traces `--steps` forwards with
+Builds the AudioVisualSaliencyModel (MViTv2-S by default, or VideoSwin-S;
+16x224x384, seeded random weights) on cuda, warms up, then traces `--steps`
+forwards with
 torch.profiler. With `--train` it traces `make_train_step` instead (fp32
 weights, bf16 autocast compute with `--dtype bf16`) on a synthetic batch.
 Prints the card's name and power limit, the wall time per forward or step
@@ -32,14 +33,22 @@ from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel  # noqa: E402
 from mspi_tpu_torch.train import engine  # noqa: E402
 from mspi_tpu_torch.train.synthetic import make_batch  # noqa: E402
 
-FAMILIES = (
+# The port's kernels: a name matches when it holds every key. The flash
+# kernels' last template argument is the bias mode (0 none, 1 rel, 2 dense).
+PORT_FAMILIES = (
+    ("window attention backward (rows 16/17)", ("window_",)),
+    ("window attention backward (rows 16/17)", ("attn_bwd", "2>(")),
     ("K1/K4 attention backward", ("attn_bwd",)),
     ("K2 ln_mlp backward", ("ln_mlp_bwd",)),
     ("K2 ln_mlp backward", ("atb_kernel",)),
     ("K2 ln_mlp backward", ("sum_segments",)),
-    ("K1 attention_rel", ("flash_attention", "true>")),
-    ("K4 self_attention", ("flash_attention", "false>")),
+    ("window attention (row 15)", ("flash_attention", "2>(")),
+    ("K1 attention_rel", ("flash_attention", "1>(")),
+    ("K4 self_attention", ("flash_attention", "0>(")),
     ("K2/K3 ln_mlp", ("ln_mlp",)),
+)
+# Everything else: a name matches when it holds any key.
+FAMILIES = (
     ("conv (cuDNN)", ("conv", "cudnn", "implicit", "xmma", "sm90_xmma", "dgrad", "fprop")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "nvjet")),
     ("layer/batch norm", ("norm",)),
@@ -50,16 +59,19 @@ FAMILIES = (
 
 
 def family(name: str) -> str:
-    low = name.lower()
+    low = name.lower().replace(" ", "")
+    for fam, keys in PORT_FAMILIES:
+        if all(k.lower() in low for k in keys):
+            return fam
     for fam, keys in FAMILIES:
-        if all(k.lower() in low for k in keys) if fam.startswith("K") else \
-                any(k in low for k in keys):
+        if any(k in low for k in keys):
             return fam
     return "other"
 
 
 def main() -> None:
     p = argparse.ArgumentParser()
+    p.add_argument("--motion_encoder", default="mvitv2s", choices=("mvitv2s", "videoswins"))
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     p.add_argument("--steps", type=int, default=2)
@@ -75,7 +87,7 @@ def main() -> None:
                          check=True).stdout.strip()
     print(smi)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    cfg = get_config("mvitv2s")
+    cfg = get_config(args.motion_encoder)
     model = AudioVisualSaliencyModel(cfg, device="cuda",
                                      dtype=torch.float32 if args.train else dtype,
                                      generator=torch.Generator().manual_seed(0))
@@ -92,8 +104,8 @@ def main() -> None:
             step(state, batch, cfg.solver.lr)
     else:
         gen = torch.Generator().manual_seed(1)
-        clips = torch.randint(0, 256, (args.batch, 16, 224, 384, 3), generator=gen,
-                              dtype=torch.uint8).cuda()
+        clips = torch.randint(0, 256, (args.batch, 16, *cfg.data.resolution, 3),
+                              generator=gen, dtype=torch.uint8).cuda()
         auds = torch.randn(args.batch, 257, 111, 1, generator=gen).cuda()
 
         def run():
@@ -125,12 +137,12 @@ def main() -> None:
         device_ms += ms
         by_family[family(evt.key)] += ms
     what = "train step" if args.train else "forward"
-    print(f"batch {args.batch} {args.dtype}: wall {wall_ms:.1f} ms/{what} "
+    print(f"{args.motion_encoder} batch {args.batch} {args.dtype}: wall {wall_ms:.1f} ms/{what} "
           f"({args.batch * 1000 / wall_ms:.2f} clips/s), device kernels "
           f"{device_ms:.1f} ms/{what}, device idle share "
           f"{max(0.0, 1 - device_ms / wall_ms):.1%}")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam:20s} {ms:8.2f} ms  {ms / max(device_ms, 1e-9):6.1%}")
+        print(f"  {fam:38s} {ms:8.2f} ms  {ms / max(device_ms, 1e-9):6.1%}")
     if args.table:
         Path(args.table).parent.mkdir(parents=True, exist_ok=True)
         Path(args.table).write_text(
