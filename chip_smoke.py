@@ -27,10 +27,18 @@ first failure (there is no CPU path):
    CPU (plain versions) from the same weights, batch and drop-path draws:
    loss, each aux value and the cosine of the gradient vectors;
 9-12. swin_main, swin_parity, swin_training, swin_train_parity: phases 4,
-   5, 7 and 8 on the VideoSwin-S model.
+   5, 7 and 8 on the VideoSwin-S model;
+13. int8_main: phase 4 on the MViTv2-S model with the serving options
+   (quant="int8", prior_fold_res, prior_ln_t), whose path runs the int8
+   LN+MLP, residual-folded prior MLP and LayerNorm kernels; the int8 and
+   float bf16 forwards timed in turns, and how many int8 codes the bf16
+   model's weights change against the fp32 weights';
+14. int8_parity: that model in fp32 on the card against the CPU's plain
+   versions (CC), and against the card's float model (the cost of int8);
+15. swin_int8_main: phase 4 on the VideoSwin-S model with quant="int8".
 
-Each path (4, 7, 9, 11) sets the launch counts to 0 just before it and
-reads them just after; the kernels' record sums the four.
+Each path (4, 7, 9, 11, 13, 15) sets the launch counts to 0 just before it
+and reads them just after; the kernels' record sums them.
 The last two lines are the kernels' JSON record and the device JSON record.
 `--phases` runs a subset (2 always runs; the records then cover only what
 ran and no device record is printed).
@@ -67,13 +75,25 @@ KERNELS = {
     # rows 16 (:233, stages 1-2) and 17 (:332, stages 3-4): one kernel here
     "window_attention_bwd": ("mspi_tpu_torch/csrc/attention_bwd.cu",
                              "mspi_tpu/ops/pallas/attention.py:233"),
+    "ln_mlp_int8": ("mspi_tpu_torch/csrc/ln_mlp_int8.cu", "mspi_tpu/ops/pallas/mlp.py:985"),
+    "ln_mlp_prior_res": ("mspi_tpu_torch/csrc/ln_mlp.cu", "mspi_tpu/ops/pallas/mlp.py:778"),
+    "layernorm_tokens": ("mspi_tpu_torch/csrc/layernorm.cu", "mspi_tpu/ops/pallas/mlp.py:880"),
 }
+SERVING = {"quant": "int8", "prior_fold_res": True, "prior_ln_t": True}
 # launches per forward of each model (ln_mlp: backbone blocks + 3 SyncBlock
-# + 4 decoder blocks; ln_mlp_prior: the ConvNeXt prior's 18 blocks)
+# + 4 decoder blocks; ln_mlp_prior: the ConvNeXt prior's 18 blocks). With
+# quant="int8" the blocks with C >= 256 (MViT 3-15, Swin stages 3-4, the 3
+# SyncBlock blocks) run ln_mlp_int8; prior_fold_res moves the prior's 18
+# blocks to ln_mlp_prior_res, prior_ln_t its stem + 3 downsample norms to
+# layernorm_tokens.
 PER_FORWARD = {
     "mvitv2s": {"attention_rel": 16, "ln_mlp": 23, "ln_mlp_prior": 18, "self_attention": 3},
     "videoswins": {"window_attention": 24, "ln_mlp": 31, "ln_mlp_prior": 18,
                    "self_attention": 3},
+    "mvitv2s+serving": {"attention_rel": 16, "ln_mlp": 7, "ln_mlp_int8": 16,
+                        "ln_mlp_prior_res": 18, "layernorm_tokens": 4, "self_attention": 3},
+    "videoswins+int8": {"window_attention": 24, "ln_mlp": 8, "ln_mlp_int8": 23,
+                        "ln_mlp_prior": 18, "self_attention": 3},
 }
 # launches per training step
 PER_STEP = {
@@ -82,15 +102,19 @@ PER_STEP = {
     "videoswins": {**PER_FORWARD["videoswins"], "window_attention_bwd": 24, "ln_mlp_bwd": 31,
                    "attention_bwd": 3},
 }
-PATH_PHASES = {  # phase -> (path kind, motion encoder)
+PATH_PHASES = {  # phase -> (path kind, PER_FORWARD key: the encoder and its options)
     "main": ("main", "mvitv2s"), "parity": ("parity", "mvitv2s"),
     "training": ("training", "mvitv2s"), "train_parity": ("train_parity", "mvitv2s"),
     "swin_main": ("main", "videoswins"), "swin_parity": ("parity", "videoswins"),
     "swin_training": ("training", "videoswins"),
     "swin_train_parity": ("train_parity", "videoswins"),
+    "int8_main": ("main", "mvitv2s+serving"), "int8_parity": ("int8_parity", "mvitv2s+serving"),
+    "swin_int8_main": ("main", "videoswins+int8"),
 }
+OPTIONS = {"mvitv2s+serving": SERVING, "videoswins+int8": {"quant": "int8"}}
 PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity", "swin_main",
-          "swin_parity", "swin_training", "swin_train_parity")
+          "swin_parity", "swin_training", "swin_train_parity", "int8_main", "int8_parity",
+          "swin_int8_main")
 BATCH = 8
 TRAIN_BATCH = 2
 STEPS = 5
@@ -99,6 +123,7 @@ SPECTRO = (257, 111)
 N_FRAMES, FPS, SAMPLE_RATE = 31, 30.0, 16000
 # published H100 SXM peaks (dense): bf16 tensor cores, fp32 outside them, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_INT8_OPS = 1979e12  # int8 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -137,15 +162,15 @@ def new_record() -> dict:
             "bound_by": None, "library_ms": None, "_bytes_ms": 0.0, "_ops_ms": 0.0}
 
 
-def add_bound(rec, dtype, n_bytes: float, flops: float) -> None:
+def add_bound(rec, dtype, n_bytes: float, flops: float, peak: float = None) -> None:
     """The least time of the work on the card: the larger of its bytes (each
     input read once, each output written once) over HBM's rate and its
-    flops over the dtype's peak. Recorded for the bf16 runs, whose times
-    the record sums."""
+    operations over the peak of their type (by default the dtype's matrix
+    peak). Recorded for the bf16 runs, whose times the record sums."""
     if dtype != torch.bfloat16:
         return
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     rec["bound_ms"] += max(t_bytes, t_ops)
     rec["_bytes_ms"] += t_bytes
     rec["_ops_ms"] += t_ops
@@ -175,21 +200,27 @@ def record(records, name, label, dtype, errs_tols, ms, plain_ms, library_ms=None
         raise AssertionError(f"{name} {label} {dtype}: error {err} above tolerance")
 
 
-def check_kernel(records, name, label, kernel_fn, plain_fn, inputs, dtype, library_fn=None):
+def check_kernel(records, name, label, kernel_fn, plain_fn, inputs, dtype, library_fn=None,
+                 compare=None):
     """Run one forward kernel at one shape against its plain version; record
-    the error and the times."""
-    xs = [t.to(dtype) for t in inputs]
+    the error and the times. By default the plain version runs in fp32 on
+    the same dtype-rounded inputs, held to `tolerance`; `compare(out, xs)`
+    replaces that with its own (error, tolerance) pairs."""
+    xs = [t.to(dtype) if t.is_floating_point() else t for t in inputs]
     out = kernel_fn(*xs)
     torch.cuda.synchronize()
-    ref = plain_fn(*(t.float() for t in xs))
-    err = (out.float() - ref).abs().max().item()
+    if compare is None:
+        ref = plain_fn(*(t.float() if t.is_floating_point() else t for t in xs))
+        errs = [((out.float() - ref).abs().max().item(), tolerance(dtype, ref))]
+    else:
+        errs = compare(out, xs)
     ms = time_ms(lambda: kernel_fn(*xs))
     plain_ms = time_ms(lambda: plain_fn(*xs))
     lib_ms = None
     if library_fn is not None and dtype == torch.bfloat16:
         with torch.no_grad():
             lib_ms = time_ms(library_fn(*xs))
-    record(records, name, label, dtype, [(err, tolerance(dtype, ref))], ms, plain_ms, lib_ms)
+    record(records, name, label, dtype, errs, ms, plain_ms, lib_ms)
     return xs, out
 
 
@@ -338,6 +369,81 @@ def phase_kernels(records) -> None:
                 inputs, dtype, library)
             add_bound(records["window_attention"], dtype, nbytes(*xs, out),
                       4.0 * BATCH * nw * heads * SWIN_N * SWIN_N * SWIN_D)
+        del inputs, xs, out
+    serving_kernels(records, randn)
+
+
+# Row 12 shapes per clip (MViTv2-S; VideoSwin-S's stage 3 and 4 have the
+# same token counts): label, tokens, C
+INT8_SHAPES = (("mvit-s3", 2688, 384), ("mvit-s4", 672, 768), ("sync", 708, 512))
+# The prior's stages per frame (16 frames per clip): label, tokens, C
+PRIOR_SHAPES = (("prior-s0", 5376, 96), ("prior-s1", 1344, 192), ("prior-s2", 336, 384),
+                ("prior-s3", 84, 768))
+# Row 11 call sites per frame: stem.1 and stages_{1,2,3}.downsample.0
+LN_SHAPES = (("stem", 5376, 96), ("ds1", 5376, 96), ("ds2", 1344, 192), ("ds3", 336, 384))
+
+
+def int8_errors(out, ref):
+    """Row 12's tolerance: RMS error <= 1e-3 of the output's RMS and max abs
+    error <= 0.02 x max|ref|. Kernel and plain version compute the same
+    int8 codes, except where the LayerNorm sums or the square root round
+    across a code's boundary: one code flips on rare elements."""
+    d = (out.double() - ref.double())
+    rms = ref.double().pow(2).mean().sqrt().item()
+    flips = (d.abs() > 1e-3 * rms).sum().item()
+    log("kernels", f"  int8: {flips} of {d.numel()} outputs off by more than 1e-3 x RMS "
+                   f"(a flipped code)")
+    return [(d.pow(2).mean().sqrt().item(), 1e-3 * rms),
+            (d.abs().max().item(), 0.02 * ref.abs().max().item())]
+
+
+def serving_kernels(records, randn) -> None:
+    """Rows 10, 11 and 12 at the serving path's shapes, fp32 and bf16."""
+    import torch.nn.functional as F
+
+    from mspi_tpu_torch.ops.kernels import ln_mlp as K2
+    from mspi_tpu_torch.ops.kernels.layernorm import layernorm_tokens, layernorm_tokens_reference
+
+    for label, tokens, C in INT8_SHAPES:
+        M, H = BATCH * tokens, 4 * C
+        g, b, w1, b1, w2, b2 = (t.float() for t in mlp_inputs(randn, 1, C)[1:])
+        w1q, s1 = K2.quantize_weight(w1)
+        w2q, s2 = K2.quantize_weight(w2)
+        ops = (g, b, w1q, s1, b1, w2q, s2, b2)
+        x32 = randn(M, C)
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, out = check_kernel(
+                records, "ln_mlp_int8", label, lambda x: K2.ln_mlp_int8(x, *ops, 1e-6),
+                lambda x: K2.ln_mlp_int8_reference(x, *ops, 1e-6), [x32], dtype,
+                compare=lambda out, xs: int8_errors(
+                    out, K2.ln_mlp_int8_reference(xs[0], *ops, 1e-6)))
+            add_bound(records["ln_mlp_int8"], dtype, nbytes(*xs, out, *ops),
+                      4.0 * M * C * H, PEAK_INT8_OPS)
+        del x32, xs, out
+    for label, tokens, C in PRIOR_SHAPES:
+        M = BATCH * 16 * tokens
+        inputs = mlp_inputs(randn, M, C)
+        inputs[1:1] = [randn(M, C), 0.2 + randn(C, scale=0.05)]  # shortcut, gamma
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, out = check_kernel(records, "ln_mlp_prior_res", label,
+                                   lambda *a: K2.ln_mlp_prior_res(*a, 1e-6),
+                                   lambda *a: K2.ln_mlp_prior_res_reference(*a, 1e-6),
+                                   inputs, dtype)
+            add_bound(records["ln_mlp_prior_res"], dtype, nbytes(*xs, out),
+                      4.0 * M * C * 4 * C)
+        del inputs, xs, out
+    for label, tokens, C in LN_SHAPES:
+        M = BATCH * 16 * tokens
+        inputs = [randn(M, C) + 0.5, 1 + randn(C, scale=0.1), randn(C, scale=0.1)]
+        for dtype in (torch.float32, torch.bfloat16):
+            def library(x, g, b, c=C):
+                return lambda: F.layer_norm(x, (c,), g, b, 1e-6)
+            xs, out = check_kernel(records, "layernorm_tokens", label,
+                                   lambda x, g, b: layernorm_tokens(x, g, b, 1e-6),
+                                   lambda x, g, b: layernorm_tokens_reference(x, g, b, 1e-6),
+                                   inputs, dtype, library)
+            add_bound(records["layernorm_tokens"], dtype, nbytes(*xs, out), 8.0 * M * C,
+                      PEAK_FLOPS[torch.float32])
         del inputs, xs, out
 
 
@@ -491,15 +597,25 @@ def synthetic_video(seed: int):
     return frames, audio
 
 
-def phase_main_path(tag: str, encoder: str) -> dict:
+def model_config(key: str):
+    """The config of a PER_FORWARD key: a motion encoder, + its options."""
     from mspi_tpu_torch.config import get_config
-    from mspi_tpu_torch.inference import predict_video, sliding_window_jobs
+
+    return get_config(key.split("+")[0], {"model": OPTIONS.get(key, {})})
+
+
+def build_model(key: str, device: str, dtype: torch.dtype):
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
+
+    return AudioVisualSaliencyModel(model_config(key), device=device, dtype=dtype,
+                                    generator=torch.Generator().manual_seed(0))
+
+
+def phase_main_path(tag: str, key: str) -> dict:
+    from mspi_tpu_torch.inference import predict_video, sliding_window_jobs
     from mspi_tpu_torch.ops import kernels
 
-    cfg = get_config(encoder)
-    model = AudioVisualSaliencyModel(cfg, device="cuda", dtype=torch.bfloat16,
-                                     generator=torch.Generator().manual_seed(0))
+    model = build_model(key, "cuda", torch.bfloat16)
     frames, audio = synthetic_video(0)
     n_windows = len(sliding_window_jobs(N_FRAMES, 16))
     forwards = -(-n_windows // BATCH)
@@ -510,7 +626,7 @@ def phase_main_path(tag: str, encoder: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernels.launches)
-    log(tag, f"{encoder} predict_video: {n_windows} windows in {forwards} forwards of "
+    log(tag, f"{key} predict_video: {n_windows} windows in {forwards} forwards of "
              f"{BATCH}, {wall:.2f} s wall (first call), launches {counts}")
 
     if maps.shape != (N_FRAMES, 480, 640) or maps.dtype != np.uint8:
@@ -521,7 +637,7 @@ def phase_main_path(tag: str, encoder: str) -> dict:
         raise AssertionError("a map is constant or not min-max normalised "
                              "(non-finite log-density)")
     for name in KERNELS:
-        want = forwards * PER_FORWARD[encoder].get(name, 0)
+        want = forwards * PER_FORWARD[key].get(name, 0)
         if counts[name] != want:
             raise AssertionError(f"{name}: {counts[name]} launches, expected {want}")
 
@@ -532,12 +648,72 @@ def phase_main_path(tag: str, encoder: str) -> dict:
         if not (torch.isfinite(out).all() and torch.isfinite(loss)):
             raise AssertionError("non-finite model output")
         ms = time_ms(lambda: model(clips, auds), warmup=1, reps=3)
-    log(tag, f"{encoder} forward bf16 batch {BATCH}: {ms:.1f} ms = "
+    log(tag, f"{key} forward bf16 batch {BATCH}: {ms:.1f} ms = "
              f"{BATCH * 1000 / ms:.2f} clips/s (CUDA events, median of 3); "
              f"map {N_FRAMES} x 480 x 640 uint8 ok")
+    if key in OPTIONS:
+        compare_with_float(tag, key, model, clips, auds)
     del model
     torch.cuda.empty_cache()
     return counts
+
+
+def compare_with_float(tag: str, key: str, model, clips, auds) -> None:
+    """The options' model against the float bf16 model of the same seed:
+    forwards timed in turns (float, options, options, float), and how many
+    int8 codes the bf16-rounded weights give otherwise than the fp32
+    weights the models are drawn from."""
+    from mspi_tpu_torch.ops.kernels.ln_mlp import quantize_weight
+
+    flt = build_model(key.split("+")[0], "cuda", torch.bfloat16)
+    with torch.no_grad():
+        times = [time_ms(lambda m=m: m(clips, auds), warmup=1, reps=5)
+                 for m in (flt, model, model, flt)]
+    del flt
+    log(tag, f"{key} vs float, bf16 batch {BATCH}, in turns: float {times[0]:.1f} / "
+             f"{times[3]:.1f} ms, options {times[1]:.1f} / {times[2]:.1f} ms = "
+             f"{BATCH * 1000 / statistics.mean(times[:4:3]):.2f} vs "
+             f"{BATCH * 1000 / statistics.mean(times[1:3]):.2f} clips/s (CUDA events, "
+             f"medians of 5)")
+    if OPTIONS[key].get("quant") != "int8":
+        return
+    ref = build_model(key, "cpu", torch.float32)
+    ref_mods = dict(ref.named_modules())
+    differ = total = 0
+    for name, m in model.named_modules():
+        if hasattr(m, "int8_w1q"):
+            for q, w in ((m.int8_w1q, ref_mods[name].fc1.weight),
+                         (m.int8_w2q, ref_mods[name].fc2.weight)):
+                differ += (q.cpu() != quantize_weight(w)[0]).sum().item()
+                total += q.numel()
+    log(tag, f"int8 codes of the bf16 model's weights: {differ} of {total} "
+             f"({100.0 * differ / total:.3f}%) differ from the fp32 weights' codes")
+
+
+def phase_int8_parity(tag: str, key: str) -> None:
+    """The options' model in fp32: card against the CPU's plain versions
+    (CC >= 0.9999), and card against the card's float model (CC >= 0.99:
+    the cost of int8, recorded)."""
+    frames, _ = synthetic_video(3)
+    clip = torch.from_numpy(frames[None, :16].copy())
+    aud = torch.randn(1, 257, 111, 1, generator=torch.Generator().manual_seed(4))
+    outs = {}
+    for name, k, device in (("card", key, "cuda"), ("cpu", key, "cpu"),
+                            ("card float", key.split("+")[0], "cuda")):
+        model = build_model(k, device, torch.float32)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out, _ = model(clip.to(device), aud.to(device))
+        outs[name] = out.cpu().double().flatten()
+        log(tag, f"{k} fp32 forward on {device}: {time.perf_counter() - t0:.1f} s")
+        del model
+    for other, need in (("cpu", 0.9999), ("card float", 0.99)):
+        a, b = outs["card"], outs[other]
+        cc = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
+        log(tag, f"{key} log-density {RES[0]}x{RES[1]} card vs {other}: CC {cc:.8f} "
+                 f"(need >= {need}), max abs diff {(a - b).abs().max().item():.3e}")
+        if not cc >= need:
+            raise AssertionError(f"card vs {other}: CC {cc} below {need}")
 
 
 def phase_parity(tag: str, encoder: str) -> None:
@@ -691,7 +867,7 @@ def main() -> None:
     records = {name: new_record() for name in KERNELS}
     counts = {name: 0 for name in KERNELS}
     runners = {"main": phase_main_path, "parity": phase_parity, "training": phase_training,
-               "train_parity": phase_train_parity}
+               "train_parity": phase_train_parity, "int8_parity": phase_int8_parity}
     for phase in PHASES:
         if phase not in phases:
             continue

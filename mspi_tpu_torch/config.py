@@ -1,5 +1,6 @@
 """Configuration for the ported slices: the dataclass fields the MViTv2-S
-and VideoSwin-S audio-visual inference and training paths read.
+and VideoSwin-S audio-visual inference and training paths read, and the
+serving options of `ModelConfig`.
 
 Counterpart of `mspi_tpu/config.py` (same field names and defaults, so a
 dict of overrides means the same thing to both packages). `mvitv2s`
@@ -101,6 +102,22 @@ class ModelConfig:
     image_saliency_encoder_weight: str = ""
     mvit: MViTConfig = field(default_factory=MViTConfig)
     videoswin: VideoSwinConfig = field(default_factory=VideoSwinConfig)
+    # Serving options, off by default (the JAX package reads them from the
+    # environment; the port reads nothing there).
+    # "int8": the LN+MLP of every backbone and SyncBlock block with C >= 256
+    # runs int8 weights x per-row int8 activations at inference, as
+    # MSPI_QUANT=int8 does (mspi_tpu/ops/pallas/__init__.py).
+    quant: str = ""
+    # The ConvNeXt prior's blocks emit shortcut + gamma * mlp(LN(x)) from one
+    # kernel, as MSPI_PRIOR_FOLD_RES=1 does (mspi_tpu/models/convnext.py).
+    prior_fold_res: bool = False
+    # The prior's stem and downsample LayerNorms run the standalone LayerNorm
+    # kernel, as MSPI_PRIOR_LN_T=1 does.
+    prior_ln_t: bool = False
+
+    def __post_init__(self):
+        if self.quant not in ("", "int8"):
+            raise ValueError(f"quant {self.quant!r}: expected '' or 'int8'")
 
     @property
     def embed_dims(self) -> Tuple[int, int, int, int]:

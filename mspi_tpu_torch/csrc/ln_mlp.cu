@@ -13,7 +13,16 @@
 // normalised z rounded to the storage type before fc1, fc1 accumulated in
 // fp32, exact erf GELU, h rounded to the storage type before fc2, fc2
 // accumulated in fp32, y rounded once on the way out. Residual, drop-path
-// and layer-scale stay with the caller.
+// and layer-scale stay with the caller, except in the residual-folded form:
+//
+// Also replaces mspi_tpu/ops/pallas/mlp.py::fused_ln_mlp_t_res
+// (_ln_fwd_kernel_t_res, MSPI_PRIOR_FOLD_RES=1), the ConvNeXt prior's block
+// tail shortcut + gamma * y. With a shortcut and a gamma (template flag RES,
+// non-null pointers) the epilogue reads the shortcut and writes
+// cast(float(shortcut) + float(gamma) * y) with y still in fp32, so y never
+// reaches device memory; gamma comes in the storage type, as the JAX package
+// passes gamma.astype(dt). Products and the sum are rounded separately
+// (__fmul_rn/__fadd_rn, no contraction), as the plain version computes them.
 //
 // What bounds it on the card: the two matmuls, 4*C*H flops per row against
 // 2*C values read and written per row -- at C >= 96 the arithmetic (and the
@@ -99,13 +108,27 @@ constexpr size_t ln_mlp_smem_floats() {
          + static_cast<size_t>(JS) * (C + 1);  // w2s: W2 slice, padded pitch
 }
 
-template <typename T, int C>
+// y = acc + b2, or with RES the folded residual shortcut + res_gamma * y.
+template <typename T, bool RES>
+__device__ __forceinline__ T epilogue(float acc, float bias, const T* __restrict__ shortcut,
+                                      const T* __restrict__ res_gamma, int64_t idx, int c) {
+  const float v = acc + bias;
+  if constexpr (RES) {
+    return from_f<T>(__fadd_rn(to_f(shortcut[idx]), __fmul_rn(to_f(res_gamma[c]), v)));
+  } else {
+    return from_f<T>(v);
+  }
+}
+
+template <typename T, int C, bool RES>
 __global__ void __launch_bounds__(THREADS)
 ln_mlp_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
               const T* __restrict__ beta, const T* __restrict__ w1,  // [H, C]
               const T* __restrict__ b1,                              // [H]
               const T* __restrict__ w2,                              // [C, H]
               const T* __restrict__ b2,                              // [C]
+              const T* __restrict__ shortcut,                        // [M, C] if RES
+              const T* __restrict__ res_gamma,                       // [C] if RES
               T* __restrict__ y, int M, int H, float eps) {
   static_assert(C % 32 == 0, "C must be a multiple of 32");
   constexpr int RN = C / 32;  // output columns per thread
@@ -193,7 +216,7 @@ ln_mlp_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
     }
   }
 
-  // 5. y = acc + b2, written once.
+  // 5. y = acc + b2 (or the folded residual), written once.
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t m = row0 + warp * 4 + i;
@@ -201,7 +224,8 @@ ln_mlp_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
 #pragma unroll
       for (int n = 0; n < RN; ++n) {
         const int c = lane + 32 * n;
-        y[m * C + c] = from_f<T>(acc[i][n] + to_f(b2[c]));
+        y[m * C + c] = epilogue<T, RES>(acc[i][n], to_f(b2[c]), shortcut, res_gamma,
+                                         m * C + c, c);
       }
     }
   }
@@ -236,13 +260,15 @@ constexpr size_t ln_mlp_tc_smem_bytes() {
 // Every WMMA load/store address is a multiple of 32 bytes: tile origins sit
 // at multiples of 16 rows and 16 columns, all pitches are multiples of 8
 // elements, and the wrapper passes 32-byte aligned operands.
-template <int C>
+template <int C, bool RES>
 __global__ void __launch_bounds__(THREADS)
 ln_mlp_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
                  const bf16* __restrict__ beta, const bf16* __restrict__ w1,  // [H, C]
                  const bf16* __restrict__ b1,                                 // [H]
                  const bf16* __restrict__ w2,                                 // [C, H]
                  const bf16* __restrict__ b2,                                 // [C]
+                 const bf16* __restrict__ shortcut,                           // [M, C] if RES
+                 const bf16* __restrict__ res_gamma,                          // [C] if RES
                  bf16* __restrict__ y, int M, int H, float eps) {
   static_assert(HC == 64 && THREADS == 256, "tile layout below");
   constexpr int RT = tc_row_tiles<C>();   // 16-row tiles per block
@@ -325,7 +351,7 @@ ln_mlp_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
     __syncthreads();  // us and hs are rewritten by the next chunk
   }
 
-  // y = acc + b2, through a per-warp 16x16 staging tile
+  // y = acc + b2 (or the folded residual), through a per-warp 16x16 staging tile
   float* sc = scratch + warp * 256;
 #pragma unroll
   for (int rt = 0; rt < RT; ++rt)
@@ -338,51 +364,67 @@ ln_mlp_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
       for (int e = lane; e < 256; e += 32) {
         const int64_t m = row0 + rt * 16 + e / 16;
         const int c = ct * 16 + e % 16;
-        if (m < M) y[m * C + c] = from_f<bf16>(sc[e] + to_f(b2[c]));
+        if (m < M) y[m * C + c] = epilogue<bf16, RES>(sc[e], to_f(b2[c]), shortcut, res_gamma,
+                                                      m * C + c, c);
       }
       __syncwarp();
     }
 }
 
-template <typename T, int C>
+template <typename T, int C, bool RES>
 cudaError_t launch_ln_mlp(const void* x, const void* g, const void* be, const void* w1,
-                          const void* b1, const void* w2, const void* b2, void* y, int M,
-                          int H, float eps, cudaStream_t stream) {
+                          const void* b1, const void* w2, const void* b2, const void* sc,
+                          const void* rg, void* y, int M, int H, float eps,
+                          cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     constexpr int rows = 16 * tc_row_tiles<C>();
     const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(M) + rows - 1) / rows);
     if (H % HC != 0) return cudaErrorInvalidValue;
     const size_t smem = ln_mlp_tc_smem_bytes<C>();
-    cudaError_t err = allow_smem(ln_mlp_tc_kernel<C>, smem);
+    cudaError_t err = allow_smem(ln_mlp_tc_kernel<C, RES>, smem);
     if (err != cudaSuccess) return err;
-    ln_mlp_tc_kernel<C><<<blocks, THREADS, smem, stream>>>(
+    ln_mlp_tc_kernel<C, RES><<<blocks, THREADS, smem, stream>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(g),
         static_cast<const bf16*>(be), static_cast<const bf16*>(w1),
         static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
-        static_cast<const bf16*>(b2), static_cast<bf16*>(y), M, H, eps);
+        static_cast<const bf16*>(b2), static_cast<const bf16*>(sc),
+        static_cast<const bf16*>(rg), static_cast<bf16*>(y), M, H, eps);
   } else {
     const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(M) + TM - 1) / TM);
     const size_t smem = ln_mlp_smem_floats<C>() * sizeof(float);
-    cudaError_t err = allow_smem(ln_mlp_kernel<T, C>, smem);
+    cudaError_t err = allow_smem(ln_mlp_kernel<T, C, RES>, smem);
     if (err != cudaSuccess) return err;
-    ln_mlp_kernel<T, C><<<blocks, THREADS, smem, stream>>>(
+    ln_mlp_kernel<T, C, RES><<<blocks, THREADS, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(be),
         static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
-        static_cast<const T*>(b2), static_cast<T*>(y), M, H, eps);
+        static_cast<const T*>(b2), static_cast<const T*>(sc), static_cast<const T*>(rg),
+        static_cast<T*>(y), M, H, eps);
   }
   return cudaGetLastError();
 }
 
+template <typename T, int C>
+cudaError_t launch_res(const void* x, const void* g, const void* be, const void* w1,
+                       const void* b1, const void* w2, const void* b2, const void* sc,
+                       const void* rg, void* y, int M, int H, float eps, cudaStream_t s) {
+  if (sc != nullptr) {
+    if (rg == nullptr) return cudaErrorInvalidValue;
+    return launch_ln_mlp<T, C, true>(x, g, be, w1, b1, w2, b2, sc, rg, y, M, H, eps, s);
+  }
+  return launch_ln_mlp<T, C, false>(x, g, be, w1, b1, w2, b2, sc, rg, y, M, H, eps, s);
+}
+
 template <typename T>
 cudaError_t dispatch_c(const void* x, const void* g, const void* be, const void* w1,
-                       const void* b1, const void* w2, const void* b2, void* y, int M,
-                       int C, int H, float eps, cudaStream_t s) {
+                       const void* b1, const void* w2, const void* b2, const void* sc,
+                       const void* rg, void* y, int M, int C, int H, float eps,
+                       cudaStream_t s) {
   switch (C) {
-    case 96: return launch_ln_mlp<T, 96>(x, g, be, w1, b1, w2, b2, y, M, H, eps, s);
-    case 192: return launch_ln_mlp<T, 192>(x, g, be, w1, b1, w2, b2, y, M, H, eps, s);
-    case 384: return launch_ln_mlp<T, 384>(x, g, be, w1, b1, w2, b2, y, M, H, eps, s);
-    case 512: return launch_ln_mlp<T, 512>(x, g, be, w1, b1, w2, b2, y, M, H, eps, s);
-    case 768: return launch_ln_mlp<T, 768>(x, g, be, w1, b1, w2, b2, y, M, H, eps, s);
+    case 96: return launch_res<T, 96>(x, g, be, w1, b1, w2, b2, sc, rg, y, M, H, eps, s);
+    case 192: return launch_res<T, 192>(x, g, be, w1, b1, w2, b2, sc, rg, y, M, H, eps, s);
+    case 384: return launch_res<T, 384>(x, g, be, w1, b1, w2, b2, sc, rg, y, M, H, eps, s);
+    case 512: return launch_res<T, 512>(x, g, be, w1, b1, w2, b2, sc, rg, y, M, H, eps, s);
+    case 768: return launch_res<T, 768>(x, g, be, w1, b1, w2, b2, sc, rg, y, M, H, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -391,17 +433,20 @@ cudaError_t dispatch_c(const void* x, const void* g, const void* be, const void*
 }  // namespace mspi
 
 // x, y: [M, C]; gamma, beta, b2: [C]; w1: [H, C]; b1: [H]; w2: [C, H]; all of
-// one dtype (0 fp32, 1 bf16), contiguous. Returns a cudaError_t code.
+// one dtype (0 fp32, 1 bf16), contiguous. shortcut [M, C] and res_gamma [C]
+// are both null (y = mlp(LN(x))) or both set (y = shortcut + res_gamma *
+// mlp(LN(x)), row 10). Returns a cudaError_t code.
 extern "C" int mspi_ln_mlp(const void* x, const void* gamma, const void* beta,
                            const void* w1, const void* b1, const void* w2, const void* b2,
-                           void* y, int M, int C, int H, float eps, int dtype,
-                           void* stream) {
+                           const void* shortcut, const void* res_gamma, void* y, int M, int C,
+                           int H, float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == mspi::kFloat32)
-    return mspi::dispatch_c<float>(x, gamma, beta, w1, b1, w2, b2, y, M, C, H, eps, s);
+    return mspi::dispatch_c<float>(x, gamma, beta, w1, b1, w2, b2, shortcut, res_gamma, y, M,
+                                   C, H, eps, s);
   if (dtype == mspi::kBFloat16)
-    return mspi::dispatch_c<__nv_bfloat16>(x, gamma, beta, w1, b1, w2, b2, y, M, C, H, eps,
-                                           s);
+    return mspi::dispatch_c<__nv_bfloat16>(x, gamma, beta, w1, b1, w2, b2, shortcut,
+                                           res_gamma, y, M, C, H, eps, s);
   return cudaErrorInvalidValue;
 }
 

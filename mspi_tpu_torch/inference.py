@@ -12,7 +12,13 @@ it with file I/O:
 
     python -m mspi_tpu_torch.inference --path_data ./AuViDataset --dataset AVAD \
         --split 2 --save_path ./output [--motion_encoder videoswins] \
-        [--weight port_state_dict.pt] [--bf16]
+        [--weight port_state_dict.pt] [--bf16] \
+        [--quant int8] [--prior_fold_res] [--prior_ln_t]
+
+The last three are the serving options of `ModelConfig` (the JAX package's
+MSPI_QUANT=int8, MSPI_PRIOR_FOLD_RES=1 and MSPI_PRIOR_LN_T=1): int8 LN+MLP
+for the blocks with C >= 256, and the ConvNeXt prior's residual-folded MLP
+and LayerNorm kernels. All are off by default.
 """
 
 from __future__ import annotations
@@ -128,14 +134,28 @@ def parse_args(argv=None):
     p.add_argument("--window_batch", default=8, type=int)
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--audio_len_snippet", default=32, type=int)
+    p.add_argument("--quant", default="", choices=("", "int8"),
+                   help="int8: int8 LN+MLP in the blocks with C >= 256")
+    p.add_argument("--prior_fold_res", action="store_true",
+                   help="the prior's blocks fold the residual sum into the MLP kernel")
+    p.add_argument("--prior_ln_t", action="store_true",
+                   help="the prior's stem and downsample LayerNorms run the LayerNorm kernel")
     return p.parse_args(argv)
+
+
+def config_from_args(args):
+    """The model config the CLI's arguments ask for."""
+    from mspi_tpu_torch.config import get_config
+
+    return get_config(args.motion_encoder, {"model": {
+        "quant": args.quant, "prior_fold_res": args.prior_fold_res,
+        "prior_ln_t": args.prior_ln_t}})
 
 
 def main(argv=None):
     args = parse_args(argv)
     from PIL import Image
 
-    from mspi_tpu_torch.config import get_config
     from mspi_tpu_torch.data.audio import load_audio_mono_16k
     from mspi_tpu_torch.data.datasets import read_fold_list
     from mspi_tpu_torch.data.video import load_frame
@@ -143,7 +163,7 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise RuntimeError("the port's inference runs on a CUDA device")
-    cfg = get_config(args.motion_encoder)
+    cfg = config_from_args(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = AudioVisualSaliencyModel(cfg, device="cuda", dtype=dtype)
     if args.weight:

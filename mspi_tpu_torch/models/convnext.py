@@ -8,7 +8,13 @@ mlp.fc1, mlp.fc2, gamma}).
 
 Each block's LN + MLP runs through `ln_mlp_prior`, the K2 kernel at the call
 site of the JAX package's transposed-layout kernel `fused_ln_mlp_t` (K3), on
-the channels-last [frames*H*W, C] tokens.
+the channels-last [frames*H*W, C] tokens. Two serving options, off by
+default, take the JAX package's prior switches:
+- `fold_res` (MSPI_PRIOR_FOLD_RES=1): each block returns
+  `ln_mlp_prior_res`, the residual shortcut + gamma * mlp(LN(x)) from one
+  kernel (TPU row 10);
+- `ln_t` (MSPI_PRIOR_LN_T=1): `stem.1` and each `stages_i.downsample.0`
+  run the LayerNorm kernel `layernorm_tokens` (TPU row 11).
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp_prior
+from mspi_tpu_torch.ops.kernels.layernorm import layernorm_tokens
+from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp_prior, ln_mlp_prior_res
 from mspi_tpu_torch.ops.layers import Conv2d
 
 
@@ -29,11 +36,27 @@ class Mlp2d(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
 
-class ConvNeXtBlock2d(nn.Module):
-    """7x7 depthwise conv -> LN -> MLP(4x, GELU) -> gamma, plus residual."""
+class PriorLayerNorm(nn.LayerNorm):
+    """LayerNorm over the channels of channels-last tokens; with `kernel` set
+    it runs `layernorm_tokens` (the prior's stem and downsample norms)."""
 
-    def __init__(self, dim: int, layer_scale_init: float = 1e-6):
+    def __init__(self, dim: int, eps: float = 1e-6, kernel: bool = False):
+        super().__init__(dim, eps=eps)
+        self.kernel = kernel
+
+    def forward(self, x):
+        if self.kernel:
+            return layernorm_tokens(x, self.weight, self.bias, self.eps)
+        return super().forward(x)
+
+
+class ConvNeXtBlock2d(nn.Module):
+    """7x7 depthwise conv -> LN -> MLP(4x, GELU) -> gamma, plus residual;
+    with `fold_res` the residual sum is taken inside the kernel."""
+
+    def __init__(self, dim: int, layer_scale_init: float = 1e-6, fold_res: bool = False):
         super().__init__()
+        self.fold_res = fold_res
         self.conv_dw = Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp2d(dim, 4 * dim)
@@ -41,20 +64,23 @@ class ConvNeXtBlock2d(nn.Module):
 
     def forward(self, x):
         y = self.conv_dw(x).contiguous()
-        y = ln_mlp_prior(y, self.norm.weight, self.norm.bias, self.mlp.fc1.weight,
-                         self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
-                         self.norm.eps)
-        return x + self.gamma * y
+        weights = (self.norm.weight, self.norm.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
+                   self.mlp.fc2.weight, self.mlp.fc2.bias, self.norm.eps)
+        if self.fold_res:
+            return ln_mlp_prior_res(y, x.contiguous(), self.gamma, *weights)
+        return x + self.gamma * ln_mlp_prior(y, *weights)
 
 
 class ConvNeXtStage(nn.Module):
-    def __init__(self, in_dim: int, dim: int, depth: int, has_downsample: bool):
+    def __init__(self, in_dim: int, dim: int, depth: int, has_downsample: bool,
+                 fold_res: bool = False, ln_t: bool = False):
         super().__init__()
         self.downsample = None
         if has_downsample:
-            self.downsample = nn.Sequential(nn.LayerNorm(in_dim, eps=1e-6),
+            self.downsample = nn.Sequential(PriorLayerNorm(in_dim, kernel=ln_t),
                                             Conv2d(in_dim, dim, 2, stride=2))
-        self.blocks = nn.Sequential(*[ConvNeXtBlock2d(dim) for _ in range(depth)])
+        self.blocks = nn.Sequential(*[ConvNeXtBlock2d(dim, fold_res=fold_res)
+                                      for _ in range(depth)])
 
     def forward(self, x):
         if self.downsample is not None:
@@ -65,13 +91,15 @@ class ConvNeXtStage(nn.Module):
 class ConvNeXtTinyFeatures(nn.Module):
     """[N,H,W,3] normalised frames -> 4 maps at strides 4/8/16/32."""
 
-    def __init__(self, depths=(3, 3, 9, 3), dims=(96, 192, 384, 768)):
+    def __init__(self, depths=(3, 3, 9, 3), dims=(96, 192, 384, 768), fold_res: bool = False,
+                 ln_t: bool = False):
         super().__init__()
         self.stem = nn.Sequential(Conv2d(3, dims[0], 4, stride=4),
-                                  nn.LayerNorm(dims[0], eps=1e-6))
+                                  PriorLayerNorm(dims[0], kernel=ln_t))
         in_dim = dims[0]
         for i, (dim, depth) in enumerate(zip(dims, depths)):
-            setattr(self, f"stages_{i}", ConvNeXtStage(in_dim, dim, depth, i > 0))
+            setattr(self, f"stages_{i}",
+                    ConvNeXtStage(in_dim, dim, depth, i > 0, fold_res, ln_t))
             in_dim = dim
 
     def forward(self, x) -> Tuple[torch.Tensor, ...]:

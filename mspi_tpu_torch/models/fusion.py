@@ -12,6 +12,13 @@ SyncBlock and decoder ConvNextBlock3d MLPs run K2 (`ln_mlp`); the MViT
 backbone brings K1 and K2, the VideoSwin backbone the window-attention
 kernel and K2, and the ConvNeXt prior K3's call site.
 
+The serving options of `ModelConfig` change the routing at inference:
+quant="int8" sends the LN+MLP of every backbone and SyncBlock block with
+C >= 256 to `ln_mlp_int8` (the weights are quantised once, when the model
+is set up); prior_fold_res and prior_ln_t give the prior's blocks the
+residual-folded kernel and its stem/downsample LayerNorms the LayerNorm
+kernel.
+
 The models serve inference (eval mode, BatchNorm on running statistics) and
 training (train mode: BatchNorm on batch statistics, MViT drop-path). The
 frozen encoders `audnet` and `image_encoder` (`FROZEN`) always run in eval
@@ -39,7 +46,7 @@ from mspi_tpu_torch.models.registry import build_backbone
 from mspi_tpu_torch.models.s3d import BasicConv3d, SepConv3d
 from mspi_tpu_torch.models.videoswin import WindowAttention3D
 from mspi_tpu_torch.ops import layers
-from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp
+from mspi_tpu_torch.ops.kernels.ln_mlp import QUANT_MIN_C, int8_operands, ln_mlp, ln_mlp_block
 from mspi_tpu_torch.ops.kernels.pooled_attention import self_attention
 from mspi_tpu_torch.ops.layers import (BatchNorm, Conv2d, Conv3d, MaxPool, Upsample,
                                        adaptive_avg_pool, max_pool, normalize_frames)
@@ -86,8 +93,9 @@ class Attention(nn.Module):
 class Block(nn.Module):
     """Pre-norm ViT block (LayerScale off, no drop-path)."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, quant: str = ""):
         super().__init__()
+        self.quant = quant
         self.norm1 = nn.LayerNorm(dim)
         self.attn = Attention(dim, num_heads)
         self.norm2 = nn.LayerNorm(dim)
@@ -95,9 +103,8 @@ class Block(nn.Module):
 
     def forward(self, x):
         x = (x + self.attn(self.norm1(x))).contiguous()
-        return x + ln_mlp(x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
-                          self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
-                          self.norm2.eps)
+        return x + ln_mlp_block(self.norm2, self.mlp, x,
+                                self.quant == "int8" and not self.training)
 
 
 class SyncBlock(nn.Module):
@@ -106,12 +113,13 @@ class SyncBlock(nn.Module):
 
     def __init__(self, num_blocks: int = 3, num_vis_tokens: int = 672,
                  num_aud_tokens: int = 36, vis_in_embed: int = 768, embed_dim: int = 512,
-                 num_heads: int = 4):
+                 num_heads: int = 4, quant: str = ""):
         super().__init__()
         self.vis_proj = nn.Linear(vis_in_embed, 512)
         self.vis_norm = nn.LayerNorm(512)
         self.aud_norm = nn.LayerNorm(512)
-        self.blocks = nn.Sequential(*[Block(embed_dim, num_heads) for _ in range(num_blocks)])
+        self.blocks = nn.Sequential(*[Block(embed_dim, num_heads, quant=quant)
+                                      for _ in range(num_blocks)])
         self.register_buffer("vis_pos_embed", sinusoid_encoding_table(num_vis_tokens, 512),
                              persistent=False)
         self.register_buffer("aud_pos_embed", sinusoid_encoding_table(num_aud_tokens, 512),
@@ -226,9 +234,9 @@ class StaticSaliencyModelConvNext(nn.Module):
     """Frozen ConvNeXt-T image-saliency encoder + smooth heads:
     (96 ch at 1/16, 320 ch at 1/32)."""
 
-    def __init__(self):
+    def __init__(self, fold_res: bool = False, ln_t: bool = False):
         super().__init__()
-        self.encoder = ConvNeXtTinyFeatures()
+        self.encoder = ConvNeXtTinyFeatures(fold_res=fold_res, ln_t=ln_t)
         self.smooth_0 = nn.Sequential(Conv2d(768, 320, 3, 1, 1), BatchNorm(320), nn.ReLU())
         self.smooth_1 = nn.Sequential(Conv2d(384, 96, 3, 1, 1), BatchNorm(96), nn.ReLU())
 
@@ -337,6 +345,9 @@ def _finish(model: nn.Module, generator: Optional[torch.Generator], device, dtyp
                   else torch.Generator().manual_seed(0))
     model.to(device=device, dtype=dtype)
     model.eval()
+    for m in model.modules():  # quant="int8": quantise the weights once, here
+        if getattr(m, "quant", "") == "int8" and m.mlp.fc1.in_features >= QUANT_MIN_C:
+            int8_operands(m.norm2, m.mlp)
 
 
 class _SaliencyDecoder(nn.Module):
@@ -404,11 +415,11 @@ class AudioVisualSaliencyModel(_SaliencyDecoder):
         mc = cfg.model
         dims, aud, hidden = mc.embed_dims, mc.aud_embed_dim, mc.simsiam_hidden
         self.audnet = AudioResNet18()
-        self.image_encoder = StaticSaliencyModelConvNext()
+        self.image_encoder = StaticSaliencyModelConvNext(mc.prior_fold_res, mc.prior_ln_t)
         self.visnet = build_backbone(cfg)
         self.aud_vis_sync_block = SyncBlock(
             num_blocks=mc.sync_num_blocks, num_vis_tokens=cfg.num_vis_tokens(),
-            vis_in_embed=dims[-1], embed_dim=aud, num_heads=mc.sync_num_heads)
+            vis_in_embed=dims[-1], embed_dim=aud, num_heads=mc.sync_num_heads, quant=mc.quant)
         self.vis_projector = _projector(aud, hidden)
         self.mlp_vis = _predictor(hidden)
         self.aud_projector = _projector(aud, hidden)
@@ -448,7 +459,8 @@ class VisualSaliencyModel(_SaliencyDecoder):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
-        self.image_encoder = StaticSaliencyModelConvNext()
+        self.image_encoder = StaticSaliencyModelConvNext(cfg.model.prior_fold_res,
+                                                         cfg.model.prior_ln_t)
         self.visnet = build_backbone(cfg)
         self._build_decoder(cfg, cfg.model.embed_dims[3])
         _finish(self, generator, device, dtype)

@@ -10,8 +10,10 @@ cls token, no absolute positions. The pyramid is tapped after blocks
 {0,2,13,15}.
 
 Tokens are [B, N, C] with a tracked (T,H,W). Attention runs through the K1
-kernel (`attention_rel`), each block's LN + MLP through K2 (`ln_mlp`); both
-are differentiable through their backward kernels, and autograd through
+kernel (`attention_rel`), each block's LN + MLP through K2 (`ln_mlp`), or at
+inference with quant="int8" and C >= 256 through the int8 kernel
+(`ln_mlp_int8`, blocks 3-15), as the JAX package routes MSPI_QUANT=int8. K1
+and K2 are differentiable through their backward kernels, and autograd through
 `rel_projections` stays plain PyTorch. In train mode both residual adds of
 block i pass through drop-path at rate 0.2 * i / (depth - 1), as in the JAX
 package.
@@ -28,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mspi_tpu_torch.config import MViTConfig
-from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp
+from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp_block
 from mspi_tpu_torch.ops.kernels.pooled_attention import attention_rel
 from mspi_tpu_torch.ops.layers import Conv3d, DropPath, max_pool
 
@@ -148,9 +150,10 @@ class MultiScaleBlock(nn.Module):
 
     def __init__(self, dim: int, dim_out: int, num_heads: int, input_size, mlp_ratio: float,
                  qkv_bias: bool, kernel_q, kernel_kv, stride_q, stride_kv,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, quant: str = ""):
         super().__init__()
         self.dim, self.dim_out = dim, dim_out
+        self.quant = quant
         self.drop_path = DropPath(drop_path)
         self.stride_q = tuple(stride_q)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
@@ -176,9 +179,7 @@ class MultiScaleBlock(nn.Module):
         if self.dim != self.dim_out:
             x = self.proj(x_norm)
         x = (self._pool_skip(x, thw) + self.drop_path(x_block)).contiguous()
-        y = ln_mlp(x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
-                   self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
-                   self.norm2.eps)
+        y = ln_mlp_block(self.norm2, self.mlp, x, self.quant == "int8" and not self.training)
         return x + self.drop_path(y), thw_new
 
 
@@ -199,7 +200,7 @@ class MViTFeatures(nn.Module):
     """[B,16,H,W,3] normalised clip -> pyramid (96,192,384,768) at strides
     4/8/16/32, T=8, tapped at blocks {0,2,13,15}."""
 
-    def __init__(self, cfg: MViTConfig):
+    def __init__(self, cfg: MViTConfig, quant: str = ""):
         super().__init__()
         c = cfg
         depth = c.depth
@@ -228,7 +229,7 @@ class MViTFeatures(nn.Module):
                                   divisor=round_width(num_heads, head_mul[i]))
             blocks.append(MultiScaleBlock(
                 embed_dim, dim_out, num_heads, tuple(input_size), c.mlp_ratio,
-                c.qkv_bias, kernel, kernel, stride_q[i], stride_kv[i], dpr[i]))
+                c.qkv_bias, kernel, kernel, stride_q[i], stride_kv[i], dpr[i], quant))
             if math.prod(stride_q[i]) > 1:
                 input_size = [s // st for s, st in zip(input_size, stride_q[i])]
             embed_dim = dim_out

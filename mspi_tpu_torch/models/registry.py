@@ -16,9 +16,9 @@ def build_backbone(cfg: MSPIConfig) -> nn.Module:
     if name == "mvitv2s":
         from mspi_tpu_torch.models.mvit import MViTFeatures
 
-        return MViTFeatures(cfg.model.mvit)
+        return MViTFeatures(cfg.model.mvit, cfg.model.quant)
     if name == "videoswins":
         from mspi_tpu_torch.models.videoswin import VideoSwinFeatures
 
-        return VideoSwinFeatures(cfg.model.videoswin)
+        return VideoSwinFeatures(cfg.model.videoswin, cfg.model.quant)
     raise NotImplementedError(f"motion encoder {name!r} not yet ported")

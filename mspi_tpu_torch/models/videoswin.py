@@ -9,7 +9,9 @@ pyramid is each stage's pre-downsample output: (96,192,384,768) at strides
 
 Activations are channels-last [B,D,H,W,C]. Every block's window attention
 runs through the window kernel (`window_attention`, TPU row 15; its
-backward serves rows 16 and 17), and its norm2 + MLP through K2 (`ln_mlp`).
+backward serves rows 16 and 17), and its norm2 + MLP through K2 (`ln_mlp`),
+or at inference with quant="int8" and C >= 256 (stages 3 and 4) through the
+int8 kernel (`ln_mlp_int8`).
 The relative-position bias is gathered from the table in plain PyTorch, so
 its gradient is autograd's scatter-add. The shift mask and the
 relative-position index are static for a feature shape: they are built in
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mspi_tpu_torch.config import VideoSwinConfig
-from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp
+from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp_block
 from mspi_tpu_torch.ops.kernels.window_attention import window_attention
 from mspi_tpu_torch.ops.layers import Conv3d
 
@@ -153,9 +155,11 @@ class SwinTransformerBlock3D(nn.Module):
     LayerNorm eps 1e-5."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Triple = (2, 7, 7),
-                 shift_size: Triple = (0, 0, 0), mlp_ratio: float = 4.0, qkv_bias: bool = True):
+                 shift_size: Triple = (0, 0, 0), mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 quant: str = ""):
         super().__init__()
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
+        self.quant = quant
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention3D(dim, self.window_size, num_heads, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -185,9 +189,8 @@ class SwinTransformerBlock3D(nn.Module):
     def forward(self, x, mask):
         x = x + self._attention_part(x, mask)
         C = x.shape[-1]
-        y = ln_mlp(x.reshape(-1, C).contiguous(), self.norm2.weight, self.norm2.bias,
-                   self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
-                   self.mlp.fc2.bias, self.norm2.eps)
+        y = ln_mlp_block(self.norm2, self.mlp, x.reshape(-1, C).contiguous(),
+                         self.quant == "int8" and not self.training)
         return x + y.reshape(x.shape)
 
 
@@ -214,13 +217,15 @@ class BasicLayer(nn.Module):
     (downsampled, pre-downsample). Odd blocks shift by half a window."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: Triple,
-                 mlp_ratio: float = 4.0, qkv_bias: bool = True, has_downsample: bool = True):
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True, has_downsample: bool = True,
+                 quant: str = ""):
         super().__init__()
         self.window_size = tuple(window_size)
         self.shift = tuple(w // 2 for w in self.window_size)
         self.blocks = nn.ModuleList([
             SwinTransformerBlock3D(dim, num_heads, self.window_size,
-                                   (0, 0, 0) if i % 2 == 0 else self.shift, mlp_ratio, qkv_bias)
+                                   (0, 0, 0) if i % 2 == 0 else self.shift, mlp_ratio, qkv_bias,
+                                   quant)
             for i in range(depth)])
         if has_downsample:
             self.downsample = PatchMerging(dim)
@@ -265,7 +270,7 @@ class VideoSwinFeatures(nn.Module):
     """[B,16,H,W,3] normalised clip -> pre-downsample pyramid
     (96,192,384,768), T = 8."""
 
-    def __init__(self, cfg: VideoSwinConfig):
+    def __init__(self, cfg: VideoSwinConfig, quant: str = ""):
         super().__init__()
         c = cfg
         self.patch_embed = PatchEmbed3D(c.patch_size, c.embed_dim)
@@ -273,7 +278,7 @@ class VideoSwinFeatures(nn.Module):
             BasicLayer(dim=int(c.embed_dim * 2 ** i), depth=c.depths[i],
                        num_heads=c.num_heads[i], window_size=c.window_size,
                        mlp_ratio=c.mlp_ratio, qkv_bias=c.qkv_bias,
-                       has_downsample=i < len(c.depths) - 1)
+                       has_downsample=i < len(c.depths) - 1, quant=quant)
             for i in range(len(c.depths))])
 
     def forward(self, x) -> List[torch.Tensor]:

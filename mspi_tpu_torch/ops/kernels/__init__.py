@@ -42,14 +42,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches: Dict[str, int] = {"attention_rel": 0, "ln_mlp": 0, "ln_mlp_prior": 0,
                             "self_attention": 0, "attention_rel_bwd": 0,
                             "attention_bwd": 0, "ln_mlp_bwd": 0, "window_attention": 0,
-                            "window_attention_bwd": 0}
+                            "window_attention_bwd": 0, "ln_mlp_int8": 0,
+                            "ln_mlp_prior_res": 0, "layernorm_tokens": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (all entries return int cudaError_t)
-    "mspi_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "mspi_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
+    "mspi_ln_mlp_int8": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
+    "mspi_layernorm": [_P] * 4 + [_I, _I, _F, _I, _P],
     "mspi_attention_rel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _F, _I, _P],
     "mspi_self_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

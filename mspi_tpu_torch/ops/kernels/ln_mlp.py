@@ -13,30 +13,119 @@ no backward (the prior is frozen). Kernel sources:
 its backward recomputes LN, u and h from them, as the TPU kernel does.
 
 Weights come in `nn.Linear` layout: w1 [H, C], w2 [C, H]. Residual,
-drop-path and layer-scale stay with the caller.
+drop-path and layer-scale stay with the caller, except in
+`ln_mlp_prior_res`.
+
+Two serving options live here too, each with its own launch count:
+- `ln_mlp_prior_res` (TPU row 10, `fused_ln_mlp_t_res`): the prior's
+  block tail `shortcut + gamma * mlp(LN(x))` from one K2 launch, the
+  residual sum folded into the kernel's epilogue;
+- `ln_mlp_int8` (TPU row 12, `fused_ln_mlp_int8`): int8 weights quantised
+  per output channel once (`int8_operands`), activations quantised per row
+  in the kernel, int8 x int8 -> int32 products (`csrc/ln_mlp_int8.cu`).
+  Inference only. `ln_mlp_block` routes a transformer block's norm + MLP
+  to it as the JAX package's `_dispatch_ln_mlp` does.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from mspi_tpu_torch.ops import kernels
 
 SUPPORTED_C = (96, 192, 384, 512, 768)
+INT8_C = (256, 384, 512, 768)  # widths the int8 kernel is compiled for
+QUANT_MIN_C = 256  # the JAX package's QUANT_MIN_C: narrower blocks stay on K2
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
+# The JAX package's degree-8 fit of erf(z)/z on |z| <= 4 (`_ERF_COEF_FAST`,
+# mspi_tpu/ops/pallas/mlp.py), Horner in (z^2 - 8) / 8. The int8 kernel's
+# GELU uses it whatever the storage dtype, as the TPU kernel does.
+_ERF_COEF_FAST = (
+    3.536022699613e-01, -1.745360228158e-01, 1.282262975445e-01,
+    -1.335568183591e-01, 1.164849409594e-01, 1.073632742169e-02,
+    -7.948334927669e-03, -1.415578021638e-01, 9.874117476355e-02,
+)
+
+
+def _ln_mlp_f32(x, g, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    C = x.shape[-1]
+    z = F.layer_norm(x.float(), (C,), g.float(), b.float(), eps).to(x.dtype)
+    h = F.gelu(F.linear(z.float(), w1.float(), b1.float())).to(x.dtype)
+    return F.linear(h.float(), w2.float(), b2.float())
 
 
 def ln_mlp_reference(x, g, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
     """Plain version: LN statistics in fp32, z and h rounded to x's dtype at
     the points the kernel rounds them, exact erf GELU."""
-    C = x.shape[-1]
-    z = F.layer_norm(x.float(), (C,), g.float(), b.float(), eps).to(x.dtype)
-    h = F.gelu(F.linear(z.float(), w1.float(), b1.float())).to(x.dtype)
-    return F.linear(h.float(), w2.float(), b2.float()).to(x.dtype)
+    return _ln_mlp_f32(x, g, b, w1, b1, w2, b2, eps).to(x.dtype)
+
+
+def ln_mlp_prior_res_reference(x, shortcut, gamma, g, b, w1, b1, w2, b2,
+                               eps: float) -> torch.Tensor:
+    """Plain version of row 10: K2's y kept in fp32, then
+    shortcut + gamma * y in fp32 and one cast, as `_ln_fwd_kernel_t_res`
+    sums; gamma arrives in the storage dtype."""
+    y = _ln_mlp_f32(x, g, b, w1, b1, w2, b2, eps)
+    return (shortcut.float() + gamma.float() * y).to(x.dtype)
+
+
+def _erf_fast(x: torch.Tensor) -> torch.Tensor:
+    z = x.clamp(-4.0, 4.0)
+    u = z * z * 0.125 - 1.0
+    r = torch.full_like(u, _ERF_COEF_FAST[-1])
+    for c in _ERF_COEF_FAST[-2::-1]:
+        r = r * u + c
+    return z * r
+
+
+def _quant_rows(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row abs-max int8 codes (as exact floats) and scales of an fp32
+    tile: amax floored at 1e-6, codes round(v * (127 / amax)) half to even,
+    scale amax * (1/127) (the JAX package's `_quant_rows`)."""
+    amax = v.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+    return torch.round(v * (amax.new_full((), 127.0) / amax)), amax * (1.0 / 127.0)
+
+
+def _int_products(q: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """q @ wq^T of int8 codes, exact (float64 holds every partial sum at
+    these widths: |sum| <= 127^2 * 3072 < 2^53), then rounded once to fp32
+    as the int32 -> fp32 conversion rounds."""
+    return (q.double() @ wq.double().T).float()
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 of an `nn.Linear` weight [out, in]:
+    (codes int8 [out, in], scales fp32 [out]) with w ~= codes * scale. The
+    JAX package's `quantize_weight` takes the [in, out] kernel and reduces
+    over its axis 0; here the input axis is dim 1."""
+    wf = w.detach().float()
+    amax = wf.abs().amax(1).clamp_min(1e-12)
+    codes = torch.round(wf * (amax.new_full((), 127.0) / amax)[:, None])
+    return codes.to(torch.int8), amax * (1.0 / 127.0)
+
+
+def ln_mlp_int8_reference(x, g, b, w1q, s1, b1, w2q, s2, b2, eps: float) -> torch.Tensor:
+    """Plain version of row 12, the order of operations of the TPU kernel
+    `_ln_fwd_kernel_q`: LayerNorm in fp32 (var = E[x^2] - mu^2) with z kept
+    in fp32, z quantised per row, exact int32 products, u = fp32(products)
+    * (sz * s1) + b1, the degree-8 fast-erf GELU, h quantised per row over
+    the whole hidden width, y = fp32(products) * (sh * s2) + b2, one cast
+    to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    z = (xf - mu) * torch.rsqrt(var + eps) * g.float() + b.float()
+    zq, sz = _quant_rows(z)
+    u = _int_products(zq, w1q) * (sz * s1) + b1
+    h = 0.5 * u * (1.0 + _erf_fast(u * _INV_SQRT2))
+    hq, sh = _quant_rows(h)
+    return (_int_products(hq, w2q) * (sh * s2) + b2).to(x.dtype)
 
 
 def ln_mlp_backward_reference(x, g, b, w1, b1, w2, b2, eps: float, dy):
@@ -87,16 +176,23 @@ def _check_weights(name, x, g, b, w1, b1, w2, b2):
     return dtype, M, C, H
 
 
-def _launch(x, g, b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
-    name = "ln_mlp"
+def _launch(x, g, b, w1, b1, w2, b2, eps: float, shortcut=None, gamma=None,
+            name: str = "ln_mlp") -> torch.Tensor:
+    """The K2 forward kernel; with `shortcut` and `gamma` its epilogue emits
+    shortcut + gamma * y (row 10)."""
     dtype, M, C, H = _check_weights(name, x, g, b, w1, b1, w2, b2)
+    if shortcut is not None:
+        kernels.check_operands(name, x, shortcut, gamma)
+        if tuple(shortcut.shape) != tuple(x.shape) or tuple(gamma.shape) != (C,):
+            raise ValueError(f"{name}: shortcut {tuple(shortcut.shape)} / gamma "
+                             f"{tuple(gamma.shape)} for x {tuple(x.shape)}")
     y = torch.empty_like(x)
     if M == 0:
         return y
     err = kernels.lib().mspi_ln_mlp(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), y.data_ptr(), M, C, H, float(eps), dtype,
-        kernels.stream_handle(x))
+        w2.data_ptr(), b2.data_ptr(), kernels.ptr(shortcut), kernels.ptr(gamma),
+        y.data_ptr(), M, C, H, float(eps), dtype, kernels.stream_handle(x))
     kernels.check(err, name)
     return y
 
@@ -182,3 +278,111 @@ def ln_mlp_prior(x, g, b, w1, b1, w2, b2, eps: float = 1e-6) -> torch.Tensor:
     y = _launch(x, g, b, w1, b1, w2, b2, eps)
     kernels.launches["ln_mlp_prior"] += 1
     return y
+
+
+def ln_mlp_prior_res(x, shortcut, gamma, g, b, w1, b1, w2, b2,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """Row 10 (`fused_ln_mlp_t_res`): the ConvNeXt prior's block tail
+    shortcut + gamma * fc2(gelu(fc1(LN(x)))) from one K2 launch, the sum
+    taken in fp32 in the epilogue with one cast, so y never reaches device
+    memory. Forward only, like the JAX function (the prior is frozen).
+
+    In fp32 the JAX package sends C = 768 to its unfolded token-major path
+    (the transposed kernel's weights overflow VMEM there); in fp32 the two
+    forms compute the same shortcut + gamma * y, so the port folds every
+    width."""
+    x, shortcut = kernels.cast_for_autocast(x, shortcut)
+    gamma, g, b, w1, b1, w2, b2 = (t.to(x.dtype) for t in (gamma, g, b, w1, b1, w2, b2))
+    if not kernels.dispatch_device(x, shortcut, gamma, g, b, w1, b1, w2, b2):
+        return ln_mlp_prior_res_reference(x, shortcut, gamma, g, b, w1, b1, w2, b2, eps)
+    name = "ln_mlp_prior_res"
+    y = _launch(x, g, b, w1, b1, w2, b2, eps, shortcut, gamma, name)
+    kernels.launches[name] += 1
+    return y
+
+
+def _check_int8(name, x, g, b, w1q, s1, b1, w2q, s2, b2):
+    if x.dtype not in kernels.DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported (fp32 or bf16)")
+    C, H = x.shape[-1], w1q.shape[0]
+    if C not in INT8_C:
+        raise ValueError(f"{name}: C={C} not compiled (have {INT8_C})")
+    if H % 64:
+        raise ValueError(f"{name}: needs H % 64 == 0, got H={H}")
+    if w1q.dtype != torch.int8 or w2q.dtype != torch.int8:
+        raise TypeError(f"{name}: weight codes must be int8")
+    if tuple(w1q.shape) != (H, C) or tuple(w2q.shape) != (C, H):
+        raise ValueError(f"{name}: weight codes {tuple(w1q.shape)}, {tuple(w2q.shape)} "
+                         f"for C={C}")
+    for t, n in ((g, C), (b, C), (s1, H), (b1, H), (s2, C), (b2, C)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n,):
+            raise ValueError(f"{name}: LN, scale and bias vectors must be fp32 of the "
+                             f"layer widths, got {t.dtype} {tuple(t.shape)}")
+    for t in (x, g, b, w1q, s1, b1, w2q, s2, b2):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operand of shape {tuple(t.shape)} is not contiguous")
+    if w1q.data_ptr() % 16 or w2q.data_ptr() % 16:
+        raise ValueError(f"{name}: weight codes must be 16-byte aligned")
+    M = x.numel() // C
+    if M >= 2 ** 31:
+        raise ValueError(f"{name}: {M} rows exceed the kernel's int range")
+    return M, C, H
+
+
+def ln_mlp_int8(x, g, b, w1q, s1, b1, w2q, s2, b2, eps: float) -> torch.Tensor:
+    """Row 12 (`fused_ln_mlp_int8`): int8 inference of fc2(gelu(fc1(LN(x))))
+    over the last axis of x [..., C]. w1q [H, C] / w2q [C, H] int8 codes
+    with fp32 per-output-channel scales s1 [H] / s2 [C] (`quantize_weight`);
+    g, b, b1, b2 fp32; the output in x's dtype. No backward: the JAX
+    function has no VJP, so this refuses operands that need a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, g, b, s1, b1, s2, b2)):
+        raise RuntimeError("ln_mlp_int8 is inference only: call it under torch.no_grad()")
+    if not kernels.dispatch_device(x, g, b, w1q, s1, b1, w2q, s2, b2):
+        return ln_mlp_int8_reference(x, g, b, w1q, s1, b1, w2q, s2, b2, eps)
+    name = "ln_mlp_int8"
+    M, C, H = _check_int8(name, x, g, b, w1q, s1, b1, w2q, s2, b2)
+    y = torch.empty_like(x)
+    if M == 0:
+        return y
+    err = kernels.lib().mspi_ln_mlp_int8(
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), w1q.data_ptr(), s1.data_ptr(),
+        b1.data_ptr(), w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(), y.data_ptr(), M, C, H,
+        float(eps), kernels.DTYPE_CODES[x.dtype], kernels.stream_handle(x))
+    kernels.check(err, name)
+    kernels.launches[name] += 1
+    return y
+
+
+_INT8_BUFFERS = ("int8_g", "int8_b", "int8_w1q", "int8_s1", "int8_b1", "int8_w2q",
+                 "int8_s2", "int8_b2")
+
+
+def int8_operands(norm: nn.LayerNorm, mlp: nn.Module) -> Tuple[torch.Tensor, ...]:
+    """(g, b, w1q, s1, b1, w2q, s2, b2) of a block's norm + MLP for
+    `ln_mlp_int8`: the weights quantised per output channel and the vectors
+    in fp32, kept as non-persistent buffers of `mlp`. They are computed once
+    (a model built with quant="int8" does it at set-up) and again only when
+    a parameter has changed since (a loaded state_dict, a moved model)."""
+    params = (norm.weight, norm.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
+              mlp.fc2.bias)
+    key = tuple((p.data_ptr(), p._version) for p in params)
+    if getattr(mlp, "_int8_key", None) != key:
+        with torch.no_grad():
+            w1q, s1 = quantize_weight(mlp.fc1.weight)
+            w2q, s2 = quantize_weight(mlp.fc2.weight)
+            values = (norm.weight.float(), norm.bias.float(), w1q, s1, mlp.fc1.bias.float(),
+                      w2q, s2, mlp.fc2.bias.float())
+        for name, t in zip(_INT8_BUFFERS, values):
+            mlp.register_buffer(name, t.contiguous(), persistent=False)
+        mlp._int8_key = key
+    return tuple(getattr(mlp, n) for n in _INT8_BUFFERS)
+
+
+def ln_mlp_block(norm: nn.LayerNorm, mlp: nn.Module, x, int8: bool) -> torch.Tensor:
+    """A transformer block's mlp(norm(x)), routed as the JAX package's
+    `_dispatch_ln_mlp`: `ln_mlp_int8` when the caller asks for int8 (its
+    quant option at inference) and C >= QUANT_MIN_C, else K2."""
+    if int8 and x.shape[-1] >= QUANT_MIN_C:
+        return ln_mlp_int8(x, *int8_operands(norm, mlp), norm.eps)
+    return ln_mlp(x, norm.weight, norm.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
+                  mlp.fc2.bias, norm.eps)

@@ -15,7 +15,9 @@ from mspi_tpu.models.fusion import AudioVisualSaliencyModel as JaxModel
 from mspi_tpu_torch.config import get_config
 from mspi_tpu_torch.convert import state_dict_from_jax
 from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
-from tests.torch_port_utils import seeded_variables
+from tests.torch_port_utils import cpu_share, seeded_variables
+
+pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
 RES = (64, 96)
 

@@ -27,6 +27,9 @@ from mspi_tpu_torch.ops.kernels import pooled_attention as PA
 from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp, ln_mlp_prior
 from mspi_tpu_torch.ops.kernels.pooled_attention import (attention_rel, key_expansion,
                                                          self_attention)
+from tests.torch_port_utils import cpu_share
+
+pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 

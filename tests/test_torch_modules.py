@@ -13,7 +13,9 @@ from mspi_tpu.models import convnext as jax_convnext
 from mspi_tpu.models import fusion as jax_fusion
 from mspi_tpu.models import mvit as jax_mvit
 from mspi_tpu_torch.models import audio_resnet, convnext, fusion, mvit
-from tests.torch_port_utils import jax_module_variables, load_port, to_np
+from tests.torch_port_utils import cpu_share, jax_module_variables, load_port, to_np
+
+pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -26,7 +26,9 @@ from mspi_tpu_torch import inference
 from mspi_tpu_torch.config import get_config
 from mspi_tpu_torch.data import audio
 from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel, VisualSaliencyModel
-from tests.torch_port_utils import load_port, seeded_variables
+from tests.torch_port_utils import SHALLOW_MVIT, cpu_share, load_port, seeded_variables
+
+pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
 RES = (64, 96)  # every level still halves exactly down to /32
 
@@ -109,11 +111,16 @@ def test_host_spectrogram_matches(rng, flip):
 
 def test_predict_video_shapes_and_order(rng):
     """predict_video on the CPU at a tiny size: every frame gets a map, the
-    flipped windows fill the first len-1 frames."""
-    cfg = get_config("mvitv2s", {"data": {"resolution": RES}})
+    flipped windows fill the first len-1 frames. 31 frames are the fewest
+    predict_video takes (2 * 16 - 1, as the reference inference): fewer
+    leave frames without a window. The model is the four-block MViT at
+    32x32 (every level still halves exactly, down to 1x1 at /32), since the
+    window schedule, not the backbone, is what this checks."""
+    res = (32, 32)
+    cfg = get_config("mvitv2s", {"data": {"resolution": res}, "model": {"mvit": SHALLOW_MVIT}})
     model = AudioVisualSaliencyModel(cfg, device="cpu",
                                      generator=torch.Generator().manual_seed(0))
-    frames = rng.integers(0, 256, (9, *RES, 3), dtype=np.uint8)
+    frames = rng.integers(0, 256, (9, *res, 3), dtype=np.uint8)
     out = inference.predict_video(model, np.concatenate([frames] * 4)[:31], None, 30.0,
                                   window_batch=8, img_size=(32, 24))
     assert out.shape == (31, 24, 32) and out.dtype == np.uint8

@@ -7,6 +7,7 @@ Tolerances: metrics and losses 1e-5 (fp32, the same formulas); BatchNorm
 `test_train_step_matches_jax`.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -37,7 +38,8 @@ from mspi_tpu_torch.ops import layers
 from mspi_tpu_torch.train import checkpoints, engine, loss, metrics
 from mspi_tpu_torch.train.synthetic import make_batch
 from tests.synthetic_data import build_avsp_tree
-from tests.torch_port_utils import load_port, seeded_variables
+from tests.torch_port_utils import (SHALLOW_MVIT, cpu_share, load_port, seeded_variables,
+                                    xdist_thread_share)
 
 RES = (64, 96)
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -190,26 +192,29 @@ def _batch(rng, batch=2):
     return b
 
 
-def _port_model(seed=0):
-    cfg = get_config("mvitv2s", {"data": {"resolution": RES}})
+def _port_model(seed=0, mvit=None):
+    model_cfg = {} if mvit is None else {"mvit": mvit}
+    cfg = get_config("mvitv2s", {"data": {"resolution": RES}, "model": model_cfg})
     return cfg, AudioVisualSaliencyModel(cfg, device="cpu",
                                          generator=torch.Generator().manual_seed(seed))
 
 
+@pytest.mark.usefixtures("cpu_share")
 def test_checkpoint_save_restore_then_identical_step(rng, tmp_path):
     """save after step 1, restore into a fresh model, step 2: bit-identical
     to the uninterrupted run (parameters, BN statistics, AdamW state and
-    the drop-path generator all come back)."""
+    the drop-path generator all come back). The four-block MViT keeps the
+    three steps cheap; its blocks 1-3 draw drop-path."""
     batches = [engine.to_device(_batch(rng), "cpu") for _ in range(2)]
     step = engine.make_train_step(1.0)
-    cfg, model = _port_model(0)
+    cfg, model = _port_model(0, SHALLOW_MVIT)
     state = engine.create_train_state(cfg, model)
     step(state, batches[0], 1e-4)
     path = checkpoints.save_checkpoint(str(tmp_path), state, 1)
     assert checkpoints.latest_checkpoint(str(tmp_path)) == path
     want = step(state, batches[1], 1e-4)
 
-    _, fresh = _port_model(1)
+    _, fresh = _port_model(1, SHALLOW_MVIT)
     restored, epoch = checkpoints.restore_checkpoint(path, engine.create_train_state(cfg, fresh))
     assert epoch == 1
     got = step(restored, batches[1], 1e-4)
@@ -221,11 +226,13 @@ def test_checkpoint_save_restore_then_identical_step(rng, tmp_path):
 def test_train_cli_runs_on_cpu(tmp_path):
     root = build_avsp_tree(str(tmp_path / "data"))
     logs = tmp_path / "logs"
+    share = xdist_thread_share()  # see cpu_share
+    env = {**os.environ, **({"OMP_NUM_THREADS": str(share)} if share else {})}
     subprocess.run([sys.executable, "-m", "mspi_tpu_torch.train", "--data_root", root,
                     "--resolution", "64", "96", "--epochs", "1", "--monitored_epochs", "1",
                     "--device", "cpu", "--num_workers", "2", "--log_dir", str(logs)],
                    check=True, timeout=300, cwd=Path(__file__).resolve().parents[1],
-                   capture_output=True)
+                   capture_output=True, env=env)
     (run,) = logs.iterdir()
     assert (run / "checkpoints" / "ckpt_1").exists()
     (line,) = (run / "log" / "log.txt").read_text().splitlines()

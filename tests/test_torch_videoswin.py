@@ -36,7 +36,10 @@ from mspi_tpu_torch.convert import state_dict_from_jax
 from mspi_tpu_torch.models import videoswin
 from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
 from mspi_tpu_torch.train.checkpoints import load_pretrained_encoders
-from tests.torch_port_utils import jax_module_variables, load_port, seeded_variables, to_np
+from tests.torch_port_utils import (cpu_share, jax_module_variables, load_port,
+                                    seeded_variables, to_np)
+
+pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
 RES = (64, 96)
 TOL = dict(atol=1e-4, rtol=1e-4)

@@ -17,6 +17,9 @@ import torch
 from mspi_tpu.ops.pallas.attention import fused_window_attention
 from mspi_tpu_torch.ops import kernels
 from mspi_tpu_torch.ops.kernels import window_attention as WA
+from tests.torch_port_utils import cpu_share
+
+pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
 
 def _inputs(rng, B, H, N, D, nW, masked):

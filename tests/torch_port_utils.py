@@ -2,8 +2,11 @@
 against the JAX package: seeded variable trees and their transfer into port
 modules."""
 
+import os
+
 import jax
 import numpy as np
+import pytest
 import torch
 
 from mspi_tpu_torch.convert import state_dict_from_jax
@@ -49,3 +52,38 @@ def load_port(port: torch.nn.Module, variables) -> torch.nn.Module:
 
 def to_np(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().numpy()
+
+
+def xdist_thread_share() -> int:
+    """Under pytest-xdist, each worker's share of the CPU cores (1 for 6
+    workers on 8 cores); 0 outside xdist."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    return max(1, (os.cpu_count() or 1) // workers) if workers else 0
+
+
+@pytest.fixture
+def cpu_share():
+    """Run the test on the worker's share of torch CPU threads. Every xdist
+    worker otherwise starts one torch thread per core, which oversubscribes
+    the cores several times over (the port's tests took 297 s and 33 CPU
+    minutes under 6 workers, 162 s and 11 with one thread each). Outside
+    xdist nothing changes."""
+    n = xdist_thread_share()
+    if not n:
+        yield
+        return
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+# A four-block MViT config with the flagship's four widths (96, 192, 384, 768):
+# each block is a stage and a tap, blocks 1-3 draw drop-path in training.
+# For the tests whose subject is not the backbone's depth.
+SHALLOW_MVIT = {"depth": 4, "dim_mul": ((1, 2.0), (2, 2.0), (3, 2.0)),
+                "head_mul": ((1, 2.0), (2, 2.0), (3, 2.0)),
+                "pool_q_stride": ((0, 1, 1, 1), (1, 1, 2, 2), (2, 1, 2, 2), (3, 1, 2, 2)),
+                "out_indices": (0, 1, 2, 3)}

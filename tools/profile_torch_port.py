@@ -2,7 +2,8 @@
 PyTorch/CUDA port on a GPU.
 
     python tools/profile_torch_port.py [--motion_encoder mvitv2s|videoswins] \
-        [--batch 8] [--dtype bf16] [--steps 2] [--train] [--table PATH]
+        [--batch 8] [--dtype bf16] [--steps 2] [--train] [--table PATH] \
+        [--quant int8] [--prior_fold_res] [--prior_ln_t]
 
 Builds the AudioVisualSaliencyModel (MViTv2-S by default, or VideoSwin-S;
 16x224x384, seeded random weights) on cuda, warms up, then traces `--steps`
@@ -13,7 +14,9 @@ Prints the card's name and power limit, the wall time per forward or step
 (CUDA events), the summed device-kernel time, the idle share of the device,
 and the kernels grouped by family (the port's own kernels by name,
 cuDNN/cuBLAS, elementwise, other), largest first. With `--table`, the full
-key_averages table is written to PATH.
+key_averages table is written to PATH. `--quant int8`, `--prior_fold_res`
+and `--prior_ln_t` build the model with the serving options (inference
+only); their kernels (rows 12, 10 and 11) are families of their own.
 """
 
 from __future__ import annotations
@@ -45,7 +48,10 @@ PORT_FAMILIES = (
     ("window attention (row 15)", ("flash_attention", "2>(")),
     ("K1 attention_rel", ("flash_attention", "1>(")),
     ("K4 self_attention", ("flash_attention", "0>(")),
+    ("row 12 ln_mlp_int8", ("ln_mlp_int8",)),
+    ("row 10 ln_mlp_prior_res (folded K2)", ("ln_mlp", "true>(")),
     ("K2/K3 ln_mlp", ("ln_mlp",)),
+    ("row 11 layernorm_tokens", ("layernorm_kernel",)),
 )
 # Everything else: a name matches when it holds any key.
 FAMILIES = (
@@ -77,7 +83,12 @@ def main() -> None:
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--train", action="store_true", help="profile training steps")
     p.add_argument("--table", default="", help="write the full key_averages table here")
+    p.add_argument("--quant", default="", choices=("", "int8"))
+    p.add_argument("--prior_fold_res", action="store_true")
+    p.add_argument("--prior_ln_t", action="store_true")
     args = p.parse_args()
+    if args.train and (args.quant or args.prior_fold_res or args.prior_ln_t):
+        raise SystemExit("the serving options are inference only")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -87,7 +98,9 @@ def main() -> None:
                          check=True).stdout.strip()
     print(smi)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    cfg = get_config(args.motion_encoder)
+    cfg = get_config(args.motion_encoder, {"model": {
+        "quant": args.quant, "prior_fold_res": args.prior_fold_res,
+        "prior_ln_t": args.prior_ln_t}})
     model = AudioVisualSaliencyModel(cfg, device="cuda",
                                      dtype=torch.float32 if args.train else dtype,
                                      generator=torch.Generator().manual_seed(0))
