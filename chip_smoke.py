@@ -35,10 +35,25 @@ first failure (there is no CPU path):
    model's weights change against the fp32 weights';
 14. int8_parity: that model in fp32 on the card against the CPU's plain
    versions (CC), and against the card's float model (the cost of int8);
-15. swin_int8_main: phase 4 on the VideoSwin-S model with quant="int8".
+15. swin_int8_main: phase 4 on the VideoSwin-S model with quant="int8";
+16. layout_kernels: the kernels of MViT's layout options against their
+   plain versions, fp32 and bf16, at batch 8: the augmented-lane attention
+   (row 6) at the 16 blocks' shapes, the packed rel-pos attention (row 8) at
+   blocks 1-15, the depthwise conv3d (row 18) at the 17 stride-1 pools;
+   times summed per forward (each shape weighted by its blocks);
+17. layout_backward: at batch 2, row 7's head-major backward of row 6 at
+   the 16 blocks, row 8's backward (K1's after a layout change) at blocks
+   1-15 and row 18's dx;
+18. layout_main: phase 4 on MViTv2-S with attn_packed and dwconv (row 8 in
+   blocks 1-15, K1 in block 0, row 18 in the 17 stride-1 pools), timed in
+   turns against the default model;
+19. layout_parity: that model in fp32, card against the CPU (CC) and
+   against the card's default model;
+20. relk0_training, relk0_train_parity: phases 7 and 8 on MViTv2-S with
+   attn_relk=False and dwconv (rows 6, 7 and 18 with its dx).
 
-Each path (4, 7, 9, 11, 13, 15) sets the launch counts to 0 just before it
-and reads them just after; the kernels' record sums them.
+Each path (4, 7, 9, 11, 13, 15, 18, 20) sets the launch counts to 0 just
+before it and reads them just after; the kernels' record sums them.
 The last two lines are the kernels' JSON record and the device JSON record.
 `--phases` runs a subset (2 always runs; the records then cover only what
 ran and no device record is printed).
@@ -78,8 +93,15 @@ KERNELS = {
     "ln_mlp_int8": ("mspi_tpu_torch/csrc/ln_mlp_int8.cu", "mspi_tpu/ops/pallas/mlp.py:985"),
     "ln_mlp_prior_res": ("mspi_tpu_torch/csrc/ln_mlp.cu", "mspi_tpu/ops/pallas/mlp.py:778"),
     "layernorm_tokens": ("mspi_tpu_torch/csrc/layernorm.cu", "mspi_tpu/ops/pallas/mlp.py:880"),
+    "attention": ("mspi_tpu_torch/csrc/attention.cu",
+                  "mspi_tpu/ops/pallas/pooled_attention.py:782"),
+    "attention_rel_packed": ("mspi_tpu_torch/csrc/attention_rel.cu",
+                             "mspi_tpu/ops/pallas/pooled_attention.py:593"),
+    "dwconv3d": ("mspi_tpu_torch/csrc/dwconv.cu", "mspi_tpu/ops/pallas/dwconv.py:160"),
 }
 SERVING = {"quant": "int8", "prior_fold_res": True, "prior_ln_t": True}
+LAYOUT = {"attn_packed": True, "dwconv": True}
+RELK0 = {"attn_relk": False, "dwconv": True}
 # launches per forward of each model (ln_mlp: backbone blocks + 3 SyncBlock
 # + 4 decoder blocks; ln_mlp_prior: the ConvNeXt prior's 18 blocks). With
 # quant="int8" the blocks with C >= 256 (MViT 3-15, Swin stages 3-4, the 3
@@ -94,6 +116,14 @@ PER_FORWARD = {
                         "ln_mlp_prior_res": 18, "layernorm_tokens": 4, "self_attention": 3},
     "videoswins+int8": {"window_attention": 24, "ln_mlp": 8, "ln_mlp_int8": 23,
                         "ln_mlp_prior": 18, "self_attention": 3},
+    # attn_packed: blocks 1-15 (more than one head) run row 8, block 0 K1;
+    # dwconv: the 17 stride-1 pools (pool_q of the 13 blocks without a q
+    # stride, pool_k / pool_v of blocks 14-15) run row 18
+    "mvitv2s+layout": {"attention_rel_packed": 15, "attention_rel": 1, "dwconv3d": 17,
+                       "ln_mlp": 23, "ln_mlp_prior": 18, "self_attention": 3},
+    # attn_relk=False: every block runs row 6
+    "mvitv2s+relk0": {"attention": 16, "dwconv3d": 17, "ln_mlp": 23, "ln_mlp_prior": 18,
+                      "self_attention": 3},
 }
 # launches per training step
 PER_STEP = {
@@ -101,6 +131,9 @@ PER_STEP = {
                 "attention_bwd": 3},
     "videoswins": {**PER_FORWARD["videoswins"], "window_attention_bwd": 24, "ln_mlp_bwd": 31,
                    "attention_bwd": 3},
+    # row 7 head-major for the 16 blocks + K4's 3; row 18's dx per pool
+    "mvitv2s+relk0": {**PER_FORWARD["mvitv2s+relk0"], "attention_bwd": 16 + 3,
+                      "dwconv3d": 17 + 17, "ln_mlp_bwd": 23},
 }
 PATH_PHASES = {  # phase -> (path kind, PER_FORWARD key: the encoder and its options)
     "main": ("main", "mvitv2s"), "parity": ("parity", "mvitv2s"),
@@ -108,13 +141,20 @@ PATH_PHASES = {  # phase -> (path kind, PER_FORWARD key: the encoder and its opt
     "swin_main": ("main", "videoswins"), "swin_parity": ("parity", "videoswins"),
     "swin_training": ("training", "videoswins"),
     "swin_train_parity": ("train_parity", "videoswins"),
-    "int8_main": ("main", "mvitv2s+serving"), "int8_parity": ("int8_parity", "mvitv2s+serving"),
+    "int8_main": ("main", "mvitv2s+serving"),
+    "int8_parity": ("options_parity", "mvitv2s+serving"),
     "swin_int8_main": ("main", "videoswins+int8"),
+    "layout_main": ("main", "mvitv2s+layout"),
+    "layout_parity": ("options_parity", "mvitv2s+layout"),
+    "relk0_training": ("training", "mvitv2s+relk0"),
+    "relk0_train_parity": ("train_parity", "mvitv2s+relk0"),
 }
-OPTIONS = {"mvitv2s+serving": SERVING, "videoswins+int8": {"quant": "int8"}}
+OPTIONS = {"mvitv2s+serving": SERVING, "videoswins+int8": {"quant": "int8"},
+           "mvitv2s+layout": LAYOUT, "mvitv2s+relk0": RELK0}
 PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity", "swin_main",
           "swin_parity", "swin_training", "swin_train_parity", "int8_main", "int8_parity",
-          "swin_int8_main")
+          "swin_int8_main", "layout_kernels", "layout_backward", "layout_main",
+          "layout_parity", "relk0_training", "relk0_train_parity")
 BATCH = 8
 TRAIN_BATCH = 2
 STEPS = 5
@@ -162,15 +202,17 @@ def new_record() -> dict:
             "bound_by": None, "library_ms": None, "_bytes_ms": 0.0, "_ops_ms": 0.0}
 
 
-def add_bound(rec, dtype, n_bytes: float, flops: float, peak: float = None) -> None:
+def add_bound(rec, dtype, n_bytes: float, flops: float, peak: float = None,
+              weight: float = 1.0) -> None:
     """The least time of the work on the card: the larger of its bytes (each
     input read once, each output written once) over HBM's rate and its
     operations over the peak of their type (by default the dtype's matrix
-    peak). Recorded for the bf16 runs, whose times the record sums."""
-    if dtype != torch.bfloat16:
+    peak). Recorded for the bf16 runs, whose times the record sums, with
+    the shape's weight."""
+    if dtype != torch.bfloat16 or not weight:
         return
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
+    t_bytes = weight * n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = weight * flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     rec["bound_ms"] += max(t_bytes, t_ops)
     rec["_bytes_ms"] += t_bytes
     rec["_ops_ms"] += t_ops
@@ -181,27 +223,33 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def record(records, name, label, dtype, errs_tols, ms, plain_ms, library_ms=None):
+def record(records, name, label, dtype, errs_tols, ms, plain_ms, library_ms=None,
+           weight: float = 1.0):
+    """Log one check and fold it into the kernel's record: the error always,
+    the bf16 times times `weight` (the shape's launches per forward or
+    step; 0 for a check whose times stay out of the sums)."""
     err = max(e for e, _ in errs_tols)
     ok = all(math.isfinite(e) and e <= t for e, t in errs_tols)
     worst = max(e / t for e, t in errs_tols)  # each output against its own tolerance
     lib = "" if library_ms is None else f" library {library_ms:.3f} ms"
+    times = "" if weight == 1 else f" (x{weight:g} in the sums)"
     log("kernels", f"{name} {label} {str(dtype)[6:]}: max_abs_err {err:.3e} "
                    f"(worst err/tol {worst:.3f}) "
-                   f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms{lib} {'ok' if ok else 'FAIL'}")
+                   f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms{lib}{times} "
+                   f"{'ok' if ok else 'FAIL'}")
     rec = records[name]
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
-    if dtype == torch.bfloat16:
-        rec["ms"] += ms
-        rec["plain_ms"] += plain_ms
+    if dtype == torch.bfloat16 and weight:
+        rec["ms"] += weight * ms
+        rec["plain_ms"] += weight * plain_ms
         if library_ms is not None:
-            rec["library_ms"] = (rec["library_ms"] or 0.0) + library_ms
+            rec["library_ms"] = (rec["library_ms"] or 0.0) + weight * library_ms
     if not ok:
         raise AssertionError(f"{name} {label} {dtype}: error {err} above tolerance")
 
 
 def check_kernel(records, name, label, kernel_fn, plain_fn, inputs, dtype, library_fn=None,
-                 compare=None):
+                 compare=None, weight: float = 1.0):
     """Run one forward kernel at one shape against its plain version; record
     the error and the times. By default the plain version runs in fp32 on
     the same dtype-rounded inputs, held to `tolerance`; `compare(out, xs)`
@@ -220,7 +268,7 @@ def check_kernel(records, name, label, kernel_fn, plain_fn, inputs, dtype, libra
     if library_fn is not None and dtype == torch.bfloat16:
         with torch.no_grad():
             lib_ms = time_ms(library_fn(*xs))
-    record(records, name, label, dtype, errs, ms, plain_ms, lib_ms)
+    record(records, name, label, dtype, errs, ms, plain_ms, lib_ms, weight)
     return xs, out
 
 
@@ -588,6 +636,167 @@ def phase_backward(records) -> None:
             del got, want, out, lse
 
 
+# MViTv2-S's 16 blocks at 224x384 per clip as unique shapes: label, blocks
+# of the shape, heads, Nq and the pooled key grid (Nk = kt*kh*kw, R =
+# kt+kh+kw; D = 96)
+MVIT_BLOCKS = (("blk0", 1, 1, 43008, (8, 7, 12)), ("blk1", 1, 2, 10752, (8, 14, 24)),
+               ("blk2", 1, 2, 10752, (8, 7, 12)), ("blk3", 1, 4, 2688, (8, 14, 24)),
+               ("blk4-13", 10, 4, 2688, (8, 7, 12)), ("blk14", 1, 8, 672, (8, 14, 24)),
+               ("blk15", 1, 8, 672, (8, 7, 12)))
+# its 17 stride-1 pools per clip: label, pools of the shape, heads, (T, H, W)
+DWCONV_SHAPES = (("blk0-q", 1, 1, (8, 56, 96)), ("blk2-q", 1, 2, (8, 28, 48)),
+                 ("blk4-13-q", 10, 4, (8, 14, 24)), ("blk14-kv", 2, 8, (8, 14, 24)),
+                 ("blk15-qkv", 3, 8, (8, 7, 12)))
+MVIT_D = 96
+
+
+def aug_inputs(randn, batch, heads, nq, k_shape):
+    """q_aug [.., Nq, 96+R] (q*scale lanes, then rel lanes), k_aug (k, then
+    the 0/1 expansion E of the key grid) and v [.., Nk, 96], as the model
+    builds them."""
+    from mspi_tpu_torch.ops.kernels.pooled_attention import key_expansion
+
+    nk, r = math.prod(k_shape), sum(k_shape)
+    E = torch.from_numpy(key_expansion(k_shape)).cuda()
+    q_aug = torch.cat([randn(batch, heads, nq, MVIT_D, scale=MVIT_D ** -0.5),
+                       randn(batch, heads, nq, r)], -1)
+    k_aug = torch.cat([randn(batch, heads, nk, MVIT_D), E.expand(batch, heads, nk, r)], -1)
+    return [q_aug, k_aug, randn(batch, heads, nk, MVIT_D)]
+
+
+def packed_inputs(randn, batch, heads, nq, k_shape):
+    """q, k, v [.., N, heads*96] and rel [.., Nq, heads*R], token-major."""
+    nk, r, C = math.prod(k_shape), sum(k_shape), heads * MVIT_D
+    return [randn(batch, nq, C), randn(batch, nk, C), randn(batch, nk, C),
+            randn(batch, nq, heads * r)]
+
+
+def phase_layout_kernels(records) -> None:
+    """Rows 6, 8 and 18 at the MViTv2-S shapes, batch 8, fp32 and bf16; the
+    bf16 times (kernel, plain, library, bound) summed per forward."""
+    import torch.nn.functional as F
+
+    from mspi_tpu_torch.ops.kernels import dwconv as DW
+    from mspi_tpu_torch.ops.kernels import pooled_attention as PA
+
+    randn = randn_on(torch.Generator().manual_seed(21))
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS:
+        nk, r = math.prod(k_shape), sum(k_shape)
+        inputs = aug_inputs(randn, BATCH, heads, nq, k_shape)
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, out = check_kernel(
+                records, "attention", f"{label} Da {MVIT_D + r}", PA.attention,
+                PA.attention_reference, inputs, dtype,
+                lambda q, k, v: (lambda: sdpa(q, k, v, scale=1.0)), weight=blocks)
+            add_bound(records["attention"], dtype, nbytes(*xs, out),
+                      2.0 * BATCH * heads * nq * nk * (MVIT_D + r + MVIT_D), weight=blocks)
+        del inputs, xs, out
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS[1:]:  # the blocks with heads > 1
+        nk, r = math.prod(k_shape), sum(k_shape)
+        inputs = packed_inputs(randn, BATCH, heads, nq, k_shape)
+        scale = MVIT_D ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            def library(q, k, v, rel, ks=k_shape, h=heads):
+                qh, kh, vh, rh = (heads_major(t, h) for t in (q, k, v, rel))
+                mask = rel_mask(rh, ks)
+                return lambda: sdpa(qh, kh, vh, mask, scale) + qh
+            xs, out = check_kernel(
+                records, "attention_rel_packed", label,
+                lambda q, k, v, rel, ks=k_shape, h=heads: PA.attention_rel_packed(
+                    q, k, v, rel, ks, h, scale, True),
+                lambda q, k, v, rel, ks=k_shape, h=heads: PA.attention_rel_packed_reference(
+                    q, k, v, rel, ks, h, scale, True),
+                inputs, dtype, library, weight=blocks)
+            add_bound(records["attention_rel_packed"], dtype, nbytes(*xs, out),
+                      4.0 * BATCH * heads * nq * nk * MVIT_D, weight=blocks)
+        del inputs, xs, out
+    # row 18 per head as the pools run it, and once on the packed layout
+    # (all heads' lanes, the kernel tiled over the heads; checked only)
+    shapes = [(label, n, BATCH * heads, thw, MVIT_D) for label, n, heads, thw in DWCONV_SHAPES]
+    shapes.append(("blk4-13-q packed", 0, BATCH, (8, 14, 24), 4 * MVIT_D))
+    for label, pools, N, thw, C in shapes:
+        inputs = [randn(N, *thw, C), randn(C, 1, 3, 3, 3, scale=0.2)]
+        for dtype in (torch.float32, torch.bfloat16):
+            def library(x, w, c=C):
+                x_ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
+                return lambda: F.conv3d(x_ncdhw, w, None, 1, 1, 1, c)
+            xs, out = check_kernel(records, "dwconv3d", label, DW.dwconv3d,
+                                   DW.dwconv3d_reference, inputs, dtype, library, weight=pools)
+            add_bound(records["dwconv3d"], dtype, nbytes(*xs, out), 2.0 * 27 * out.numel(),
+                      PEAK_FLOPS[torch.float32], weight=pools)
+        del inputs, xs, out
+
+
+def phase_layout_backward(records) -> None:
+    """Row 7 head-major (row 6's backward) at the 16 blocks, row 8's
+    backward at blocks 1-15 and row 18's dx at the 17 pools, batch 2, fp32
+    and bf16. Row 7's bf16 times sum per training step into attention_bwd;
+    row 8's backward (K1's kernel after a layout change; not on a chip
+    path) and row 18's dx are checked and logged only."""
+    from mspi_tpu_torch.ops.kernels import dwconv as DW
+    from mspi_tpu_torch.ops.kernels import pooled_attention as PA
+
+    randn = randn_on(torch.Generator().manual_seed(31))
+    B = TRAIN_BATCH
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS:
+        nk, r = math.prod(k_shape), sum(k_shape)
+        inputs = aug_inputs(randn, B, heads, nq, k_shape) + [randn(B, heads, nq, MVIT_D)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (t.to(dtype) for t in inputs)
+            out, lse = PA._attention_fwd(q, k, v, with_lse=True)
+            bwd = lambda: PA.attention_backward(q, k, v, out, lse, dout)
+            got = bwd()
+            torch.cuda.synchronize()
+            want = PA.attention_backward_reference(q.float(), k.float(), v.float(),
+                                                   dout.float())
+            errs = compare_grads(("dq", "dk", "dv"), got, want, dtype)
+            ms = time_ms(bwd)
+            plain_ms = time_ms(lambda: PA.attention_backward_reference(q, k, v, dout))
+            lib_ms = None
+            if dtype == torch.bfloat16:
+                lib_ms = time_ms(library_grad(lambda *a: sdpa(*a, scale=1.0), (q, k, v), dout))
+            record(records, "attention_bwd", f"{label} Da {MVIT_D + r}", dtype, errs, ms,
+                   plain_ms, lib_ms, weight=blocks)
+            add_bound(records["attention_bwd"], dtype, nbytes(q, k, v, out, lse, dout, *got),
+                      2.0 * B * heads * nq * nk * (3 * (MVIT_D + r) + 2 * MVIT_D),
+                      weight=blocks)
+            del got, want, out, lse
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS[1:]:
+        scale = MVIT_D ** -0.5
+        inputs = packed_inputs(randn, B, heads, nq, k_shape) + [randn(B, nq, heads * MVIT_D)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, rel, dout = (t.to(dtype) for t in inputs)
+            o, lse = PA._attention_rel_packed_fwd(q, k, v, rel, k_shape, heads, scale, False,
+                                                  with_lse=True)
+            bwd = lambda: PA.attention_rel_packed_backward(q, k, v, rel, o, lse, k_shape, heads,
+                                                           scale, True, dout)
+            got = bwd()
+            torch.cuda.synchronize()
+            want = PA.attention_rel_packed_backward_reference(
+                *(t.float() for t in (q, k, v, rel)), k_shape, heads, scale, True, dout.float())
+            errs = compare_grads(("dq", "dk", "dv", "drel"), got, want, dtype)
+            ms = time_ms(bwd)
+            plain_ms = time_ms(lambda: PA.attention_rel_packed_backward_reference(
+                q, k, v, rel, k_shape, heads, scale, True, dout))
+            record(records, "attention_rel_bwd", f"packed {label}", dtype, errs, ms, plain_ms,
+                   weight=0)
+            del got, want, o, lse
+    for label, pools, heads, thw in DWCONV_SHAPES:
+        C, N = MVIT_D, B * heads
+        inputs = [randn(N, *thw, C), randn(C, 1, 3, 3, 3, scale=0.2), randn(N, *thw, C)]
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, dy = (t.to(dtype) for t in inputs)
+            dx_fn = lambda: DW._dwconv3d_fwd(dy, w.flip(2, 3, 4).contiguous())
+            dx = dx_fn()
+            torch.cuda.synchronize()
+            want = DW.dwconv3d_backward_reference(x.float(), w.float(), dy.float())[0]
+            errs = compare_grads(("dx",), (dx,), (want,), dtype)
+            ms = time_ms(dx_fn)
+            plain_ms = time_ms(lambda: DW.dwconv3d_reference(dy, w.flip(2, 3, 4)))
+            record(records, "dwconv3d", f"dx {label}", dtype, errs, ms, plain_ms, weight=0)
+            del dx, want
+
+
 def synthetic_video(seed: int):
     rng = np.random.default_rng(seed)
     frames = rng.integers(0, 256, (N_FRAMES, *RES, 3), dtype=np.uint8)
@@ -690,10 +899,11 @@ def compare_with_float(tag: str, key: str, model, clips, auds) -> None:
              f"({100.0 * differ / total:.3f}%) differ from the fp32 weights' codes")
 
 
-def phase_int8_parity(tag: str, key: str) -> None:
+def phase_options_parity(tag: str, key: str) -> None:
     """The options' model in fp32: card against the CPU's plain versions
-    (CC >= 0.9999), and card against the card's float model (CC >= 0.99:
-    the cost of int8, recorded)."""
+    (CC >= 0.9999), and card against the card's model without the options
+    (int8: CC >= 0.99, the cost of int8, recorded; the layout options
+    compute the same function: CC >= 0.9999)."""
     frames, _ = synthetic_video(3)
     clip = torch.from_numpy(frames[None, :16].copy())
     aud = torch.randn(1, 257, 111, 1, generator=torch.Generator().manual_seed(4))
@@ -707,7 +917,8 @@ def phase_int8_parity(tag: str, key: str) -> None:
         outs[name] = out.cpu().double().flatten()
         log(tag, f"{k} fp32 forward on {device}: {time.perf_counter() - t0:.1f} s")
         del model
-    for other, need in (("cpu", 0.9999), ("card float", 0.99)):
+    float_need = 0.99 if OPTIONS[key].get("quant") == "int8" else 0.9999
+    for other, need in (("cpu", 0.9999), ("card float", float_need)):
         a, b = outs["card"], outs[other]
         cc = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
         log(tag, f"{key} log-density {RES[0]}x{RES[1]} card vs {other}: CC {cc:.8f} "
@@ -751,13 +962,13 @@ def _frozen_snapshot(model):
 
 
 def phase_training(tag: str, encoder: str) -> dict:
-    from mspi_tpu_torch.config import get_config
+    """`encoder`: a PER_STEP key, a motion encoder and its options."""
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
     from mspi_tpu_torch.ops import kernels
     from mspi_tpu_torch.train import engine
     from mspi_tpu_torch.train.synthetic import make_batch
 
-    cfg = get_config(encoder)
+    cfg = model_config(encoder)
     model = AudioVisualSaliencyModel(cfg, device="cuda", dtype=torch.float32,
                                      generator=torch.Generator().manual_seed(0))
     state = engine.create_train_state(cfg, model)
@@ -806,12 +1017,12 @@ def phase_training(tag: str, encoder: str) -> dict:
 
 
 def phase_train_parity(tag: str, encoder: str) -> None:
-    from mspi_tpu_torch.config import get_config
+    """`encoder`: a motion encoder, + its options."""
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
     from mspi_tpu_torch.train import engine
     from mspi_tpu_torch.train.synthetic import make_batch
 
-    cfg = get_config(encoder)
+    cfg = model_config(encoder)
     batch = make_batch(np.random.default_rng(6), TRAIN_BATCH, 16, RES, SPECTRO)
     results = []
     for device in ("cuda", "cpu"):
@@ -844,6 +1055,7 @@ def main() -> None:
     parser.add_argument("--phases", default=",".join(PHASES),
                         help=f"comma-separated subset of {PHASES}")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -867,20 +1079,22 @@ def main() -> None:
     records = {name: new_record() for name in KERNELS}
     counts = {name: 0 for name in KERNELS}
     runners = {"main": phase_main_path, "parity": phase_parity, "training": phase_training,
-               "train_parity": phase_train_parity, "int8_parity": phase_int8_parity}
+               "train_parity": phase_train_parity, "options_parity": phase_options_parity}
+    kernel_phases = {"kernels": phase_kernels, "backward": phase_backward,
+                     "layout_kernels": phase_layout_kernels,
+                     "layout_backward": phase_layout_backward}
     for phase in PHASES:
         if phase not in phases:
             continue
-        if phase == "kernels":
-            phase_kernels(records)
-        elif phase == "backward":
-            phase_backward(records)
+        if phase in kernel_phases:
+            kernel_phases[phase](records)
         else:
             path_kind, encoder = PATH_PHASES[phase]
             path_counts = runners[path_kind](phase, encoder)
             if path_counts is not None:  # a path: its launches count
                 counts = {k: counts[k] + path_counts[k] for k in KERNELS}
 
+    log("total", f"{time.perf_counter() - t_start:.1f} s since start, the build included")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name],

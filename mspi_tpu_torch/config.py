@@ -114,10 +114,33 @@ class ModelConfig:
     # The prior's stem and downsample LayerNorms run the standalone LayerNorm
     # kernel, as MSPI_PRIOR_LN_T=1 does.
     prior_ln_t: bool = False
+    # MViT layout options (mspi_tpu/models/mvit.py, MultiScaleAttention and
+    # HeadPool), inference and training alike unless stated:
+    # attn_relk=False folds the rel-pos bias into augmented lanes,
+    # q_aug = [q*scale | rel] and k_aug = [k | E], and runs the bias-free
+    # attention kernel on them, as MSPI_ATTN_RELK=0 does.
+    attn_relk: bool = True
+    # attn_packed=True keeps the blocks with more than one head token-major
+    # at inference: depthwise pools over all heads' lanes, the rel projections
+    # packed, and the packed rel-pos attention kernel with the residual add
+    # (MSPI_POOL_FAT=1 with MSPI_ATTN_PACKED=1; training stays head-major, as
+    # under MSPI_POOL_PACKED_TRAIN=0). It needs the rel-pos kernel: with
+    # attn_relk=False the augmented-lane attention runs instead, as the JAX
+    # package's condition makes it.
+    attn_packed: bool = False
+    # dwconv=True runs every stride-1 pool (pool_q of the blocks without a q
+    # stride, pool_k/pool_v of blocks 14-15) through the depthwise conv3d
+    # kernel on channels-last tokens, as MSPI_DWCONV=1 does.
+    dwconv: bool = False
 
     def __post_init__(self):
         if self.quant not in ("", "int8"):
             raise ValueError(f"quant {self.quant!r}: expected '' or 'int8'")
+        for name in ("attn_relk", "attn_packed", "dwconv"):
+            value = getattr(self, name)
+            if value not in (True, False):  # a string such as "0" would read as on
+                raise ValueError(f"{name} {value!r}: expected a bool")
+            setattr(self, name, bool(value))
 
     @property
     def embed_dims(self) -> Tuple[int, int, int, int]:

@@ -1,6 +1,8 @@
-// Attention backward for the three flash forwards of flash_attention.cuh:
+// Attention backward for the flash forwards of flash_attention.cuh:
 //   rel    (K1 attention_rel): S = scale * q k^T + rel E^T
 //   self   (K4 self_attention): S = q k^T / sqrt(D), packed heads
+//   aug    (attention, augmented lanes): S = q_aug k_aug^T, head-major, score
+//          width Da != value width Dv, no scale
 //   window (window_attention): S = q_s k^T + bias[h] (+ mask[b mod nW]), with
 //          q_s = q * scale rounded to the storage type, packed qkv
 // with P = softmax(S), O = P v, and dO given:
@@ -11,7 +13,9 @@
 // Replaces: mspi_tpu/ops/pallas/pooled_attention.py::_bwd_impl_rel (kernel
 // _bwd_kernel_rel, the backward of fused_attention_rel, 16 MViTv2-S blocks)
 // and ::_bwd_impl (kernel _bwd_kernel, which fused_self_attention's backward
-// runs on head-major copies; 3 SyncBlock blocks). E takes no gradient.
+// runs on head-major copies; 3 SyncBlock blocks, and the backward of
+// ::fused_attention on MViT's augmented lanes, 16 blocks with
+// MSPI_ATTN_RELK=0). E takes no gradient.
 // Also mspi_tpu/ops/pallas/attention.py::_packed_bwd_impl (kernel
 // _packed_bwd_kernel, VideoSwin stages 1-2) and ::_bwd_impl_perhead (kernel
 // _perhead_bwd_kernel, stages 3-4): the same function, which the TPU splits
@@ -45,6 +49,11 @@
 // q, k, v, dO and the outputs are read and written in place through (batch,
 // head, token) strides, so K4's packed [B, N, C] / [B, N, 2C] lanes and the
 // windows' packed [B_, N, 3C] qkv need no head transposes.
+// Every pass is templated on DK (q, k, dq, dk: the score width) and DV (v,
+// dO, dv). The augmented lanes' rows of Da elements are loaded one element
+// at a time and zero-filled to DK = Da rounded up to 16 in shared memory;
+// only the first Da columns of dq and dk are written, and dk's partials are
+// kept at width Da.
 //   bf16: every product on the tensor cores (WMMA 16x16x16, fp32 accumulate);
 //         P and dS rounded to bf16 where they enter a product, as the TPU
 //         kernel rounds them to v's dtype.
@@ -70,8 +79,8 @@ struct BwdArgs {
   AttnStrides dqs;
   void* drel;      // strides f.rs
   float* delta;    // [B*H, Nq]
-  float* dk_part;  // [segments, B*H, Nk, D]
-  float* dv_part;
+  float* dk_part;  // [segments, B*H, Nk, Da]
+  float* dv_part;  // [segments, B*H, Nk, Dv]
   int segments, qtiles_per_seg;
   void* dk;
   AttnStrides dks;
@@ -86,8 +95,9 @@ struct BwdArgs {
 using bf16 = __nv_bfloat16;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// Operand tiles in shared memory: fp32 as they are (pitch D+1), bf16 for WMMA
-// (pitch D+8, a multiple of 8 elements; tiles start on 32-byte boundaries).
+// Operand tiles of width D in shared memory: fp32 as they are (pitch D+1),
+// bf16 for WMMA (pitch D+8, a multiple of 8 elements; tiles start on 32-byte
+// boundaries).
 template <typename T, int D>
 struct Path;
 template <int D>
@@ -117,18 +127,19 @@ __host__ __device__ inline size_t take(size_t& at, size_t bytes) {
 
 // Byte offsets of every shared-memory region (r = rel width, 0 without rel;
 // wide = columns of the window dbias rows, 0 outside the dq/dbias pass).
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __host__ __device__ inline Layout layout(int r, int wide = 0) {
-  using P = Path<T, D>;
-  const size_t op = sizeof(typename P::Op) * BM * P::LD;
+  using P = Path<T, DK>;
+  const size_t op_k = sizeof(typename P::Op) * BM * P::LD;
+  const size_t op_v = sizeof(typename P::Op) * BM * Path<T, DV>::LD;
   const size_t score = sizeof(float) * BM * LDS;
   const size_t prob = P::kTc ? sizeof(bf16) * BM * P::LDP : 0;
   Layout L;
   size_t at = 0;
-  L.q = take(at, op);
-  L.dout = take(at, op);
-  L.k = take(at, op);
-  L.v = take(at, op);
+  L.q = take(at, op_k);
+  L.dout = take(at, op_v);
+  L.k = take(at, op_k);
+  L.v = take(at, op_v);
   L.s = take(at, score);
   L.dp = take(at, score);
   L.p = take(at, prob);
@@ -159,6 +170,17 @@ __device__ __forceinline__ void load_op(const T* src, int64_t stride, int t0, in
       dst[r * LD + d] = (t0 + r < n) ? src[(t0 + r) * stride + d] * scale : 0.f;
     }
   }
+}
+
+// load_op for q and k: rows of `cols` < D elements (the augmented lanes)
+// take the narrow loader, zero-filled to D; full rows (cols == D) load_op.
+template <typename T, int D>
+__device__ __forceinline__ void load_qk(const T* src, int64_t stride, int t0, int n, int cols,
+                                        typename Path<T, D>::Op* dst, float scale = 1.f) {
+  if (cols < D)
+    load_rows_narrow<D, THREADS>(src, stride, t0, n, cols, dst, Path<T, D>::LD);
+  else
+    load_op<T, D>(src, stride, t0, n, dst, scale);
 }
 
 // The factor load_op applies to q: the window backward's q_s, else none.
@@ -258,8 +280,12 @@ struct Acc<float, D> {
 template <int D>
 struct Acc<bf16, D> {
   static constexpr int LD = Path<bf16, D>::LD;
-  static constexpr int NF = D / 32;  // 16x16 tiles per warp: warp + 8*n
+  static constexpr int NT = 4 * (D / 16);  // 16x16 tiles of the [64, D] sum
+  static constexpr int NF = (NT + 7) / 8;  // tiles per warp: warp + 8*n
   FragC f[NF];
+
+  // tile warp + 8*n exists (D = 144: 36 tiles, the fifth only in warps 0-3)
+  __device__ __forceinline__ static bool owns(int t) { return NT % 8 == 0 || t < NT; }
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
@@ -271,6 +297,7 @@ struct Acc<bf16, D> {
 #pragma unroll
     for (int n = 0; n < NF; ++n) {
       const int t = warp + 8 * n, rt = t / (D / 16), ct = t % (D / 16);
+      if (!owns(t)) continue;
 #pragma unroll
       for (int j = 0; j < BM; j += 16) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
@@ -296,6 +323,7 @@ struct Acc<bf16, D> {
 #pragma unroll
     for (int n = 0; n < NF; ++n) {
       const int t = warp + 8 * n, rt = t / (D / 16), ct = t % (D / 16);
+      if (!owns(t)) continue;
       wmma::store_matrix_sync(sc, f[n], 16, wmma::mem_row_major);
       __syncwarp();
       for (int e = lane; e < 256; e += 32) fn(rt * 16 + e / 16, ct * 16 + e % 16, sc[e]);
@@ -391,22 +419,22 @@ __device__ __forceinline__ void probs_and_ds(const AttnArgs& a, int b, int h, in
   }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 struct Tiles {
-  using Op = typename Path<T, D>::Op;
+  using Op = typename Path<T, DK>::Op;
   Op *q, *dout, *k, *v, *p, *ds;
   float *s, *dp, *stage, *rel, *drel, *lse, *delta, *dbias;
   int* kidx;
 
   __device__ Tiles(unsigned char* base, int r, int wide = 0) {
-    const Layout L = layout<T, D>(r, wide);
+    const Layout L = layout<T, DK, DV>(r, wide);
     q = reinterpret_cast<Op*>(base + L.q);
     dout = reinterpret_cast<Op*>(base + L.dout);
     k = reinterpret_cast<Op*>(base + L.k);
     v = reinterpret_cast<Op*>(base + L.v);
     s = reinterpret_cast<float*>(base + L.s);
     dp = reinterpret_cast<float*>(base + L.dp);
-    if constexpr (Path<T, D>::kTc) {
+    if constexpr (Path<T, DK>::kTc) {
       p = reinterpret_cast<Op*>(base + L.p);
       ds = reinterpret_cast<Op*>(base + L.ds);
     } else {  // fp32: P and dS are used in place
@@ -438,13 +466,21 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_delta_kernel(BwdArgs g, int 
   if (lane == 0) g.delta[static_cast<int64_t>(bh) * a.nq + row] = s;
 }
 
-template <typename T, int D, int BIAS>
+// Columns of q and k (and of dq and dk) that the tensors hold: Da for the
+// augmented lanes (DK != DV), else all DK.
+template <int DK, int DV>
+__device__ __forceinline__ int qk_cols(const AttnArgs& a) {
+  return DK != DV ? a.dk : DK;
+}
+
+template <typename T, int DK, int DV, int BIAS>
 __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(BwdArgs g) {
-  constexpr int LDP = Path<T, D>::LDP;
+  constexpr int LDP = Path<T, DK>::LDP;
   constexpr bool REL = BIAS == kRelBias;
   extern __shared__ __align__(128) unsigned char smem_bwd[];
   const AttnArgs& a = g.f;
-  Tiles<T, D> t(smem_bwd, REL ? a.r : 0);
+  const int cols = qk_cols<DK, DV>(a);
+  Tiles<T, DK, DV> t(smem_bwd, REL ? a.r : 0);
   const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
   const int q0 = blockIdx.x * BM;
   const T* qp = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
@@ -452,26 +488,26 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(BwdArgs g) {
   const T* vp = static_cast<const T*>(a.v) + b * a.vs.b + h * a.vs.h;
   const T* dop = static_cast<const T*>(g.dout) + b * g.dos.b + h * g.dos.h;
 
-  load_op<T, D>(qp, a.qs.n, q0, a.nq, t.q, q_load_scale<T, BIAS>(a));
-  load_op<T, D>(dop, g.dos.n, q0, a.nq, t.dout);
+  load_qk<T, DK>(qp, a.qs.n, q0, a.nq, cols, t.q, q_load_scale<T, BIAS>(a));
+  load_op<T, DV>(dop, g.dos.n, q0, a.nq, t.dout);
   load_rel_rows<T, BIAS>(a, b, h, q0, t.rel);
   if (REL)
     for (int e = threadIdx.x; e < BM * a.r; e += THREADS) t.drel[e] = 0.f;
   load_row_stats(g, bh, q0, t.lse, t.delta);
 
-  Acc<T, D> dq;
+  Acc<T, DK> dq;
   dq.zero();
   for (int k0 = 0; k0 < a.nk; k0 += BM) {
     __syncthreads();  // the previous tile's reads are done
-    load_op<T, D>(kp, a.ks.n, k0, a.nk, t.k);
-    load_op<T, D>(vp, a.vs.n, k0, a.nk, t.v);
+    load_qk<T, DK>(kp, a.ks.n, k0, a.nk, cols, t.k);
+    load_op<T, DV>(vp, a.vs.n, k0, a.nk, t.v);
     if (REL) key_columns(a, k0, t.kidx);
     __syncthreads();
-    scores<T, D>(t.q, t.k, t.s);
-    scores<T, D>(t.dout, t.v, t.dp);
+    scores<T, DK>(t.q, t.k, t.s);
+    scores<T, DV>(t.dout, t.v, t.dp);
     __syncthreads();
-    probs_and_ds<T, D, BIAS>(a, b, h, q0, k0, t.rel, t.kidx, t.lse, t.delta, t.s, t.dp, t.p,
-                             t.ds);
+    probs_and_ds<T, DK, BIAS>(a, b, h, q0, k0, t.rel, t.kidx, t.lse, t.delta, t.s, t.dp, t.p,
+                              t.ds);
     __syncthreads();
     dq.template add<false>(t.ds, LDP, t.k);  // dq += dS k
     if (REL) accumulate_drel(a, k0, t.dp, t.drel);
@@ -482,7 +518,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(BwdArgs g) {
   const int nq = a.nq;
   const int64_t dq_n = g.dqs.n;
   dq.emit(t.stage, [&](int r, int c, float v) {
-    if (q0 + r < nq) dqp[(q0 + r) * dq_n + c] = from_f<T>(v * scale);
+    if (q0 + r < nq && c < cols) dqp[(q0 + r) * dq_n + c] = from_f<T>(v * scale);
   });
   if (REL) {
     T* drp = static_cast<T*>(g.drel) + b * a.rs.b + h * a.rs.h;
@@ -493,13 +529,14 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(BwdArgs g) {
   }
 }
 
-template <typename T, int D, int BIAS>
+template <typename T, int DK, int DV, int BIAS>
 __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(BwdArgs g) {
-  constexpr int LDP = Path<T, D>::LDP;
+  constexpr int LDP = Path<T, DK>::LDP;
   constexpr bool REL = BIAS == kRelBias;
   extern __shared__ __align__(128) unsigned char smem_bwd[];
   const AttnArgs& a = g.f;
-  Tiles<T, D> t(smem_bwd, REL ? a.r : 0);
+  const int cols = qk_cols<DK, DV>(a);
+  Tiles<T, DK, DV> t(smem_bwd, REL ? a.r : 0);
   const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
   const int k0 = blockIdx.x * BM, seg = blockIdx.z;
   const T* qp = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
@@ -507,91 +544,105 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(BwdArgs g) {
   const T* vp = static_cast<const T*>(a.v) + b * a.vs.b + h * a.vs.h;
   const T* dop = static_cast<const T*>(g.dout) + b * g.dos.b + h * g.dos.h;
 
-  load_op<T, D>(kp, a.ks.n, k0, a.nk, t.k);
-  load_op<T, D>(vp, a.vs.n, k0, a.nk, t.v);
+  load_qk<T, DK>(kp, a.ks.n, k0, a.nk, cols, t.k);
+  load_op<T, DV>(vp, a.vs.n, k0, a.nk, t.v);
   if (REL) key_columns(a, k0, t.kidx);
 
   const int qtiles = (a.nq + BM - 1) / BM;
   const int qt0 = seg * g.qtiles_per_seg;
   const int qt1 = min(qtiles, qt0 + g.qtiles_per_seg);
-  Acc<T, D> dk, dv;
+  Acc<T, DK> dk;
+  Acc<T, DV> dv;
   dk.zero();
   dv.zero();
   for (int qt = qt0; qt < qt1; ++qt) {
     const int q0 = qt * BM;
     __syncthreads();  // the previous tile's reads are done
-    load_op<T, D>(qp, a.qs.n, q0, a.nq, t.q, q_load_scale<T, BIAS>(a));
-    load_op<T, D>(dop, g.dos.n, q0, a.nq, t.dout);
+    load_qk<T, DK>(qp, a.qs.n, q0, a.nq, cols, t.q, q_load_scale<T, BIAS>(a));
+    load_op<T, DV>(dop, g.dos.n, q0, a.nq, t.dout);
     load_rel_rows<T, BIAS>(a, b, h, q0, t.rel);
     load_row_stats(g, bh, q0, t.lse, t.delta);
     __syncthreads();
-    scores<T, D>(t.q, t.k, t.s);
-    scores<T, D>(t.dout, t.v, t.dp);
+    scores<T, DK>(t.q, t.k, t.s);
+    scores<T, DV>(t.dout, t.v, t.dp);
     __syncthreads();
-    probs_and_ds<T, D, BIAS>(a, b, h, q0, k0, t.rel, t.kidx, t.lse, t.delta, t.s, t.dp, t.p,
-                             t.ds);
+    probs_and_ds<T, DK, BIAS>(a, b, h, q0, k0, t.rel, t.kidx, t.lse, t.delta, t.s, t.dp, t.p,
+                              t.ds);
     __syncthreads();
     dv.template add<true>(t.p, LDP, t.dout);  // dv += P^T dO
     dk.template add<true>(t.ds, LDP, t.q);    // dk += dS^T q
   }
 
   const int64_t bh_count = static_cast<int64_t>(gridDim.y);
-  const int64_t base = ((static_cast<int64_t>(seg) * bh_count + bh) * a.nk + k0) * D;
-  float* dkp = g.dk_part + base;
-  float* dvp = g.dv_part + base;
+  const int64_t row0 = (static_cast<int64_t>(seg) * bh_count + bh) * a.nk + k0;
+  float* dkp = g.dk_part + row0 * cols;
+  float* dvp = g.dv_part + row0 * DV;
   const int nk = a.nk;
   __syncthreads();  // the staging tiles alias nothing, but keep warps together
   dk.emit(t.stage, [&](int r, int c, float v) {
-    if (k0 + r < nk) dkp[r * D + c] = v;
+    if (k0 + r < nk && c < cols) dkp[r * cols + c] = v;
   });
   dv.emit(t.stage, [&](int r, int c, float v) {
-    if (k0 + r < nk) dvp[r * D + c] = v;
+    if (k0 + r < nk) dvp[r * DV + c] = v;
   });
 }
 
-// dk = dk_scale * sum over segments, dv = sum over segments, in a fixed order.
+// dk = dk_scale * sum over segments (width dkw), dv = sum over segments
+// (width dvw), in a fixed order; one pass over both.
 template <typename T>
-__global__ void attn_bwd_reduce_kernel(BwdArgs g, int D, int bh_count) {
+__global__ void attn_bwd_reduce_kernel(BwdArgs g, int dkw, int dvw, int bh_count) {
   const AttnArgs& a = g.f;
-  const int64_t n = static_cast<int64_t>(bh_count) * a.nk * D;
+  const int64_t rows = static_cast<int64_t>(bh_count) * a.nk;
+  const int64_t nk_el = rows * dkw, n = nk_el + rows * dvw;
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
        i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int d = static_cast<int>(i % D);
-    const int j = static_cast<int>((i / D) % a.nk);
-    const int bh = static_cast<int>(i / (static_cast<int64_t>(D) * a.nk));
+    const bool is_k = i < nk_el;
+    const int64_t e = is_k ? i : i - nk_el;
+    const int w = is_k ? dkw : dvw;
+    const int64_t per = is_k ? nk_el : rows * dvw;
+    const float* part = is_k ? g.dk_part : g.dv_part;
+    const int d = static_cast<int>(e % w);
+    const int j = static_cast<int>((e / w) % a.nk);
+    const int bh = static_cast<int>(e / (static_cast<int64_t>(w) * a.nk));
     const int b = bh / a.heads, h = bh % a.heads;
-    float sk = 0.f, sv = 0.f;
-    for (int s = 0; s < g.segments; ++s) {
-      sk += g.dk_part[s * n + i];
-      sv += g.dv_part[s * n + i];
-    }
-    static_cast<T*>(g.dk)[b * g.dks.b + h * g.dks.h + j * g.dks.n + d] = from_f<T>(sk * g.dk_scale);
-    static_cast<T*>(g.dv)[b * g.dvs.b + h * g.dvs.h + j * g.dvs.n + d] = from_f<T>(sv);
+    float sum = 0.f;
+    for (int s = 0; s < g.segments; ++s) sum += part[s * per + e];
+    if (is_k)
+      static_cast<T*>(g.dk)[b * g.dks.b + h * g.dks.h + j * g.dks.n + d] =
+          from_f<T>(sum * g.dk_scale);
+    else
+      static_cast<T*>(g.dv)[b * g.dvs.b + h * g.dvs.h + j * g.dvs.n + d] = from_f<T>(sum);
   }
 }
 
-template <typename T, int D, int BIAS>
+template <typename T>
+cudaError_t launch_reduce(const BwdArgs& g, int dkw, int dvw, int bh, cudaStream_t stream) {
+  const int64_t n = static_cast<int64_t>(bh) * g.f.nk * (dkw + dvw);
+  const int64_t blocks = (n + 255) / 256;
+  attn_bwd_reduce_kernel<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
+                              stream>>>(g, dkw, dvw, bh);
+  return cudaGetLastError();
+}
+
+template <typename T, int DK, int DV, int BIAS>
 cudaError_t launch_bwd(BwdArgs g, int batch, cudaStream_t stream) {
   constexpr bool REL = BIAS == kRelBias;
   const AttnArgs& a = g.f;
   const int bh = batch * a.heads;
   const int qtiles = (a.nq + BM - 1) / BM, ktiles = (a.nk + BM - 1) / BM;
   g.qtiles_per_seg = (qtiles + g.segments - 1) / g.segments;
-  attn_bwd_delta_kernel<T><<<dim3((a.nq + 7) / 8, bh), THREADS, 0, stream>>>(g, D);
+  attn_bwd_delta_kernel<T><<<dim3((a.nq + 7) / 8, bh), THREADS, 0, stream>>>(g, DV);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = layout<T, D>(REL ? a.r : 0).total;
-  if ((err = allow_smem(attn_bwd_dq_kernel<T, D, BIAS>, smem)) != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T, D, BIAS><<<dim3(qtiles, bh), THREADS, smem, stream>>>(g);
+  const size_t smem = layout<T, DK, DV>(REL ? a.r : 0).total;
+  if ((err = allow_smem(attn_bwd_dq_kernel<T, DK, DV, BIAS>, smem)) != cudaSuccess) return err;
+  attn_bwd_dq_kernel<T, DK, DV, BIAS><<<dim3(qtiles, bh), THREADS, smem, stream>>>(g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = allow_smem(attn_bwd_dkv_kernel<T, D, BIAS>, smem)) != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<T, D, BIAS><<<dim3(ktiles, bh, g.segments), THREADS, smem, stream>>>(g);
+  if ((err = allow_smem(attn_bwd_dkv_kernel<T, DK, DV, BIAS>, smem)) != cudaSuccess) return err;
+  attn_bwd_dkv_kernel<T, DK, DV, BIAS><<<dim3(ktiles, bh, g.segments), THREADS, smem,
+                                         stream>>>(g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int64_t n = static_cast<int64_t>(bh) * a.nk * D;
-  const int64_t blocks = (n + 255) / 256;
-  attn_bwd_reduce_kernel<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
-                              stream>>>(g, D, bh);
-  return cudaGetLastError();
+  return launch_reduce<T>(g, DK != DV ? a.dk : DK, DV, bh, stream);
 }
 
 template <int BIAS>
@@ -599,19 +650,28 @@ cudaError_t dispatch_bwd(const BwdArgs& g, int batch, int d, int dtype, cudaStre
   if (g.segments <= 0) return cudaErrorInvalidValue;
   if (dtype == kFloat32) {
     switch (d) {
-      case 96: return launch_bwd<float, 96, BIAS>(g, batch, s);
-      case 128: return launch_bwd<float, 128, BIAS>(g, batch, s);
+      case 96: return launch_bwd<float, 96, 96, BIAS>(g, batch, s);
+      case 128: return launch_bwd<float, 128, 128, BIAS>(g, batch, s);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype == kBFloat16) {
     switch (d) {
-      case 96: return launch_bwd<bf16, 96, BIAS>(g, batch, s);
-      case 128: return launch_bwd<bf16, 128, BIAS>(g, batch, s);
+      case 96: return launch_bwd<bf16, 96, 96, BIAS>(g, batch, s);
+      case 128: return launch_bwd<bf16, 128, 128, BIAS>(g, batch, s);
       default: return cudaErrorInvalidValue;
     }
   }
   return cudaErrorInvalidValue;
+}
+
+// The augmented lanes: q/k rows of g.f.dk lanes (zero-filled to DK = 128 or
+// 144), v and dO of dv = 96 lanes, no bias.
+template <typename T>
+cudaError_t dispatch_bwd_aug(const BwdArgs& g, int batch, int dv, cudaStream_t s) {
+  if (g.segments <= 0 || dv != 96 || g.f.dk <= 112 || g.f.dk > 144) return cudaErrorInvalidValue;
+  if (g.f.dk <= 128) return launch_bwd<T, 128, 96, kNoBias>(g, batch, s);
+  return launch_bwd<T, 144, 96, kNoBias>(g, batch, s);
 }
 
 // ---- window attention: dq/dbias pass and the dbias reduction ------------------
@@ -628,7 +688,7 @@ __global__ void __launch_bounds__(THREADS) window_bwd_dq_kernel(BwdArgs g) {
   extern __shared__ __align__(128) unsigned char smem_bwd[];
   const AttnArgs& a = g.f;
   const int ldb = dbias_cols(a.nk);
-  Tiles<T, D> t(smem_bwd, 0, ldb);
+  Tiles<T, D, D> t(smem_bwd, 0, ldb);
   const int q0 = blockIdx.x * BM, h = blockIdx.y, grp = blockIdx.z;
   const int per = (g.windows + gridDim.z - 1) / gridDim.z;
   const int w0 = grp * per, w1 = min(g.windows, w0 + per);
@@ -699,21 +759,18 @@ cudaError_t launch_window_bwd(BwdArgs g, int groups, cudaStream_t stream) {
   attn_bwd_delta_kernel<T><<<dim3((a.nq + 7) / 8, bh), THREADS, 0, stream>>>(g, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem_dq = layout<T, D>(0, dbias_cols(a.nk)).total;
+  const size_t smem_dq = layout<T, D, D>(0, dbias_cols(a.nk)).total;
   if ((err = allow_smem(window_bwd_dq_kernel<T, D>, smem_dq)) != cudaSuccess) return err;
   window_bwd_dq_kernel<T, D><<<dim3(qtiles, a.heads, groups), THREADS, smem_dq, stream>>>(g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem = layout<T, D>(0).total;
-  if ((err = allow_smem(attn_bwd_dkv_kernel<T, D, kDenseBias>, smem)) != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<T, D, kDenseBias><<<dim3(ktiles, bh, 1), THREADS, smem, stream>>>(g);
+  const size_t smem = layout<T, D, D>(0).total;
+  if ((err = allow_smem(attn_bwd_dkv_kernel<T, D, D, kDenseBias>, smem)) != cudaSuccess)
+    return err;
+  attn_bwd_dkv_kernel<T, D, D, kDenseBias><<<dim3(ktiles, bh, 1), THREADS, smem, stream>>>(g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int64_t n = static_cast<int64_t>(bh) * a.nk * D;
-  int64_t blocks = (n + 255) / 256;
-  attn_bwd_reduce_kernel<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
-                              stream>>>(g, D, bh);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_reduce<T>(g, D, D, bh, stream)) != cudaSuccess) return err;
   const int64_t nb = static_cast<int64_t>(a.heads) * a.nq * a.nk;
-  blocks = (nb + 255) / 256;
+  const int64_t blocks = (nb + 255) / 256;
   window_dbias_reduce_kernel<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
                                   stream>>>(g.dbias_part, static_cast<T*>(g.dbias), groups, nb);
   return cudaGetLastError();
@@ -862,5 +919,54 @@ extern "C" int mspi_window_attention_bwd(const void* qkv, const void* bias, cons
   if (D != 32) return cudaErrorInvalidValue;
   if (dtype == mspi::kFloat32) return mspi::launch_window_bwd<float, 32>(g, groups, s);
   if (dtype == mspi::kBFloat16) return mspi::launch_window_bwd<__nv_bfloat16, 32>(g, groups, s);
+  return cudaErrorInvalidValue;
+}
+
+// Backward of the augmented-lane attention (head-major, scale 1): q, dq
+// [B,H,Nq,Da]; k, dk [B,H,Nk,Da]; v, dv [B,H,Nk,Dv]; out (the forward's O)
+// and dout [B,H,Nq,Dv]; lse (from the forward) and delta (scratch) [B*H, Nq]
+// fp32; dk_part [segments, B*H, Nk, Da] and dv_part [segments, B*H, Nk, Dv]
+// fp32 scratch. Da in (112, 144], Dv = 96. dk includes the k_aug lanes of E,
+// which the caller drops.
+extern "C" int mspi_attention_bwd(const void* q, const void* k, const void* v, const void* out,
+                                  float* lse, const void* dout, void* dq, void* dk, void* dv,
+                                  float* delta, float* dk_part, float* dv_part, int segments,
+                                  int B, int H, int Nq, int Nk, int Da, int Dv, int dtype,
+                                  void* stream) {
+  mspi::BwdArgs g{};
+  mspi::AttnArgs& a = g.f;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.out = const_cast<void*>(out);
+  a.lse = lse;
+  const int64_t hq = static_cast<int64_t>(Nq) * Da, hk = static_cast<int64_t>(Nk) * Da;
+  const int64_t hv = static_cast<int64_t>(Nk) * Dv, ho = static_cast<int64_t>(Nq) * Dv;
+  a.qs = {H * hq, hq, Da};
+  a.ks = {H * hk, hk, Da};
+  a.vs = {H * hv, hv, Dv};
+  a.os = {H * ho, ho, Dv};
+  a.heads = H;
+  a.nq = Nq;
+  a.nk = Nk;
+  a.dk = Da;
+  a.scale = 1.f;
+  g.dout = dout;
+  g.dos = a.os;
+  g.dq = dq;
+  g.dqs = a.qs;
+  g.delta = delta;
+  g.dk_part = dk_part;
+  g.dv_part = dv_part;
+  g.segments = segments;
+  g.dk = dk;
+  g.dks = a.ks;
+  g.dv = dv;
+  g.dvs = a.vs;
+  g.dq_scale = 1.f;
+  g.dk_scale = 1.f;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mspi::kFloat32) return mspi::dispatch_bwd_aug<float>(g, B, Dv, s);
+  if (dtype == mspi::kBFloat16) return mspi::dispatch_bwd_aug<__nv_bfloat16>(g, B, Dv, s);
   return cudaErrorInvalidValue;
 }

@@ -1,7 +1,9 @@
 // Flash-style attention body shared by attention_rel.cu (MViT pooled attention
-// with the decomposed relative-position bias), self_attention.cu (SyncBlock
-// multi-head self-attention) and window_attention.cu (VideoSwin window
-// attention with a dense bias and shift mask).
+// with the decomposed relative-position bias, head-major or token-major with
+// the residual epilogue), self_attention.cu (SyncBlock multi-head
+// self-attention, and MViT attention on augmented q/k lanes) and
+// window_attention.cu (VideoSwin window attention with a dense bias and shift
+// mask).
 //
 // One block computes BQ = 64 query rows of one (batch, head) and walks the
 // keys in tiles of BK = 64 with an online softmax (fp32 running max and sum
@@ -12,8 +14,15 @@
 //
 // Tensors are addressed through (batch, head, token) element strides with the
 // head's D features contiguous, so the same body reads head-major [B, H, N, D]
-// (MViT) and packed token-major [B, N, H*D] / [B, N, 2*H*D] (SyncBlock) in
-// place, without transpose copies.
+// (MViT) and packed token-major [B, N, H*D] / [B, N, 2*H*D] (SyncBlock, the
+// MViT packed layout) in place, without transpose copies.
+//
+// Score and value widths: the kernels are templated on DK, the width of the
+// q k^T contraction, and DV, the width of v and out. They are equal except
+// for the augmented-lane attention (q_aug = [q*scale | rel], k_aug = [k | E],
+// Da = 96 + 27 or 96 + 46 lanes, DV = 96): its rows of Da elements are not
+// 16-byte aligned, so they are loaded one element at a time and zero-filled
+// to DK = Da rounded up to 16 in shared memory, which leaves the scores exact.
 //
 // The bias mode (template argument BIAS):
 //   kNoBias:    S = scale * q k^T.
@@ -28,6 +37,9 @@
 //               type and read from device memory (L2) per score; q_s = q *
 //               qscale rounded to the storage type as q is loaded, as the TPU
 //               window kernel scales q before Q K^T (scale is then 1).
+//   kRelBiasRes: kRelBias with the residual epilogue of MViT's residual
+//               pooling: out = (o / l rounded to the storage type) + q, added
+//               in the storage type (the token-major packed attention).
 //
 // Thread layout (256 threads): ty = tid / 16 owns query rows ty*4 .. ty*4+3,
 // tx = tid % 16 owns keys tx*4 .. tx*4+3 of the score tile and output columns
@@ -63,7 +75,12 @@ constexpr int kBK = 64;
 constexpr int kPitch = 68;  // padded row pitch (floats) of qs, ks and ps
 constexpr int kAttnThreads = 256;
 
-enum BiasMode : int { kNoBias = 0, kRelBias = 1, kDenseBias = 2 };
+enum BiasMode : int { kNoBias = 0, kRelBias = 1, kDenseBias = 2, kRelBiasRes = 3 };
+
+// The modes that rebuild the decomposed rel-pos bias.
+__host__ __device__ constexpr bool rel_mode(int bias) {
+  return bias == kRelBias || bias == kRelBiasRes;
+}
 
 struct AttnStrides {
   int64_t b, h, n;  // element strides of batch, head and token; features contiguous
@@ -80,7 +97,8 @@ struct AttnArgs {
   float* lse;  // [batch * heads, Nq] row log-sum-exp for the backward, or null
   AttnStrides qs, ks, vs, rs, os;
   int heads, nq, nk;
-  int r, kt, kh, kw;  // rel width and key grid (kRelBias only)
+  int dk;             // q and k row width when DK != DV (augmented lanes), <= DK
+  int r, kt, kh, kw;  // rel width and key grid (rel modes only)
   int nw;             // mask windows (kDenseBias only)
   float scale;        // multiplies q k^T
   float qscale;       // kDenseBias: multiplies q as it is loaded, in the storage type
@@ -117,7 +135,7 @@ __device__ __forceinline__ void softmax_update(const AttnArgs& a, const float* r
       continue;
     }
     int ct = 0, ch = 0, cw = 0;
-    if (BIAS == kRelBias) {
+    if (rel_mode(BIAS)) {
       ct = kj / (a.kh * a.kw);
       ch = a.kt + (kj / a.kw) % a.kh;
       cw = a.kt + a.kh + kj % a.kw;
@@ -125,7 +143,7 @@ __device__ __forceinline__ void softmax_update(const AttnArgs& a, const float* r
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float v = s[i][jj] * a.scale;
-      if (BIAS == kRelBias) {
+      if (rel_mode(BIAS)) {
         const float* rr = rels + (ty * 4 + i) * a.r;
         v += rr[ct] + rr[ch] + rr[cw];
       }
@@ -158,7 +176,7 @@ __device__ __forceinline__ void softmax_update(const AttnArgs& a, const float* r
 template <typename T, int BIAS>
 __device__ __forceinline__ void load_rel_rows(const AttnArgs& a, int b, int h, int q0,
                                               float* rels) {
-  if (BIAS != kRelBias) return;
+  if (!rel_mode(BIAS)) return;
   const T* rp = static_cast<const T*>(a.rel) + b * a.rs.b + h * a.rs.h;
   for (int e = threadIdx.x; e < kBQ * a.r; e += kAttnThreads) {
     const int r = e / a.r, c = e % a.r;
@@ -167,13 +185,15 @@ __device__ __forceinline__ void load_rel_rows(const AttnArgs& a, int b, int h, i
   }
 }
 
-// out rows ty*4+i, columns tx+16*dd = o / l; with a.lse, also the rows'
-// log-sum-exp m + log(l) (each row's 16 owners hold the same m and l).
-template <typename T, int D>
+// out rows ty*4+i, columns tx+16*dd = o / l (kRelBiasRes: + q, in the
+// storage type); with a.lse, also the rows' log-sum-exp m + log(l) (each
+// row's 16 owners hold the same m and l).
+template <typename T, int D, int BIAS>
 __device__ __forceinline__ void store_rows(const AttnArgs& a, int b, int h, int q0, int tx,
                                            int ty, const float (&o)[4][D / 16],
                                            const float (&m_run)[4], const float (&l_run)[4]) {
   T* op = static_cast<T*>(a.out) + b * a.os.b + h * a.os.h;
+  const T* qp = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
@@ -182,32 +202,37 @@ __device__ __forceinline__ void store_rows(const AttnArgs& a, int b, int h, int 
       if (a.lse != nullptr && tx == 0)
         a.lse[(static_cast<int64_t>(b) * a.heads + h) * a.nq + qi] = m_run[i] + logf(l_run[i]);
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd)
-        op[qi * a.os.n + tx + 16 * dd] = from_f<T>(o[i][dd] * inv);
+      for (int dd = 0; dd < D / 16; ++dd) {
+        const int c = tx + 16 * dd;
+        T y = from_f<T>(o[i][dd] * inv);
+        if (BIAS == kRelBiasRes) y = from_f<T>(to_f(y) + to_f(qp[qi * a.qs.n + c]));
+        op[qi * a.os.n + c] = y;
+      }
     }
   }
 }
 
 // ---- fp32: FMA pipes ---------------------------------------------------------
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t attn_smem_bytes(int r) {
-  return (static_cast<size_t>(D) * kPitch * 2  // qs, ks (transposed)
-          + static_cast<size_t>(kBK) * D       // vs
-          + static_cast<size_t>(kBQ) * kPitch  // ps
-          + static_cast<size_t>(kBQ) * r)      // rels
+  return (static_cast<size_t>(DK) * kPitch * 2  // qs, ks (transposed)
+          + static_cast<size_t>(kBK) * DV       // vs
+          + static_cast<size_t>(kBQ) * kPitch   // ps
+          + static_cast<size_t>(kBQ) * r)       // rels
          * sizeof(float);
 }
 
-template <int D, int BIAS>
+template <int DK, int DV, int BIAS>
 __global__ void __launch_bounds__(kAttnThreads) flash_attention_kernel(AttnArgs a) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int DPT = D / 16;  // output columns per thread
+  static_assert(DK % 16 == 0 && DV % 16 == 0, "widths must be multiples of 16");
+  constexpr int DPT = DV / 16;  // output columns per thread
+  constexpr bool kNarrow = DK != DV;  // augmented lanes: q/k rows of a.dk elements
   extern __shared__ __align__(16) float smem_f32[];
-  float* qs = smem_f32;             // [D][kPitch]: qs[d][row]
-  float* ks = qs + D * kPitch;      // [D][kPitch]: ks[d][key]
-  float* vs = ks + D * kPitch;      // [kBK][D]
-  float* ps = vs + kBK * D;         // [kBQ][kPitch]
+  float* qs = smem_f32;             // [DK][kPitch]: qs[d][row]
+  float* ks = qs + DK * kPitch;     // [DK][kPitch]: ks[d][key]
+  float* vs = ks + DK * kPitch;     // [kBK][DV]
+  float* ps = vs + kBK * DV;        // [kBQ][kPitch]
   float* rels = ps + kBQ * kPitch;  // [kBQ][R]
 
   const int tid = threadIdx.x;
@@ -219,10 +244,11 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_kernel(AttnArgs 
   const float* vp = static_cast<const float*>(a.v) + b * a.vs.b + h * a.vs.h;
 
   const float qscale = BIAS == kDenseBias ? a.qscale : 1.f;
-  for (int e = tid; e < kBQ * D; e += kAttnThreads) {
-    const int r = e / D, d = e % D;
+  const int dk = kNarrow ? a.dk : DK;
+  for (int e = tid; e < kBQ * DK; e += kAttnThreads) {
+    const int r = e / DK, d = e % DK;
     const int i = q0 + r;
-    qs[d * kPitch + r] = (i < a.nq) ? qp[i * a.qs.n + d] * qscale : 0.f;
+    qs[d * kPitch + r] = (i < a.nq && d < dk) ? qp[i * a.qs.n + d] * qscale : 0.f;
   }
   load_rel_rows<float, BIAS>(a, b, h, q0, rels);
 
@@ -237,12 +263,25 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_kernel(AttnArgs 
 
   for (int k0 = 0; k0 < a.nk; k0 += kBK) {
     __syncthreads();  // previous tile's ks / vs / ps reads are done
-    for (int e = tid; e < kBK * D; e += kAttnThreads) {
-      const int j = e / D, d = e % D;
-      const int kj = k0 + j;
-      const bool ok = kj < a.nk;
-      ks[d * kPitch + j] = ok ? kp[kj * a.ks.n + d] : 0.f;
-      vs[j * D + d] = ok ? vp[kj * a.vs.n + d] : 0.f;
+    if constexpr (kNarrow) {
+      for (int e = tid; e < kBK * DK; e += kAttnThreads) {
+        const int j = e / DK, d = e % DK;
+        const int kj = k0 + j;
+        ks[d * kPitch + j] = (kj < a.nk && d < dk) ? kp[kj * a.ks.n + d] : 0.f;
+      }
+      for (int e = tid; e < kBK * DV; e += kAttnThreads) {
+        const int j = e / DV, d = e % DV;
+        const int kj = k0 + j;
+        vs[j * DV + d] = kj < a.nk ? vp[kj * a.vs.n + d] : 0.f;
+      }
+    } else {
+      for (int e = tid; e < kBK * DK; e += kAttnThreads) {
+        const int j = e / DK, d = e % DK;
+        const int kj = k0 + j;
+        const bool ok = kj < a.nk;
+        ks[d * kPitch + j] = ok ? kp[kj * a.ks.n + d] : 0.f;
+        vs[j * DV + d] = ok ? vp[kj * a.vs.n + d] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -253,7 +292,7 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_kernel(AttnArgs 
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DK; ++d) {
       const float4 qv = *reinterpret_cast<const float4*>(qs + d * kPitch + ty * 4);
       const float4 kv = *reinterpret_cast<const float4*>(ks + d * kPitch + tx * 4);
       const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
@@ -283,13 +322,13 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_kernel(AttnArgs 
       for (int i = 0; i < 4; ++i) p[i] = ps[(ty * 4 + i) * kPitch + j];
 #pragma unroll
       for (int dd = 0; dd < DPT; ++dd) {
-        const float vv = vs[j * D + tx + 16 * dd];
+        const float vv = vs[j * DV + tx + 16 * dd];
 #pragma unroll
         for (int i = 0; i < 4; ++i) o[i][dd] = fmaf(p[i], vv, o[i][dd]);
       }
     }
   }
-  store_rows<float, D>(a, b, h, q0, tx, ty, o, m_run, l_run);
+  store_rows<float, DV, BIAS>(a, b, h, q0, tx, ty, o, m_run, l_run);
 }
 
 // ---- bf16: tensor cores --------------------------------------------------------
@@ -297,16 +336,17 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_kernel(AttnArgs 
 namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
-template <int D>
+template <int DK, int DV>
 struct TcLayout {
-  static constexpr int LDT = D + 8;    // bf16 pitch of qs, ks, vs (rows = tokens)
+  static constexpr int LDK = DK + 8;   // bf16 pitch of qs, ks (rows = tokens)
+  static constexpr int LDV = DV + 8;   // bf16 pitch of vs
   static constexpr int LDS = kBK + 4;  // fp32 pitch of the score tile
   static constexpr int LDP = kBK + 8;  // bf16 pitch of the probability tile
-  static constexpr int LDO = D + 4;    // fp32 pitch of the P V tile
+  static constexpr int LDO = DV + 4;   // fp32 pitch of the P V tile
   static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + sizeof(bf16) * kBQ * LDT;
-  static constexpr size_t kV = kK + sizeof(bf16) * kBK * LDT;
-  static constexpr size_t kS = kV + sizeof(bf16) * kBK * LDT;
+  static constexpr size_t kK = kQ + sizeof(bf16) * kBQ * LDK;
+  static constexpr size_t kV = kK + sizeof(bf16) * kBK * LDK;
+  static constexpr size_t kS = kV + sizeof(bf16) * kBK * LDV;
   static constexpr size_t kP = kS + sizeof(float) * kBQ * LDS;
   static constexpr size_t kO = kP + sizeof(bf16) * kBQ * LDP;
   static constexpr size_t kRel = kO + sizeof(float) * kBQ * LDO;
@@ -343,17 +383,30 @@ __device__ __forceinline__ void load_rows_bf16(const bf16* src, int64_t stride, 
   }
 }
 
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(const bf16* src, int64_t stride, int t0, int n,
-                                               bf16* dst, float scale = 1.f) {
-  load_rows_bf16<D, kAttnThreads>(src, stride, t0, n, dst, TcLayout<D>::LDT, scale);
+// rows [t0, t0+64) of an operand whose rows hold `cols` <= D elements at any
+// alignment (the augmented lanes), one element per load, into dst [64][ld]:
+// zeros past `cols` and past n.
+template <int D, int THREADS, typename T>
+__device__ __forceinline__ void load_rows_narrow(const T* src, int64_t stride, int t0, int n,
+                                                 int cols, T* dst, int ld) {
+  for (int e = threadIdx.x; e < 64 * D; e += THREADS) {
+    const int r = e / D, c = e % D;
+    dst[r * ld + c] = (t0 + r < n && c < cols) ? src[(t0 + r) * stride + c] : from_f<T>(0.f);
+  }
 }
 
-template <int D, int BIAS>
+template <int D, int LD>
+__device__ __forceinline__ void load_tile_bf16(const bf16* src, int64_t stride, int t0, int n,
+                                               bf16* dst, float scale = 1.f) {
+  load_rows_bf16<D, kAttnThreads>(src, stride, t0, n, dst, LD, scale);
+}
+
+template <int DK, int DV, int BIAS>
 __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnArgs a) {
-  using L = TcLayout<D>;
-  constexpr int DPT = D / 16;
-  constexpr int NOT = (kBQ / 16) * (D / 16);  // 16x16 tiles of P V
+  using L = TcLayout<DK, DV>;
+  constexpr int DPT = DV / 16;
+  constexpr int NOT = (kBQ / 16) * (DV / 16);  // 16x16 tiles of P V
+  constexpr bool kNarrow = DK != DV;            // augmented lanes: q/k rows of a.dk elements
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
   using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
   extern __shared__ __align__(128) unsigned char smem_tc[];
@@ -374,8 +427,11 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
   const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
   const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
 
-  load_tile_bf16<D>(qp, a.qs.n, q0, a.nq, qs,
-                    BIAS == kDenseBias ? round_to<bf16>(a.qscale) : 1.f);
+  if constexpr (kNarrow)
+    load_rows_narrow<DK, kAttnThreads>(qp, a.qs.n, q0, a.nq, a.dk, qs, L::LDK);
+  else
+    load_tile_bf16<DK, L::LDK>(qp, a.qs.n, q0, a.nq, qs,
+                               BIAS == kDenseBias ? round_to<bf16>(a.qscale) : 1.f);
   load_rel_rows<bf16, BIAS>(a, b, h, q0, rels);
 
   float m_run[4], l_run[4], o[4][DPT];
@@ -388,8 +444,11 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
   }
 
   for (int k0 = 0; k0 < a.nk; k0 += kBK) {
-    load_tile_bf16<D>(kp, a.ks.n, k0, a.nk, ks);
-    load_tile_bf16<D>(vp, a.vs.n, k0, a.nk, vs);
+    if constexpr (kNarrow)
+      load_rows_narrow<DK, kAttnThreads>(kp, a.ks.n, k0, a.nk, a.dk, ks, L::LDK);
+    else
+      load_tile_bf16<DK, L::LDK>(kp, a.ks.n, k0, a.nk, ks);
+    load_tile_bf16<DV, L::LDV>(vp, a.vs.n, k0, a.nk, vs);
     __syncthreads();
 
     // S = Q K^T: warp -> row tile warp/2, column tiles (warp%2)*2 + {0, 1}
@@ -401,11 +460,11 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
         FragC acc;
         wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-        for (int d = 0; d < D; d += 16) {
+        for (int d = 0; d < DK; d += 16) {
           FragA qa;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-          wmma::load_matrix_sync(qa, qs + rt * 16 * L::LDT + d, L::LDT);
-          wmma::load_matrix_sync(kb, ks + ct * 16 * L::LDT + d, L::LDT);
+          wmma::load_matrix_sync(qa, qs + rt * 16 * L::LDK + d, L::LDK);
+          wmma::load_matrix_sync(kb, ks + ct * 16 * L::LDK + d, L::LDK);
           wmma::mma_sync(acc, qa, kb, acc);
         }
         wmma::store_matrix_sync(ss + rt * 16 * L::LDS + ct * 16, acc, L::LDS,
@@ -436,7 +495,7 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
     for (int i = 0; i < (NOT + 7) / 8; ++i) {
       const int t = warp + 8 * i;
       if (t < NOT) {
-        const int rt = t / (D / 16), ct = t % (D / 16);
+        const int rt = t / (DV / 16), ct = t % (DV / 16);
         FragC acc;
         wmma::fill_fragment(acc, 0.f);
 #pragma unroll
@@ -444,7 +503,7 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
           FragA pa;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
           wmma::load_matrix_sync(pa, ps + rt * 16 * L::LDP + j, L::LDP);
-          wmma::load_matrix_sync(vb, vs + j * L::LDT + ct * 16, L::LDT);
+          wmma::load_matrix_sync(vb, vs + j * L::LDV + ct * 16, L::LDV);
           wmma::mma_sync(acc, pa, vb, acc);
         }
         wmma::store_matrix_sync(os + rt * 16 * L::LDO + ct * 16, acc, L::LDO,
@@ -460,38 +519,49 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
     // the next tile's loads touch ks / vs only; ss, ps and os are rewritten
     // after the next __syncthreads, when every thread is done with them here
   }
-  store_rows<bf16, D>(a, b, h, q0, tx, ty, o, m_run, l_run);
+  store_rows<bf16, DV, BIAS>(a, b, h, q0, tx, ty, o, m_run, l_run);
 }
 
-template <typename T, int D, int BIAS>
+template <typename T, int DK, int DV, int BIAS>
 cudaError_t launch_flash_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
   const dim3 grid((a.nq + kBQ - 1) / kBQ, batch * a.heads);
-  const int r = BIAS == kRelBias ? a.r : 0;
+  const int r = rel_mode(BIAS) ? a.r : 0;
   if constexpr (std::is_same<T, bf16>::value) {
-    const size_t smem = TcLayout<D>::bytes(r);
-    cudaError_t err = allow_smem(flash_attention_tc_kernel<D, BIAS>, smem);
+    const size_t smem = TcLayout<DK, DV>::bytes(r);
+    cudaError_t err = allow_smem(flash_attention_tc_kernel<DK, DV, BIAS>, smem);
     if (err != cudaSuccess) return err;
-    flash_attention_tc_kernel<D, BIAS><<<grid, kAttnThreads, smem, stream>>>(a);
+    flash_attention_tc_kernel<DK, DV, BIAS><<<grid, kAttnThreads, smem, stream>>>(a);
   } else {
-    const size_t smem = attn_smem_bytes<D>(r);
-    cudaError_t err = allow_smem(flash_attention_kernel<D, BIAS>, smem);
+    const size_t smem = attn_smem_bytes<DK, DV>(r);
+    cudaError_t err = allow_smem(flash_attention_kernel<DK, DV, BIAS>, smem);
     if (err != cudaSuccess) return err;
-    flash_attention_kernel<D, BIAS><<<grid, kAttnThreads, smem, stream>>>(a);
+    flash_attention_kernel<DK, DV, BIAS><<<grid, kAttnThreads, smem, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
 // Head dims by bias mode: 96 and 128 (MViT, SyncBlock) without a dense bias,
-// 32 (VideoSwin) with it.
+// 96 (MViT) with the residual epilogue, 32 (VideoSwin) with a dense bias.
 template <typename T, int BIAS>
 cudaError_t launch_flash_attention_d(const AttnArgs& a, int batch, int d, cudaStream_t s) {
   if constexpr (BIAS == kDenseBias) {
-    if (d == 32) return launch_flash_attention<T, 32, BIAS>(a, batch, s);
+    if (d == 32) return launch_flash_attention<T, 32, 32, BIAS>(a, batch, s);
+  } else if constexpr (BIAS == kRelBiasRes) {
+    if (d == 96) return launch_flash_attention<T, 96, 96, BIAS>(a, batch, s);
   } else {
-    if (d == 96) return launch_flash_attention<T, 96, BIAS>(a, batch, s);
-    if (d == 128) return launch_flash_attention<T, 128, BIAS>(a, batch, s);
+    if (d == 96) return launch_flash_attention<T, 96, 96, BIAS>(a, batch, s);
+    if (d == 128) return launch_flash_attention<T, 128, 128, BIAS>(a, batch, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The augmented-lane attention: q/k rows of a.dk lanes (zero-filled to
+// DK = 128 or 144), v and out of dv = 96 lanes, no bias and no scale.
+template <typename T>
+cudaError_t launch_flash_attention_aug(const AttnArgs& a, int batch, int dv, cudaStream_t s) {
+  if (dv != 96 || a.dk <= 112 || a.dk > 144) return cudaErrorInvalidValue;
+  if (a.dk <= 128) return launch_flash_attention<T, 128, 96, kNoBias>(a, batch, s);
+  return launch_flash_attention<T, 144, 96, kNoBias>(a, batch, s);
 }
 
 template <int BIAS>

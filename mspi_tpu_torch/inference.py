@@ -13,12 +13,17 @@ it with file I/O:
     python -m mspi_tpu_torch.inference --path_data ./AuViDataset --dataset AVAD \
         --split 2 --save_path ./output [--motion_encoder videoswins] \
         [--weight port_state_dict.pt] [--bf16] \
-        [--quant int8] [--prior_fold_res] [--prior_ln_t]
+        [--quant int8] [--prior_fold_res] [--prior_ln_t] \
+        [--no_attn_relk] [--attn_packed] [--dwconv]
 
-The last three are the serving options of `ModelConfig` (the JAX package's
-MSPI_QUANT=int8, MSPI_PRIOR_FOLD_RES=1 and MSPI_PRIOR_LN_T=1): int8 LN+MLP
-for the blocks with C >= 256, and the ConvNeXt prior's residual-folded MLP
-and LayerNorm kernels. All are off by default.
+`--quant`, `--prior_fold_res` and `--prior_ln_t` are the serving options of
+`ModelConfig` (the JAX package's MSPI_QUANT=int8, MSPI_PRIOR_FOLD_RES=1 and
+MSPI_PRIOR_LN_T=1): int8 LN+MLP for the blocks with C >= 256, and the
+ConvNeXt prior's residual-folded MLP and LayerNorm kernels. The last three
+are MViT's layout options (MSPI_ATTN_RELK=0, MSPI_POOL_FAT=1 with
+MSPI_ATTN_PACKED=1, MSPI_DWCONV=1): attention on augmented q/k lanes,
+token-major packed attention, and the depthwise conv3d kernel for the
+stride-1 pools. All are off by default.
 """
 
 from __future__ import annotations
@@ -140,6 +145,13 @@ def parse_args(argv=None):
                    help="the prior's blocks fold the residual sum into the MLP kernel")
     p.add_argument("--prior_ln_t", action="store_true",
                    help="the prior's stem and downsample LayerNorms run the LayerNorm kernel")
+    p.add_argument("--no_attn_relk", action="store_true",
+                   help="MViT attention on augmented q/k lanes instead of the rel-pos kernel")
+    p.add_argument("--attn_packed", action="store_true",
+                   help="MViT blocks with several heads stay token-major at inference "
+                        "(packed pools and the packed rel-pos attention kernel)")
+    p.add_argument("--dwconv", action="store_true",
+                   help="MViT's stride-1 pools run the depthwise conv3d kernel")
     return p.parse_args(argv)
 
 
@@ -149,7 +161,8 @@ def config_from_args(args):
 
     return get_config(args.motion_encoder, {"model": {
         "quant": args.quant, "prior_fold_res": args.prior_fold_res,
-        "prior_ln_t": args.prior_ln_t}})
+        "prior_ln_t": args.prior_ln_t, "attn_relk": not args.no_attn_relk, "attn_packed": args.attn_packed,
+        "dwconv": args.dwconv}})
 
 
 def main(argv=None):

@@ -16,7 +16,8 @@ def build_backbone(cfg: MSPIConfig) -> nn.Module:
     if name == "mvitv2s":
         from mspi_tpu_torch.models.mvit import MViTFeatures
 
-        return MViTFeatures(cfg.model.mvit, cfg.model.quant)
+        mc = cfg.model
+        return MViTFeatures(mc.mvit, mc.quant, mc.attn_relk, mc.attn_packed, mc.dwconv)
     if name == "videoswins":
         from mspi_tpu_torch.models.videoswin import VideoSwinFeatures
 

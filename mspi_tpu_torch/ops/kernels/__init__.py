@@ -43,7 +43,8 @@ launches: Dict[str, int] = {"attention_rel": 0, "ln_mlp": 0, "ln_mlp_prior": 0,
                             "self_attention": 0, "attention_rel_bwd": 0,
                             "attention_bwd": 0, "ln_mlp_bwd": 0, "window_attention": 0,
                             "window_attention_bwd": 0, "ln_mlp_int8": 0,
-                            "ln_mlp_prior_res": 0, "layernorm_tokens": 0}
+                            "ln_mlp_prior_res": 0, "layernorm_tokens": 0, "attention": 0,
+                            "attention_rel_packed": 0, "dwconv3d": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +63,10 @@ _SIGNATURES = {
     "mspi_self_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
     "mspi_window_attention": [_P] * 5 + [_I] * 6 + [_P],
     "mspi_window_attention_bwd": [_P] * 12 + [_I] * 7 + [_P],
+    "mspi_attention": [_P] * 5 + [_I] * 7 + [_P],
+    "mspi_attention_bwd": [_P] * 12 + [_I] * 8 + [_P],
+    "mspi_attention_rel_packed": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P],
+    "mspi_dwconv3d": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,18 +1,22 @@
 """Attention kernels: K1 `attention_rel` (MViT pooled attention with the
-decomposed rel-pos bias) and K4 `self_attention` (SyncBlock packed
-multi-head self-attention), each with its backward.
+decomposed rel-pos bias), K4 `self_attention` (SyncBlock packed
+multi-head self-attention), row 6 `attention` (MViT attention on augmented
+q/k lanes) and row 8 `attention_rel_packed` (K1 on MViT's packed
+token-major layout with the residual add), each with its backward.
 
 Counterparts of `mspi_tpu/ops/pallas/pooled_attention.py::
-fused_attention_rel` and `::fused_self_attention` and their custom VJPs
-(`_bwd_impl_rel`, `_bwd_impl`). Kernel sources:
-`mspi_tpu_torch/csrc/attention_rel.cu`, `csrc/self_attention.cu` and their
-shared flash body `csrc/flash_attention.cuh`; the backward of both in
-`csrc/attention_bwd.cu`.
+fused_attention_rel`, `::fused_self_attention`, `::fused_attention` and
+`::fused_attention_rel_packed` and their custom VJPs (`_bwd_impl_rel`,
+`_bwd_impl`, `_attention_rel_packed_bwd`). Kernel sources:
+`mspi_tpu_torch/csrc/attention_rel.cu` (K1 and row 8),
+`csrc/self_attention.cu`, `csrc/attention.cu` (row 6) and their shared
+flash body `csrc/flash_attention.cuh`; every backward in
+`csrc/attention_bwd.cu` (row 8's is K1's after a layout change).
 
-`attention_rel` and `self_attention` are `torch.autograd.Function`s: on the
-card the forward kernel also writes the rows' log-sum-exp when a gradient
-is needed, and the backward kernel rebuilds the probabilities from it. On
-the CPU both directions run the plain versions below.
+All four are `torch.autograd.Function`s: on the card the forward kernel
+also writes the rows' log-sum-exp when a gradient is needed, and the
+backward kernel rebuilds the probabilities from it. On the CPU both
+directions run the plain versions below.
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ import torch
 from mspi_tpu_torch.ops import kernels
 
 SUPPORTED_D = (96, 128)  # MViT heads, SyncBlock heads
+PACKED_D = 96  # row 8's head dim (MViT)
+AUG_DA = (113, 144)  # row 6's q_aug/k_aug widths, zero-filled to 128 or 144 lanes
+AUG_DV = 96  # row 6's value width (MViT heads)
 BWD_TILE = 64  # query and key tile of the backward kernels
 
 
@@ -172,6 +179,229 @@ def attention_rel(q, k, v, rel, k_shape, scale: float) -> torch.Tensor:
     in q, k, v and rel."""
     q, k, v, rel = kernels.cast_for_autocast(q, k, v, rel)
     return _AttentionRel.apply(q, k, v, rel, tuple(int(s) for s in k_shape), float(scale))
+
+
+# ---- row 6: attention on augmented lanes (scale and bias folded into q/k) ----
+
+
+def attention_reference(q, k, v) -> torch.Tensor:
+    """Plain version: softmax(q k^T) v in fp32, no scale."""
+    s = q.float() @ k.float().transpose(-1, -2)
+    return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
+
+
+def attention_backward_reference(q, k, v, dout):
+    """Plain version of row 6's backward (row 7 head-major) in fp32:
+    (dq, dk, dv) with dq = dS k, dk = dS^T q, dv = P^T dO."""
+    qf, kf, vf, do = (t.float() for t in (q, k, v, dout))
+    p = torch.softmax(qf @ kf.transpose(-1, -2), dim=-1)
+    dv, ds = _softmax_backward(p, vf, do, p @ vf)
+    grads = (ds @ kf, ds.transpose(-1, -2) @ qf, dv)
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
+
+
+def _aug_geometry(name, q, k, v):
+    B, H, Nq, Da = q.shape
+    Nk, Dv = k.shape[2], v.shape[3]
+    if tuple(k.shape) != (B, H, Nk, Da) or tuple(v.shape) != (B, H, Nk, Dv):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if Dv != AUG_DV or not AUG_DA[0] <= Da <= AUG_DA[1]:
+        raise ValueError(f"{name}: widths Da {Da} / Dv {Dv} not compiled (Da in "
+                         f"{AUG_DA[0]}..{AUG_DA[1]}, Dv {AUG_DV})")
+    return B, H, Nq, Nk, Da, Dv
+
+
+def _attention_fwd(q, k, v, with_lse: bool = False
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Row 6 forward: (out, lse [B*H, Nq] fp32 or None) on the card,
+    (plain out, None) on the CPU."""
+    if not kernels.dispatch_device(q, k, v):
+        return attention_reference(q, k, v), None
+    name = "attention"
+    dtype = kernels.check_operands(name, q, k, v)
+    B, H, Nq, Nk, Da, Dv = _aug_geometry(name, q, k, v)
+    _check_aligned(name, v)  # q_aug / k_aug rows are loaded one element at a time
+    out = q.new_empty((B, H, Nq, Dv))
+    lse = q.new_empty((B * H, Nq), dtype=torch.float32) if with_lse else None
+    err = kernels.lib().mspi_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kernels.ptr(lse),
+        B, H, Nq, Nk, Da, Dv, dtype, kernels.stream_handle(q))
+    kernels.check(err, name)
+    kernels.launches[name] += 1
+    return out, lse
+
+
+def attention_backward(q, k, v, out, lse, dout):
+    """Row 6 backward -> (dq, dk, dv): row 7's kernel on head-major operands
+    with Da != Dv and scale 1 on the card, from the forward's out and lse;
+    the plain version on the CPU."""
+    if not kernels.dispatch_device(q, k, v, dout):
+        return attention_backward_reference(q, k, v, dout)
+    name = "attention_bwd"
+    dtype = kernels.check_operands(name, q, k, v, out, dout)
+    B, H, Nq, Nk, Da, Dv = _aug_geometry(name, q, k, v)
+    if tuple(out.shape) != (B, H, Nq, Dv) or tuple(dout.shape) != (B, H, Nq, Dv):
+        raise ValueError(f"{name}: out {tuple(out.shape)} / dout {tuple(dout.shape)} "
+                         f"for v {tuple(v.shape)}")
+    if lse is None or lse.dtype != torch.float32 or tuple(lse.shape) != (B * H, Nq):
+        raise ValueError(f"{name}: needs the forward's fp32 lse [{B * H}, {Nq}]")
+    _check_aligned(name, v, dout)
+    segments = _segments(q, Nq, Nk, B * H)
+    f32 = dict(device=q.device, dtype=torch.float32)
+    delta = torch.empty((B * H, Nq), **f32)
+    dk_part = torch.empty((segments, B * H, Nk, Da), **f32)
+    dv_part = torch.empty((segments, B * H, Nk, Dv), **f32)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    err = kernels.lib().mspi_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        dk_part.data_ptr(), dv_part.data_ptr(), segments, B, H, Nq, Nk, Da, Dv, dtype,
+        kernels.stream_handle(q))
+    kernels.check(err, name)
+    kernels.launches[name] += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = _attention_fwd(q, k, v, with_lse=any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return attention_backward(q, k, v, out, lse, dout.contiguous())
+
+
+def attention(q_aug, k_aug, v) -> torch.Tensor:
+    """Row 6. softmax(q_aug k_aug^T) v with no scale: q_aug [B,H,Nq,Da],
+    k_aug [B,H,Nk,Da], v [B,H,Nk,Dv] -> [B,H,Nq,Dv]; differentiable in all
+    three (the k_aug lanes that hold constants get a gradient the caller
+    drops)."""
+    q_aug, k_aug, v = kernels.cast_for_autocast(q_aug, k_aug, v)
+    return _Attention.apply(q_aug, k_aug, v)
+
+
+# ---- row 8: K1 on the packed token-major layout, with the residual add ----
+
+
+def _to_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, N, heads*W] -> head-major [B, heads, N, W] (contiguous)."""
+    B, N, C = t.shape
+    return t.reshape(B, N, heads, C // heads).transpose(1, 2).contiguous()
+
+
+def _to_packed(t: torch.Tensor) -> torch.Tensor:
+    """Head-major [B, heads, N, W] -> [B, N, heads*W]."""
+    B, H, N, W = t.shape
+    return t.transpose(1, 2).reshape(B, N, H * W)
+
+
+def attention_rel_packed_reference(q, k, v, rel, k_shape, heads: int, scale: float,
+                                   residual: bool) -> torch.Tensor:
+    """Plain version: K1's plain version per head of the packed operands;
+    with residual, + q added in q's dtype to the output rounded to it."""
+    out = _to_packed(attention_rel_reference(*(_to_heads(t, heads) for t in (q, k, v, rel)),
+                                             k_shape, scale))
+    return out + q if residual else out
+
+
+def attention_rel_packed_backward_reference(q, k, v, rel, k_shape, heads: int, scale: float,
+                                            residual: bool, dout):
+    """Plain version of row 8's backward in fp32, packed: K1's plain
+    backward per head, with residual dq += dout."""
+    grads = attention_rel_backward_reference(
+        *(_to_heads(t.float(), heads) for t in (q, k, v, rel)), k_shape, scale,
+        _to_heads(dout.float(), heads))
+    dq, dk, dv, drel = (_to_packed(g) for g in grads)
+    grads = (dq + dout.float() if residual else dq), dk, dv, drel
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v, rel)))
+
+
+def _packed_geometry(name, q, k, v, rel, k_shape, heads):
+    B, Nq, C = q.shape
+    kt, kh, kw = (int(s) for s in k_shape)
+    Nk, R = kt * kh * kw, kt + kh + kw
+    if C % heads or C // heads != PACKED_D:
+        raise ValueError(f"{name}: C={C} / {heads} heads: head dim {PACKED_D} compiled")
+    if (tuple(k.shape) != (B, Nk, C) or tuple(v.shape) != (B, Nk, C)
+            or tuple(rel.shape) != (B, Nq, heads * R)):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} rel {tuple(rel.shape)} do not match "
+                         f"k_shape {tuple(k_shape)} and {heads} heads")
+    return B, Nq, Nk, C // heads, R, kt, kh, kw
+
+
+def _attention_rel_packed_fwd(q, k, v, rel, k_shape, heads: int, scale: float,
+                              residual: bool, with_lse: bool = False
+                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Row 8 forward: (out, lse [B*heads, Nq] fp32 or None) on the card,
+    (plain out, None) on the CPU."""
+    if not kernels.dispatch_device(q, k, v, rel):
+        return attention_rel_packed_reference(q, k, v, rel, k_shape, heads, scale,
+                                              residual), None
+    name = "attention_rel_packed"
+    dtype = kernels.check_operands(name, q, k, v, rel)
+    B, Nq, Nk, D, R, kt, kh, kw = _packed_geometry(name, q, k, v, rel, k_shape, heads)
+    _check_aligned(name, q, k, v, rel)
+    out = torch.empty_like(q)
+    lse = q.new_empty((B * heads, Nq), dtype=torch.float32) if with_lse else None
+    err = kernels.lib().mspi_attention_rel_packed(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(),
+        kernels.ptr(lse), B, heads, Nq, Nk, D, R, kt, kh, kw, float(scale), int(residual),
+        dtype, kernels.stream_handle(q))
+    kernels.check(err, name)
+    kernels.launches[name] += 1
+    return out, lse
+
+
+def attention_rel_packed_backward(q, k, v, rel, out, lse, k_shape, heads: int, scale: float,
+                                  residual: bool, dout):
+    """Row 8 backward -> (dq, dk, dv, drel), all packed: the operands to
+    head-major, K1's backward (row 5; `out` is the attention's output
+    without the residual and `lse` the forward's), back to packed, and with
+    residual dq += dout, as the JAX package's `_attention_rel_packed_bwd`."""
+    grads = attention_rel_backward(
+        *(_to_heads(t, heads) for t in (q, k, v, rel, out)), lse, k_shape, scale,
+        _to_heads(dout, heads))
+    dq, dk, dv, drel = (_to_packed(g) for g in grads)
+    return (dq + dout if residual else dq), dk, dv, drel
+
+
+class _AttentionRelPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, rel, k_shape, heads, scale, residual):
+        ctx.k_shape, ctx.heads, ctx.scale, ctx.residual = k_shape, heads, scale, residual
+        if not any(ctx.needs_input_grad[:4]):
+            out, _ = _attention_rel_packed_fwd(q, k, v, rel, k_shape, heads, scale, residual)
+            return out
+        # the backward needs the attention output without the residual: the
+        # kernel writes it, and the residual (the same add in q's dtype) runs here
+        o, lse = _attention_rel_packed_fwd(q, k, v, rel, k_shape, heads, scale, False,
+                                           with_lse=True)
+        ctx.save_for_backward(q, k, v, rel, o, lse)
+        return o + q if residual else o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, rel, o, lse = ctx.saved_tensors
+        grads = attention_rel_packed_backward(q, k, v, rel, o, lse, ctx.k_shape, ctx.heads,
+                                              ctx.scale, ctx.residual, dout.contiguous())
+        return (*grads, None, None, None, None)
+
+
+def attention_rel_packed(q, k, v, rel, k_shape, heads: int, scale: float,
+                         residual: bool) -> torch.Tensor:
+    """Row 8. Per head h (lanes [h*D, (h+1)*D)): softmax(scale q_h k_h^T +
+    rel_h E^T) v_h, + q_h with residual. q [B,Nq,H*D], k/v [B,Nk,H*D] (k_shape
+    the pooled key grid), rel [B,Nq,H*R] -> [B,Nq,H*D]; differentiable in
+    q, k, v and rel."""
+    q, k, v, rel = kernels.cast_for_autocast(q, k, v, rel)
+    return _AttentionRelPacked.apply(q, k, v, rel, tuple(int(s) for s in k_shape), int(heads),
+                                     float(scale), bool(residual))
 
 
 def self_attention_reference(q, kv, num_heads: int) -> torch.Tensor:

@@ -1,13 +1,18 @@
 """Training CLI of the port: counterpart of the repository's `train.py`.
 
-    python -m mspi_tpu_torch.train --data_root ./AuViDataset --split 1 [--bf16]
+    python -m mspi_tpu_torch.train --data_root ./AuViDataset --split 1 [--bf16] \
+        [--no_attn_relk] [--dwconv] [--attn_packed]
 
 The same arguments, seed (2023), 6-dataset mixture, frozen encoders,
 AdamW (lr 1e-4, weight decay 0), step LR schedule, validation at the
 monitored epochs, JSONL logs, periodic `ckpt_{epoch}` checkpoints and
 auto-resume; a non-finite loss stops the run with "Loss is NaN.". It runs
 on one CUDA device unless `--device cpu` is given. The JAX CLI's mesh
-options (`--dp`, `--tp`) and `--remat` have no counterpart yet.
+options (`--dp`, `--tp`) and `--remat` have no counterpart yet. The MViT
+layout options of `ModelConfig` (`--no_attn_relk`, `--dwconv`, and
+`--attn_packed`, which changes only inference, the validation passes) are
+the JAX package's MSPI_ATTN_RELK=0, MSPI_DWCONV=1 and MSPI_POOL_FAT=1 with
+MSPI_ATTN_PACKED=1.
 """
 
 from __future__ import annotations
@@ -47,7 +52,31 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (parameters and optimizer stay fp32)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--no_attn_relk", action="store_true",
+                   help="MViT attention on augmented q/k lanes instead of the rel-pos kernel")
+    p.add_argument("--attn_packed", action="store_true",
+                   help="MViT blocks with several heads stay token-major at inference "
+                        "(packed pools and the packed rel-pos attention kernel)")
+    p.add_argument("--dwconv", action="store_true",
+                   help="MViT's stride-1 pools run the depthwise conv3d kernel")
     return p.parse_args(argv)
+
+
+def config_from_args(args):
+    """The config the CLI's arguments ask for."""
+    from mspi_tpu_torch.config import get_config
+
+    return get_config(args.motion_encoder, overrides={
+        "data": {"root": args.data_root,
+                 **({"resolution": tuple(args.resolution)} if args.resolution else {})},
+        "model": {"attn_relk": not args.no_attn_relk, "attn_packed": args.attn_packed,
+        "dwconv": args.dwconv},
+        "train": {"gamma": args.gamma,
+                  **({"batch_size": args.batch_size} if args.batch_size else {})},
+        "solver": {**({"max_epoch": args.epochs} if args.epochs else {}),
+                   **({"monitored_epochs": tuple(args.monitored_epochs)}
+                      if args.monitored_epochs else {})},
+    })
 
 
 def _mean(rows):
@@ -60,7 +89,6 @@ def _mean(rows):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    from mspi_tpu_torch.config import get_config
     from mspi_tpu_torch.data.datasets import build_training_datasets
     from mspi_tpu_torch.data.loader import DataLoader
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel, VisualSaliencyModel
@@ -71,15 +99,7 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to train on the CPU")
-    cfg = get_config(args.motion_encoder, overrides={
-        "data": {"root": args.data_root,
-                 **({"resolution": tuple(args.resolution)} if args.resolution else {})},
-        "train": {"gamma": args.gamma,
-                  **({"batch_size": args.batch_size} if args.batch_size else {})},
-        "solver": {**({"max_epoch": args.epochs} if args.epochs else {}),
-                   **({"monitored_epochs": tuple(args.monitored_epochs)}
-                      if args.monitored_epochs else {})},
-    })
+    cfg = config_from_args(args)
     use_sound = cfg.data.use_sound and args.dataset == "sound"
     seed = cfg.train.seed
     np.random.seed(seed)

@@ -3,7 +3,8 @@ PyTorch/CUDA port on a GPU.
 
     python tools/profile_torch_port.py [--motion_encoder mvitv2s|videoswins] \
         [--batch 8] [--dtype bf16] [--steps 2] [--train] [--table PATH] \
-        [--quant int8] [--prior_fold_res] [--prior_ln_t]
+        [--quant int8] [--prior_fold_res] [--prior_ln_t] \
+        [--no_attn_relk] [--attn_packed] [--dwconv]
 
 Builds the AudioVisualSaliencyModel (MViTv2-S by default, or VideoSwin-S;
 16x224x384, seeded random weights) on cuda, warms up, then traces `--steps`
@@ -17,6 +18,9 @@ cuDNN/cuBLAS, elementwise, other), largest first. With `--table`, the full
 key_averages table is written to PATH. `--quant int8`, `--prior_fold_res`
 and `--prior_ln_t` build the model with the serving options (inference
 only); their kernels (rows 12, 10 and 11) are families of their own.
+`--no_attn_relk`, `--attn_packed` (inference only) and `--dwconv` build
+MViTv2-S with the layout options; their kernels (rows 6, 8 and 18) are
+families of their own too.
 """
 
 from __future__ import annotations
@@ -37,17 +41,22 @@ from mspi_tpu_torch.train import engine  # noqa: E402
 from mspi_tpu_torch.train.synthetic import make_batch  # noqa: E402
 
 # The port's kernels: a name matches when it holds every key. The flash
-# kernels' last template argument is the bias mode (0 none, 1 rel, 2 dense).
+# kernels' template arguments are the score and value widths and the bias
+# mode (0 none, 1 rel, 2 dense, 3 rel with the residual epilogue); row 6 is
+# the bias-free kernel with a value width (96) below its score width.
 PORT_FAMILIES = (
     ("window attention backward (rows 16/17)", ("window_",)),
     ("window attention backward (rows 16/17)", ("attn_bwd", "2>(")),
-    ("K1/K4 attention backward", ("attn_bwd",)),
+    ("K1/K4/row 6 attention backward", ("attn_bwd",)),
     ("K2 ln_mlp backward", ("ln_mlp_bwd",)),
     ("K2 ln_mlp backward", ("atb_kernel",)),
     ("K2 ln_mlp backward", ("sum_segments",)),
     ("window attention (row 15)", ("flash_attention", "2>(")),
     ("K1 attention_rel", ("flash_attention", "1>(")),
+    ("row 6 attention (augmented lanes)", ("flash_attention", ",96,0>(")),
+    ("row 8 attention_rel_packed", ("flash_attention", "3>(")),
     ("K4 self_attention", ("flash_attention", "0>(")),
+    ("row 18 dwconv3d", ("dwconv3d",)),
     ("row 12 ln_mlp_int8", ("ln_mlp_int8",)),
     ("row 10 ln_mlp_prior_res (folded K2)", ("ln_mlp", "true>(")),
     ("K2/K3 ln_mlp", ("ln_mlp",)),
@@ -86,9 +95,13 @@ def main() -> None:
     p.add_argument("--quant", default="", choices=("", "int8"))
     p.add_argument("--prior_fold_res", action="store_true")
     p.add_argument("--prior_ln_t", action="store_true")
+    p.add_argument("--no_attn_relk", action="store_true")
+    p.add_argument("--attn_packed", action="store_true")
+    p.add_argument("--dwconv", action="store_true")
     args = p.parse_args()
-    if args.train and (args.quant or args.prior_fold_res or args.prior_ln_t):
-        raise SystemExit("the serving options are inference only")
+    if args.train and (args.quant or args.prior_fold_res or args.prior_ln_t
+                       or args.attn_packed):
+        raise SystemExit("the serving options and attn_packed are inference only")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -100,7 +113,8 @@ def main() -> None:
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     cfg = get_config(args.motion_encoder, {"model": {
         "quant": args.quant, "prior_fold_res": args.prior_fold_res,
-        "prior_ln_t": args.prior_ln_t}})
+        "prior_ln_t": args.prior_ln_t, "attn_relk": not args.no_attn_relk,
+        "attn_packed": args.attn_packed, "dwconv": args.dwconv}})
     model = AudioVisualSaliencyModel(cfg, device="cuda",
                                      dtype=torch.float32 if args.train else dtype,
                                      generator=torch.Generator().manual_seed(0))
