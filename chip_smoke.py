@@ -50,10 +50,20 @@ first failure (there is no CPU path):
 19. layout_parity: that model in fp32, card against the CPU (CC) and
    against the card's default model;
 20. relk0_training, relk0_train_parity: phases 7 and 8 on MViTv2-S with
-   attn_relk=False and dwconv (rows 6, 7 and 18 with its dx).
+   attn_relk=False and dwconv (rows 6, 7 and 18 with its dx);
+21. mlp_kernels: the fused MLP without LayerNorm (row 13) against its plain
+   version at K2's six shapes (batch 8), its backward (row 14) at batch 2,
+   fp32 and bf16; then its path: one `maybe_fused_mlp` forward and
+   backward through the port's MViT `Mlp` (C 96), exactly one launch of
+   each;
+22. lab: the three kernel labs (`mspi_tpu_torch.tools.bench_dwconv`,
+   `bench_lnmlp`, `bench_int8`) in this process at their default shapes:
+   rows 19, 20 (five bodies) and 21 (GEMM in bf16 and int8, the bf16 and
+   int8 MLP bodies), each held against its plain version and timed beside
+   its library call; the labs' launches are this phase's path.
 
-Each path (4, 7, 9, 11, 13, 15, 18, 20) sets the launch counts to 0 just
-before it and reads them just after; the kernels' record sums them.
+Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22) sets the launch counts to 0
+just before it and reads them just after; the kernels' record sums them.
 The last two lines are the kernels' JSON record and the device JSON record.
 `--phases` runs a subset (2 always runs; the records then cover only what
 ran and no device record is printed).
@@ -98,7 +108,24 @@ KERNELS = {
     "attention_rel_packed": ("mspi_tpu_torch/csrc/attention_rel.cu",
                              "mspi_tpu/ops/pallas/pooled_attention.py:593"),
     "dwconv3d": ("mspi_tpu_torch/csrc/dwconv.cu", "mspi_tpu/ops/pallas/dwconv.py:160"),
+    "mlp": ("mspi_tpu_torch/csrc/ln_mlp.cu", "mspi_tpu/ops/pallas/mlp.py:280"),
+    "mlp_bwd": ("mspi_tpu_torch/csrc/ln_mlp_bwd.cu", "mspi_tpu/ops/pallas/mlp.py:232"),
+    "dwconv2d": ("mspi_tpu_torch/csrc/dwconv2d.cu", "tools/bench_dwconv.py:81"),
+    # row 20: tools/bench_lnmlp.py::_call (:61) with each of its bodies
+    "lab_matmul": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:78"),
+    "lab_matmul_gelu": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:86"),
+    "lab_ln_matmul": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:96"),
+    "lab_pipe2": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:107"),
+    "lab_pipe4": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:107"),
+    "lab_mxu_stats": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:134"),
+    # row 21: tools/bench_int8.py::_gemm and _mlp_call (:98) with its two bodies
+    "gemm_bf16": ("mspi_tpu_torch/csrc/gemm_lab.cu", "tools/bench_int8.py:53"),
+    "gemm_int8": ("mspi_tpu_torch/csrc/gemm_lab.cu", "tools/bench_int8.py:53"),
+    "mlp_bf16": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_int8.py:67"),
+    "mlp_int8w": ("mspi_tpu_torch/csrc/ln_mlp_int8.cu", "tools/bench_int8.py:83"),
 }
+LAB_KERNELS = ("dwconv2d", "lab_matmul", "lab_matmul_gelu", "lab_ln_matmul", "lab_pipe2",
+               "lab_pipe4", "lab_mxu_stats", "gemm_bf16", "gemm_int8", "mlp_bf16", "mlp_int8w")
 SERVING = {"quant": "int8", "prior_fold_res": True, "prior_ln_t": True}
 LAYOUT = {"attn_packed": True, "dwconv": True}
 RELK0 = {"attn_relk": False, "dwconv": True}
@@ -154,7 +181,7 @@ OPTIONS = {"mvitv2s+serving": SERVING, "videoswins+int8": {"quant": "int8"},
 PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity", "swin_main",
           "swin_parity", "swin_training", "swin_train_parity", "int8_main", "int8_parity",
           "swin_int8_main", "layout_kernels", "layout_backward", "layout_main",
-          "layout_parity", "relk0_training", "relk0_train_parity")
+          "layout_parity", "relk0_training", "relk0_train_parity", "mlp_kernels", "lab")
 BATCH = 8
 TRAIN_BATCH = 2
 STEPS = 5
@@ -797,6 +824,103 @@ def phase_layout_backward(records) -> None:
             del dx, want
 
 
+def phase_mlp_kernels(records) -> dict:
+    """Rows 13 and 14 against their plain versions at K2's shapes (forward
+    batch 8, backward batch 2), fp32 and bf16; then the path: one
+    `maybe_fused_mlp` forward and backward of the port's MViT `Mlp` (C 96,
+    fp32) at stage 1's tokens, batch 2, with exactly one launch of each."""
+    import torch.nn.functional as F
+
+    from mspi_tpu_torch.models.mvit import Mlp
+    from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.ops.kernels import ln_mlp as K2
+
+    randn = randn_on(torch.Generator().manual_seed(41))
+    for label, tokens, C, _ in LN_MLP_SHAPES:
+        M = BATCH * tokens
+        x, _, _, w1, b1, w2, b2 = mlp_inputs(randn, M, C)
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, out = check_kernel(records, "mlp", label, K2.fused_mlp, K2.mlp_reference,
+                                   [x, w1, b1, w2, b2], dtype)
+            add_bound(records["mlp"], dtype, nbytes(*xs, out), 4.0 * M * C * 4 * C)
+        del x, xs, out
+    for label, tokens, C, _ in LN_MLP_SHAPES:
+        M = TRAIN_BATCH * tokens
+        x, _, _, w1, b1, w2, b2 = mlp_inputs(randn, M, C)
+        inputs = [x, w1, b1, w2, b2, randn(M, C)]
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = [t.to(dtype) for t in inputs]
+            bwd = lambda: K2.mlp_backward(*xs)
+            got = bwd()
+            torch.cuda.synchronize()
+            want = K2.mlp_backward_reference(*(t.float() for t in xs))
+            errs = compare_grads(("dx", "dw1", "db1", "dw2", "db2"), got, want, dtype)
+            ms = time_ms(bwd)
+            plain_ms = time_ms(lambda: K2.mlp_backward_reference(*xs))
+            record(records, "mlp_bwd", label, dtype, errs, ms, plain_ms)
+            add_bound(records["mlp_bwd"], dtype, nbytes(*xs, *got), 10.0 * M * C * 4 * C)
+            del got, want
+
+    torch.manual_seed(0)
+    mlp = Mlp(96, 384, 96).cuda()
+    x = torch.randn(TRAIN_BATCH, 43008, 96, generator=torch.Generator().manual_seed(42)).cuda()
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(43)).cuda()
+    x.requires_grad_(True)
+    kernels.reset_launch_counts()
+    y = K2.maybe_fused_mlp(mlp, x)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    want_counts = {name: int(name in ("mlp", "mlp_bwd")) for name in KERNELS}
+    if counts != want_counts:
+        raise AssertionError(f"maybe_fused_mlp launches {counts}, expected one mlp, one mlp_bwd")
+    grads = [x.grad] + [p.grad for p in mlp.parameters()]
+    ref = mlp.fc2(F.gelu(mlp.fc1(x.detach())))
+    err = (y - ref).abs().max().item()
+    if not (err <= tolerance(torch.float32, ref) and all(torch.isfinite(g).all() for g in grads)):
+        raise AssertionError(f"maybe_fused_mlp: error {err} or non-finite gradients")
+    log("mlp_kernels", f"maybe_fused_mlp on Mlp(96, 384) fp32 [{TRAIN_BATCH}, 43008, 96]: "
+                       f"forward + backward, launches mlp 1 mlp_bwd 1, max_abs_err {err:.3e}, "
+                       f"gradients finite")
+    return counts
+
+
+def phase_lab(records) -> dict:
+    """The three kernel labs' `main` in this process at their default shapes
+    (MSPI_LAB_ITERS repeats, 20 unless set); each kernel variant is held
+    against its plain version inside the lab, and its times and bound fold
+    into its record. The labs' launches are this phase's path."""
+    import os
+
+    from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.tools import bench_dwconv, bench_int8, bench_lnmlp
+
+    os.environ.setdefault("MSPI_LAB_ITERS", "20")
+    kernels.reset_launch_counts()
+    results = []
+    for lab in (bench_dwconv, bench_lnmlp, bench_int8):
+        log("lab", f"python -m {lab.__name__}")
+        results += lab.main([])
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    for r in results:
+        if r.kernel is None:
+            continue
+        rec = records[r.kernel]
+        rec["max_abs_err"] = max(rec["max_abs_err"], r.max_abs_err)
+        rec["ms"] += r.ms
+        rec["plain_ms"] += r.plain_ms
+        if r.library_ms is not None:
+            rec["library_ms"] = (rec["library_ms"] or 0.0) + r.library_ms
+        rec["bound_ms"] += r.bound_ms
+        rec["bound_by"] = r.bound_by
+    missing = [name for name in LAB_KERNELS if not counts[name]]
+    if missing:
+        raise AssertionError(f"lab kernels not launched: {missing}")
+    log("lab", f"launches {counts}")
+    return counts
+
+
 def synthetic_video(seed: int):
     rng = np.random.default_rng(seed)
     frames = rng.integers(0, 256, (N_FRAMES, *RES, 3), dtype=np.uint8)
@@ -1083,11 +1207,15 @@ def main() -> None:
     kernel_phases = {"kernels": phase_kernels, "backward": phase_backward,
                      "layout_kernels": phase_layout_kernels,
                      "layout_backward": phase_layout_backward}
+    kernel_paths = {"mlp_kernels": phase_mlp_kernels, "lab": phase_lab}  # checks, then a path
     for phase in PHASES:
         if phase not in phases:
             continue
         if phase in kernel_phases:
             kernel_phases[phase](records)
+        elif phase in kernel_paths:
+            path_counts = kernel_paths[phase](records)
+            counts = {k: counts[k] + path_counts[k] for k in KERNELS}
         else:
             path_kind, encoder = PATH_PHASES[phase]
             path_counts = runners[path_kind](phase, encoder)

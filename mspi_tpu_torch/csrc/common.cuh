@@ -12,6 +12,7 @@ namespace mspi {
 // dtype codes passed from Python (ops/kernels/__init__.py DTYPE_CODES)
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kInt8 = 2;  // the int8 lab's GEMM only
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -29,6 +29,13 @@
 //      tensor cores; fp32: FMA pipes, since tensor cores would round to TF32).
 //   C. a sum over segments and tiles of the fp32 partials.
 //
+// Also replaces mspi_tpu/ops/pallas/mlp.py::_bwd_impl (kernel _bwd_kernel), the
+// backward of fused_mlp (row 13), with the LayerNorm compiled out (template
+// flag LN = false): z is x itself, pass A writes dx = du_c W1 with no
+// LayerNorm backward and no z copy, and pass B takes dW1 = du^T x. db1 comes
+// from the fp32 du, as the TPU kernel sums it; the dgamma/dbeta columns of
+// the partial sums are zeros.
+//
 // What bounds it on the card: 10*C*H flops per row (u, dh, dz in pass A;
 // dW1, dW2 in pass B) against ~4*C + 4*H values read and written per row --
 // the arithmetic, not device memory.
@@ -74,7 +81,7 @@ constexpr size_t rows_smem_floats() {
 }
 
 // Pass A. part row of this tile: [dgamma | dbeta | db2 | db1], width 3C + H.
-template <typename T, int C>
+template <typename T, int C, bool LN>
 __global__ void __launch_bounds__(THREADS)
 ln_mlp_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
                        const T* __restrict__ beta, const T* __restrict__ w1,  // [H, C]
@@ -102,7 +109,7 @@ ln_mlp_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
   const int P = 3 * C + H;
   float* prow = part + static_cast<int64_t>(blockIdx.x) * P;
 
-  // 1. LN statistics (fast variance), z and dy into shared memory
+  // 1. LN statistics (fast variance), z (x without LN) and dy into shared memory
   float mu[RPW], rstd[RPW];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
@@ -112,6 +119,13 @@ ln_mlp_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
     rstd[i] = 0.f;
     if (m >= M) {
       for (int c = lane; c < C; c += 32) zs[r * C + c] = dys[r * C + c] = 0.f;
+      continue;
+    }
+    if constexpr (!LN) {
+      for (int c = lane; c < C; c += 32) {
+        zs[r * C + c] = to_f(x[m * C + c]);
+        dys[r * C + c] = to_f(dy[m * C + c]);
+      }
       continue;
     }
     float v[RN], s = 0.f, q = 0.f;
@@ -221,7 +235,8 @@ ln_mlp_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
     }
   }
 
-  // 5. LN backward per row; column partials of dgamma and dbeta
+  // 5. LN backward per row (dx = dz without LN); column partials of dgamma
+  //    and dbeta
   float pg[RN], pb[RN];
 #pragma unroll
   for (int n = 0; n < RN; ++n) pg[n] = pb[n] = 0.f;
@@ -229,6 +244,11 @@ ln_mlp_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
   for (int i = 0; i < RPW; ++i) {
     const int64_t m = row0 + warp * RPW + i;
     if (m >= M) continue;
+    if constexpr (!LN) {
+#pragma unroll
+      for (int n = 0; n < RN; ++n) dx[m * C + lane + 32 * n] = from_f<T>(dz[i][n]);
+      continue;
+    }
     float xh[RN], dxh[RN], s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int n = 0; n < RN; ++n) {
@@ -291,7 +311,7 @@ constexpr size_t rows_tc_smem_bytes() {
 // Every WMMA address is a multiple of 32 bytes: tiles start at multiples of
 // 16 rows and columns, pitches are multiples of 8 elements, and the wrapper
 // passes 32-byte aligned operands.
-template <int C>
+template <int C, bool LN>
 __global__ void __launch_bounds__(THREADS)
 ln_mlp_bwd_rows_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
                           const bf16* __restrict__ beta, const bf16* __restrict__ w1,  // [H, C]
@@ -327,12 +347,20 @@ ln_mlp_bwd_rows_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g
   const int P = 3 * C + H;
   float* prow = part + static_cast<int64_t>(blockIdx.x) * P;
 
-  // 1. LN statistics (fast variance) per row, z and dy into shared memory
+  // 1. LN statistics (fast variance) per row, z (x without LN) and dy into
+  //    shared memory
   for (int r = warp; r < ROWS; r += THREADS / 32) {
     const int64_t m = row0 + r;
     if (m >= M) {
       for (int c = lane; c < C; c += 32) zs[r * LDZ + c] = dys[r * LDZ + c] = from_f<bf16>(0.f);
       if (lane == 0) mu_s[r] = rstd_s[r] = 0.f;
+      continue;
+    }
+    if constexpr (!LN) {
+      for (int c = lane; c < C; c += 32) {
+        zs[r * LDZ + c] = x[m * C + c];
+        dys[r * LDZ + c] = dy[m * C + c];
+      }
       continue;
     }
     float v[RN], s = 0.f, q = 0.f;
@@ -460,33 +488,41 @@ ln_mlp_bwd_rows_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g
                                 wmma::mem_row_major);
     }
   __syncthreads();
-  for (int r = warp; r < ROWS; r += THREADS / 32) {
-    const int64_t m = row0 + r;
-    if (m >= M) continue;
-    const float mu = mu_s[r], rstd = rstd_s[r];
-    float xh[RN], dxh[RN], s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int n = 0; n < RN; ++n) {
-      const int c = lane + 32 * n;
-      xh[n] = (to_f(x[m * C + c]) - mu) * rstd;
-      dxh[n] = dzs[r * LDD + c] * to_f(gamma[c]);
-      s1 += dxh[n];
-      s2 += dxh[n] * xh[n];
+  if constexpr (!LN) {  // dx = dz; no dgamma, dbeta
+    for (int e = tid; e < ROWS * C; e += THREADS) {
+      const int r = e / C, c = e % C;
+      if (row0 + r < M) dx[(row0 + r) * C + c] = from_f<bf16>(dzs[r * LDD + c]);
     }
-    const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+    for (int c = tid; c < C; c += THREADS) prow[c] = prow[C + c] = 0.f;
+  } else {
+    for (int r = warp; r < ROWS; r += THREADS / 32) {
+      const int64_t m = row0 + r;
+      if (m >= M) continue;
+      const float mu = mu_s[r], rstd = rstd_s[r];
+      float xh[RN], dxh[RN], s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int n = 0; n < RN; ++n)
-      dx[m * C + lane + 32 * n] = from_f<bf16>((dxh[n] - m1 - xh[n] * m2) * rstd);
-  }
-  for (int c = tid; c < C; c += THREADS) {  // dgamma, dbeta partials
-    float pg = 0.f, pb = 0.f;
-    for (int r = 0; r < ROWS && row0 + r < M; ++r) {
-      const float d = dzs[r * LDD + c];
-      pg += d * (to_f(x[(row0 + r) * C + c]) - mu_s[r]) * rstd_s[r];
-      pb += d;
+      for (int n = 0; n < RN; ++n) {
+        const int c = lane + 32 * n;
+        xh[n] = (to_f(x[m * C + c]) - mu) * rstd;
+        dxh[n] = dzs[r * LDD + c] * to_f(gamma[c]);
+        s1 += dxh[n];
+        s2 += dxh[n] * xh[n];
+      }
+      const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+#pragma unroll
+      for (int n = 0; n < RN; ++n)
+        dx[m * C + lane + 32 * n] = from_f<bf16>((dxh[n] - m1 - xh[n] * m2) * rstd);
     }
-    prow[c] = pg;
-    prow[C + c] = pb;
+    for (int c = tid; c < C; c += THREADS) {  // dgamma, dbeta partials
+      float pg = 0.f, pb = 0.f;
+      for (int r = 0; r < ROWS && row0 + r < M; ++r) {
+        const float d = dzs[r * LDD + c];
+        pg += d * (to_f(x[(row0 + r) * C + c]) - mu_s[r]) * rstd_s[r];
+        pb += d;
+      }
+      prow[c] = pg;
+      prow[C + c] = pb;
+    }
   }
 }
 
@@ -642,7 +678,7 @@ struct BwdArgs {
   float eps;
 };
 
-template <typename T, int C>
+template <typename T, int C, bool LN>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   constexpr bool kTc = std::is_same<T, bf16>::value;
   constexpr int TM = kTc ? bwd_rows_tc(C) : bwd_rows(C);
@@ -651,8 +687,8 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   if constexpr (kTc) {
     if (a.H % HC != 0) return cudaErrorInvalidValue;
     const size_t smem = rows_tc_smem_bytes<C>();
-    if ((err = allow_smem(ln_mlp_bwd_rows_tc_kernel<C>, smem)) != cudaSuccess) return err;
-    ln_mlp_bwd_rows_tc_kernel<C><<<tiles, THREADS, smem, stream>>>(
+    if ((err = allow_smem(ln_mlp_bwd_rows_tc_kernel<C, LN>, smem)) != cudaSuccess) return err;
+    ln_mlp_bwd_rows_tc_kernel<C, LN><<<tiles, THREADS, smem, stream>>>(
         static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.gamma),
         static_cast<const bf16*>(a.beta), static_cast<const bf16*>(a.w1),
         static_cast<const bf16*>(a.b1), static_cast<const bf16*>(a.w2),
@@ -660,8 +696,8 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
         static_cast<bf16*>(a.hc), static_cast<bf16*>(a.duc), a.col_part, a.M, a.H, a.eps);
   } else {
     const size_t smem = rows_smem_floats<C>() * sizeof(float);
-    if ((err = allow_smem(ln_mlp_bwd_rows_kernel<T, C>, smem)) != cudaSuccess) return err;
-    ln_mlp_bwd_rows_kernel<T, C><<<tiles, THREADS, smem, stream>>>(
+    if ((err = allow_smem(ln_mlp_bwd_rows_kernel<T, C, LN>, smem)) != cudaSuccess) return err;
+    ln_mlp_bwd_rows_kernel<T, C, LN><<<tiles, THREADS, smem, stream>>>(
         static_cast<const T*>(a.x), static_cast<const T*>(a.gamma),
         static_cast<const T*>(a.beta), static_cast<const T*>(a.w1),
         static_cast<const T*>(a.b1), static_cast<const T*>(a.w2), static_cast<const T*>(a.dy),
@@ -670,8 +706,10 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int64_t hcn = static_cast<int64_t>(a.H) * C;
-  // dW1 [H, C] = du^T z; dW2 [C, H] = dy^T h; both in one partial buffer
-  err = atb<T>(static_cast<const T*>(a.duc), static_cast<const T*>(a.zc), a.w_part, a.M, a.H, C,
+  // dW1 [H, C] = du^T z (x without LN); dW2 [C, H] = dy^T h; both in one
+  // partial buffer
+  const void* z = LN ? a.zc : a.x;
+  err = atb<T>(static_cast<const T*>(a.duc), static_cast<const T*>(z), a.w_part, a.M, a.H, C,
                a.segments, 2 * hcn, stream);
   if (err != cudaSuccess) return err;
   err = atb<T>(static_cast<const T*>(a.dy), static_cast<const T*>(a.hc), a.w_part + hcn, a.M, C,
@@ -682,16 +720,24 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   return sum_segments(a.col_part, tiles, 3 * C + a.H, a.col_out, stream);
 }
 
-template <typename T>
+template <typename T, bool LN>
 cudaError_t dispatch_bwd(const BwdArgs& a, int C, cudaStream_t s) {
   switch (C) {
-    case 96: return launch_bwd<T, 96>(a, s);
-    case 192: return launch_bwd<T, 192>(a, s);
-    case 384: return launch_bwd<T, 384>(a, s);
-    case 512: return launch_bwd<T, 512>(a, s);
-    case 768: return launch_bwd<T, 768>(a, s);
+    case 96: return launch_bwd<T, 96, LN>(a, s);
+    case 192: return launch_bwd<T, 192, LN>(a, s);
+    case 384: return launch_bwd<T, 384, LN>(a, s);
+    case 512: return launch_bwd<T, 512, LN>(a, s);
+    case 768: return launch_bwd<T, 768, LN>(a, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool LN>
+cudaError_t dispatch_bwd_dtype(const BwdArgs& a, int C, int dtype, cudaStream_t s) {
+  if (a.M <= 0 || a.segments <= 0) return cudaErrorInvalidValue;
+  if (dtype == kFloat32) return dispatch_bwd<float, LN>(a, C, s);
+  if (dtype == kBFloat16) return dispatch_bwd<bf16, LN>(a, C, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -713,11 +759,19 @@ extern "C" int mspi_ln_mlp_bwd(const void* x, const void* gamma, const void* bet
                                void* dx, void* zc, void* hc, void* duc, float* col_part,
                                float* col_out, float* w_part, float* w_out, int M, int C, int H,
                                float eps, int segments, int dtype, void* stream) {
-  if (M <= 0 || segments <= 0) return cudaErrorInvalidValue;
-  mspi::BwdArgs a{x, gamma, beta, w1, b1, w2, dy, dx, zc, hc, duc,
-                  col_part, col_out, w_part, w_out, M, H, segments, eps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mspi::kFloat32) return mspi::dispatch_bwd<float>(a, C, s);
-  if (dtype == mspi::kBFloat16) return mspi::dispatch_bwd<__nv_bfloat16>(a, C, s);
-  return cudaErrorInvalidValue;
+  const mspi::BwdArgs a{x, gamma, beta, w1, b1, w2, dy, dx, zc, hc, duc,
+                        col_part, col_out, w_part, w_out, M, H, segments, eps};
+  return mspi::dispatch_bwd_dtype<true>(a, C, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// Row 14, the backward of y = fc2(gelu(fc1(x))): as mspi_ln_mlp_bwd without
+// gamma, beta and the z scratch (dW1 takes x); col_out's dgamma and dbeta
+// columns come back zero.
+extern "C" int mspi_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2,
+                            const void* dy, void* dx, void* hc, void* duc, float* col_part,
+                            float* col_out, float* w_part, float* w_out, int M, int C, int H,
+                            int segments, int dtype, void* stream) {
+  const mspi::BwdArgs a{x, nullptr, nullptr, w1, b1, w2, dy, dx, nullptr, hc, duc,
+                        col_part, col_out, w_part, w_out, M, H, segments, 0.f};
+  return mspi::dispatch_bwd_dtype<false>(a, C, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -41,10 +41,22 @@
 // 32 banks), B fragments straight from global memory (L2/L1), the int8
 // weights in nn.Linear layout being exactly the column-major B operand.
 // Static shared memory is at most 31 KB.
+//
+// Also replaces the int8 body of tools/bench_int8.py::_mlp_call
+// (_mlp_int8w_kernel, the int8 lab's mlp_int8w; template flag LAB, bf16 at
+// the lab's C = 96): the same two-pass body with the LayerNorm, the biases
+// and the GELU compiled out and the lab's own quantisation, in its order of
+// operations: per row scale = max(amax, 1e-6) * (1/127) and code =
+// round(v / scale) half to even (a true division, where row 12 multiplies
+// by 127 / amax); uf = fp32(acc) * sx * s1 (left to right), h = uf; y =
+// fp32(acc) * sh * s2, one cast to T. The weight codes and per-channel
+// scales are the lab's host quantisation (amax / 127, no floor). At C = 96
+// the 12 eight-column tiles of y fall on warps 0-5.
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "int8_mma.cuh"
 
 namespace mspi {
 namespace {
@@ -86,38 +98,24 @@ __device__ __forceinline__ float hidden(int acc, float sz, float s1, float b1) {
   return gelu_fast(__fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(sz, s1)), b1));
 }
 
+// The lab's hidden value: uf = fp32(acc) * sx * s1, left to right.
+__device__ __forceinline__ float hidden_lab(int acc, float sx, float s1) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), sx), s1);
+}
+
+// The lab's per-row scale of a row with max |v| = amax.
+__device__ __forceinline__ float lab_scale(float amax) {
+  return __fmul_rn(fmaxf(amax, kAmaxFloor), kInv127);
+}
+
+__device__ __forceinline__ int8_t lab_code(float v, float scale) {
+  return static_cast<int8_t>(__float2int_rn(__fdiv_rn(v, scale)));
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// d += a * b on the tensor cores: A 16x32 s8 (row), B 32x8 s8 (col), D 16x8 s32.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const int8_t* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// The A fragment of m16n8k32 at column k of a row-major s8 tile: rows g and
-// g+8 (r0, r1 point at them), bytes k + 4t .. +3 and k + 16 + 4t .. +3.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const int8_t* r0, const int8_t* r1,
-                                       int k, int t) {
-  a[0] = ld32(r0 + k + 4 * t);
-  a[1] = ld32(r1 + k + 4 * t);
-  a[2] = ld32(r0 + k + 16 + 4 * t);
-  a[3] = ld32(r1 + k + 16 + 4 * t);
 }
 
 // fc1 over one hidden chunk for this warp: acc[n] = zq[m-tile rows] . w1q[j..]
@@ -140,7 +138,7 @@ __device__ __forceinline__ void fc1_chunk(int (&acc)[NT1][4], const int8_t* z0,
   }
 }
 
-template <typename T, int C>
+template <typename T, int C, bool LAB>
 __global__ void __launch_bounds__(Q_THREADS)
 ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                    const float* __restrict__ beta,
@@ -153,10 +151,11 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   constexpr int MT = R / 16;      // 16-row tiles
   constexpr int WPM = 8 / MT;     // fc1: warps per row tile
   constexpr int NT1 = 8 / WPM;    // fc1: 8-unit column tiles per warp and chunk
-  constexpr int NT2 = C / 64;     // fc2: 8-column tiles of y per warp
+  constexpr int NT2 = (C + 63) / 64;  // fc2: 8-column tiles of y per warp
   constexpr int LDZ = C + 16;     // pitch (bytes) of the zq tile
   constexpr int PER = C / 32;
-  static_assert(C % 128 == 0 && MT * WPM == 8 && WPM * NT1 == 8, "tile layout");
+  static_assert(C % 32 == 0 && MT * WPM == 8 && WPM * NT1 == 8, "tile layout");
+  static_assert(LAB || C % 128 == 0, "row 12's widths");
   __shared__ __align__(16) int8_t zq[R * LDZ];
   __shared__ __align__(16) int8_t hq[R * Q_LDH];
   __shared__ float sz[R], inv_h[R], sh[R];
@@ -177,6 +176,19 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     }
     const T* xr = x + m * C;
     float v[PER];
+    if constexpr (LAB) {  // the lab: x itself, quantised with a division
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        v[i] = to_f(xr[lane + 32 * i]);
+        amax = fmaxf(amax, fabsf(v[i]));
+      }
+      const float scale = lab_scale(warp_max(amax));
+#pragma unroll
+      for (int i = 0; i < PER; ++i) zr[lane + 32 * i] = lab_code(v[i], scale);
+      if (lane == 0) sz[r] = scale;
+      continue;
+    }
     float s = 0.f, q = 0.f;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
@@ -221,7 +233,9 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = j0 + n0 + n * 8 + 2 * t + (e & 1);
-        const float h = fabsf(hidden(acc[n][e], e < 2 ? sza : szb, s1[j], b1[j]));
+        const float sx = e < 2 ? sza : szb;
+        const float h = fabsf(LAB ? hidden_lab(acc[n][e], sx, s1[j])
+                                  : hidden(acc[n][e], sx, s1[j], b1[j]));
         if (e < 2) ma = fmaxf(ma, h); else mb = fmaxf(mb, h);
       }
   }
@@ -239,9 +253,13 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     float amax = part[r][0];
 #pragma unroll
     for (int i = 1; i < WPM; ++i) amax = fmaxf(amax, part[r][i]);
-    amax = fmaxf(amax, kAmaxFloor);
-    inv_h[r] = 127.f / amax;
-    sh[r] = __fmul_rn(amax, kInv127);
+    if constexpr (LAB) {
+      sh[r] = lab_scale(amax);
+    } else {
+      amax = fmaxf(amax, kAmaxFloor);
+      inv_h[r] = 127.f / amax;
+      sh[r] = __fmul_rn(amax, kInv127);
+    }
   }
   __syncthreads();
 
@@ -253,7 +271,7 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int n = 0; n < NT2; ++n) yacc[m][n][0] = yacc[m][n][1] = yacc[m][n][2] = yacc[m][n][3] = 0;
-  const float inva = inv_h[ra], invb = inv_h[rb];
+  const float inva = LAB ? sh[ra] : inv_h[ra], invb = LAB ? sh[rb] : inv_h[rb];
   for (int j0 = 0; j0 < H; j0 += Q_HC) {
     int acc[NT1][4];
     fc1_chunk<C, NT1>(acc, z0, z1, w1q, j0 + n0, g, t);
@@ -262,9 +280,15 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int jl = n0 + n * 8 + 2 * t + (e & 1);
-        const float h = hidden(acc[n][e], e < 2 ? sza : szb, s1[j0 + jl], b1[j0 + jl]);
-        const int code = __float2int_rn(__fmul_rn(h, e < 2 ? inva : invb));
-        hq[(e < 2 ? ra : rb) * Q_LDH + jl] = static_cast<int8_t>(code);
+        const float sx = e < 2 ? sza : szb;
+        int8_t code;
+        if constexpr (LAB) {  // inva / invb hold the rows' scales
+          code = lab_code(hidden_lab(acc[n][e], sx, s1[j0 + jl]), e < 2 ? inva : invb);
+        } else {
+          const float h = hidden(acc[n][e], sx, s1[j0 + jl], b1[j0 + jl]);
+          code = static_cast<int8_t>(__float2int_rn(__fmul_rn(h, e < 2 ? inva : invb)));
+        }
+        hq[(e < 2 ? ra : rb) * Q_LDH + jl] = code;
       }
     __syncthreads();
 #pragma unroll
@@ -275,6 +299,7 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
         load_a(a[m], hq + (m * 16 + g) * Q_LDH, hq + (m * 16 + g + 8) * Q_LDH, kk, t);
 #pragma unroll
       for (int n = 0; n < NT2; ++n) {
+        if (C % 64 != 0 && (warp * NT2 + n) * 8 >= C) continue;
         const int c = (warp * NT2 + n) * 8 + g;
         const int8_t* w = w2q + static_cast<int64_t>(c) * H + j0 + kk + 4 * t;
         const uint32_t bw0 = ldg32(w), bw1 = ldg32(w + 16);
@@ -296,22 +321,25 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       const float shr = sh[r];
 #pragma unroll
       for (int n = 0; n < NT2; ++n) {
+        if (C % 64 != 0 && (warp * NT2 + n) * 8 >= C) continue;
         const int c = (warp * NT2 + n) * 8 + 2 * t + (e & 1);
         const float v =
-            __fadd_rn(__fmul_rn(__int2float_rn(yacc[m][n][e]), __fmul_rn(shr, s2[c])), b2[c]);
+            LAB ? __fmul_rn(__fmul_rn(__int2float_rn(yacc[m][n][e]), shr), s2[c])
+                : __fadd_rn(__fmul_rn(__int2float_rn(yacc[m][n][e]), __fmul_rn(shr, s2[c])),
+                            b2[c]);
         y[gm * C + c] = from_f<T>(v);
       }
     }
 }
 
-template <typename T, int C>
+template <typename T, int C, bool LAB = false>
 cudaError_t launch_int8(const void* x, const float* g, const float* be, const int8_t* w1q,
                         const float* s1, const float* b1, const int8_t* w2q, const float* s2,
                         const float* b2, void* y, int M, int H, float eps, cudaStream_t s) {
   constexpr int R = q_rows<C>();
   if (H % Q_HC != 0) return cudaErrorInvalidValue;
   const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(M) + R - 1) / R);
-  ln_mlp_int8_kernel<T, C><<<blocks, Q_THREADS, 0, s>>>(
+  ln_mlp_int8_kernel<T, C, LAB><<<blocks, Q_THREADS, 0, s>>>(
       static_cast<const T*>(x), g, be, w1q, s1, b1, w2q, s2, b2, static_cast<T*>(y), M, H,
       eps);
   return cudaGetLastError();
@@ -356,4 +384,17 @@ extern "C" int mspi_ln_mlp_int8(const void* x, const void* gamma, const void* be
     return mspi::dispatch_int8<__nv_bfloat16>(x, g, be, q1, sc1, bb1, q2, sc2, bb2, y, M, C, H,
                                               eps, s);
   return cudaErrorInvalidValue;
+}
+
+// The int8 lab's mlp_int8w: x [M, 96] bf16; w1q [H, 96] int8 and s1 [H] fp32;
+// w2q [96, H] int8 and s2 [96] fp32; y [M, 96] bf16; contiguous, the codes
+// 16-byte aligned. Returns a cudaError_t code.
+extern "C" int mspi_mlp_int8_lab(const void* x, const void* w1q, const void* s1,
+                                 const void* w2q, const void* s2, void* y, int M, int C, int H,
+                                 void* stream) {
+  if (C != 96) return cudaErrorInvalidValue;
+  return mspi::launch_int8<__nv_bfloat16, 96, true>(
+      x, nullptr, nullptr, static_cast<const int8_t*>(w1q), static_cast<const float*>(s1),
+      nullptr, static_cast<const int8_t*>(w2q), static_cast<const float*>(s2), nullptr, y, M, H,
+      0.f, static_cast<cudaStream_t>(stream));
 }

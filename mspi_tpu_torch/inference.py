@@ -165,6 +165,17 @@ def config_from_args(args):
         "dwconv": args.dwconv}})
 
 
+def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load `--weight` into the model as the JAX CLI does: the state dict
+    out of the reference's checkpoint containers (`model_state`,
+    `state_dict`, or a training checkpoint's `model`), merged with
+    strict=False, so keys the model lacks are ignored."""
+    from mspi_tpu_torch.train.checkpoints import load_torch_checkpoint
+
+    model.load_state_dict(load_torch_checkpoint(path), strict=False)
+    return model
+
+
 def main(argv=None):
     args = parse_args(argv)
     from PIL import Image
@@ -180,7 +191,7 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = AudioVisualSaliencyModel(cfg, device="cuda", dtype=dtype)
     if args.weight:
-        model.load_state_dict(torch.load(args.weight, map_location="cuda"))
+        load_weights(model, args.weight)
     h, w = cfg.data.resolution
     names, videos_fps, _ = read_fold_list(args.path_data, args.dataset, "test", args.split)
     for vname in names:

@@ -44,7 +44,11 @@ launches: Dict[str, int] = {"attention_rel": 0, "ln_mlp": 0, "ln_mlp_prior": 0,
                             "attention_bwd": 0, "ln_mlp_bwd": 0, "window_attention": 0,
                             "window_attention_bwd": 0, "ln_mlp_int8": 0,
                             "ln_mlp_prior_res": 0, "layernorm_tokens": 0, "attention": 0,
-                            "attention_rel_packed": 0, "dwconv3d": 0}
+                            "attention_rel_packed": 0, "dwconv3d": 0, "mlp": 0, "mlp_bwd": 0,
+                            "dwconv2d": 0, "lab_matmul": 0, "lab_matmul_gelu": 0,
+                            "lab_ln_matmul": 0, "lab_pipe2": 0, "lab_pipe4": 0,
+                            "lab_mxu_stats": 0, "gemm_bf16": 0, "gemm_int8": 0, "mlp_bf16": 0,
+                            "mlp_int8w": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,6 +71,12 @@ _SIGNATURES = {
     "mspi_attention_bwd": [_P] * 12 + [_I] * 8 + [_P],
     "mspi_attention_rel_packed": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P],
     "mspi_dwconv3d": [_P] * 3 + [_I] * 6 + [_P],
+    "mspi_mlp": [_P] * 6 + [_I] * 4 + [_P],
+    "mspi_mlp_bwd": [_P] * 12 + [_I] * 5 + [_P],
+    "mspi_dwconv2d": [_P] * 4 + [_I] * 5 + [_P],
+    "mspi_ln_mlp_lab": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
+    "mspi_mlp_int8_lab": [_P] * 6 + [_I] * 3 + [_P],
+    "mspi_gemm_lab": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,5 +1,6 @@
 """Row 18 `dwconv3d`: stride-1 SAME depthwise 3-D convolution on
-channels-last tokens (MViT's stride-1 attention pools), with its backward.
+channels-last tokens (MViT's stride-1 attention pools), with its backward;
+and row 19 `dwconv2d`, the 7x7 depthwise conv2d of the dwconv kernel lab.
 
 Counterpart of `mspi_tpu/ops/pallas/dwconv.py::fused_dwconv3d` and its
 custom VJP. Kernel source: `mspi_tpu_torch/csrc/dwconv.cu`.
@@ -109,3 +110,41 @@ def dwconv3d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     SAME zero padding, no bias; differentiable in x and w."""
     x, w = kernels.cast_for_autocast(x, w)
     return _DWConv3d.apply(x.contiguous(), w.to(x.dtype))
+
+
+def dwconv2d_reference(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of row 19 in the TPU kernel's arithmetic (no conv
+    call): x [N,H,W,C] zero-padded by 3, the fp32 accumulator starting from
+    the bias, then the 49 shifted products added in (i, j) order, one
+    rounding to x's dtype. k [7,7,C], b [C]."""
+    kh, kw = k.shape[:2]
+    N, H, W, C = x.shape
+    xp = F.pad(x.float(), (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+    kf = k.float()
+    acc = b.float().expand(N, H, W, C)
+    for i in range(kh):
+        for j in range(kw):
+            acc = acc + xp[:, i:i + H, j:j + W] * kf[i, j]
+    return acc.to(x.dtype)
+
+
+def dwconv2d(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row 19 (`tools/bench_dwconv.py::pallas_dwconv`): 7x7 depthwise conv2d,
+    stride 1, zero padding 3, plus the bias, on channels-last x [N,H,W,C];
+    k [7,7,C] and b [C] in x's dtype. Forward only, as the lab's kernel.
+    The kernel (`csrc/dwconv2d.cu`) on the card, the plain version on the
+    CPU."""
+    if not kernels.dispatch_device(x, k, b):
+        return dwconv2d_reference(x, k, b)
+    name = "dwconv2d"
+    N, H, W, C = x.shape
+    if tuple(k.shape) != (7, 7, C) or tuple(b.shape) != (C,):
+        raise ValueError(f"{name}: kernel {tuple(k.shape)} and bias {tuple(b.shape)} for "
+                         f"{C} channels; the kernel is compiled for 7x7")
+    dtype = kernels.check_operands(name, x, k, b)
+    y = torch.empty_like(x)
+    err = kernels.lib().mspi_dwconv2d(x.data_ptr(), k.data_ptr(), b.data_ptr(), y.data_ptr(),
+                                      N, H, W, C, dtype, kernels.stream_handle(x))
+    kernels.check(err, name)
+    kernels.launches[name] += 1
+    return y

@@ -1,5 +1,5 @@
 """Fused LayerNorm + MLP: y = fc2(gelu(fc1(LN(x)))) — kernel K2 and the
-call site of K3.
+call site of K3 — and the fused MLP without the LayerNorm (rows 13-14).
 
 Counterpart of `mspi_tpu/ops/pallas/mlp.py::fused_ln_mlp` (K2, with its
 custom VJP `_ln_bwd_impl`) and `fused_ln_mlp_t` (K3). K3's transposed
@@ -25,6 +25,14 @@ Two serving options live here too, each with its own launch count:
   in the kernel, int8 x int8 -> int32 products (`csrc/ln_mlp_int8.cu`).
   Inference only. `ln_mlp_block` routes a transformer block's norm + MLP
   to it as the JAX package's `_dispatch_ln_mlp` does.
+
+And the kernel-level fused MLP, y = fc2(gelu(fc1(x))):
+- `fused_mlp` (TPU rows 13-14, `mspi_tpu/ops/pallas/mlp.py::fused_mlp` and
+  its VJP `_bwd_impl`): K2's forward body with the LayerNorm compiled out
+  (`csrc/ln_mlp.cu`, `mspi_mlp`) and K2's backward without its LayerNorm
+  (`csrc/ln_mlp_bwd.cu`, `mspi_mlp_bwd`), each with its own launch count;
+- `maybe_fused_mlp(mlp, x)`, the counterpart of the JAX `maybe_fused_mlp`.
+  As in the JAX package no model calls it.
 """
 
 from __future__ import annotations
@@ -154,6 +162,33 @@ def ln_mlp_backward_reference(x, g, b, w1, b1, w2, b2, eps: float, dy):
             du.sum(0), dyf.T @ h, dyf.sum(0))
 
 
+def mlp_reference(x, w1, b1, w2, b2) -> torch.Tensor:
+    """Plain version of row 13: u = x W1^T + b1 in fp32, h = gelu(u) (exact
+    erf) rounded to x's dtype, y = h W2^T + b2 in fp32, one cast."""
+    u = F.linear(x.float(), w1.float(), b1.float())
+    h = F.gelu(u).to(x.dtype)
+    return F.linear(h.float(), w2.float(), b2.float()).to(x.dtype)
+
+
+def mlp_backward_reference(x, w1, b1, w2, b2, dy):
+    """Plain version of row 14, the formulas of the TPU kernel `_bwd_kernel`:
+    u and gelu'(u) recomputed in fp32; dh = dy W2; du = dh * gelu'(u); dx =
+    du_c W1; dW1 = du_c^T x; dW2 = dy^T h_c; db1 = sum(du) (the fp32 du);
+    db2 = sum(dy), where _c is rounded to x's dtype. Returns (dx in x's
+    dtype, then dW1 [H,C], db1, dW2 [C,H], db2 in fp32). b2 is not read: it
+    is in the signature to mirror the forward."""
+    dt, C = x.dtype, x.shape[-1]
+    xf, dyf = x.float().reshape(-1, C), dy.float().reshape(-1, C)
+    w1f, w2f = w1.float(), w2.float()
+    u = xf @ w1f.T + b1.float()
+    h = F.gelu(u).to(dt).float()
+    dgelu = 0.5 * (1.0 + torch.erf(u * _INV_SQRT2)) + u * _INV_SQRT2PI * torch.exp(-0.5 * u * u)
+    du = (dyf @ w2f) * dgelu
+    du_c = du.to(dt).float()
+    dx = du_c @ w1f
+    return dx.to(dt).reshape(x.shape), du_c.T @ xf, du.sum(0), dyf.T @ h, dyf.sum(0)
+
+
 def _check_weights(name, x, g, b, w1, b1, w2, b2):
     dtype = kernels.check_operands(name, x, g, b, w1, b1, w2, b2)
     C = x.shape[-1]
@@ -197,6 +232,29 @@ def _launch(x, g, b, w1, b1, w2, b2, eps: float, shortcut=None, gamma=None,
     return y
 
 
+def _bwd_buffers(name, x, dy, dtype: int, M: int, C: int, H: int):
+    """What the K2 and row-14 backward kernels need of dy, and their
+    buffers -> (row segments of the weight sums, (dx; h and du_c [M, H] for
+    the weight products; the fp32 column sums per row tile [tiles, 3C + H]
+    and their total; the fp32 weight sums per segment [segments, 2HC] and
+    their total))."""
+    kernels.check_operands(name, x, dy)
+    if tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} for x {tuple(x.shape)}")
+    if M == 0:
+        raise ValueError(f"{name}: no rows")
+    if dtype == kernels.DTYPE_CODES[torch.bfloat16] and dy.data_ptr() % 32:
+        raise ValueError(f"{name}: bf16 operands must be 32-byte aligned")
+    tiles = -(-M // kernels.lib().mspi_ln_mlp_bwd_rows(C, dtype))
+    out_tiles = -(-H // 64) * -(-C // 64)
+    segments = max(1, min(-(-M // 256), -(-2 * kernels.num_sms(x) // out_tiles)))
+    f32 = dict(device=x.device, dtype=torch.float32)
+    hc = torch.empty((M, H), device=x.device, dtype=x.dtype)
+    return segments, (torch.empty_like(x), hc, torch.empty_like(hc),
+                      torch.empty((tiles, 3 * C + H), **f32), torch.empty(3 * C + H, **f32),
+                      torch.empty((segments, 2 * H * C), **f32), torch.empty(2 * H * C, **f32))
+
+
 def ln_mlp_backward(x, g, b, w1, b1, w2, b2, eps: float, dy):
     """K2 backward -> (dx, dgamma, dbeta, dW1, db1, dW2, db2); dx in x's
     dtype, the parameter gradients in fp32. The kernel on the card, the
@@ -205,27 +263,10 @@ def ln_mlp_backward(x, g, b, w1, b1, w2, b2, eps: float, dy):
         return ln_mlp_backward_reference(x, g, b, w1, b1, w2, b2, eps, dy)
     name = "ln_mlp_bwd"
     dtype, M, C, H = _check_weights(name, x, g, b, w1, b1, w2, b2)
-    kernels.check_operands(name, x, dy)
-    if tuple(dy.shape) != tuple(x.shape):
-        raise ValueError(f"{name}: dy {tuple(dy.shape)} for x {tuple(x.shape)}")
-    if M == 0:
-        raise ValueError(f"{name}: no rows")
-    if dtype == kernels.DTYPE_CODES[torch.bfloat16] and dy.data_ptr() % 32:
-        raise ValueError(f"{name}: bf16 operands must be 32-byte aligned")
-    lib = kernels.lib()
-    rows = lib.mspi_ln_mlp_bwd_rows(C, dtype)
-    tiles = -(-M // rows)
-    out_tiles = -(-H // 64) * -(-C // 64)
-    segments = max(1, min(-(-M // 256), -(-2 * kernels.num_sms(x) // out_tiles)))
-    f32 = dict(device=x.device, dtype=torch.float32)
-    dx, zc = torch.empty_like(x), torch.empty((M, C), device=x.device, dtype=x.dtype)
-    hc = torch.empty((M, H), device=x.device, dtype=x.dtype)
-    duc = torch.empty_like(hc)
-    col_part = torch.empty((tiles, 3 * C + H), **f32)
-    col_out = torch.empty(3 * C + H, **f32)
-    w_part = torch.empty((segments, 2 * H * C), **f32)
-    w_out = torch.empty(2 * H * C, **f32)
-    err = lib.mspi_ln_mlp_bwd(
+    segments, (dx, hc, duc, col_part, col_out, w_part, w_out) = _bwd_buffers(
+        name, x, dy, dtype, M, C, H)
+    zc = torch.empty((M, C), device=x.device, dtype=x.dtype)
+    err = kernels.lib().mspi_ln_mlp_bwd(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), dy.data_ptr(), dx.data_ptr(), zc.data_ptr(), hc.data_ptr(),
         duc.data_ptr(), col_part.data_ptr(), col_out.data_ptr(), w_part.data_ptr(),
@@ -386,3 +427,91 @@ def ln_mlp_block(norm: nn.LayerNorm, mlp: nn.Module, x, int8: bool) -> torch.Ten
         return ln_mlp_int8(x, *int8_operands(norm, mlp), norm.eps)
     return ln_mlp(x, norm.weight, norm.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
                   mlp.fc2.bias, norm.eps)
+
+
+def _check_mlp(name, x, w1, b1, w2, b2):
+    """What rows 13-14 need of their operands: K2's widths without the
+    LayerNorm vectors."""
+    return _check_weights(name, x, b2, b2, w1, b1, w2, b2)
+
+
+def _mlp_launch(x, w1, b1, w2, b2) -> torch.Tensor:
+    name = "mlp"
+    dtype, M, C, H = _check_mlp(name, x, w1, b1, w2, b2)
+    y = torch.empty_like(x)
+    if M == 0:
+        return y
+    err = kernels.lib().mspi_mlp(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                                 b2.data_ptr(), y.data_ptr(), M, C, H, dtype,
+                                 kernels.stream_handle(x))
+    kernels.check(err, name)
+    kernels.launches[name] += 1
+    return y
+
+
+def mlp_backward(x, w1, b1, w2, b2, dy):
+    """Row 14 -> (dx, dW1, db1, dW2, db2); dx in x's dtype, the parameter
+    gradients in fp32. The kernel on the card, the plain version on the
+    CPU."""
+    if not kernels.dispatch_device(x, w1, b1, w2, b2, dy):
+        return mlp_backward_reference(x, w1, b1, w2, b2, dy)
+    name = "mlp_bwd"
+    dtype, M, C, H = _check_mlp(name, x, w1, b1, w2, b2)
+    segments, (dx, hc, duc, col_part, col_out, w_part, w_out) = _bwd_buffers(
+        name, x, dy, dtype, M, C, H)
+    err = kernels.lib().mspi_mlp_bwd(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        hc.data_ptr(), duc.data_ptr(), col_part.data_ptr(), col_out.data_ptr(),
+        w_part.data_ptr(), w_out.data_ptr(), M, C, H, segments, dtype, kernels.stream_handle(x))
+    kernels.check(err, name)
+    kernels.launches[name] += 1
+    db2, db1 = col_out[2 * C:].split([C, H])
+    return dx, w_out[:H * C].view(H, C), db1, w_out[H * C:].view(C, H), db2
+
+
+class _Mlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        params = (w1, b1, w2, b2)
+        ctx.param_dtypes = [p.dtype for p in params]
+        ws = tuple(p.to(x.dtype) for p in params)  # the kernel takes one dtype
+        ctx.save_for_backward(x, *ws)
+        if not kernels.dispatch_device(x, *ws):
+            return mlp_reference(x, *ws)
+        return _mlp_launch(x, *ws)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *ws = ctx.saved_tensors
+        dx, *dws = mlp_backward(x, *ws, dy.contiguous())
+        return (dx, *(d.to(t) for d, t in zip(dws, ctx.param_dtypes)))
+
+
+def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
+    """Rows 13-14: fc2(gelu(fc1(x))) over the last axis of x [..., C] with
+    w1 [H, C], b1 [H], w2 [C, H], b2 [C] (nn.Linear layout; the JAX
+    function takes the transposes); differentiable in x and every weight.
+    The weights are cast to x's dtype for the kernel and get their
+    gradients in their own dtype; under CUDA autocast x runs in the
+    autocast dtype."""
+    (x,) = kernels.cast_for_autocast(x)
+    return _Mlp.apply(x.contiguous(), w1, b1, w2, b2)
+
+
+def maybe_fused_mlp(mlp: nn.Module, x: torch.Tensor):
+    """`fused_mlp` on an MLP module with `fc1` / `fc2` linear layers, or None
+    where the caller should take the plain layers: as the JAX function, for
+    a layer without a bias or fc2's output width other than fc1's input
+    width; and where the kernel has no instantiation (the port's
+    counterpart of `fits_vmem`): C outside SUPPORTED_C, or in bf16 a hidden
+    width that is not a multiple of 64."""
+    fc1, fc2 = mlp.fc1, mlp.fc2
+    if fc1.bias is None or fc2.bias is None:
+        return None
+    H, C = fc1.weight.shape
+    if tuple(fc2.weight.shape) != (C, H) or C not in SUPPORTED_C:
+        return None
+    (xc,) = kernels.cast_for_autocast(x)
+    if xc.dtype == torch.bfloat16 and H % 64:
+        return None
+    return fused_mlp(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
