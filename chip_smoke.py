@@ -329,22 +329,35 @@ def sdpa(q, k, v, mask=None, scale=None):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
 
-# K1 shapes per clip: label, Nq, key grid, heads (D = 96)
-ATTN_REL_SHAPES = (("blk0", 43008, (8, 7, 12), 1), ("blk1", 10752, (8, 14, 24), 2),
-                   ("blk4", 2688, (8, 7, 12), 4))
+# MViTv2-S's 16 blocks at 224x384 per clip as unique shapes: label, blocks
+# of the shape, heads, Nq and the pooled key grid (Nk = kt*kh*kw, R =
+# kt+kh+kw; D = 96): K1's shapes, and rows 6 and 8's; each shape's times
+# count once per block (blocks 4-13 share one shape)
+MVIT_BLOCKS = (("blk0", 1, 1, 43008, (8, 7, 12)), ("blk1", 1, 2, 10752, (8, 14, 24)),
+               ("blk2", 1, 2, 10752, (8, 7, 12)), ("blk3", 1, 4, 2688, (8, 14, 24)),
+               ("blk4-13", 10, 4, 2688, (8, 7, 12)), ("blk14", 1, 8, 672, (8, 14, 24)),
+               ("blk15", 1, 8, 672, (8, 7, 12)))
 # K2 shapes per clip: label, tokens, C, eps
 LN_MLP_SHAPES = (("mvit-s1", 43008, 96, 1e-6), ("mvit-s2", 10752, 192, 1e-6),
                  ("mvit-s3", 2688, 384, 1e-6), ("mvit-s4", 672, 768, 1e-6),
                  ("sync", 708, 512, 1e-5), ("decoder0", 21504, 192, 1e-5))
 
 
-# VideoSwin-S window attention per clip (N = 8*7*7 = 392, D = 32): label,
-# windows per clip, heads, C, and the shift mask's padded grid and shift
-# (None: an unshifted block, no mask)
-SWIN_SHAPES = (("s1-shift", 112, 3, 96, (8, 56, 98), (0, 3, 3)),
-               ("s2", 28, 6, 192, None, None),
-               ("s3-shift", 8, 12, 384, (8, 14, 28), (0, 3, 3)),
-               ("s4-shift", 2, 24, 768, (8, 7, 14), (0, 0, 3)))
+# VideoSwin-S window attention per clip (N = 8*7*7 = 392, D = 32) at the
+# 24 blocks (depths 2, 2, 18, 2; the odd blocks shifted) as the eight
+# (stage, shifted) variants: label, blocks of the variant, windows per clip,
+# heads, C, and the shift mask's padded grid and shift (None: unshifted, no
+# mask). At 16x224x384 the stages see (8, 56, 96), (8, 28, 48), (8, 14, 24)
+# and (8, 7, 12) tokens: W pads to a multiple of 7, and where D or H fits in
+# one window (`get_window_size`) the window is clamped and its shift is 0.
+SWIN_SHAPES = (("s1", 1, 112, 3, 96, None, None),
+               ("s1-shift", 1, 112, 3, 96, (8, 56, 98), (0, 3, 3)),
+               ("s2", 1, 28, 6, 192, None, None),
+               ("s2-shift", 1, 28, 6, 192, (8, 28, 49), (0, 3, 3)),
+               ("s3", 9, 8, 12, 384, None, None),
+               ("s3-shift", 9, 8, 12, 384, (8, 14, 28), (0, 3, 3)),
+               ("s4", 1, 2, 24, 768, None, None),
+               ("s4-shift", 1, 2, 24, 768, (8, 7, 14), (0, 0, 3)))
 SWIN_N, SWIN_D = 392, 32
 
 
@@ -380,7 +393,7 @@ def phase_kernels(records) -> None:
         attention_rel, attention_rel_reference, self_attention, self_attention_reference)
 
     randn = randn_on(torch.Generator().manual_seed(1))
-    for label, nq, k_shape, heads in ATTN_REL_SHAPES:
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS:
         nk, r = math.prod(k_shape), sum(k_shape)
         inputs = [randn(BATCH, heads, nq, 96), randn(BATCH, heads, nk, 96),
                   randn(BATCH, heads, nk, 96), randn(BATCH, heads, nq, r)]
@@ -393,9 +406,10 @@ def phase_kernels(records) -> None:
                 lambda q, k, v, rel, ks=k_shape: attention_rel(q, k, v, rel, ks, 96 ** -0.5),
                 lambda q, k, v, rel, ks=k_shape: attention_rel_reference(
                     q, k, v, rel, ks, 96 ** -0.5),
-                inputs, dtype, library)
+                inputs, dtype, library, weight=blocks)
             add_bound(records["attention_rel"], dtype, nbytes(*xs, out),
-                      4.0 * BATCH * heads * nq * nk * 96)
+                      4.0 * BATCH * heads * nq * nk * 96, weight=blocks)
+        del inputs, xs, out
     for label, tokens, C, eps in LN_MLP_SHAPES:
         inputs = mlp_inputs(randn, BATCH * tokens, C)
         for dtype in (torch.float32, torch.bfloat16):
@@ -424,11 +438,11 @@ def phase_kernels(records) -> None:
                                library)
         add_bound(records["self_attention"], dtype, nbytes(*xs, out),
                   4.0 * BATCH * 4 * 708 * 708 * 128)
-    # row 15: the four VideoSwin stages, shifted blocks with their mask
+    # row 15: the eight VideoSwin variants, shifted blocks with their mask
     from mspi_tpu_torch.ops.kernels.window_attention import (window_attention,
                                                              window_attention_reference)
 
-    for label, nw, heads, C, grid, shift in SWIN_SHAPES:
+    for label, blocks, nw, heads, C, grid, shift in SWIN_SHAPES:
         inputs = window_inputs(randn, BATCH, nw, heads, C, grid, shift)
         n = nw if grid is not None else 1
         for dtype in (torch.float32, torch.bfloat16):
@@ -441,9 +455,9 @@ def phase_kernels(records) -> None:
                     qkv, bias, m[0] if m else None, h, w),
                 lambda qkv, bias, *m, h=heads, w=n: window_attention_reference(
                     qkv, bias, m[0] if m else None, h, w),
-                inputs, dtype, library)
+                inputs, dtype, library, weight=blocks)
             add_bound(records["window_attention"], dtype, nbytes(*xs, out),
-                      4.0 * BATCH * nw * heads * SWIN_N * SWIN_N * SWIN_D)
+                      4.0 * BATCH * nw * heads * SWIN_N * SWIN_N * SWIN_D, weight=blocks)
         del inputs, xs, out
     serving_kernels(records, randn)
 
@@ -558,7 +572,7 @@ def phase_backward(records) -> None:
     randn = randn_on(torch.Generator().manual_seed(11))
     B = TRAIN_BATCH
     rec = records["attention_rel_bwd"]
-    for label, nq, k_shape, heads in ATTN_REL_SHAPES:
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS:
         nk, r = math.prod(k_shape), sum(k_shape)
         scale = 96 ** -0.5
         inputs = [randn(B, heads, nq, 96), randn(B, heads, nk, 96), randn(B, heads, nk, 96),
@@ -580,9 +594,10 @@ def phase_backward(records) -> None:
                 mask = rel_mask(rel, k_shape)
                 lib_ms = time_ms(library_grad(lambda *a: sdpa(*a, scale), (q, k, v, mask), dout))
                 del mask
-            record(records, "attention_rel_bwd", label, dtype, errs, ms, plain_ms, lib_ms)
+            record(records, "attention_rel_bwd", label, dtype, errs, ms, plain_ms, lib_ms,
+                   weight=blocks)
             add_bound(rec, dtype, nbytes(q, k, v, rel, out, lse, dout, *got),
-                      10.0 * B * heads * nq * nk * 96)
+                      10.0 * B * heads * nq * nk * 96, weight=blocks)
             del got, want, out, lse
     # the bias-free backward at the SyncBlock shape: N = 672 + 36, C 512, 4 heads
     N, C, heads = 708, 512, 4
@@ -621,10 +636,10 @@ def phase_backward(records) -> None:
             plain_ms = time_ms(lambda: K2.ln_mlp_backward_reference(*xs[:7], eps, xs[7]))
             record(records, "ln_mlp_bwd", label, dtype, errs, ms, plain_ms)
             add_bound(records["ln_mlp_bwd"], dtype, nbytes(*xs, *got), 10.0 * M * C * 4 * C)
-    # rows 16/17: the window backward at the four VideoSwin stages
+    # rows 16/17: the window backward at the eight VideoSwin variants
     from mspi_tpu_torch.ops.kernels import window_attention as WA
 
-    for label, nw, heads, C, grid, shift in SWIN_SHAPES:
+    for label, blocks, nw, heads, C, grid, shift in SWIN_SHAPES:
         inputs = window_inputs(randn, B, nw, heads, C, grid, shift)
         dout32 = randn(B * nw, SWIN_N, C)
         n = nw if grid is not None else 1
@@ -655,21 +670,15 @@ def phase_backward(records) -> None:
                 lib_ms = time_ms(library_grad(lambda *a: sdpa(*a, SWIN_D ** -0.5),
                                               (q, k, v, m), doh))
                 del q, k, v, m, doh
-            record(records, "window_attention_bwd", label, dtype, errs, ms, plain_ms, lib_ms)
+            record(records, "window_attention_bwd", label, dtype, errs, ms, plain_ms, lib_ms,
+                   weight=blocks)
             add_bound(records["window_attention_bwd"], dtype,
                       nbytes(qkv, bias, *(() if mask is None else (mask,)), out, lse, dout,
                              *got),
-                      10.0 * B * nw * heads * SWIN_N * SWIN_N * SWIN_D)
+                      10.0 * B * nw * heads * SWIN_N * SWIN_N * SWIN_D, weight=blocks)
             del got, want, out, lse
 
 
-# MViTv2-S's 16 blocks at 224x384 per clip as unique shapes: label, blocks
-# of the shape, heads, Nq and the pooled key grid (Nk = kt*kh*kw, R =
-# kt+kh+kw; D = 96)
-MVIT_BLOCKS = (("blk0", 1, 1, 43008, (8, 7, 12)), ("blk1", 1, 2, 10752, (8, 14, 24)),
-               ("blk2", 1, 2, 10752, (8, 7, 12)), ("blk3", 1, 4, 2688, (8, 14, 24)),
-               ("blk4-13", 10, 4, 2688, (8, 7, 12)), ("blk14", 1, 8, 672, (8, 14, 24)),
-               ("blk15", 1, 8, 672, (8, 7, 12)))
 # its 17 stride-1 pools per clip: label, pools of the shape, heads, (T, H, W)
 DWCONV_SHAPES = (("blk0-q", 1, 1, (8, 56, 96)), ("blk2-q", 1, 2, (8, 28, 48)),
                  ("blk4-13-q", 10, 4, (8, 14, 24)), ("blk14-kv", 2, 8, (8, 14, 24)),
@@ -1174,6 +1183,21 @@ def phase_train_parity(tag: str, encoder: str) -> None:
             raise AssertionError(f"{k}: card {m_gpu[k]} vs CPU {m_cpu[k]}")
 
 
+def check_ptxas() -> None:
+    """The mma.sync flash body (K1 and the window kernel in bf16): each
+    instantiation's registers and spills as ptxas reported them; a spill
+    fails the run."""
+    from mspi_tpu_torch.ops import kernels
+
+    report = kernels.ptxas_report("flash_attention_sm90")
+    if not report:
+        raise AssertionError("no flash_attention_sm90 entry in the ptxas report")
+    for entry, (regs, st, ld) in sorted(report.items()):
+        log("build", f"ptxas {entry}: {regs} registers, spill stores {st} B, loads {ld} B")
+        if st or ld:
+            raise AssertionError(f"{entry} spills registers")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -1199,6 +1223,7 @@ def main() -> None:
     kernels.lib()
     log("build", f"nvcc sm_90a build of {len(list(kernels.CSRC_DIR.glob('*.cu')))} sources "
                  f"in {seconds:.1f} s -> {kernels.LIB_PATH.name}")
+    check_ptxas()
 
     records = {name: new_record() for name in KERNELS}
     counts = {name: 0 for name in KERNELS}

@@ -20,15 +20,19 @@
 // The TPU kernel holds a whole [TQ, Nk] score tile in VMEM and multiplies the
 // 0/1 key expansion E [Nk, R] in as a second small matmul; at Nk = 2688 it
 // needed a special VMEM budget. Here the keys are walked in tiles with an
-// online softmax (flash_attention.cuh), so shared memory is independent of
-// Nk, and the bias is rebuilt in registers from rel and the key's (t, h, w)
-// index instead of a matmul with E.
+// online softmax, so shared memory is independent of Nk. In bf16 (K1 and
+// row 8's training forward, bias mode kRelBias) the body is
+// flash_attention_sm90.cuh's: rel E^T runs on the tensor cores beside
+// Q K^T, with E's rows for a key tile built in shared memory from the keys'
+// (t, h, w). In fp32, and for row 8's inference (kRelBiasRes), the bias is
+// rebuilt from rel and the key's (t, h, w) index (flash_attention.cuh).
 //
 // What bounds it on the card, and what the design does about it: see
-// flash_attention.cuh. Shapes on the flagship (per clip, D = 96): Nq 43008 /
-// Nk 672 / H 1 at block 0 down to 672 / 672 / H 8 at block 15, R 27 to 46.
+// flash_attention_sm90.cuh. Shapes on the flagship (per clip, D = 96): Nq
+// 43008 / Nk 672 / H 1 at block 0 down to 672 / 672 / H 8 at block 15, R 27
+// to 46.
 
-#include "flash_attention.cuh"
+#include "flash_attention_sm90.cuh"
 
 // lse: [B*H, Nq] fp32 row log-sum-exp, written when not null (the training
 // forward keeps it for attention_bwd.cu).

@@ -46,17 +46,21 @@
 // tx + 16*dd of the [64, D] accumulator. A row's 16 owners sit in one half
 // warp, so row max and row sum are 4 xor-shuffles. The softmax update and
 // the accumulator are the same in both paths:
-//   bf16: Q K^T and P V on the tensor cores (WMMA 16x16x16, fp32
-//         accumulate) through shared memory: the score tile and each tile's
-//         P V product land in fp32 shared memory, where the threads apply
-//         scale, bias, mask and the online softmax (P rounded to bf16 for
-//         P V, as the TPU kernel rounds probs to v's dtype).
+//   bf16, kNoBias and kRelBiasRes (flash_attention_tc_kernel): Q K^T and
+//         P V on the tensor cores (WMMA 16x16x16, fp32 accumulate) through
+//         shared memory: the score tile and each tile's P V product land in
+//         fp32 shared memory, where the threads apply scale, bias and the
+//         online softmax (P rounded to bf16 for P V, as the TPU kernel
+//         rounds probs to v's dtype);
+//   bf16, kRelBias and kDenseBias: flash_attention_sm90.cuh
+//         (flash_attention_sm90_kernel: mma.sync fragments in registers,
+//         cp.async ring); launch_flash_attention routes them there.
 //   fp32: both products on the fp32 FMA pipes (tensor cores would round to
 //         TF32), 4x4 register tiles per thread.
 //
 // What bounds it on the card: 4*D flops per (query, key) pair; q, k, v and
 // rel are read once per query tile, which at D = 96 and BQ = 64 keeps it far
-// above the memory roofline. The bf16 path syncs the block four times per
+// above the memory roofline. The WMMA bf16 body syncs the block four times per
 // key tile, so at these small tiles it is bounded by shared-memory traffic
 // and synchronisation rather than by the tensor cores.
 #pragma once
@@ -522,11 +526,19 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
   store_rows<bf16, DV, BIAS>(a, b, h, q0, tx, ty, o, m_run, l_run);
 }
 
+// The bf16 body of kRelBias and kDenseBias, defined in flash_attention_sm90.cuh
+// (included by the sources that launch those modes).
+template <int D, int BIAS>
+cudaError_t launch_flash_attention_sm90(const AttnArgs& a, int batch, cudaStream_t stream);
+
 template <typename T, int DK, int DV, int BIAS>
 cudaError_t launch_flash_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
   const dim3 grid((a.nq + kBQ - 1) / kBQ, batch * a.heads);
   const int r = rel_mode(BIAS) ? a.r : 0;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value && (BIAS == kRelBias || BIAS == kDenseBias)) {
+    static_assert(DK == DV, "the mma.sync body takes equal score and value widths");
+    return launch_flash_attention_sm90<DK, BIAS>(a, batch, stream);
+  } else if constexpr (std::is_same<T, bf16>::value) {
     const size_t smem = TcLayout<DK, DV>::bytes(r);
     cudaError_t err = allow_smem(flash_attention_tc_kernel<DK, DV, BIAS>, smem);
     if (err != cudaSuccess) return err;

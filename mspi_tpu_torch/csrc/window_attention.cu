@@ -13,19 +13,24 @@
 // The TPU kernel keeps the whole [H, N, N] bias resident in VMEM and a
 // window's [N, N] scores per head, and unrolls the heads over static lane
 // slices of a packed block (the per-head layout would pad D = 32 to 128
-// lanes). Here each (window, head) is a grid row of the flash body in
-// flash_attention.cuh (kDenseBias): a head's D lanes are read in place
-// through strides (b = N*3C, h = D, n = 3C), so there are no per-head copies;
-// query and key tiles of 64 over N = 392 are ragged (6*64 + 8) and masked;
-// bias and mask are read from device memory per score (the stage-1 bf16 mask
-// is 34 MB and stays mostly in the 50 MB L2).
+// lanes). Here each (window, head) is a grid row of the bf16 mma.sync body
+// in flash_attention_sm90.cuh (kDenseBias; fp32 runs flash_attention.cuh's
+// FMA body): a head's D lanes are read in place through strides (b = N*3C,
+// h = D, n = 3C), so there are no per-head copies; query and key tiles of 64
+// over N = 392 are ragged (6*64 + 8) and masked; the [64, 64] tiles of bias
+// and mask for a block's queries and the key tile are copied by cp.async
+// into shared memory beside K and V (the stage-1 bf16 mask is 34 MB and
+// stays mostly in the 50 MB L2). The port's form of the TPU kernel's
+// resident bias, a block that keeps its bias and mask rows and visits the
+// windows sharing them (MSPI_WINDOW_WALK=1), takes 3x as long: its 100 KB of
+// rows leave one block per SM (PERF.md).
 //
 // What bounds it on the card: 4*D flops per (query, key) pair, at D = 32 only
-// 128, against 2 bytes of bias (+ 2 of mask) per pair read from L2: at
-// D = 32 the score-tile traffic and the block's synchronisation, not the
-// tensor cores, set the time.
+// 128, against 2 bytes of bias (+ 2 of mask) per pair: the bias and mask
+// bytes set the bound, and the exponential and the bias reads per score are
+// the body's arithmetic floor.
 
-#include "flash_attention.cuh"
+#include "flash_attention_sm90.cuh"
 
 // lse: [B*heads, N] fp32 row log-sum-exp, written when not null (the training
 // forward keeps it for the backward in attention_bwd.cu).

@@ -21,12 +21,14 @@ path went through.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -34,8 +36,9 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mspi_tpu_torch"
 LIB_PATH = BUILD_DIR / "libmspi_kernels.so"
+# -Xptxas=-v: each kernel's registers and spills into BUILD_DIR/nvcc.log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -99,18 +102,20 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> float:
-    """Compile every csrc/*.cu (one nvcc process per source, in parallel)
-    and link LIB_PATH; returns the build's wall seconds. nvcc's output goes
-    to BUILD_DIR/nvcc.log; a failed step raises with it. A library that is
+def build(flags: Sequence[str] = (), build_dir: Path = BUILD_DIR,
+          sources: Optional[Sequence[Path]] = None) -> float:
+    """Compile every csrc/*.cu (or `sources`; one nvcc process per source, in
+    parallel, with NVCC_FLAGS + `flags`) and link build_dir/libmspi_kernels.so;
+    returns the build's wall seconds. nvcc's output goes to
+    build_dir/nvcc.log; a failed step raises with it. A library that is
     already loaded in this process stays loaded."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
-    for src in _sources():
-        obj = BUILD_DIR / (src.stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    for src in sources or _sources():
+        obj = build_dir / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)]
         jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True)))
     failed, logs = [], []
@@ -119,17 +124,52 @@ def build() -> float:
         logs.append(f"== {obj.stem}.cu\n{out}")
         if proc.returncode != 0:
             failed.append(f"{obj.stem}.cu: nvcc exit {proc.returncode}\n{out}")
-    (BUILD_DIR / "nvcc.log").write_text("\n".join(logs))
+    (build_dir / "nvcc.log").write_text("\n".join(logs))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    tmp = LIB_PATH.with_name(LIB_PATH.name + ".tmp")
+    lib_path = build_dir / LIB_PATH.name
+    tmp = lib_path.with_name(lib_path.name + ".tmp")
     link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for o, _ in jobs)],
                           capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed with code {link.returncode}:\n"
                            f"{link.stdout}\n{link.stderr}")
-    tmp.replace(LIB_PATH)
+    tmp.replace(lib_path)
     return time.perf_counter() - t0
+
+
+def load(path: Path, names: Optional[Sequence[str]] = None) -> ctypes.CDLL:
+    """A kernel library with the C signatures of `names` (default: every
+    entry) and mspi_error_string bound."""
+    handle = ctypes.CDLL(str(path))
+    for name in names or _SIGNATURES:
+        fn = getattr(handle, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    handle.mspi_error_string.argtypes = [ctypes.c_int]
+    handle.mspi_error_string.restype = ctypes.c_char_p
+    return handle
+
+
+def ptxas_report(key: str, build_dir: Path = BUILD_DIR) -> Dict[str, tuple]:
+    """From the last build's nvcc.log: {mangled entry: (registers, spill
+    store bytes, spill load bytes)} of each kernel whose name holds `key`."""
+    report, entry = {}, None
+    for line in (build_dir / "nvcc.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1) if key in m.group(1) else None
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            report[entry] = (0, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in report:
+            report[entry] = (int(m.group(1)),) + report[entry][1:]
+            entry = None
+    return report
 
 
 def _stale() -> bool:
@@ -145,15 +185,20 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         if _stale():
             build()
-        handle = ctypes.CDLL(str(LIB_PATH))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        handle.mspi_error_string.argtypes = [ctypes.c_int]
-        handle.mspi_error_string.restype = ctypes.c_char_p
-        _lib = handle
+        _lib = load(LIB_PATH)
     return _lib
+
+
+@contextlib.contextmanager
+def using(handle: ctypes.CDLL):
+    """Launch through another build of the library (a `load`ed variant) inside
+    the block."""
+    global _lib
+    saved, _lib = _lib, handle
+    try:
+        yield
+    finally:
+        _lib = saved
 
 
 def check(err: int, name: str) -> None:

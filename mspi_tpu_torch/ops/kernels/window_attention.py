@@ -132,6 +132,10 @@ def _window_attention_fwd(qkv, bias, mask, num_heads: int, num_windows: int,
     name = "window_attention"
     dtype = _operands(name, qkv, bias, mask)
     B, N, C = _geometry(name, qkv, bias, mask, num_heads, num_windows)
+    if qkv.dtype == torch.bfloat16 and (N % 8 or any(t.data_ptr() % 16 for t in (bias, *masked))):
+        # the bf16 body copies bias and mask rows of N elements 16 bytes at a time
+        raise ValueError(f"{name}: bf16 bias and mask must be 16-byte aligned, N={N} a "
+                         "multiple of 8")
     out = qkv.new_empty((B, N, C))
     lse = qkv.new_empty((B * num_heads, N), dtype=torch.float32) if with_lse else None
     err = kernels.lib().mspi_window_attention(
