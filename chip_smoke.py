@@ -337,6 +337,12 @@ MVIT_BLOCKS = (("blk0", 1, 1, 43008, (8, 7, 12)), ("blk1", 1, 2, 10752, (8, 14, 
                ("blk2", 1, 2, 10752, (8, 7, 12)), ("blk3", 1, 4, 2688, (8, 14, 24)),
                ("blk4-13", 10, 4, 2688, (8, 7, 12)), ("blk14", 1, 8, 672, (8, 14, 24)),
                ("blk15", 1, 8, 672, (8, 7, 12)))
+# The blocks whose rel width R = kt+kh+kw passes 48 at the training CLI's
+# `--resolution 256 448` (keys pooled to (8, 16, 28): R = 52), in the same
+# form; checked against the plain versions, times out of the sums (0 blocks)
+MVIT_WIDE_RES = (256, 448)
+MVIT_WIDE = (("blk1@256x448", 0, 2, 14336, (8, 16, 28)), ("blk3@256x448", 0, 4, 3584, (8, 16, 28)),
+             ("blk14@256x448", 0, 8, 896, (8, 16, 28)))
 # K2 shapes per clip: label, tokens, C, eps
 LN_MLP_SHAPES = (("mvit-s1", 43008, 96, 1e-6), ("mvit-s2", 10752, 192, 1e-6),
                  ("mvit-s3", 2688, 384, 1e-6), ("mvit-s4", 672, 768, 1e-6),
@@ -393,7 +399,7 @@ def phase_kernels(records) -> None:
         attention_rel, attention_rel_reference, self_attention, self_attention_reference)
 
     randn = randn_on(torch.Generator().manual_seed(1))
-    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS:
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS + MVIT_WIDE:
         nk, r = math.prod(k_shape), sum(k_shape)
         inputs = [randn(BATCH, heads, nq, 96), randn(BATCH, heads, nk, 96),
                   randn(BATCH, heads, nk, 96), randn(BATCH, heads, nq, r)]
@@ -572,7 +578,7 @@ def phase_backward(records) -> None:
     randn = randn_on(torch.Generator().manual_seed(11))
     B = TRAIN_BATCH
     rec = records["attention_rel_bwd"]
-    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS:
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS + MVIT_WIDE:
         nk, r = math.prod(k_shape), sum(k_shape)
         scale = 96 ** -0.5
         inputs = [randn(B, heads, nq, 96), randn(B, heads, nk, 96), randn(B, heads, nk, 96),
@@ -797,7 +803,7 @@ def phase_layout_backward(records) -> None:
                       2.0 * B * heads * nq * nk * (3 * (MVIT_D + r) + 2 * MVIT_D),
                       weight=blocks)
             del got, want, out, lse
-    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS[1:]:
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS[1:] + MVIT_WIDE:
         scale = MVIT_D ** -0.5
         inputs = packed_inputs(randn, B, heads, nq, k_shape) + [randn(B, nq, heads * MVIT_D)]
         for dtype in (torch.float32, torch.bfloat16):

@@ -14,7 +14,7 @@
 //
 // FlashAttention-2's structure on mma.sync (m16n8k16, bf16 in, fp32
 // accumulate) and cp.async:
-// - Each warp owns 16 query rows of the block's BQ = 16 * WARPS (64). Q's A
+// - Each of the block's 4 warps owns 16 query rows (BQ = 64). Q's A
 //   fragments are read from device memory once and stay in registers.
 // - Per key tile of 64: S = Q K^T with K's B fragments from ldmatrix; scale,
 //   bias and the online softmax (fp32 running max and sum) work on the
@@ -24,20 +24,23 @@
 //   registers; O += P V with V's B fragments from ldmatrix.trans (O is
 //   rescaled only when a row max of the warp moved). Nothing between the two
 //   products touches shared memory.
-// - K and V (and row 15's bias and mask tiles) arrive in a ring of kStages
-//   (2) slots by 16-byte cp.async copies (zero-filled past the end); tile
-//   k+1 is in flight while tile k is computed, and one barrier per tile
-//   releases the slot. K and V rows are padded by 16 bytes and the bias and
-//   mask tiles XOR-swizzled, so ldmatrix's row addresses and a quad's bias
-//   reads fall on distinct banks.
+// - K and V (and row 15's bias and mask tiles) arrive in a ring of 2 slots by
+//   16-byte cp.async copies (zero-filled past the end); tile k+1 is in flight
+//   while tile k is computed, and one barrier per tile releases the slot. K
+//   and V rows are padded by 16 bytes and the bias and mask tiles
+//   XOR-swizzled, so ldmatrix's row addresses and a quad's bias reads fall on
+//   distinct banks.
 // - K1's bias is rel E^T on the tensor cores, as the TPU kernel multiplies
-//   it in: rel's A fragments (R <= 48 columns, zero-padded) stay in
-//   registers, and per key tile one thread per key writes the key's row of
-//   the 0/1 expansion E (ones at t, kt + h, kt + kh + w; the key's (t, h, w)
-//   advanced per tile without division) into the slot, read with ldmatrix:
+//   it in, over any rel width R (zero-padded to a multiple of 16). Per key
+//   tile one thread per key writes the key's row of the 0/1 expansion E
+//   (ones at t, kt + h, kt + kh + w; the key's (t, h, w) advanced per tile
+//   without division) into the slot, read with ldmatrix:
 //     S = scale * Q K^T + rel E^T
-//   (MSPI_REL_MMA=0 builds the form that adds three fp32 shared-memory reads
-//   per score instead, about 1.16x slower per forward; PERF.md).
+//   rel's A fragments: at R <= 48 (every block of MViTv2-S at 224x384) RK =
+//   3 k-steps stay in registers, read from device memory once; above (R =
+//   52 at 256x448), RK = 0: the block's rel rows are copied to shared
+//   memory once and each k-step's fragments are read with ldmatrix per key
+//   tile, after Q K^T (1.1-1.2x slower per forward at R <= 48, PERF.md).
 // - Row 15's bias [H, N, N] and mask [nW, N, N]: the [64, 64] tiles of the
 //   block's queries and the key tile are copied into the slot beside K and V
 //   (a slot holds a mask tile only when there is a mask). q_s = q * D^-0.5
@@ -54,16 +57,16 @@
 // tile, far above the memory roofline: the tensor cores bound it. Row 15 at
 // D = 32 does 128 flops per pair against 2-4 bytes of bias and mask: its
 // bound is those bytes. Neither is near its bound: K1 runs 3 blocks of 4
-// warps per SM (168 registers, 66 KB of shared memory), row 15 4 blocks (128
-// registers, 36 KB, 52 KB with the mask), which leaves 3-4 warps per
-// scheduler to hide the mma and softmax latencies (PERF.md).
+// warps per SM (67 KB of shared memory at R <= 48; 80 KB and 2 blocks at R =
+// 52), row 15 4 blocks (36 KB, 52 KB with the mask), which leaves 3-4 warps
+// per scheduler to hide the mma and softmax latencies (PERF.md).
 //
-// Build variants measured against each other in one chip call
-// (tools/bench_flash_variants.py, PERF.md): 8 warps (BQ 128), 3 ring
-// slots, 32-key tiles and no register cap all lose to this build (fewer
-// resident warps, or more barriers per key), and row 15's walk (a block
+// Measured against this design in one chip call each (PERF.md): 8 warps
+// (BQ 128), 3 ring slots, 32-key tiles and no register cap lost (fewer
+// resident warps, or more barriers per key); so did K1's bias as three
+// fp32 shared-memory reads per score, and row 15 as a walk in which a block
 // keeps its [64, N] bias and mask rows resident and visits the ~8 windows
-// that share them) loses 3x: 100 KB of resident rows leave one block per SM.
+// that share them (3x slower: 100 KB of resident rows leave one block per SM).
 #pragma once
 
 #include <stdint.h>
@@ -73,47 +76,21 @@
 namespace mspi {
 namespace sm90 {
 
-constexpr int kRelK = 48;  // rel columns of the mma form (R <= 48), 3 k-steps
+constexpr int kWarps = 4;   // 16 query rows each: BQ = 64
+constexpr int kStages = 2;  // ring slots
+constexpr int kBK = 64;     // keys per tile
+constexpr int kRelRegK = 3;  // rel k-steps held in registers (R <= 48)
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Build variants, for tools/bench_flash_variants.py: the warps of a block
-// (16 query rows each), the ring's slots, row 15's walk over windows with
-// resident bias and mask rows, K1's bias as a product on the tensor cores
-// (rel E^T) or as three shared-memory reads per score, the keys per tile,
-// and the blocks per SM that __launch_bounds__ asks for (a register cap).
-#ifndef MSPI_FLASH_SM90_WARPS
-#define MSPI_FLASH_SM90_WARPS 4
-#endif
-#ifndef MSPI_FLASH_SM90_STAGES
-#define MSPI_FLASH_SM90_STAGES 2
-#endif
-#ifndef MSPI_WINDOW_WALK
-#define MSPI_WINDOW_WALK 0
-#endif
-#ifndef MSPI_REL_MMA
-#define MSPI_REL_MMA 1
-#endif
-#ifndef MSPI_FLASH_SM90_BK
-#define MSPI_FLASH_SM90_BK 64
-#endif
-#ifndef MSPI_FLASH_SM90_MIN_BLOCKS
-#define MSPI_FLASH_SM90_MIN_BLOCKS 0  // by head dim, below
-#endif
-constexpr int kBK = MSPI_FLASH_SM90_BK;  // keys per tile
-
 // The blocks per SM that __launch_bounds__ asks for, which caps the
-// registers at 65536 / (blocks * threads): 4 at D = 32 (128 registers; the
-// shared memory also fits 4), 3 at D = 96 (170; 168 used, no spill), 2
-// above. Without it ptxas took up to 194 registers at D = 96 and 140 at
-// D = 32, one block per SM fewer.
-__host__ __device__ constexpr int min_blocks(int d) {
-  return MSPI_FLASH_SM90_MIN_BLOCKS > 0 ? MSPI_FLASH_SM90_MIN_BLOCKS
-                                        : d <= 32 ? 4 : d <= 96 ? 3 : 2;
+// registers at 65536 / (blocks * 128): 4 at D = 32 (128 registers; the
+// shared memory also fits 4), 3 at D = 96 (168), 2 above, and 2 for K1's
+// rel rows in shared memory (R > 48), whose 80 KB and more per block fit 2
+// blocks per SM. Without it ptxas took up to 194 registers at D = 96 and
+// 140 at D = 32, one block per SM fewer.
+__host__ __device__ constexpr int min_blocks(int d, bool rel_rows) {
+  return rel_rows ? 2 : d <= 32 ? 4 : d <= 96 ? 3 : 2;
 }
-constexpr int kWarps = MSPI_FLASH_SM90_WARPS;
-constexpr int kStages = MSPI_FLASH_SM90_STAGES;
-constexpr bool kWindowWalk = MSPI_WINDOW_WALK != 0;
-constexpr bool kRelMma = MSPI_REL_MMA != 0;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -201,9 +178,10 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[KS][4], const bf16* s
   }
 }
 
-// The same for K1's rel rows of R <= kRelK columns at any alignment (2-byte
-// loads), zeros past R: the A operand of rel E^T.
-__device__ __forceinline__ void load_rel_frags(uint32_t (&f)[kRelK / 16][4], const bf16* src,
+// The same for K1's rel rows of R <= RK * 16 columns at any alignment
+// (2-byte loads), zeros past R: the A operand of rel E^T.
+template <int RK>
+__device__ __forceinline__ void load_rel_frags(uint32_t (&f)[RK][4], const bf16* src,
                                                int64_t stride, int r0, int n, int R) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
@@ -211,7 +189,7 @@ __device__ __forceinline__ void load_rel_frags(uint32_t (&f)[kRelK / 16][4], con
   for (int j = 0; j < 4; ++j) {
     const int r = r0 + g + 8 * (j & 1);
 #pragma unroll
-    for (int ks = 0; ks < kRelK / 16; ++ks) {
+    for (int ks = 0; ks < RK; ++ks) {
       const int c = ks * 16 + 8 * (j >> 1) + 2 * t;
       const uint32_t lo = r < n && c < R ? s16[r * stride + c] : 0u;
       const uint32_t hi = r < n && c + 1 < R ? s16[r * stride + c + 1] : 0u;
@@ -266,119 +244,100 @@ __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int nr, in
   }
 }
 
-// All nc (% 8 == 0) columns of rows [r0, r0 + ROWS) of a row-major [nr, nc]
-// bf16 matrix into dst [ROWS][ld]; zeros past nr.
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void copy_full_rows(bf16* dst, int ld, const bf16* src, int nr,
-                                               int nc, int r0) {
-  const int vec = nc / 8;
-  for (int e = threadIdx.x; e < ROWS * vec; e += THREADS) {
-    const int r = e / vec, c = (e % vec) * 8;
-    const bool ok = r0 + r < nr;
-    cp_async16(dst + r * ld + c, ok ? src + static_cast<int64_t>(r0 + r) * nc + c : src, ok);
-  }
-}
-
-template <int D, int NW, int BIAS>
+template <int D, int RK, int BIAS>
 struct Layout {
   static constexpr bool kRel = BIAS == kRelBias;
-  static constexpr bool kMma = kRel && kRelMma;  // rel E^T on the tensor cores
-  // kDenseBias with the walk: a block keeps its bias and mask rows resident
-  // and visits several windows (see launch_flash_attention_sm90)
-  static constexpr bool kWalk = kWindowWalk && BIAS == kDenseBias;
-  static constexpr int BQ = 16 * NW;
-  static constexpr int LD = D + 8;         // bf16 pitch of k and v rows
-  static constexpr int LDE = kRelK + 8;    // bf16 pitch of the key expansion E
+  static constexpr bool kRelRows = kRel && RK == 0;  // rel rows in shared memory
+  static constexpr int BQ = 16 * kWarps;
+  static constexpr int LD = D + 8;                        // bf16 pitch of k and v rows
   static constexpr size_t kKV = sizeof(bf16) * kBK * LD;  // one K or V tile
   static constexpr size_t kB = sizeof(bf16) * BQ * kBK;   // one (swizzled) bias or mask tile
-  // ring slot: K, V, then the key columns (kRelBias: packed words, or the
-  // 0/1 expansion E [kBK][kRelK] in bf16) or the bias tile and, with a
-  // mask, the mask tile (kDenseBias without the walk)
-  __host__ __device__ static int slot(bool masked) {
-    return static_cast<int>(2 * kKV + (kMma ? sizeof(bf16) * kBK * LDE
-                                            : kRel ? sizeof(int) * kBK
-                                                   : kWalk ? 0 : (masked ? 2 : 1) * kB));
+  // kRelBias: the bf16 pitch of E's rows (and of the rel rows), R rounded
+  // up to the 16 columns of a k-step (RK of them in registers) plus 8: rows
+  // 16 bytes apart mod 128, so ldmatrix's 8 row addresses fall on distinct
+  // banks
+  __host__ __device__ static int rel_pitch(int r) {
+    return (RK > 0 ? RK * 16 : (r + 15) / 16 * 16) + 8;
   }
-  // the walk's resident rows: a pitch = 8 mod 64 elements puts a quad's
-  // 4-byte bias reads on 32 distinct banks
-  __host__ __device__ static int rows_pitch(int nk) { return nk + ((8 - nk) % 64 + 64) % 64; }
-  static size_t bytes(int r, int nk, bool masked) {
-    return kStages * slot(masked) + (kRel && !kMma ? sizeof(float) * BQ * r : 0) +
-           (kWalk ? 2 * sizeof(bf16) * BQ * rows_pitch(nk) : 0);
+  // ring slot: K, V, then E [kBK][ldr] (kRelBias) or the bias tile and,
+  // with a mask, the mask tile (kDenseBias)
+  __host__ __device__ static int slot(int ldr, bool masked) {
+    return static_cast<int>(2 * kKV +
+                            (kRel ? sizeof(bf16) * kBK * ldr : (masked ? 2 : 1) * kB));
+  }
+  // the ring, then (RK = 0) the block's rel rows [BQ][ldr]
+  static size_t bytes(int ldr, bool masked) {
+    return kStages * slot(ldr, masked) + (kRelRows ? sizeof(bf16) * BQ * ldr : 0);
   }
   static_assert(kKV % 16 == 0 && kB % 16 == 0, "16-byte regions");
 };
 
-// One block: BQ query rows of head blockIdx.y % heads for `items` windows or
-// batch entries b = b0 + i * step (b0 = blockIdx.y / heads; one item except
-// in the walk), each over all key tiles of 64.
-template <int D, int NW, int BIAS>
-__global__ void __launch_bounds__(NW * 32, min_blocks(D) * 4 / NW)
-    flash_attention_sm90_kernel(AttnArgs a, int batch, int step) {
+// One block: BQ query rows of head blockIdx.y % heads and batch entry (or
+// window) blockIdx.y / heads, over all key tiles of 64. RK: kRelBias's rel
+// k-steps held in registers (R <= 16 * RK), or 0 for rel rows in shared
+// memory (any R); 0 for kDenseBias.
+template <int D, int RK, int BIAS>
+__global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS == kRelBias && RK == 0))
+    flash_attention_sm90_kernel(AttnArgs a) {
   static_assert(BIAS == kRelBias || BIAS == kDenseBias, "modes 1 and 2 only");
   static_assert(D % 32 == 0, "Q K^T takes the head dim 32 lanes per ldmatrix");
-  using L = Layout<D, NW, BIAS>;
-  constexpr int NT = NW * 32;
-  constexpr int BQ = L::BQ, LD = L::LD, LDE = L::LDE;
-  constexpr int KS = D / 16;    // k-steps of Q K^T
-  constexpr int NS = kBK / 8;   // 8-key column tiles of S
-  constexpr int ND = D / 8;     // 8-wide column tiles of O
-  constexpr int RS = kRelK / 16;  // k-steps of rel E^T
-  constexpr bool kRel = L::kRel, kMma = L::kMma, kWalk = L::kWalk;
-  static_assert(NT >= kBK, "one thread per key writes the key columns");
+  using L = Layout<D, RK, BIAS>;
+  constexpr int NT = kWarps * 32;
+  constexpr int BQ = L::BQ, LD = L::LD;
+  constexpr int KS = D / 16;   // k-steps of Q K^T
+  constexpr int NS = kBK / 8;  // 8-key column tiles of S
+  constexpr int ND = D / 8;    // 8-wide column tiles of O
+  constexpr bool kRel = L::kRel, kRelRows = L::kRelRows;
+  static_assert(NT >= kBK, "one thread per key writes E's row");
   extern __shared__ __align__(128) unsigned char smem_sm90[];
   unsigned char* ring = smem_sm90;
-  const int slot_bytes = L::slot(a.mask != nullptr);
-  unsigned char* tail = ring + kStages * slot_bytes;
-  float* rels = reinterpret_cast<float*>(tail);  // kRelBias, shared-memory form: [BQ][R]
-  bf16* rows = reinterpret_cast<bf16*>(tail);    // the walk: bias, then mask [BQ][pitch]
-  const int pitch = kWalk ? L::rows_pitch(a.nk) : 0;
+  const int ldr = kRel ? L::rel_pitch(a.r) : 0;
+  const int rpad = ldr - 8;  // kRelBias: E's columns, 16 per k-step
+  const int slot_bytes = L::slot(ldr, a.mask != nullptr);
+  bf16* rels = reinterpret_cast<bf16*>(ring + kStages * slot_bytes);  // RK = 0: [BQ][ldr]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int h = blockIdx.y % a.heads, b0 = blockIdx.y / a.heads;
-  const int items = kWalk ? (batch - b0 + step - 1) / step : 1;
+  const int h = blockIdx.y % a.heads, b = blockIdx.y / a.heads;
   const int q0 = blockIdx.x * BQ;
   const bf16* bp = nullptr;
-  const bf16* mp = nullptr;  // every item's mask slice: step is a multiple of nw
+  const bf16* mp = nullptr;
   if constexpr (!kRel) {
     const int64_t nn = static_cast<int64_t>(a.nq) * a.nk;
     bp = static_cast<const bf16*>(a.bias) + h * nn;
-    if (a.mask != nullptr) mp = static_cast<const bf16*>(a.mask) + (b0 % a.nw) * nn;
+    if (a.mask != nullptr) mp = static_cast<const bf16*>(a.mask) + (b % a.nw) * nn;
   }
-  auto operand = [&](const void* base, const AttnStrides& st, int b) {
+  auto operand = [&](const void* base, const AttnStrides& st) {
     return static_cast<const bf16*>(base) + b * st.b + h * st.h;
   };
 
-  // the next tile (item ii, keys from ik0) into ring slot `si` as one
-  // commit group; past the last tile an empty group keeps the count
-  const int n_t = items * ((a.nk + kBK - 1) / kBK);
-  int ii = 0, ik0 = 0;
-  // kRelBias, mma form: thread j < kBK writes E's rows of keys j, j + kBK,
-  // ... and keeps that key's (t, h, w), advanced per tile without division;
-  // coordinates and per-tile steps packed 10 bits each (t | h << 10 | w << 20)
+  // kRelBias: thread j < kBK writes E's rows of keys j, j + kBK, ... and
+  // keeps that key's (t, h, w), advanced per tile without division;
+  // coordinates (x) and per-tile steps (y) packed 10 bits each (t | h << 10
+  // | w << 20), in shared memory to spare two registers (each thread reads
+  // only its own entry)
   auto pack3 = [](int t, int h, int w) { return t | h << 10 | w << 20; };
-  int jthw = 0, dthw = 0;
-  if (kMma && tid < kBK) {
-    jthw = pack3(tid / (a.kh * a.kw), (tid / a.kw) % a.kh, tid % a.kw);
-    dthw = pack3(kBK / (a.kh * a.kw), (kBK / a.kw) % a.kh, kBK % a.kw);
-  }
-  auto issue = [&](int si) {
-    if (ii < items) {
+  __shared__ int2 key_thw[kRel ? kBK : 1];
+  if (kRel && tid < kBK)
+    key_thw[tid] = make_int2(pack3(tid / (a.kh * a.kw), (tid / a.kw) % a.kh, tid % a.kw),
+                             pack3(kBK / (a.kh * a.kw), (kBK / a.kw) % a.kh, kBK % a.kw));
+  // the key tile at k0 into ring slot `si` as one commit group; past the
+  // last tile an empty group keeps the count
+  auto issue = [&](int si, int k0) {
+    if (k0 < a.nk) {
       unsigned char* slot = ring + si * slot_bytes;
-      const int b = b0 + ii * step, k0 = ik0;
-      copy_rows<kBK, D, NT>(reinterpret_cast<bf16*>(slot), operand(a.k, a.ks, b), a.ks.n, k0,
+      copy_rows<kBK, D, NT>(reinterpret_cast<bf16*>(slot), operand(a.k, a.ks), a.ks.n, k0,
                             a.nk);
-      copy_rows<kBK, D, NT>(reinterpret_cast<bf16*>(slot + L::kKV), operand(a.v, a.vs, b),
-                            a.vs.n, k0, a.nk);
-      if constexpr (kMma) {
+      copy_rows<kBK, D, NT>(reinterpret_cast<bf16*>(slot + L::kKV), operand(a.v, a.vs), a.vs.n,
+                            k0, a.nk);
+      if constexpr (kRel) {
         // E's row of key k0 + tid: 1 at the key's columns t, kt + h,
         // kt + kh + w, zeros elsewhere and past Nk
         if (tid < kBK) {
-          bf16* er = reinterpret_cast<bf16*>(slot + 2 * L::kKV) + tid * LDE;
-#pragma unroll
-          for (int c = 0; c < kRelK; c += 8)
+          bf16* er = reinterpret_cast<bf16*>(slot + 2 * L::kKV) + tid * ldr;
+          for (int c = 0; c < rpad; c += 8)
             *reinterpret_cast<uint4*>(er + c) = make_uint4(0u, 0u, 0u, 0u);
+          const int jthw = key_thw[tid].x, dthw = key_thw[tid].y;
           int jt = jthw & 1023, jh = (jthw >> 10) & 1023, jw = jthw >> 20;
           if (k0 + tid < a.nk) {
             const bf16 one = __float2bfloat16(1.f);
@@ -393,90 +352,65 @@ __global__ void __launch_bounds__(NW * 32, min_blocks(D) * 4 / NW)
           carry = jh >= a.kh;
           jh -= carry * a.kh;
           jt += (dthw & 1023) + carry;
-          jthw = pack3(jt, jh, jw);
+          key_thw[tid].x = pack3(jt, jh, jw);
         }
-      } else if constexpr (kRel) {
-        if (tid < kBK) {
-          const int kj = k0 + tid;
-          int cols = 0;
-          if (kj < a.nk)
-            cols = kj / (a.kh * a.kw) | (a.kt + (kj / a.kw) % a.kh) << 8 |
-                   (a.kt + a.kh + kj % a.kw) << 16;
-          reinterpret_cast<int*>(slot + 2 * L::kKV)[tid] = cols;
-        }
-      } else if constexpr (!kWalk) {
+      } else {
         bf16* bt = reinterpret_cast<bf16*>(slot + 2 * L::kKV);
         copy_tile<BQ, NT>(bt, bp, a.nq, a.nk, q0, k0);
         if (mp != nullptr) copy_tile<BQ, NT>(bt + BQ * kBK, mp, a.nq, a.nk, q0, k0);
-      }
-      ik0 += kBK;
-      if (ik0 >= a.nk) {
-        ik0 = 0;
-        ++ii;
       }
     }
     cp_async_commit();
   };
 
-  // the walk's resident bias and mask rows join tile 0's group; the
-  // shared-memory rel rows are plain stores, seen after the first barrier
-  if constexpr (kWalk) {
-    copy_full_rows<BQ, NT>(rows, pitch, bp, a.nq, a.nk, q0);
-    if (mp != nullptr) copy_full_rows<BQ, NT>(rows + BQ * pitch, pitch, mp, a.nq, a.nk, q0);
-  }
-  if constexpr (kRel && !kMma) {
-    const bf16* rp = operand(a.rel, a.rs, b0);
-    for (int e = tid; e < BQ * a.r; e += NT) {
-      const int r = e / a.r, c = e % a.r;
-      rels[e] = q0 + r < a.nq ? to_f(rp[(q0 + r) * a.rs.n + c]) : 0.f;
+  // RK = 0: the block's rel rows (2-byte loads: rows of R elements need
+  // not be aligned), zeros past R and Nq; plain stores, seen after the
+  // first barrier
+  if constexpr (kRelRows) {
+    const unsigned short* rp = reinterpret_cast<const unsigned short*>(operand(a.rel, a.rs));
+    unsigned short* rt = reinterpret_cast<unsigned short*>(rels);
+    for (int e = tid; e < BQ * rpad; e += NT) {
+      const int r = e / rpad, c = e % rpad;
+      rt[r * ldr + c] = q0 + r < a.nq && c < a.r ? rp[(q0 + r) * a.rs.n + c] : 0;
     }
   }
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int s = 0; s < kStages - 1; ++s) issue(s, s * kBK);
 
   const bool active = q0 + warp * 16 < a.nq;  // a row of this warp is in range
   const int row0 = warp * 16 + g;             // the thread's rows row0, row0 + 8
   uint32_t qf[KS][4];
-  uint32_t rf[kMma ? RS : 1][4];  // rel's A fragments (the mma form)
-  if constexpr (kMma) {
-    if (active) load_rel_frags(rf, operand(a.rel, a.rs, b0), a.rs.n, q0 + warp * 16, a.nq, a.r);
+  uint32_t rf[RK > 0 ? RK : 1][4];  // rel's A fragments (RK > 0)
+  if (active) {
+    load_a_frags(qf, operand(a.q, a.qs), a.qs.n, q0 + warp * 16, a.nq);
+    if constexpr (kRel && RK > 0)
+      load_rel_frags<RK>(rf, operand(a.rel, a.rs), a.rs.n, q0 + warp * 16, a.nq, a.r);
+    if constexpr (!kRel) {
+      const float qscale = round_to<bf16>(a.qscale);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) qf[ks][j] = scale_bf16x2(qf[ks][j], qscale);
+    }
   }
-  float o[ND][4], m_run[2], l_run[2];
+  float o[ND][4], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 
-  for (int t = 0, i = 0, k0 = 0; t < n_t; ++t, k0 += kBK) {
-    if (k0 >= a.nk) {  // item i + 1
-      k0 = 0;
-      ++i;
-    }
-    if (active && k0 == 0) {  // a new item: its Q fragments, empty accumulators
-      load_a_frags(qf, operand(a.q, a.qs, b0 + i * step), a.qs.n, q0 + warp * 16, a.nq);
-      if constexpr (!kRel) {
-        const float qscale = round_to<bf16>(a.qscale);
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) qf[ks][j] = scale_bf16x2(qf[ks][j], qscale);
-      }
-#pragma unroll
-      for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-      m_run[0] = m_run[1] = -INFINITY;
-      l_run[0] = l_run[1] = 0.f;
-    }
+  const int n_t = (a.nk + kBK - 1) / kBK;
+  for (int t = 0, k0 = 0; t < n_t; ++t, k0 += kBK) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // tile t's slot is full; every warp is done with t - 1's slot
-    issue((t + kStages - 1) % kStages);
+    issue((t + kStages - 1) % kStages, k0 + (kStages - 1) * kBK);
     if (!active) continue;
     const unsigned char* slot = ring + (t % kStages) * slot_bytes;
     const bf16* kt = reinterpret_cast<const bf16*>(slot);
     const bf16* vt = reinterpret_cast<const bf16*>(slot + L::kKV);
+    const bf16* xt = reinterpret_cast<const bf16*>(slot + 2 * L::kKV);  // E, or the bias tile
     const int valid = a.nk - k0;  // keys of this tile in range (may exceed kBK)
-    // kDenseBias: the tile's bias (r, c) at bt[at(r, c)], its mask at + moff
-    const bf16* bt = kWalk ? rows + k0 : reinterpret_cast<const bf16*>(slot + 2 * L::kKV);
-    const int moff = kWalk ? BQ * pitch : BQ * kBK;
-    auto at = [&](int r, int c) { return kWalk ? r * pitch + c : swz(r, c); };
 
-    // S = Q K^T (kRelBias, mma form: scale * Q K^T + rel E^T), column tiles
-    // wholly past Nk skipped
+    // S = Q K^T (kRelBias: scale * Q K^T + rel E^T), column tiles wholly
+    // past Nk skipped
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
@@ -489,47 +423,56 @@ __global__ void __launch_bounds__(NW * 32, min_blocks(D) * 4 / NW)
           mma_bf16(s[n], qf[kk], kb[0], kb[1]);
           mma_bf16(s[n], qf[kk + 1], kb[2], kb[3]);
         }
-        if constexpr (kMma) {
-          const bf16* et = reinterpret_cast<const bf16*>(slot + 2 * L::kKV);
+        if constexpr (kRel && RK > 0) {
+          // + rel E^T, rel's fragments in registers, on a chain of its own
           float rb[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-          for (int ks = 0; ks < RS; ++ks) {
+          for (int ks = 0; ks < RK; ++ks) {
             if (ks * 16 < a.r) {
               uint32_t eb[2];
-              ldsm_x2(eb, et + (n * 8 + (lane & 7)) * LDE + ks * 16 + ((lane >> 3) & 1) * 8);
+              ldsm_x2(eb, xt + (n * 8 + (lane & 7)) * ldr + ks * 16 + ((lane >> 3) & 1) * 8);
               mma_bf16(rb, rf[ks], eb[0], eb[1]);
             }
           }
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * a.scale + rb[e];
+        } else if constexpr (kRel) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] *= a.scale;
         }
       }
     }
-
-    // scale, bias, mask
+    if constexpr (kRelRows) {
+      // + rel E^T, rel's A fragments of the warp's 16 rows from shared
+      // memory, one k-step at a time
+      const bf16* ra_row = rels + (warp * 16 + (lane & 15)) * ldr + (lane >> 4) * 8;
+      for (int c = 0; c < rpad; c += 16) {
+        uint32_t ra[4];
+        ldsm_x4(ra, ra_row + c);
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const int c = n * 8 + 2 * t4;  // the thread's key columns c, c + 1
+        for (int n = 0; n < NS; ++n) {
+          if (n * 8 < valid) {
+            uint32_t eb[2];
+            ldsm_x2(eb, xt + (n * 8 + (lane & 7)) * ldr + c + ((lane >> 3) & 1) * 8);
+            mma_bf16(s[n], ra, eb[0], eb[1]);
+          }
+        }
+      }
+    } else if constexpr (!kRel) {
+      // bias and mask, from the swizzled tiles
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {  // rows row0 + 8 * hr
-        const int r = row0 + 8 * hr;
-        float& v0 = s[n][2 * hr];
-        float& v1 = s[n][2 * hr + 1];
-        if constexpr (kRel && !kMma) {
-          const int* cols = reinterpret_cast<const int*>(slot + 2 * L::kKV);
-          const float* rr = rels + r * a.r;
-          const int c0 = cols[c], c1 = cols[c + 1];
-          v0 = v0 * a.scale + (rr[c0 & 255] + rr[(c0 >> 8) & 255] + rr[c0 >> 16]);
-          v1 = v1 * a.scale + (rr[c1 & 255] + rr[(c1 >> 8) & 255] + rr[c1 >> 16]);
-        } else if (!kRel && (!kWalk || c < valid)) {  // the walk's rows end at Nk
-          const bf16* br = bt + at(r, c);
+      for (int n = 0; n < NS; ++n) {
+        const int c = n * 8 + 2 * t4;  // the thread's key columns c, c + 1
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {  // rows row0 + 8 * hr
+          const bf16* br = xt + swz(row0 + 8 * hr, c);
           const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(br);
-          v0 += __low2float(bb);
-          v1 += __high2float(bb);
+          s[n][2 * hr] += __low2float(bb);
+          s[n][2 * hr + 1] += __high2float(bb);
           if (mp != nullptr) {
-            const __nv_bfloat162 mm = *reinterpret_cast<const __nv_bfloat162*>(br + moff);
-            v0 += __low2float(mm);
-            v1 += __high2float(mm);
+            const __nv_bfloat162 mm = *reinterpret_cast<const __nv_bfloat162*>(br + BQ * kBK);
+            s[n][2 * hr] += __low2float(mm);
+            s[n][2 * hr + 1] += __high2float(mm);
           }
         }
       }
@@ -593,24 +536,22 @@ __global__ void __launch_bounds__(NW * 32, min_blocks(D) * 4 / NW)
         }
       }
     }
+  }
+  if (!active) return;
 
-    if (k0 + kBK < a.nk) continue;
-    // the item's last tile: out rows = O / l in bf16, and the rows' lse
-    const int b = b0 + i * step;
-    bf16* op = static_cast<bf16*>(a.out) + b * a.os.b + h * a.os.h;
+  // out rows = O / l in bf16, and the rows' lse
+  bf16* op = static_cast<bf16*>(a.out) + b * a.os.b + h * a.os.h;
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int qi = q0 + row0 + 8 * hr;
-      if (qi >= a.nq) continue;
-      const float inv = 1.f / l_run[hr];
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = q0 + row0 + 8 * hr;
+    if (qi >= a.nq) continue;
+    const float inv = 1.f / l_run[hr];
 #pragma unroll
-      for (int n = 0; n < ND; ++n)
-        *reinterpret_cast<uint32_t*>(op + qi * a.os.n + n * 8 + 2 * t4) =
-            pack_bf16(o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
-      if (a.lse != nullptr && t4 == 0)
-        a.lse[(static_cast<int64_t>(b) * a.heads + h) * a.nq + qi] =
-            m_run[hr] + logf(l_run[hr]);
-    }
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(op + qi * a.os.n + n * 8 + 2 * t4) =
+          pack_bf16(o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
+    if (a.lse != nullptr && t4 == 0)
+      a.lse[(static_cast<int64_t>(b) * a.heads + h) * a.nq + qi] = m_run[hr] + logf(l_run[hr]);
   }
 }
 
@@ -618,14 +559,26 @@ inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 1
 
 }  // namespace sm90
 
+namespace sm90 {
+
+template <int D, int RK, int BIAS>
+cudaError_t launch(const AttnArgs& a, int batch, cudaStream_t stream) {
+  using L = Layout<D, RK, BIAS>;
+  const size_t smem = L::bytes(BIAS == kRelBias ? L::rel_pitch(a.r) : 0, a.mask != nullptr);
+  const dim3 grid((a.nq + L::BQ - 1) / L::BQ, batch * a.heads);
+  auto kernel = flash_attention_sm90_kernel<D, RK, BIAS>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+
 // Grid: x = query tiles of BQ, y = batch x heads (one block per batch entry
-// and head). The walk (MSPI_WINDOW_WALK=1, kDenseBias): y = step x heads,
-// where step = nw * ceil(clips / 8) is a multiple of the mask's nw windows,
-// so the about 8 windows b = p, p + step, ... that a block visits share one
-// bias and one mask slice (unmasked: nw = 1).
+// and head). kRelBias keeps rel's fragments in registers at R <= 48.
 template <int D, int BIAS>
 cudaError_t launch_flash_attention_sm90(const AttnArgs& a, int batch, cudaStream_t stream) {
-  using L = sm90::Layout<D, sm90::kWarps, BIAS>;
   // every k and v row starts 16 bytes aligned and every q row 4 bytes:
   // base pointers and strides (and, for the dense bias, rows of Nk elements)
   bool ok = sm90::aligned16(a.k) && sm90::aligned16(a.v) &&
@@ -636,21 +589,13 @@ cudaError_t launch_flash_attention_sm90(const AttnArgs& a, int batch, cudaStream
     ok = ok && sm90::aligned16(a.bias) && (a.mask == nullptr || sm90::aligned16(a.mask)) &&
          a.nk % 8 == 0;
   if (!ok) return cudaErrorMisalignedAddress;
-  if (BIAS == kRelBias && (a.r <= 0 || a.r > (L::kMma ? sm90::kRelK : 255)))
+  // the key grid's coordinates fit the 10-bit fields of E's writers
+  if (BIAS == kRelBias && (a.r <= 0 || a.kt >= 1024 || a.kh >= 1024 || a.kw >= 1024))
     return cudaErrorInvalidValue;
-  const size_t smem = L::bytes(BIAS == kRelBias ? a.r : 0, a.nk, a.mask != nullptr);
-  dim3 grid((a.nq + L::BQ - 1) / L::BQ, batch * a.heads);
-  int step = 0;
-  if constexpr (L::kWalk) {
-    const int nw = a.mask != nullptr ? a.nw : 1;
-    step = nw * ((batch / nw + 7) / 8);
-    grid.y = step * a.heads;
+  if constexpr (BIAS == kRelBias) {
+    if (a.r <= 16 * sm90::kRelRegK) return sm90::launch<D, sm90::kRelRegK, BIAS>(a, batch, stream);
   }
-  auto kernel = sm90::flash_attention_sm90_kernel<D, sm90::kWarps, BIAS>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, sm90::kWarps * 32, smem, stream>>>(a, batch, step);
-  return cudaGetLastError();
+  return sm90::launch<D, 0, BIAS>(a, batch, stream);
 }
 
 }  // namespace mspi

@@ -22,8 +22,8 @@
 // into shared memory beside K and V (the stage-1 bf16 mask is 34 MB and
 // stays mostly in the 50 MB L2). The port's form of the TPU kernel's
 // resident bias, a block that keeps its bias and mask rows and visits the
-// windows sharing them (MSPI_WINDOW_WALK=1), takes 3x as long: its 100 KB of
-// rows leave one block per SM (PERF.md).
+// windows sharing them, took 3x as long when measured: its 100 KB of rows
+// leave one block per SM (PERF.md).
 //
 // What bounds it on the card: 4*D flops per (query, key) pair, at D = 32 only
 // 128, against 2 bytes of bias (+ 2 of mask) per pair: the bias and mask

@@ -21,14 +21,13 @@ path went through.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional
 
 import torch
 
@@ -102,20 +101,18 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build(flags: Sequence[str] = (), build_dir: Path = BUILD_DIR,
-          sources: Optional[Sequence[Path]] = None) -> float:
-    """Compile every csrc/*.cu (or `sources`; one nvcc process per source, in
-    parallel, with NVCC_FLAGS + `flags`) and link build_dir/libmspi_kernels.so;
-    returns the build's wall seconds. nvcc's output goes to
-    build_dir/nvcc.log; a failed step raises with it. A library that is
+def build() -> float:
+    """Compile every csrc/*.cu (one nvcc process per source, in parallel)
+    and link LIB_PATH; returns the build's wall seconds. nvcc's output goes
+    to BUILD_DIR/nvcc.log; a failed step raises with it. A library that is
     already loaded in this process stays loaded."""
-    build_dir.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
-    for src in sources or _sources():
-        obj = build_dir / (src.stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)]
+    for src in _sources():
+        obj = BUILD_DIR / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True)))
     failed, logs = [], []
@@ -124,38 +121,24 @@ def build(flags: Sequence[str] = (), build_dir: Path = BUILD_DIR,
         logs.append(f"== {obj.stem}.cu\n{out}")
         if proc.returncode != 0:
             failed.append(f"{obj.stem}.cu: nvcc exit {proc.returncode}\n{out}")
-    (build_dir / "nvcc.log").write_text("\n".join(logs))
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(logs))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    lib_path = build_dir / LIB_PATH.name
-    tmp = lib_path.with_name(lib_path.name + ".tmp")
+    tmp = LIB_PATH.with_name(LIB_PATH.name + ".tmp")
     link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for o, _ in jobs)],
                           capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed with code {link.returncode}:\n"
                            f"{link.stdout}\n{link.stderr}")
-    tmp.replace(lib_path)
+    tmp.replace(LIB_PATH)
     return time.perf_counter() - t0
 
 
-def load(path: Path, names: Optional[Sequence[str]] = None) -> ctypes.CDLL:
-    """A kernel library with the C signatures of `names` (default: every
-    entry) and mspi_error_string bound."""
-    handle = ctypes.CDLL(str(path))
-    for name in names or _SIGNATURES:
-        fn = getattr(handle, name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    handle.mspi_error_string.argtypes = [ctypes.c_int]
-    handle.mspi_error_string.restype = ctypes.c_char_p
-    return handle
-
-
-def ptxas_report(key: str, build_dir: Path = BUILD_DIR) -> Dict[str, tuple]:
+def ptxas_report(key: str) -> Dict[str, tuple]:
     """From the last build's nvcc.log: {mangled entry: (registers, spill
     store bytes, spill load bytes)} of each kernel whose name holds `key`."""
     report, entry = {}, None
-    for line in (build_dir / "nvcc.log").read_text().splitlines():
+    for line in (BUILD_DIR / "nvcc.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = m.group(1) if key in m.group(1) else None
@@ -185,20 +168,15 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         if _stale():
             build()
-        _lib = load(LIB_PATH)
+        handle = ctypes.CDLL(str(LIB_PATH))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.mspi_error_string.argtypes = [ctypes.c_int]
+        handle.mspi_error_string.restype = ctypes.c_char_p
+        _lib = handle
     return _lib
-
-
-@contextlib.contextmanager
-def using(handle: ctypes.CDLL):
-    """Launch through another build of the library (a `load`ed variant) inside
-    the block."""
-    global _lib
-    saved, _lib = _lib, handle
-    try:
-        yield
-    finally:
-        _lib = saved
 
 
 def check(err: int, name: str) -> None:

@@ -33,20 +33,12 @@ PACKED_D = 96  # row 8's head dim (MViT)
 AUG_DA = (113, 144)  # row 6's q_aug/k_aug widths, zero-filled to 128 or 144 lanes
 AUG_DV = 96  # row 6's value width (MViT heads)
 BWD_TILE = 64  # query and key tile of the backward kernels
-REL_MMA_MAX_R = 48  # bf16 K1 body: rel E^T on the tensor cores over at most 48 columns
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
     """The bf16 path loads token rows 16 bytes at a time."""
     if tensors[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
-
-
-def _check_rel_width(name: str, q: torch.Tensor, R: int) -> None:
-    """The bf16 forward of the rel mode (K1, row 8 in training) multiplies
-    rel E^T over at most REL_MMA_MAX_R columns."""
-    if q.dtype == torch.bfloat16 and R > REL_MMA_MAX_R:
-        raise ValueError(f"{name}: bf16 rel width {R} above {REL_MMA_MAX_R}")
 
 
 def key_expansion(k_shape: Sequence[int]) -> np.ndarray:
@@ -121,7 +113,6 @@ def _attention_rel_fwd(q, k, v, rel, k_shape, scale: float, with_lse: bool = Fal
     dtype = kernels.check_operands(name, q, k, v, rel)
     B, H, Nq, Nk, D, R, kt, kh, kw = _rel_geometry(name, q, k, v, rel, k_shape)
     _check_aligned(name, q, k, v, rel)
-    _check_rel_width(name, q, R)
     out = torch.empty_like(q)
     lse = q.new_empty((B * H, Nq), dtype=torch.float32) if with_lse else None
     err = kernels.lib().mspi_attention_rel(
@@ -356,8 +347,6 @@ def _attention_rel_packed_fwd(q, k, v, rel, k_shape, heads: int, scale: float,
     dtype = kernels.check_operands(name, q, k, v, rel)
     B, Nq, Nk, D, R, kt, kh, kw = _packed_geometry(name, q, k, v, rel, k_shape, heads)
     _check_aligned(name, q, k, v, rel)
-    if not residual:
-        _check_rel_width(name, q, R)
     out = torch.empty_like(q)
     lse = q.new_empty((B * heads, Nq), dtype=torch.float32) if with_lse else None
     err = kernels.lib().mspi_attention_rel_packed(

@@ -7,7 +7,8 @@ MViTv2-S and VideoSwin-S backbones make in one forward at 16x224x384 and
 asserts that the tables list exactly those calls with those multiplicities:
 K1's (heads, Nq, pooled key grid), the window kernel's (windows per clip,
 heads, C, mask or not) with the mask's window count, and the shift masks'
-(padded grid, window, shift). The forwards run on the meta device (shapes
+(padded grid, window, shift); and `MVIT_WIDE`, the K1 calls whose rel
+width passes 48 at 256x448. The forwards run on the meta device (shapes
 only), where the kernel functions are routed to their plain versions.
 """
 
@@ -38,14 +39,15 @@ def meta_plain(monkeypatch):
     monkeypatch.setattr(kernels, "dispatch_device", on_meta)
 
 
-def _forward(encoder: str) -> None:
+def _forward(encoder: str, res=chip_smoke.RES) -> None:
     with torch.device("meta"):
-        backbone = build_backbone(get_config(encoder)).eval()
-        clip = torch.empty(1, 16, *chip_smoke.RES, 3)
+        cfg = get_config(encoder, overrides={"data": {"resolution": tuple(res)}})
+        backbone = build_backbone(cfg).eval()
+        clip = torch.empty(1, 16, *res, 3)
     with torch.no_grad():
         feats = backbone(clip)
-    assert [tuple(f.shape[1:4]) for f in feats] == [(8, 56, 96), (8, 28, 48), (8, 14, 24),
-                                                   (8, 7, 12)]
+    h, w = res
+    assert [tuple(f.shape[1:4]) for f in feats] == [(8, h // s, w // s) for s in (4, 8, 16, 32)]
 
 
 def test_mvit_attention_rel_shapes(meta_plain, monkeypatch):
@@ -62,6 +64,23 @@ def test_mvit_attention_rel_shapes(meta_plain, monkeypatch):
                     for _, blocks, heads, nq, k_shape in chip_smoke.MVIT_BLOCKS})
     assert calls == want
     assert sum(calls.values()) == chip_smoke.PER_FORWARD["mvitv2s"]["attention_rel"]
+
+
+def test_mvit_wide_rel_shapes(meta_plain, monkeypatch):
+    """MVIT_WIDE lists the K1 calls whose rel width passes 48, as MViTv2-S
+    makes them at the training CLI's --resolution 256 448."""
+    calls = Counter()
+    kernel = mvit.attention_rel
+
+    def spy(q, k, v, rel, k_shape, scale):
+        assert rel.shape[-1] == sum(k_shape)
+        if sum(k_shape) > 48:
+            calls[(q.shape[1], q.shape[2], tuple(k_shape))] += 1
+        return kernel(q, k, v, rel, k_shape, scale)
+    monkeypatch.setattr(mvit, "attention_rel", spy)
+    _forward("mvitv2s", chip_smoke.MVIT_WIDE_RES)
+    assert calls == Counter({(heads, nq, k_shape): 1
+                             for _, _, heads, nq, k_shape in chip_smoke.MVIT_WIDE})
 
 
 def test_videoswin_window_attention_shapes(meta_plain, monkeypatch):

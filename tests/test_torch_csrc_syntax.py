@@ -54,6 +54,8 @@ struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct int4 { int x, y, z, w; };
 struct uint2 { unsigned x, y; };
+struct int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return {x, y}; }
 struct uint4 { unsigned x, y, z, w; };
 struct char4 { signed char x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
@@ -164,27 +166,18 @@ def test_sources_found():
     assert (CSRC / "flash_attention_sm90.cuh").exists()
 
 
-def _check(stub_tree, source, *defines):
+def _check(stub_tree, source):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ on this machine")
     res = subprocess.run(
-        [gxx, "-std=c++17", "-fsyntax-only", "-x", "c++", "-w", *defines,
+        [gxx, "-std=c++17", "-fsyntax-only", "-x", "c++", "-w",
          "-I", str(stub_tree / "stubs"), "-I", str(stub_tree / "src"),
          str(stub_tree / "src" / source)],
         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, f"{source} {defines}:\n{res.stderr[-4000:]}"
+    assert res.returncode == 0, f"{source}:\n{res.stderr[-4000:]}"
 
 
 @pytest.mark.parametrize("source", SOURCES)
 def test_csrc_syntax(stub_tree, source):
     _check(stub_tree, source)
-
-
-@pytest.mark.parametrize("defines", [("-DMSPI_FLASH_SM90_WARPS=8",), ("-DMSPI_WINDOW_WALK=1",),
-                                     ("-DMSPI_REL_MMA=0",), ("-DMSPI_FLASH_SM90_STAGES=3",),
-                                     ("-DMSPI_FLASH_SM90_BK=32", "-DMSPI_FLASH_SM90_MIN_BLOCKS=4")])
-@pytest.mark.parametrize("source", ["attention_rel.cu", "window_attention.cu"])
-def test_flash_sm90_variants_syntax(stub_tree, source, defines):
-    """The mma.sync flash body's build variants (tools/bench_flash_variants.py)."""
-    _check(stub_tree, source, *defines)

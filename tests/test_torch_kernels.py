@@ -49,6 +49,8 @@ def no_launches():
     (1, 1, 24, (2, 2, 3), 8),     # single head
     (2, 2, 37, (2, 3, 2), 16),    # ragged Nq, 2 heads
     (1, 2, 50, (1, 4, 5), 8),     # kt = 1
+    (1, 2, 40, (2, 20, 30), 8),   # R = 52, above one 48-column rel tile
+    (1, 1, 33, (1, 24, 40), 8),   # R = 65
 ])
 def test_attention_rel_matches_pallas(rng, B, H, Nq, k_shape, D):
     Nk, R = int(np.prod(k_shape)), sum(k_shape)
@@ -131,6 +133,7 @@ def _port_grads(fn, arrays, dout):
     (1, 1, 24, (2, 2, 3), 8),
     (2, 2, 37, (2, 3, 2), 16),    # ragged Nq
     (1, 2, 50, (1, 4, 5), 8),
+    (1, 2, 40, (2, 20, 30), 8),   # R = 52
 ])
 def test_attention_rel_grads_match_pallas(rng, B, H, Nq, k_shape, D):
     Nk, R = int(np.prod(k_shape)), sum(k_shape)

@@ -160,7 +160,17 @@ def test_attention_backward_reference_matches_autograd(rng):
 def test_attention_rel_packed_matches_pallas(rng, residual):
     """Row 8 on token-major [B, N, H*D] with 2 heads; its backward is the
     layout change around K1's (row 5) plus dout into dq with the residual."""
-    B, heads, D, Nq, k_shape = 2, 2, 16, 30, (2, 3, 2)
+    _check_rel_packed(rng, residual, B=2, Nq=30, k_shape=(2, 3, 2))
+
+
+@pytest.mark.parametrize("residual", [True, False])
+def test_attention_rel_packed_wide_rel_matches_pallas(rng, residual):
+    """Row 8 at a rel width R = 52, above one 48-column rel tile."""
+    _check_rel_packed(rng, residual, B=1, Nq=20, k_shape=(2, 20, 30))
+
+
+def _check_rel_packed(rng, residual, B, Nq, k_shape):
+    heads, D = 2, 16
     Nk, R, C = int(np.prod(k_shape)), sum(k_shape), heads * D
     q, k, v = _randn(rng, B, Nq, C), _randn(rng, B, Nk, C), _randn(rng, B, Nk, C)
     rel, dout = _randn(rng, B, Nq, heads * R), _randn(rng, B, Nq, C)
