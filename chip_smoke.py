@@ -19,6 +19,8 @@ first failure (there is no CPU path):
    versions), by the correlation of the log-density maps;
 6. backward: each backward kernel against its plain version at the
    training shapes (batch 2) of both models, fp32 and bf16, with times;
+   the bf16 window backward (row 16) runs twice at each of its eight
+   shapes and must give bit-identical gradients;
 7. training path: `make_train_step` on the MViTv2-S model at 224x384,
    batch 2, bf16 compute with fp32 weights, STEPS steps on synthetic
    batches; checks finite loss and gradient norm, trainable weights moved,
@@ -38,8 +40,9 @@ first failure (there is no CPU path):
 15. swin_int8_main: phase 4 on the VideoSwin-S model with quant="int8";
 16. layout_kernels: the kernels of MViT's layout options against their
    plain versions, fp32 and bf16, at batch 8: the augmented-lane attention
-   (row 6) at the 16 blocks' shapes, the packed rel-pos attention (row 8) at
-   blocks 1-15, the depthwise conv3d (row 18) at the 17 stride-1 pools;
+   (row 6) at the 16 blocks' shapes, the packed rel-pos attention (row 8,
+   with the residual) at blocks 1-15 and at the rel width 52 of 256x448
+   (checked only), the depthwise conv3d (row 18) at the 17 stride-1 pools;
    times summed per forward (each shape weighted by its blocks);
 17. layout_backward: at batch 2, row 7's head-major backward of row 6 at
    the 16 blocks, row 8's backward (K1's after a layout change) at blocks
@@ -74,6 +77,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -98,7 +102,8 @@ KERNELS = {
     "window_attention": ("mspi_tpu_torch/csrc/window_attention.cu",
                          "mspi_tpu/ops/pallas/attention.py:423"),
     # rows 16 (:233, stages 1-2) and 17 (:332, stages 3-4): one kernel here
-    "window_attention_bwd": ("mspi_tpu_torch/csrc/attention_bwd.cu",
+    # (bf16; fp32 runs attention_bwd.cu's FMA passes)
+    "window_attention_bwd": ("mspi_tpu_torch/csrc/window_attention_bwd.cu",
                              "mspi_tpu/ops/pallas/attention.py:233"),
     "ln_mlp_int8": ("mspi_tpu_torch/csrc/ln_mlp_int8.cu", "mspi_tpu/ops/pallas/mlp.py:985"),
     "ln_mlp_prior_res": ("mspi_tpu_torch/csrc/ln_mlp.cu", "mspi_tpu/ops/pallas/mlp.py:778"),
@@ -665,6 +670,14 @@ def phase_backward(records) -> None:
                 dqkv, dbias = g
                 return dqkv[..., :C], dqkv[..., C:2 * C], dqkv[..., 2 * C:], dbias
             errs = compare_grads(("dq", "dk", "dv", "dbias"), parts(got), parts(want), dtype)
+            if dtype == torch.bfloat16:  # one writer per element, fixed sum order
+                again = bwd()
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                log("kernels", f"  window_attention_bwd {label} bf16: a second run "
+                               f"{'bit-identical' if same else 'DIFFERS'}")
+                if not same:
+                    raise AssertionError(f"window_attention_bwd {label}: two runs differ")
+                del again
             ms = time_ms(bwd)
             plain_ms = time_ms(lambda: WA.window_attention_backward_reference(
                 qkv, bias, mask, heads, n, dout))
@@ -715,7 +728,9 @@ def packed_inputs(randn, batch, heads, nq, k_shape):
 
 def phase_layout_kernels(records) -> None:
     """Rows 6, 8 and 18 at the MViTv2-S shapes, batch 8, fp32 and bf16; the
-    bf16 times (kernel, plain, library, bound) summed per forward."""
+    bf16 times (kernel, plain, library, bound) summed per forward. Row 8 is
+    also checked at the R = 52 shapes of 256x448 (`MVIT_WIDE`, rel rows in
+    shared memory), out of the sums."""
     import torch.nn.functional as F
 
     from mspi_tpu_torch.ops.kernels import dwconv as DW
@@ -733,8 +748,9 @@ def phase_layout_kernels(records) -> None:
             add_bound(records["attention"], dtype, nbytes(*xs, out),
                       2.0 * BATCH * heads * nq * nk * (MVIT_D + r + MVIT_D), weight=blocks)
         del inputs, xs, out
-    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS[1:]:  # the blocks with heads > 1
-        nk, r = math.prod(k_shape), sum(k_shape)
+    # the blocks with heads > 1, and the R = 52 shapes (checked only)
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS[1:] + MVIT_WIDE:
+        nk = math.prod(k_shape)
         inputs = packed_inputs(randn, BATCH, heads, nq, k_shape)
         scale = MVIT_D ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
@@ -1189,19 +1205,34 @@ def phase_train_parity(tag: str, encoder: str) -> None:
             raise AssertionError(f"{k}: card {m_gpu[k]} vs CPU {m_cpu[k]}")
 
 
+# Entries the register-resident bodies must hold (mangled-name fragments):
+# row 8's forward (kRelBiasRes = 3) in both rel forms, and the bf16 window
+# backward's three passes
+SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3E",
+                "flash_attention_sm90_kernelILi96ELi0ELi3E", "window_bwd_dq_sm90_kernel",
+                "window_bwd_dkv_sm90_kernel", "window_bwd_dbias_sm90_kernel")
+
+
 def check_ptxas() -> None:
-    """The mma.sync flash body (K1 and the window kernel in bf16): each
-    instantiation's registers and spills as ptxas reported them; a spill
-    fails the run."""
+    """The register-resident bodies (the sm90 flash forward of K1, rows 8
+    and 15, and the bf16 window backward's passes): each instantiation's
+    registers and spills as ptxas reported them; a spill fails the run, and
+    so does a missing entry of SM90_ENTRIES or a kRelBiasRes instantiation
+    of the WMMA body (`flash_attention_tc_kernel`, bias mode 0 only)."""
     from mspi_tpu_torch.ops import kernels
 
-    report = kernels.ptxas_report("flash_attention_sm90")
-    if not report:
-        raise AssertionError("no flash_attention_sm90 entry in the ptxas report")
+    report = kernels.ptxas_report("sm90_kernel")
+    missing = [e for e in SM90_ENTRIES if not any(e in name for name in report)]
+    if missing:
+        raise AssertionError(f"no ptxas entry for {missing}")
     for entry, (regs, st, ld) in sorted(report.items()):
         log("build", f"ptxas {entry}: {regs} registers, spill stores {st} B, loads {ld} B")
         if st or ld:
             raise AssertionError(f"{entry} spills registers")
+    wmma = [name for name in kernels.ptxas_report("flash_attention_tc_kernel")
+            if re.search(r"Li(\d+)EEEv", name).group(1) != "0"]
+    if wmma:
+        raise AssertionError(f"the WMMA body has bias modes other than 0: {wmma}")
 
 
 def main() -> None:

@@ -20,8 +20,9 @@
 // _packed_bwd_kernel, VideoSwin stages 1-2) and ::_bwd_impl_perhead (kernel
 // _perhead_bwd_kernel, stages 3-4): the same function, which the TPU splits
 // only because a resident fp32 [H, N, N] dbias does not fit in VMEM at 12
-// and 24 heads; one kernel serves every stage here. The mask takes no
-// gradient.
+// and 24 heads; one entry serves every stage here, in fp32 through the
+// passes below and in bf16 through window_attention_bwd.cu's
+// register-resident passes. The mask takes no gradient.
 //
 // The TPU kernel recomputes a whole [TQ, Nk] probability tile per q-tile and
 // carries dk/dv across its sequential grid in VMEM. Blocks on the card run in
@@ -37,9 +38,9 @@
 //      partials (segments keep the card busy when Nk is small next to Nq);
 //   4. reduce: sums the segments in a fixed order, scales dk, and writes dk
 //      and dv in the storage type through their strides.
-// The window backward sums dS over all B_ windows for dbias. The TPU carries
-// a resident fp32 accumulator across its sequential grid; here, without
-// atomics and in a fixed order:
+// The fp32 window backward sums dS over all B_ windows for dbias. The TPU
+// carries a resident fp32 accumulator across its sequential grid; here,
+// without atomics and in a fixed order:
 //   2'. dq/dbias pass: one block per (64-query tile, head, group of windows)
 //       walks its group's windows in order, writes each window's dq, and
 //       keeps its [64 x N] fp32 dbias rows in shared memory (N <= 448), each
@@ -54,10 +55,11 @@
 // at a time and zero-filled to DK = Da rounded up to 16 in shared memory;
 // only the first Da columns of dq and dk are written, and dk's partials are
 // kept at width Da.
-//   bf16: every product on the tensor cores (WMMA 16x16x16, fp32 accumulate);
-//         P and dS rounded to bf16 where they enter a product, as the TPU
-//         kernel rounds them to v's dtype.
-//   fp32: the FMA pipes (tensor cores would round to TF32).
+//   bf16 (rel, self, aug): every product on the tensor cores (WMMA
+//         16x16x16, fp32 accumulate); P and dS rounded to bf16 where they
+//         enter a product, as the TPU kernel rounds them to v's dtype.
+//   fp32 (every mode, window included): the FMA pipes (tensor cores would
+//         round to TF32).
 // What bounds it on the card: 8*D flops per (query, key) pair in the two
 // passes plus 2*D to recompute S -- the arithmetic; q, k, v, dO are read
 // once per tile of the other side.
@@ -156,14 +158,14 @@ __host__ __device__ inline Layout layout(int r, int wide = 0) {
 }
 
 // rows [t0, t0+64) of a token-major operand (row stride `stride`, D features
-// contiguous) into dst [64][LD]; zeros past n. scale != 1 multiplies every
-// value, rounded to T (the window backward's q_s).
+// contiguous) into dst [64][LD]; zeros past n. scale != 1 (fp32 only: the
+// window backward's q_s) multiplies every value.
 template <typename T, int D>
 __device__ __forceinline__ void load_op(const T* src, int64_t stride, int t0, int n,
                                         typename Path<T, D>::Op* dst, float scale = 1.f) {
   constexpr int LD = Path<T, D>::LD;
   if constexpr (Path<T, D>::kTc) {
-    load_rows_bf16<D, THREADS>(src, stride, t0, n, dst, LD, scale);
+    load_rows_bf16<D, THREADS>(src, stride, t0, n, dst, LD);
   } else {
     for (int e = threadIdx.x; e < BM * D; e += THREADS) {
       const int r = e / D, d = e % D;
@@ -183,10 +185,12 @@ __device__ __forceinline__ void load_qk(const T* src, int64_t stride, int t0, in
     load_op<T, D>(src, stride, t0, n, dst, scale);
 }
 
-// The factor load_op applies to q: the window backward's q_s, else none.
+// The factor load_op applies to q: the fp32 window backward's q_s, else none.
 template <typename T, int BIAS>
 __device__ __forceinline__ float q_load_scale(const AttnArgs& a) {
-  return BIAS == kDenseBias ? round_to<T>(a.qscale) : 1.f;
+  static_assert(!(Path<T, 32>::kTc && BIAS == kDenseBias),
+                "the bf16 window backward is window_attention_bwd.cu's");
+  return BIAS == kDenseBias ? a.qscale : 1.f;
 }
 
 // C[64][LDS] = A[64][D] B[64][D]^T (rows of A against rows of B).
@@ -674,7 +678,7 @@ cudaError_t dispatch_bwd_aug(const BwdArgs& g, int batch, int dv, cudaStream_t s
   return launch_bwd<T, 144, 96, kNoBias>(g, batch, s);
 }
 
-// ---- window attention: dq/dbias pass and the dbias reduction ------------------
+// ---- window attention: fp32 dq/dbias pass ------------------------------------
 
 // Columns of a block's dbias rows: Nk rounded up to whole key tiles.
 __host__ __device__ inline int dbias_cols(int nk) { return (nk + BM - 1) / BM * BM; }
@@ -738,17 +742,6 @@ __global__ void __launch_bounds__(THREADS) window_bwd_dq_kernel(BwdArgs g) {
   }
 }
 
-// dbias = the sum of the groups' partials, in group order, in the storage type.
-template <typename T>
-__global__ void window_dbias_reduce_kernel(const float* part, T* dbias, int groups, int64_t n) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float s = 0.f;
-    for (int grp = 0; grp < groups; ++grp) s += part[grp * n + i];
-    dbias[i] = from_f<T>(s);
-  }
-}
-
 template <typename T, int D>
 cudaError_t launch_window_bwd(BwdArgs g, int groups, cudaStream_t stream) {
   const AttnArgs& a = g.f;
@@ -769,11 +762,8 @@ cudaError_t launch_window_bwd(BwdArgs g, int groups, cudaStream_t stream) {
   attn_bwd_dkv_kernel<T, D, D, kDenseBias><<<dim3(ktiles, bh, 1), THREADS, smem, stream>>>(g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = launch_reduce<T>(g, D, D, bh, stream)) != cudaSuccess) return err;
-  const int64_t nb = static_cast<int64_t>(a.heads) * a.nq * a.nk;
-  const int64_t blocks = (nb + 255) / 256;
-  window_dbias_reduce_kernel<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
-                                  stream>>>(g.dbias_part, static_cast<T*>(g.dbias), groups, nb);
-  return cudaGetLastError();
+  return launch_window_dbias_reduce<T>(g.dbias_part, g.dbias, groups,
+                                       static_cast<int64_t>(a.heads) * a.nq * a.nk, stream);
 }
 
 }  // namespace
@@ -882,19 +872,28 @@ extern "C" int mspi_self_attention_bwd(const void* q, const void* kv, const void
 // Window attention backward on packed qkv. qkv, dqkv [B_, N, 3C] (lane order
 // 3, head, D); bias, dbias [heads, N, N]; mask [nw, N, N] or null; out (the
 // forward's O) and dout [B_, N, C]; lse (from the forward) and delta
-// (scratch) [B_*heads, N] fp32; dk_part, dv_part [B_*heads, N, D] fp32
-// scratch; dbias_part [groups, heads, N, N] fp32 scratch. N <= 448.
+// (scratch) [B_*heads, N] fp32; dbias_part [groups, heads, N, N] fp32
+// scratch (bf16: only with groups > 1). fp32 (N <= 448): dk_part, dv_part
+// [B_*heads, N, D] fp32 scratch. bf16 (window_attention_bwd.cu; N % 8 == 0):
+// dk_part and dv_part unused.
 extern "C" int mspi_window_attention_bwd(const void* qkv, const void* bias, const void* mask,
                                          const void* out, float* lse, const void* dout,
                                          void* dqkv, void* dbias, float* delta,
                                          float* dk_part, float* dv_part, float* dbias_part,
                                          int groups, int B, int N, int C, int heads, int nw,
                                          int dtype, void* stream) {
-  if (heads <= 0 || C % heads != 0 || groups <= 0 || N > 7 * mspi::BM)
-    return cudaErrorInvalidValue;
+  if (heads <= 0 || C % heads != 0 || groups <= 0) return cudaErrorInvalidValue;
   if (mask != nullptr && (nw <= 0 || B % nw != 0)) return cudaErrorInvalidValue;
   const int D = C / heads;
-  const size_t es = dtype == mspi::kBFloat16 ? 2 : 4;
+  if (D != 32) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mspi::kBFloat16)
+    return mspi::window_attention_bwd_sm90(
+        mspi::window_attn_args(qkv, bias, mask, const_cast<void*>(out), lse, N, C, heads, nw,
+                               dtype),
+        dout, dqkv, dbias, delta, dbias_part, groups, B, C, s);
+  if (dtype != mspi::kFloat32 || N > 7 * mspi::BM) return cudaErrorInvalidValue;
+  const size_t es = 4;
   mspi::BwdArgs g{};
   g.f = mspi::window_attn_args(qkv, bias, mask, const_cast<void*>(out), lse, N, C, heads,
                                nw, dtype);
@@ -915,11 +914,7 @@ extern "C" int mspi_window_attention_bwd(const void* qkv, const void* bias, cons
   g.dbias = dbias;
   g.dbias_part = dbias_part;
   g.windows = B;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 32) return cudaErrorInvalidValue;
-  if (dtype == mspi::kFloat32) return mspi::launch_window_bwd<float, 32>(g, groups, s);
-  if (dtype == mspi::kBFloat16) return mspi::launch_window_bwd<__nv_bfloat16, 32>(g, groups, s);
-  return cudaErrorInvalidValue;
+  return mspi::launch_window_bwd<float, 32>(g, groups, s);
 }
 
 // Backward of the augmented-lane attention (head-major, scale 1): q, dq

@@ -21,11 +21,13 @@
 // 0/1 key expansion E [Nk, R] in as a second small matmul; at Nk = 2688 it
 // needed a special VMEM budget. Here the keys are walked in tiles with an
 // online softmax, so shared memory is independent of Nk. In bf16 (K1 and
-// row 8's training forward, bias mode kRelBias) the body is
-// flash_attention_sm90.cuh's: rel E^T runs on the tensor cores beside
-// Q K^T, with E's rows for a key tile built in shared memory from the keys'
-// (t, h, w). In fp32, and for row 8's inference (kRelBiasRes), the bias is
-// rebuilt from rel and the key's (t, h, w) index (flash_attention.cuh).
+// row 8's training forward, bias mode kRelBias; row 8's inference,
+// kRelBiasRes, whose epilogue adds q) the body is flash_attention_sm90.cuh's:
+// rel E^T runs on the tensor cores beside Q K^T, with E's rows for a key
+// tile built in shared memory from the keys' (t, h, w); rel's fragments stay
+// in registers at R <= 48 and come from shared memory above. In fp32 the bias
+// is rebuilt from rel and the key's (t, h, w) index on the FMA body
+// (flash_attention.cuh).
 //
 // What bounds it on the card, and what the design does about it: see
 // flash_attention_sm90.cuh. Shapes on the flagship (per clip, D = 96): Nq

@@ -34,29 +34,32 @@
 //               kernel multiplies in (mspi_tpu/models/mvit.py::_onehot_rows).
 //   kDenseBias: S = q_s k^T + bias[h, i, j] (+ mask[b mod nw, i, j] when mask
 //               is not null), both [.., Nq, Nk] contiguous in the storage
-//               type and read from device memory (L2) per score; q_s = q *
-//               qscale rounded to the storage type as q is loaded, as the TPU
+//               type (read from L2 per score by the fp32 body, in tiles
+//               through shared memory by the sm90 body); q_s = q * qscale
+//               rounded to the storage type as q is loaded, as the TPU
 //               window kernel scales q before Q K^T (scale is then 1).
 //   kRelBiasRes: kRelBias with the residual epilogue of MViT's residual
 //               pooling: out = (o / l rounded to the storage type) + q, added
 //               in the storage type (the token-major packed attention).
 //
-// Thread layout (256 threads): ty = tid / 16 owns query rows ty*4 .. ty*4+3,
-// tx = tid % 16 owns keys tx*4 .. tx*4+3 of the score tile and output columns
-// tx + 16*dd of the [64, D] accumulator. A row's 16 owners sit in one half
-// warp, so row max and row sum are 4 xor-shuffles. The softmax update and
-// the accumulator are the same in both paths:
-//   bf16, kNoBias and kRelBiasRes (flash_attention_tc_kernel): Q K^T and
-//         P V on the tensor cores (WMMA 16x16x16, fp32 accumulate) through
-//         shared memory: the score tile and each tile's P V product land in
-//         fp32 shared memory, where the threads apply scale, bias and the
-//         online softmax (P rounded to bf16 for P V, as the TPU kernel
+// Which body serves which mode and dtype:
+//   bf16, kRelBias, kRelBiasRes and kDenseBias (K1, row 8, row 15):
+//         flash_attention_sm90.cuh (flash_attention_sm90_kernel: mma.sync
+//         fragments in registers, cp.async ring); launch_flash_attention
+//         routes them there.
+//   bf16, kNoBias (K4 and row 6; flash_attention_tc_kernel below): Q K^T
+//         and P V on the tensor cores (WMMA 16x16x16, fp32 accumulate)
+//         through shared memory: the score tile and each tile's P V product
+//         land in fp32 shared memory, where the threads apply the scale and
+//         the online softmax (P rounded to bf16 for P V, as the TPU kernel
 //         rounds probs to v's dtype);
-//   bf16, kRelBias and kDenseBias: flash_attention_sm90.cuh
-//         (flash_attention_sm90_kernel: mma.sync fragments in registers,
-//         cp.async ring); launch_flash_attention routes them there.
-//   fp32: both products on the fp32 FMA pipes (tensor cores would round to
-//         TF32), 4x4 register tiles per thread.
+//   fp32, every mode (flash_attention_kernel below): both products on the
+//         fp32 FMA pipes (tensor cores would round to TF32), 4x4 register
+//         tiles per thread.
+// Thread layout of the last two (256 threads): ty = tid / 16 owns query rows
+// ty*4 .. ty*4+3, tx = tid % 16 owns keys tx*4 .. tx*4+3 of the score tile
+// and output columns tx + 16*dd of the [64, D] accumulator. A row's 16
+// owners sit in one half warp, so row max and row sum are 4 xor-shuffles.
 //
 // What bounds it on the card: 4*D flops per (query, key) pair; q, k, v and
 // rel are read once per query tile, which at D = 96 and BQ = 64 keeps it far
@@ -353,36 +356,23 @@ struct TcLayout {
   static constexpr size_t kS = kV + sizeof(bf16) * kBK * LDV;
   static constexpr size_t kP = kS + sizeof(float) * kBQ * LDS;
   static constexpr size_t kO = kP + sizeof(bf16) * kBQ * LDP;
-  static constexpr size_t kRel = kO + sizeof(float) * kBQ * LDO;
-  static size_t bytes(int r) { return kRel + sizeof(float) * kBQ * r; }
+  static constexpr size_t kBytes = kO + sizeof(float) * kBQ * LDO;
   // every region starts on a 32-byte boundary, as WMMA loads need
   static_assert(kK % 32 == 0 && kV % 32 == 0 && kS % 32 == 0 && kP % 32 == 0 &&
-                    kO % 32 == 0 && kRel % 32 == 0,
+                    kO % 32 == 0,
                 "WMMA tiles need 32-byte aligned shared memory");
 };
 
-// Eight bf16 values of a 16-byte vector times s, each product rounded to bf16.
-__device__ __forceinline__ uint4 scale_bf16x8(uint4 v, float s) {
-  bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * s);
-  return v;
-}
-
 // rows [t0, t0+64) of a token-major [N, D] bf16 operand into dst [64][ld],
 // 16 bytes per load (the wrapper passes 16-byte aligned rows); zeros past n.
-// scale != 1 multiplies every value in bf16 (the window kernels' q).
 template <int D, int THREADS>
 __device__ __forceinline__ void load_rows_bf16(const bf16* src, int64_t stride, int t0, int n,
-                                               bf16* dst, int ld, float scale) {
+                                               bf16* dst, int ld) {
   constexpr int VEC = D / 8;  // 16-byte vectors per row
   for (int e = threadIdx.x; e < 64 * VEC; e += THREADS) {
     const int r = e / VEC, c = (e % VEC) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (t0 + r < n) {
-      v = *reinterpret_cast<const uint4*>(src + (t0 + r) * stride + c);
-      if (scale != 1.f) v = scale_bf16x8(v, scale);
-    }
+    if (t0 + r < n) v = *reinterpret_cast<const uint4*>(src + (t0 + r) * stride + c);
     *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
   }
 }
@@ -401,12 +391,13 @@ __device__ __forceinline__ void load_rows_narrow(const T* src, int64_t stride, i
 
 template <int D, int LD>
 __device__ __forceinline__ void load_tile_bf16(const bf16* src, int64_t stride, int t0, int n,
-                                               bf16* dst, float scale = 1.f) {
-  load_rows_bf16<D, kAttnThreads>(src, stride, t0, n, dst, LD, scale);
+                                               bf16* dst) {
+  load_rows_bf16<D, kAttnThreads>(src, stride, t0, n, dst, LD);
 }
 
 template <int DK, int DV, int BIAS>
 __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnArgs a) {
+  static_assert(BIAS == kNoBias, "the bias modes run flash_attention_sm90_kernel");
   using L = TcLayout<DK, DV>;
   constexpr int DPT = DV / 16;
   constexpr int NOT = (kBQ / 16) * (DV / 16);  // 16x16 tiles of P V
@@ -420,7 +411,6 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
   float* ss = reinterpret_cast<float*>(smem_tc + L::kS);
   bf16* ps = reinterpret_cast<bf16*>(smem_tc + L::kP);
   float* os = reinterpret_cast<float*>(smem_tc + L::kO);
-  float* rels = reinterpret_cast<float*>(smem_tc + L::kRel);
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
@@ -434,9 +424,7 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
   if constexpr (kNarrow)
     load_rows_narrow<DK, kAttnThreads>(qp, a.qs.n, q0, a.nq, a.dk, qs, L::LDK);
   else
-    load_tile_bf16<DK, L::LDK>(qp, a.qs.n, q0, a.nq, qs,
-                               BIAS == kDenseBias ? round_to<bf16>(a.qscale) : 1.f);
-  load_rel_rows<bf16, BIAS>(a, b, h, q0, rels);
+    load_tile_bf16<DK, L::LDK>(qp, a.qs.n, q0, a.nq, qs);
 
   float m_run[4], l_run[4], o[4][DPT];
 #pragma unroll
@@ -486,7 +474,7 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
       s[i][2] = v.z;
       s[i][3] = v.w;
     }
-    softmax_update<bf16, BIAS>(a, rels, b, h, q0, k0, tx, ty, s, m_run, l_run, alpha);
+    softmax_update<bf16, BIAS>(a, nullptr, b, h, q0, k0, tx, ty, s, m_run, l_run, alpha);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -526,7 +514,7 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
   store_rows<bf16, DV, BIAS>(a, b, h, q0, tx, ty, o, m_run, l_run);
 }
 
-// The bf16 body of kRelBias and kDenseBias, defined in flash_attention_sm90.cuh
+// The bf16 body of the bias modes, defined in flash_attention_sm90.cuh
 // (included by the sources that launch those modes).
 template <int D, int BIAS>
 cudaError_t launch_flash_attention_sm90(const AttnArgs& a, int batch, cudaStream_t stream);
@@ -534,17 +522,16 @@ cudaError_t launch_flash_attention_sm90(const AttnArgs& a, int batch, cudaStream
 template <typename T, int DK, int DV, int BIAS>
 cudaError_t launch_flash_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
   const dim3 grid((a.nq + kBQ - 1) / kBQ, batch * a.heads);
-  const int r = rel_mode(BIAS) ? a.r : 0;
-  if constexpr (std::is_same<T, bf16>::value && (BIAS == kRelBias || BIAS == kDenseBias)) {
+  if constexpr (std::is_same<T, bf16>::value && BIAS != kNoBias) {
     static_assert(DK == DV, "the mma.sync body takes equal score and value widths");
     return launch_flash_attention_sm90<DK, BIAS>(a, batch, stream);
   } else if constexpr (std::is_same<T, bf16>::value) {
-    const size_t smem = TcLayout<DK, DV>::bytes(r);
+    const size_t smem = TcLayout<DK, DV>::kBytes;
     cudaError_t err = allow_smem(flash_attention_tc_kernel<DK, DV, BIAS>, smem);
     if (err != cudaSuccess) return err;
     flash_attention_tc_kernel<DK, DV, BIAS><<<grid, kAttnThreads, smem, stream>>>(a);
   } else {
-    const size_t smem = attn_smem_bytes<DK, DV>(r);
+    const size_t smem = attn_smem_bytes<DK, DV>(rel_mode(BIAS) ? a.r : 0);
     cudaError_t err = allow_smem(flash_attention_kernel<DK, DV, BIAS>, smem);
     if (err != cudaSuccess) return err;
     flash_attention_kernel<DK, DV, BIAS><<<grid, kAttnThreads, smem, stream>>>(a);
@@ -612,5 +599,35 @@ inline AttnArgs window_attn_args(const void* qkv, const void* bias, const void* 
   a.qscale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   return a;
 }
+
+// The window backward's last pass when dS is summed over the windows in
+// groups: dbias = the sum of the groups' fp32 partials [groups, n], in group
+// order, in the storage type.
+template <typename T>
+__global__ void window_dbias_reduce_kernel(const float* part, T* dbias, int groups, int64_t n) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float s = 0.f;
+    for (int grp = 0; grp < groups; ++grp) s += part[grp * n + i];
+    dbias[i] = from_f<T>(s);
+  }
+}
+
+template <typename T>
+cudaError_t launch_window_dbias_reduce(const float* part, void* dbias, int groups, int64_t n,
+                                       cudaStream_t stream) {
+  const int64_t blocks = (n + 255) / 256;
+  window_dbias_reduce_kernel<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
+                                  stream>>>(part, static_cast<T*>(dbias), groups, n);
+  return cudaGetLastError();
+}
+
+// The bf16 window backward (window_attention_bwd.cu): f from window_attn_args
+// (out = the forward's O, lse its row log-sum-exp), dout [B_, N, C], dqkv
+// [B_, N, 3C], dbias [heads, N, N]; delta [B_ * heads, N] and, with groups >
+// 1, dbias_part [groups, heads, N, N] fp32 scratch.
+cudaError_t window_attention_bwd_sm90(const AttnArgs& f, const void* dout, void* dqkv,
+                                      void* dbias, float* delta, float* dbias_part, int groups,
+                                      int windows, int C, cudaStream_t stream);
 
 }  // namespace mspi

@@ -1,16 +1,18 @@
-// The bf16 flash-attention forward of two bias modes, register-resident on
+// The bf16 flash-attention forward of three bias modes, register-resident on
 // the tensor cores and fed by asynchronous copies:
-//   kRelBias   K1 (attention_rel.cu: MViT pooled attention with the
-//              decomposed rel-pos bias, head-major; and row 8's training
-//              forward on token-major strides);
-//   kDenseBias row 15 (window_attention.cu: VideoSwin W-MSA / SW-MSA with a
-//              dense bias and the shift mask).
+//   kRelBias    K1 (attention_rel.cu: MViT pooled attention with the
+//               decomposed rel-pos bias, head-major; and row 8's training
+//               forward on token-major strides);
+//   kRelBiasRes row 8 at inference (attention_rel.cu: kRelBias on MViT's
+//               packed token-major strides, + q in the epilogue);
+//   kDenseBias  row 15 (window_attention.cu: VideoSwin W-MSA / SW-MSA with a
+//               dense bias and the shift mask).
 // Replaces, for those modes in bf16, flash_attention.cuh's WMMA body, which
 // stored every score tile and every P V product to shared memory, synced the
 // block four times per key tile and loaded K and V synchronously; the fp32
-// FMA body and the other modes (kNoBias: K4 and row 6; kRelBiasRes: row 8 at
-// inference) stay there. The TPU kernels: pooled_attention.py::
-// _fwd_kernel_rel and attention.py::_packed_fwd_kernel.
+// FMA body and bf16 kNoBias (K4 and row 6) stay there. The TPU kernels:
+// pooled_attention.py::_fwd_kernel_rel, ::_rel_packed_kernel and
+// attention.py::_packed_fwd_kernel.
 //
 // FlashAttention-2's structure on mma.sync (m16n8k16, bf16 in, fp32
 // accumulate) and cp.async:
@@ -49,8 +51,11 @@
 // - Ragged edges: key columns past Nk score -inf on the last tile only, and
 //   8-key column tiles wholly past it are skipped; a warp whose 16 rows all
 //   lie past Nq only helps with the copies; rows past Nq are not stored.
-// The output is O / l rounded to bf16 and, when asked for, the row
-// log-sum-exp m + log(l) (natural log, fp32) that the backward kernels read.
+// The output is O / l rounded to bf16 (kRelBiasRes: then + q, added in fp32
+// and rounded to bf16 again, as the plain version adds the residual in q's
+// dtype; q is read from device memory in the epilogue, so nothing more is
+// live across the key loop) and, when asked for, the row log-sum-exp m +
+// log(l) (natural log, fp32) that the backward kernels read.
 //
 // What bounds it on the card: K1 at D = 96 does 4 * 96 flops per (query,
 // key) pair (plus rel E^T) against q, k, v and rel read once per query
@@ -246,20 +251,20 @@ __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int nr, in
 
 template <int D, int RK, int BIAS>
 struct Layout {
-  static constexpr bool kRel = BIAS == kRelBias;
+  static constexpr bool kRel = rel_mode(BIAS);
   static constexpr bool kRelRows = kRel && RK == 0;  // rel rows in shared memory
   static constexpr int BQ = 16 * kWarps;
   static constexpr int LD = D + 8;                        // bf16 pitch of k and v rows
   static constexpr size_t kKV = sizeof(bf16) * kBK * LD;  // one K or V tile
   static constexpr size_t kB = sizeof(bf16) * BQ * kBK;   // one (swizzled) bias or mask tile
-  // kRelBias: the bf16 pitch of E's rows (and of the rel rows), R rounded
+  // the rel modes: the bf16 pitch of E's rows (and of the rel rows), R rounded
   // up to the 16 columns of a k-step (RK of them in registers) plus 8: rows
   // 16 bytes apart mod 128, so ldmatrix's 8 row addresses fall on distinct
   // banks
   __host__ __device__ static int rel_pitch(int r) {
     return (RK > 0 ? RK * 16 : (r + 15) / 16 * 16) + 8;
   }
-  // ring slot: K, V, then E [kBK][ldr] (kRelBias) or the bias tile and,
+  // ring slot: K, V, then E [kBK][ldr] (rel modes) or the bias tile and,
   // with a mask, the mask tile (kDenseBias)
   __host__ __device__ static int slot(int ldr, bool masked) {
     return static_cast<int>(2 * kKV +
@@ -273,13 +278,13 @@ struct Layout {
 };
 
 // One block: BQ query rows of head blockIdx.y % heads and batch entry (or
-// window) blockIdx.y / heads, over all key tiles of 64. RK: kRelBias's rel
-// k-steps held in registers (R <= 16 * RK), or 0 for rel rows in shared
+// window) blockIdx.y / heads, over all key tiles of 64. RK: the rel modes'
+// rel k-steps held in registers (R <= 16 * RK), or 0 for rel rows in shared
 // memory (any R); 0 for kDenseBias.
 template <int D, int RK, int BIAS>
-__global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS == kRelBias && RK == 0))
+__global__ void __launch_bounds__(kWarps * 32, min_blocks(D, rel_mode(BIAS) && RK == 0))
     flash_attention_sm90_kernel(AttnArgs a) {
-  static_assert(BIAS == kRelBias || BIAS == kDenseBias, "modes 1 and 2 only");
+  static_assert(BIAS != kNoBias, "modes 1, 2 and 3 only");
   static_assert(D % 32 == 0, "Q K^T takes the head dim 32 lanes per ldmatrix");
   using L = Layout<D, RK, BIAS>;
   constexpr int NT = kWarps * 32;
@@ -292,7 +297,7 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS == kRelBias &&
   extern __shared__ __align__(128) unsigned char smem_sm90[];
   unsigned char* ring = smem_sm90;
   const int ldr = kRel ? L::rel_pitch(a.r) : 0;
-  const int rpad = ldr - 8;  // kRelBias: E's columns, 16 per k-step
+  const int rpad = ldr - 8;  // rel modes: E's columns, 16 per k-step
   const int slot_bytes = L::slot(ldr, a.mask != nullptr);
   bf16* rels = reinterpret_cast<bf16*>(ring + kStages * slot_bytes);  // RK = 0: [BQ][ldr]
 
@@ -311,7 +316,7 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS == kRelBias &&
     return static_cast<const bf16*>(base) + b * st.b + h * st.h;
   };
 
-  // kRelBias: thread j < kBK writes E's rows of keys j, j + kBK, ... and
+  // rel modes: thread j < kBK writes E's rows of keys j, j + kBK, ... and
   // keeps that key's (t, h, w), advanced per tile without division;
   // coordinates (x) and per-tile steps (y) packed 10 bits each (t | h << 10
   // | w << 20), in shared memory to spare two registers (each thread reads
@@ -409,7 +414,7 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS == kRelBias &&
     const bf16* xt = reinterpret_cast<const bf16*>(slot + 2 * L::kKV);  // E, or the bias tile
     const int valid = a.nk - k0;  // keys of this tile in range (may exceed kBK)
 
-    // S = Q K^T (kRelBias: scale * Q K^T + rel E^T), column tiles wholly
+    // S = Q K^T (rel modes: scale * Q K^T + rel E^T), column tiles wholly
     // past Nk skipped
     float s[NS][4];
 #pragma unroll
@@ -539,7 +544,7 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS == kRelBias &&
   }
   if (!active) return;
 
-  // out rows = O / l in bf16, and the rows' lse
+  // out rows = O / l in bf16 (kRelBiasRes: + q in bf16), and the rows' lse
   bf16* op = static_cast<bf16*>(a.out) + b * a.os.b + h * a.os.h;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -547,9 +552,17 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS == kRelBias &&
     if (qi >= a.nq) continue;
     const float inv = 1.f / l_run[hr];
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(op + qi * a.os.n + n * 8 + 2 * t4) =
-          pack_bf16(o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
+    for (int n = 0; n < ND; ++n) {
+      uint32_t y = pack_bf16(o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
+      if constexpr (BIAS == kRelBiasRes) {
+        const uint32_t qw = __ldg(reinterpret_cast<const uint32_t*>(
+            operand(a.q, a.qs) + qi * a.qs.n + n * 8 + 2 * t4));
+        const __nv_bfloat162 yv = *reinterpret_cast<const __nv_bfloat162*>(&y);
+        const __nv_bfloat162 qv = *reinterpret_cast<const __nv_bfloat162*>(&qw);
+        y = pack_bf16(__low2float(yv) + __low2float(qv), __high2float(yv) + __high2float(qv));
+      }
+      *reinterpret_cast<uint32_t*>(op + qi * a.os.n + n * 8 + 2 * t4) = y;
+    }
     if (a.lse != nullptr && t4 == 0)
       a.lse[(static_cast<int64_t>(b) * a.heads + h) * a.nq + qi] = m_run[hr] + logf(l_run[hr]);
   }
@@ -564,7 +577,7 @@ namespace sm90 {
 template <int D, int RK, int BIAS>
 cudaError_t launch(const AttnArgs& a, int batch, cudaStream_t stream) {
   using L = Layout<D, RK, BIAS>;
-  const size_t smem = L::bytes(BIAS == kRelBias ? L::rel_pitch(a.r) : 0, a.mask != nullptr);
+  const size_t smem = L::bytes(rel_mode(BIAS) ? L::rel_pitch(a.r) : 0, a.mask != nullptr);
   const dim3 grid((a.nq + L::BQ - 1) / L::BQ, batch * a.heads);
   auto kernel = flash_attention_sm90_kernel<D, RK, BIAS>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -576,7 +589,7 @@ cudaError_t launch(const AttnArgs& a, int batch, cudaStream_t stream) {
 }  // namespace sm90
 
 // Grid: x = query tiles of BQ, y = batch x heads (one block per batch entry
-// and head). kRelBias keeps rel's fragments in registers at R <= 48.
+// and head). The rel modes keep rel's fragments in registers at R <= 48.
 template <int D, int BIAS>
 cudaError_t launch_flash_attention_sm90(const AttnArgs& a, int batch, cudaStream_t stream) {
   // every k and v row starts 16 bytes aligned and every q row 4 bytes:
@@ -590,9 +603,9 @@ cudaError_t launch_flash_attention_sm90(const AttnArgs& a, int batch, cudaStream
          a.nk % 8 == 0;
   if (!ok) return cudaErrorMisalignedAddress;
   // the key grid's coordinates fit the 10-bit fields of E's writers
-  if (BIAS == kRelBias && (a.r <= 0 || a.kt >= 1024 || a.kh >= 1024 || a.kw >= 1024))
+  if (rel_mode(BIAS) && (a.r <= 0 || a.kt >= 1024 || a.kh >= 1024 || a.kw >= 1024))
     return cudaErrorInvalidValue;
-  if constexpr (BIAS == kRelBias) {
+  if constexpr (rel_mode(BIAS)) {
     if (a.r <= 16 * sm90::kRelRegK) return sm90::launch<D, sm90::kRelRegK, BIAS>(a, batch, stream);
   }
   return sm90::launch<D, 0, BIAS>(a, batch, stream);

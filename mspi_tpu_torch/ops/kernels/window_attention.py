@@ -4,10 +4,19 @@ backward.
 Counterpart of `mspi_tpu/ops/pallas/attention.py::fused_window_attention`
 (TPU kernel row 15, `_packed_fwd_kernel`) and its custom VJP, whose two TPU
 backward kernels (row 16 `_packed_bwd_impl`, row 17 `_bwd_impl_perhead`)
-compute one function; the port's one backward kernel serves both. Kernel
-sources: `mspi_tpu_torch/csrc/window_attention.cu` (the forward, through the
-shared flash body `csrc/flash_attention.cuh` with a dense bias) and the
-window backward in `csrc/attention_bwd.cu`.
+compute one function; the port's one backward entry serves both. Kernel
+sources, by dtype:
+
+- bf16 forward: `csrc/window_attention.cu` on the register-resident
+  `mma.sync` body of `csrc/flash_attention_sm90.cuh` (bias and mask tiles
+  through a `cp.async` ring); any N that is a multiple of 8.
+- bf16 backward: `csrc/window_attention_bwd.cu`, three register-resident
+  passes without atomics (dq and delta; dk and dv; dbias summed over each
+  group of windows in registers), then, with more than one group, a pass
+  that sums the groups' fp32 partials in order (`dbias_groups`).
+- fp32, both directions: the FMA bodies of `csrc/flash_attention.cuh` and
+  `csrc/attention_bwd.cu`, whose dq/dbias pass keeps a block's [64, N] fp32
+  dbias rows in shared memory: N <= `MAX_N`.
 
 Per window b of B_ and head h, with qkv [B_, N, 3C] in lane order
 (3, head, D) and out [B_, N, C]:
@@ -35,9 +44,13 @@ import torch
 from mspi_tpu_torch.ops import kernels
 
 SUPPORTED_D = (32,)  # VideoSwin-S: 96/3 = 192/6 = 384/12 = 768/24
-TILE = 64  # query tile of the backward's dq/dbias pass
-MAX_N = 7 * TILE  # the dq/dbias pass keeps [64, N] fp32 dbias rows in shared memory
+TILE = 64  # query and key tiles of the kernels
+MAX_N = 7 * TILE  # fp32: the dq/dbias pass keeps [64, N] fp32 dbias rows in shared memory
 MAX_GRID_Y = 65535  # the kernels put windows x heads on the grid's y axis
+# resident blocks per SM of the pass that sums dS over the windows: bf16's
+# (one per query tile, key tile, head and group; 128 registers, <= 56 KB),
+# fp32's (one per query tile, head and group; its dbias rows fill the SM)
+DBIAS_BLOCKS_PER_SM = {torch.bfloat16: 4, torch.float32: 1}
 
 
 def _split(qkv: torch.Tensor, num_heads: int):
@@ -107,8 +120,8 @@ def _geometry(name, qkv, bias, mask, num_heads: int, num_windows: int):
     if mask is not None and (tuple(mask.shape) != (num_windows, N, N) or B % num_windows):
         raise ValueError(f"{name}: mask {tuple(mask.shape)} for {B} windows, "
                          f"num_windows={num_windows}, N={N}")
-    if N > MAX_N:
-        raise ValueError(f"{name}: N={N} tokens per window above {MAX_N}")
+    if N > MAX_N and qkv.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: N={N} tokens per window above {MAX_N} in {qkv.dtype}")
     if B * num_heads > MAX_GRID_Y:
         raise ValueError(f"{name}: {B} windows x {num_heads} heads exceed the grid")
     if qkv.dtype == torch.bfloat16 and qkv.data_ptr() % 16:
@@ -146,11 +159,17 @@ def _window_attention_fwd(qkv, bias, mask, num_heads: int, num_windows: int,
     return out, lse
 
 
-def _window_groups(qkv: torch.Tensor, N: int, num_heads: int, B: int) -> int:
-    """Window groups of the dq/dbias pass: enough (query tile, head, group)
-    blocks for two waves on the card's SMs, each group at least one window."""
-    blocks = -(-N // TILE) * num_heads
-    return max(1, min(B, -(-2 * kernels.num_sms(qkv) // blocks)))
+def dbias_groups(num_sms: int, N: int, num_heads: int, windows: int,
+                 dtype: torch.dtype) -> int:
+    """Window groups of the backward pass that sums dS over the windows for
+    dbias: enough blocks for two waves of its resident blocks on the card's
+    SMs (bf16: one block per query tile, key tile, head and group; fp32: per
+    query tile, head and group), at most one group per window and none
+    empty. Each group's windows are the consecutive ceil(windows / groups)."""
+    tiles = -(-N // TILE)
+    blocks = tiles * num_heads * (tiles if dtype == torch.bfloat16 else 1)
+    groups = max(1, min(windows, -(-2 * DBIAS_BLOCKS_PER_SM[dtype] * num_sms // blocks)))
+    return -(-windows // -(-windows // groups))
 
 
 def window_attention_backward(qkv, bias, mask, out, lse, num_heads: int,
@@ -169,21 +188,26 @@ def window_attention_backward(qkv, bias, mask, out, lse, num_heads: int,
                          f"for qkv {tuple(qkv.shape)}")
     if lse is None or lse.dtype != torch.float32 or tuple(lse.shape) != (B * num_heads, N):
         raise ValueError(f"{name}: needs the forward's fp32 lse [{B * num_heads}, {N}]")
-    if dtype == kernels.DTYPE_CODES[torch.bfloat16] and (out.data_ptr() % 16
-                                                          or dout.data_ptr() % 16):
-        raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
-    groups = _window_groups(qkv, N, num_heads, B)
+    bf16 = qkv.dtype == torch.bfloat16
+    if bf16 and (N % 8 or any(t.data_ptr() % 16 for t in (out, dout, lse, bias, *masked))):
+        # the bf16 passes copy rows of q, k, v, dO, bias, mask and lse 16 bytes at a time
+        raise ValueError(f"{name}: bf16 operands must be 16-byte aligned, N={N} a multiple "
+                         "of 8")
+    groups = dbias_groups(kernels.num_sms(qkv), N, num_heads, B, qkv.dtype)
     D = C // num_heads
     f32 = dict(device=qkv.device, dtype=torch.float32)
     delta = torch.empty((B * num_heads, N), **f32)
-    dk_part = torch.empty((B * num_heads, N, D), **f32)
-    dv_part = torch.empty_like(dk_part)
-    dbias_part = torch.empty((groups, num_heads, N, N), **f32)
+    # fp32: dk and dv as fp32 partials, and dbias's partials always; bf16:
+    # dk and dv written directly, dbias's partials only with several groups
+    dk_part = None if bf16 else torch.empty((B * num_heads, N, D), **f32)
+    dv_part = None if bf16 else torch.empty_like(dk_part)
+    dbias_part = (torch.empty((groups, num_heads, N, N), **f32)
+                  if groups > 1 or not bf16 else None)
     dqkv, dbias = torch.empty_like(qkv), torch.empty_like(bias)
     err = kernels.lib().mspi_window_attention_bwd(
         qkv.data_ptr(), bias.data_ptr(), kernels.ptr(mask), out.data_ptr(), lse.data_ptr(),
         dout.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(), delta.data_ptr(),
-        dk_part.data_ptr(), dv_part.data_ptr(), dbias_part.data_ptr(), groups, B, N, C,
+        kernels.ptr(dk_part), kernels.ptr(dv_part), kernels.ptr(dbias_part), groups, B, N, C,
         num_heads, num_windows, dtype, kernels.stream_handle(qkv))
     kernels.check(err, name)
     kernels.launches[name] += 1

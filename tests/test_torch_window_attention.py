@@ -54,13 +54,19 @@ def test_window_attention_matches_pallas(rng, B, H, N, nW, masked):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("backward", ["packed", "perhead"])
-@pytest.mark.parametrize("masked", [True, False])
-def test_window_attention_grads_match_pallas(rng, monkeypatch, backward, masked):
+@pytest.mark.parametrize("masked,backward,shape", [
+    pytest.param(True, "packed", (4, 3, 56, 2), id="True-packed"),
+    pytest.param(True, "perhead", (4, 3, 56, 2), id="True-perhead"),
+    pytest.param(False, "packed", (4, 3, 56, 2), id="False-packed"),
+    pytest.param(False, "perhead", (4, 3, 56, 2), id="False-perhead"),
+    # a full 8x7x7 window, which the card's passes tile as 6 x 64 + 8 rows
+    pytest.param(True, "packed", (2, 1, 392, 2), id="True-packed-full-window"),
+])
+def test_window_attention_grads_match_pallas(rng, monkeypatch, backward, masked, shape):
     """dqkv and dbias against jax.vjp of the Pallas custom VJP, under the
     packed backward (row 16) and, forced by a tiny VMEM budget, the per-head
     one (row 17)."""
-    B, H, N, D, nW = 4, 3, 56, 32, 2
+    (B, H, N, nW), D = shape, 32
     qkv, bias, mask = _inputs(rng, B, H, N, D, nW, masked)
     dout = rng.standard_normal((B, N, H * D)).astype(np.float32)
     if backward == "perhead":
@@ -94,3 +100,28 @@ def test_window_backward_reference_matches_autograd(rng):
     dq, db = WA.window_attention_backward_reference(_t(qkv), _t(bias), _t(mask), H, nW, dout)
     torch.testing.assert_close(dq, q.grad, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(db, b.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("heads,windows,want", [(3, 224, 8), (6, 56, 4), (12, 16, 2), (24, 4, 1)])
+def test_dbias_groups_fill_two_waves(heads, windows, want):
+    """VideoSwin-S's four stages at batch 2 (N = 392, 7 x 7 tiles) on 132
+    SMs: the bf16 dbias pass's 49 x heads x groups blocks fill two waves of
+    4 blocks per SM where the windows allow it, and no group is empty."""
+    groups = WA.dbias_groups(132, 392, heads, windows, torch.bfloat16)
+    assert groups == want
+    assert 49 * heads * groups >= 2 * 4 * 132 or groups == windows or want == 1
+    assert (groups - 1) * -(-windows // groups) < windows
+
+
+@pytest.mark.parametrize("windows", [1, 2, 5, 7, 31, 224])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dbias_groups_none_empty(windows, dtype):
+    """Every group of ceil(windows / groups) consecutive windows holds one;
+    fp32 sizes its groups for one (query tile, head, group) block per SM."""
+    for sms, heads in ((1, 1), (132, 3), (132, 24), (1000, 2)):
+        groups = WA.dbias_groups(sms, 392, heads, windows, dtype)
+        per = -(-windows // groups)
+        assert 1 <= groups <= windows and (groups - 1) * per < windows <= groups * per
+        if dtype == torch.float32:
+            want = max(1, min(windows, -(-2 * sms // (7 * heads))))
+            assert groups == -(-windows // -(-windows // want))

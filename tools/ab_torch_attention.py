@@ -1,0 +1,110 @@
+"""Times three attention kernels of the PyTorch/CUDA port in bf16 at the
+models' shapes, from the `mspi_tpu_torch` package of a given tree, so that
+two trees can be compared in turns on one GPU.
+
+    python tools/ab_torch_attention.py [--root DIR] [--reps 5]
+
+Imports `mspi_tpu_torch` from DIR (default: this checkout; its kernels are
+built into DIR/build on first use) and the shape tables and timing helper
+from this checkout's `chip_smoke.py`, then times with CUDA events (median
+of `--reps`, after warm-up):
+
+- row 8 `attention_rel_packed` with the residual, MViTv2-S blocks 1-15 at
+  batch 8, summed per forward (each shape weighted by its blocks);
+- row 16, the window backward (`window_attention_backward`, from the
+  forward's out and lse), VideoSwin-S's eight (stage, shifted) variants at
+  batch 2, summed per training step;
+- K4 `self_attention`, the SyncBlock shape (N 708, C 512, 4 heads) at
+  batch 8.
+
+Prints the card's name and power limit, one line per shape, and one JSON
+line of the sums. Run it for each tree in turns (parent, change, change,
+parent) inside one call; the kernels are held against their plain versions
+by `chip_smoke.py`, not here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+CHECKOUT = Path(__file__).resolve().parents[1]
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", CHECKOUT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--root", default=str(CHECKOUT),
+                        help="tree whose mspi_tpu_torch package is timed")
+    parser.add_argument("--reps", type=int, default=5)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_torch_attention: needs an NVIDIA GPU")
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.ops.kernels import pooled_attention as PA
+    from mspi_tpu_torch.ops.kernels import window_attention as WA
+
+    if Path(kernels.__file__).resolve().parents[3] != root:
+        raise SystemExit(f"mspi_tpu_torch imported from {kernels.__file__}, not {root}")
+    cs = _smoke()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"{smi}; tree {root}", flush=True)
+    kernels.lib()
+    time_ms = lambda fn: cs.time_ms(fn, warmup=2, reps=args.reps)  # noqa: E731
+    sums = {"attention_rel_packed": 0.0, "window_attention_bwd": 0.0, "self_attention": 0.0}
+
+    randn = cs.randn_on(torch.Generator().manual_seed(21))
+    scale = cs.MVIT_D ** -0.5
+    for label, blocks, heads, nq, k_shape in cs.MVIT_BLOCKS[1:]:
+        q, k, v, rel = (t.bfloat16() for t in cs.packed_inputs(randn, cs.BATCH, heads, nq,
+                                                                 k_shape))
+        with torch.no_grad():
+            ms = time_ms(lambda: PA.attention_rel_packed(q, k, v, rel, k_shape, heads, scale,
+                                                         True))
+        sums["attention_rel_packed"] += blocks * ms
+        print(f"attention_rel_packed {label} x{blocks}: {ms:.4f} ms", flush=True)
+        del q, k, v, rel
+
+    randn = cs.randn_on(torch.Generator().manual_seed(11))
+    B = cs.TRAIN_BATCH
+    for label, blocks, nw, heads, C, grid, shift in cs.SWIN_SHAPES:
+        inputs = [t.bfloat16() for t in cs.window_inputs(randn, B, nw, heads, C, grid, shift)]
+        qkv, bias = inputs[:2]
+        mask = inputs[2] if grid is not None else None
+        n = nw if grid is not None else 1
+        dout = randn(B * nw, cs.SWIN_N, C).bfloat16()
+        out, lse = WA._window_attention_fwd(qkv, bias, mask, heads, n, with_lse=True)
+        ms = time_ms(lambda: WA.window_attention_backward(qkv, bias, mask, out, lse, heads, n,
+                                                          dout))
+        sums["window_attention_bwd"] += blocks * ms
+        print(f"window_attention_bwd {label} x{blocks}: {ms:.4f} ms", flush=True)
+        del inputs, qkv, bias, mask, dout, out, lse
+
+    q, kv = randn(cs.BATCH, 708, 512).bfloat16(), randn(cs.BATCH, 708, 1024).bfloat16()
+    with torch.no_grad():
+        sums["self_attention"] = time_ms(lambda: PA.self_attention(q, kv, 4))
+    print(f"self_attention sync: {sums['self_attention']:.4f} ms", flush=True)
+    line = {"tree": str(root), "device": smi, "per_forward_or_step_ms": sums,
+            "launches": {k: v for k, v in kernels.launches.items() if v}}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)
