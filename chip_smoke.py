@@ -11,7 +11,8 @@ first failure (there is no CPU path):
 3. kernels: each forward kernel against its plain PyTorch version at the
    inference shapes (batch 8) of the MViTv2-S and VideoSwin-S models, in
    fp32 and bf16, with CUDA-event times of both and of the library call
-   that computes the same function;
+   that computes the same function; K4 also at the training shape (batch
+   2) with the row log-sum-exp that its backward reads;
 4. main path: `predict_video` of the bf16 MViTv2-S AudioVisualSaliencyModel
    at 224x384 (seeded random weights) on 31 synthetic frames and a 16 kHz
    waveform; checks the maps and each kernel's launch count;
@@ -63,7 +64,9 @@ first failure (there is no CPU path):
    `bench_lnmlp`, `bench_int8`) in this process at their default shapes:
    rows 19, 20 (five bodies) and 21 (GEMM in bf16 and int8, the bf16 and
    int8 MLP bodies), each held against its plain version and timed beside
-   its library call; the labs' launches are this phase's path.
+   its library call; the labs' launches are this phase's path. Before
+   them the bf16 GEMM is held against its plain version at two non-square
+   shapes (one with K % 64 == 32, a half last k tile).
 
 Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22) sets the launch counts to 0
 just before it and reads them just after; the kernels' record sums them.
@@ -317,6 +320,14 @@ def mlp_inputs(randn, M, C):
             randn(C, H, scale=H ** -0.5), randn(C, scale=0.1)]
 
 
+def self_attention_lse(q, kv, heads):
+    """The row log-sum-exp [B * heads, N] of K4's scaled scores, in fp32."""
+    B, N, C = q.shape
+    D = C // heads
+    qh, kh = (t.reshape(B, N, heads, D).transpose(1, 2) for t in (q, kv[..., :C]))
+    return torch.logsumexp(qh @ kh.transpose(-1, -2) * D ** -0.5, dim=-1).reshape(B * heads, N)
+
+
 def rel_mask(rel, k_shape):
     """rel E^T: the bias as the dense float mask a library call takes."""
     from mspi_tpu_torch.ops.kernels.pooled_attention import key_expansion
@@ -401,7 +412,8 @@ def window_library_operands(qkv, bias, mask, heads, nw):
 def phase_kernels(records) -> None:
     from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp, ln_mlp_prior, ln_mlp_reference
     from mspi_tpu_torch.ops.kernels.pooled_attention import (
-        attention_rel, attention_rel_reference, self_attention, self_attention_reference)
+        _self_attention_fwd, attention_rel, attention_rel_reference, self_attention,
+        self_attention_reference)
 
     randn = randn_on(torch.Generator().manual_seed(1))
     for label, blocks, heads, nq, k_shape in MVIT_BLOCKS + MVIT_WIDE:
@@ -449,6 +461,21 @@ def phase_kernels(records) -> None:
                                library)
         add_bound(records["self_attention"], dtype, nbytes(*xs, out),
                   4.0 * BATCH * 4 * 708 * 708 * 128)
+    # K4 at the training shape, with the lse (natural log, fp32) that row 7's
+    # backward reads; the times stay out of the sums
+    inputs = [randn(TRAIN_BATCH, 708, 512), randn(TRAIN_BATCH, 708, 1024)]
+    for dtype in (torch.float32, torch.bfloat16):
+        def with_lse(out_lse, xs):
+            out, lse = out_lse
+            q, kv = (t.float() for t in xs)
+            ref = self_attention_reference(q, kv, 4)
+            ref_lse = self_attention_lse(q, kv, 4)
+            return [((out.float() - ref).abs().max().item(), tolerance(dtype, ref)),
+                    ((lse - ref_lse).abs().max().item(), tolerance(dtype, ref_lse))]
+        check_kernel(records, "self_attention", "sync-train-lse",
+                     lambda q, kv: _self_attention_fwd(q, kv, 4, with_lse=True),
+                     lambda q, kv: self_attention_reference(q, kv, 4), inputs, dtype,
+                     compare=with_lse, weight=0)
     # row 15: the eight VideoSwin variants, shifted blocks with their mask
     from mspi_tpu_torch.ops.kernels.window_attention import (window_attention,
                                                              window_attention_reference)
@@ -924,8 +951,14 @@ def phase_lab(records) -> dict:
     import os
 
     from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.ops.kernels.lab import gemm, gemm_reference
     from mspi_tpu_torch.tools import bench_dwconv, bench_int8, bench_lnmlp
 
+    # the bf16 GEMM off the lab's square: 3 k tiles, and 2.5 (K % 64 == 32)
+    randn = randn_on(torch.Generator().manual_seed(3))
+    for M, K, N in ((256, 192, 384), (384, 160, 640)):
+        check_kernel(records, "gemm_bf16", f"{M}x{K}x{N}", gemm, gemm_reference,
+                     [randn(M, K), randn(K, N)], torch.bfloat16, weight=0)
     os.environ.setdefault("MSPI_LAB_ITERS", "20")
     kernels.reset_launch_counts()
     results = []
@@ -1206,19 +1239,22 @@ def phase_train_parity(tag: str, encoder: str) -> None:
 
 
 # Entries the register-resident bodies must hold (mangled-name fragments):
-# row 8's forward (kRelBiasRes = 3) in both rel forms, and the bf16 window
-# backward's three passes
+# row 8's forward (kRelBiasRes = 3) in both rel forms, K4's (kNoBias = 0,
+# D = 128), the bf16 window backward's three passes and row 21's wgmma GEMM
 SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3E",
-                "flash_attention_sm90_kernelILi96ELi0ELi3E", "window_bwd_dq_sm90_kernel",
-                "window_bwd_dkv_sm90_kernel", "window_bwd_dbias_sm90_kernel")
+                "flash_attention_sm90_kernelILi96ELi0ELi3E",
+                "flash_attention_sm90_kernelILi128ELi0ELi0E", "window_bwd_dq_sm90_kernel",
+                "window_bwd_dkv_sm90_kernel", "window_bwd_dbias_sm90_kernel",
+                "gemm_bf16_sm90_kernel")
 
 
 def check_ptxas() -> None:
-    """The register-resident bodies (the sm90 flash forward of K1, rows 8
-    and 15, and the bf16 window backward's passes): each instantiation's
-    registers and spills as ptxas reported them; a spill fails the run, and
-    so does a missing entry of SM90_ENTRIES or a kRelBiasRes instantiation
-    of the WMMA body (`flash_attention_tc_kernel`, bias mode 0 only)."""
+    """The register-resident bodies (the sm90 flash forward of K1, K4, rows
+    8 and 15, the bf16 window backward's passes and the wgmma GEMM): each
+    instantiation's registers and spills as ptxas reported them; a spill
+    fails the run, and so does a missing entry of SM90_ENTRIES or an
+    instantiation of the WMMA body (`flash_attention_tc_kernel<DK, DV,
+    BIAS>`) other than row 6's augmented lanes (bias mode 0, DK != DV)."""
     from mspi_tpu_torch.ops import kernels
 
     report = kernels.ptxas_report("sm90_kernel")
@@ -1229,10 +1265,13 @@ def check_ptxas() -> None:
         log("build", f"ptxas {entry}: {regs} registers, spill stores {st} B, loads {ld} B")
         if st or ld:
             raise AssertionError(f"{entry} spills registers")
-    wmma = [name for name in kernels.ptxas_report("flash_attention_tc_kernel")
-            if re.search(r"Li(\d+)EEEv", name).group(1) != "0"]
+    wmma = []
+    for name in kernels.ptxas_report("flash_attention_tc_kernel"):
+        dk, dv, bias = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", name).groups()
+        if bias != "0" or dk == dv:
+            wmma.append(name)
     if wmma:
-        raise AssertionError(f"the WMMA body has bias modes other than 0: {wmma}")
+        raise AssertionError(f"the WMMA body has instantiations other than row 6's: {wmma}")
 
 
 def main() -> None:

@@ -6,6 +6,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace mspi {
 
@@ -34,6 +35,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// The 32-bit shared-memory address of a generic pointer into shared memory,
+// as the PTX of ldmatrix, cp.async, mbarriers, TMA and wgmma takes it.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two fp32 values as one bf16x2 word (x in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory, then launch-check.

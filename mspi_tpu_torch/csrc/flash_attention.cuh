@@ -43,12 +43,13 @@
 //               in the storage type (the token-major packed attention).
 //
 // Which body serves which mode and dtype:
-//   bf16, kRelBias, kRelBiasRes and kDenseBias (K1, row 8, row 15):
+//   bf16, every mode with DK == DV (K4, K1, row 8, row 15):
 //         flash_attention_sm90.cuh (flash_attention_sm90_kernel: mma.sync
 //         fragments in registers, cp.async ring); launch_flash_attention
 //         routes them there.
-//   bf16, kNoBias (K4 and row 6; flash_attention_tc_kernel below): Q K^T
-//         and P V on the tensor cores (WMMA 16x16x16, fp32 accumulate)
+//   bf16, kNoBias with DK != DV (row 6's augmented lanes;
+//         flash_attention_tc_kernel below): Q K^T and P V on the tensor
+//         cores (WMMA 16x16x16, fp32 accumulate)
 //         through shared memory: the score tile and each tile's P V product
 //         land in fp32 shared memory, where the threads apply the scale and
 //         the online softmax (P rounded to bf16 for P V, as the TPU kernel
@@ -397,7 +398,8 @@ __device__ __forceinline__ void load_tile_bf16(const bf16* src, int64_t stride, 
 
 template <int DK, int DV, int BIAS>
 __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnArgs a) {
-  static_assert(BIAS == kNoBias, "the bias modes run flash_attention_sm90_kernel");
+  static_assert(BIAS == kNoBias && DK != DV,
+                "equal widths and the bias modes run flash_attention_sm90_kernel");
   using L = TcLayout<DK, DV>;
   constexpr int DPT = DV / 16;
   constexpr int NOT = (kBQ / 16) * (DV / 16);  // 16x16 tiles of P V
@@ -514,16 +516,15 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnAr
   store_rows<bf16, DV, BIAS>(a, b, h, q0, tx, ty, o, m_run, l_run);
 }
 
-// The bf16 body of the bias modes, defined in flash_attention_sm90.cuh
-// (included by the sources that launch those modes).
+// The bf16 body of equal score and value widths, defined in
+// flash_attention_sm90.cuh (included by the sources that launch it).
 template <int D, int BIAS>
 cudaError_t launch_flash_attention_sm90(const AttnArgs& a, int batch, cudaStream_t stream);
 
 template <typename T, int DK, int DV, int BIAS>
 cudaError_t launch_flash_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
   const dim3 grid((a.nq + kBQ - 1) / kBQ, batch * a.heads);
-  if constexpr (std::is_same<T, bf16>::value && BIAS != kNoBias) {
-    static_assert(DK == DV, "the mma.sync body takes equal score and value widths");
+  if constexpr (std::is_same<T, bf16>::value && DK == DV) {
     return launch_flash_attention_sm90<DK, BIAS>(a, batch, stream);
   } else if constexpr (std::is_same<T, bf16>::value) {
     const size_t smem = TcLayout<DK, DV>::kBytes;

@@ -1,5 +1,7 @@
-// The bf16 flash-attention forward of three bias modes, register-resident on
+// The bf16 flash-attention forward of four bias modes, register-resident on
 // the tensor cores and fed by asynchronous copies:
+//   kNoBias     K4 (self_attention.cu: SyncBlock self-attention on packed
+//               q and kv lanes, D = 128);
 //   kRelBias    K1 (attention_rel.cu: MViT pooled attention with the
 //               decomposed rel-pos bias, head-major; and row 8's training
 //               forward on token-major strides);
@@ -7,12 +9,13 @@
 //               packed token-major strides, + q in the epilogue);
 //   kDenseBias  row 15 (window_attention.cu: VideoSwin W-MSA / SW-MSA with a
 //               dense bias and the shift mask).
-// Replaces, for those modes in bf16, flash_attention.cuh's WMMA body, which
-// stored every score tile and every P V product to shared memory, synced the
-// block four times per key tile and loaded K and V synchronously; the fp32
-// FMA body and bf16 kNoBias (K4 and row 6) stay there. The TPU kernels:
-// pooled_attention.py::_fwd_kernel_rel, ::_rel_packed_kernel and
-// attention.py::_packed_fwd_kernel.
+// Replaces, for those modes in bf16 with equal score and value widths,
+// flash_attention.cuh's WMMA body, which stored every score tile and every
+// P V product to shared memory, synced the block four times per key tile and
+// loaded K and V synchronously; the fp32 FMA body and row 6's augmented
+// lanes (DK != DV) stay there. The TPU kernels:
+// pooled_attention.py::_self_fwd_kernel, ::_fwd_kernel_rel,
+// ::_rel_packed_kernel and attention.py::_packed_fwd_kernel.
 //
 // FlashAttention-2's structure on mma.sync (m16n8k16, bf16 in, fp32
 // accumulate) and cp.async:
@@ -43,6 +46,7 @@
 //   52 at 256x448), RK = 0: the block's rel rows are copied to shared
 //   memory once and each k-step's fragments are read with ldmatrix per key
 //   tile, after Q K^T (1.1-1.2x slower per forward at R <= 48, PERF.md).
+// - K4 is the rel mode without E and without rel: S = scale * Q K^T.
 // - Row 15's bias [H, N, N] and mask [nW, N, N]: the [64, 64] tiles of the
 //   block's queries and the key tile are copied into the slot beside K and V
 //   (a slot holds a mask tile only when there is a mask). q_s = q * D^-0.5
@@ -61,10 +65,19 @@
 // key) pair (plus rel E^T) against q, k, v and rel read once per query
 // tile, far above the memory roofline: the tensor cores bound it. Row 15 at
 // D = 32 does 128 flops per pair against 2-4 bytes of bias and mask: its
-// bound is those bytes. Neither is near its bound: K1 runs 3 blocks of 4
-// warps per SM (67 KB of shared memory at R <= 48; 80 KB and 2 blocks at R =
-// 52), row 15 4 blocks (36 KB, 52 KB with the mask), which leaves 3-4 warps
+// bound is those bytes. K4 at D = 128 is bound by its operations like K1.
+// None is near its bound: K1 runs 3 blocks of 4 warps per SM (67 KB of
+// shared memory at R <= 48; 80 KB and 2 blocks at R = 52), row 15 4 blocks
+// (36 KB, 52 KB with the mask), K4 3 blocks (68 KB), which leaves 3-4 warps
 // per scheduler to hide the mma and softmax latencies (PERF.md).
+// - K4 at D = 128 holds Q's fragments (32 registers) and O (64): it takes
+//   S, the softmax and P V in sub-tiles of 32 keys (S in 16 registers) to
+//   fit the 168 registers of 3 blocks per SM without a spill. That ran
+//   1.42-1.44x faster than 64-key sub-tiles at 2 blocks per SM (its 384
+//   blocks are one wave of 396 resident slots, not 1.45 of 264; NVIDIA
+//   H100 80GB HBM3, 700 W, PERF.md). Q from shared memory instead of
+//   registers would not give 3 blocks: Q's 16 KB beside the 68 KB ring is
+//   3 x 86 KB, above the SM's 228 KB.
 //
 // Measured against this design in one chip call each (PERF.md): 8 warps
 // (BQ 128), 3 ring slots, 32-key tiles and no register cap lost (fewer
@@ -89,16 +102,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // The blocks per SM that __launch_bounds__ asks for, which caps the
 // registers at 65536 / (blocks * 128): 4 at D = 32 (128 registers; the
-// shared memory also fits 4), 3 at D = 96 (168), 2 above, and 2 for K1's
+// shared memory also fits 4), 3 at D = 96 (168) and for K4 at D = 128 (its
+// 68 KB ring fits 3), 2 for the other modes above D = 96, and 2 for K1's
 // rel rows in shared memory (R > 48), whose 80 KB and more per block fit 2
 // blocks per SM. Without it ptxas took up to 194 registers at D = 96 and
 // 140 at D = 32, one block per SM fewer.
-__host__ __device__ constexpr int min_blocks(int d, bool rel_rows) {
-  return rel_rows ? 2 : d <= 32 ? 4 : d <= 96 ? 3 : 2;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__host__ __device__ constexpr int min_blocks(int d, int bias, bool rel_rows) {
+  return rel_rows ? 2 : d <= 32 ? 4 : d <= 96 || bias == kNoBias ? 3 : 2;
 }
 
 // 16 bytes global -> shared; src-size 0 writes zeros (the row is past the end).
@@ -152,12 +162,6 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm volatile("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// Two fp32 values as one bf16x2 word (x in the low half).
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Both bf16 values of a word times s, each product rounded to bf16.
@@ -265,10 +269,11 @@ struct Layout {
     return (RK > 0 ? RK * 16 : (r + 15) / 16 * 16) + 8;
   }
   // ring slot: K, V, then E [kBK][ldr] (rel modes) or the bias tile and,
-  // with a mask, the mask tile (kDenseBias)
+  // with a mask, the mask tile (kDenseBias); K and V alone (kNoBias)
   __host__ __device__ static int slot(int ldr, bool masked) {
-    return static_cast<int>(2 * kKV +
-                            (kRel ? sizeof(bf16) * kBK * ldr : (masked ? 2 : 1) * kB));
+    return static_cast<int>(2 * kKV + (kRel                  ? sizeof(bf16) * kBK * ldr
+                                       : BIAS == kDenseBias ? (masked ? 2 : 1) * kB
+                                                            : 0));
   }
   // the ring, then (RK = 0) the block's rel rows [BQ][ldr]
   static size_t bytes(int ldr, bool masked) {
@@ -280,17 +285,19 @@ struct Layout {
 // One block: BQ query rows of head blockIdx.y % heads and batch entry (or
 // window) blockIdx.y / heads, over all key tiles of 64. RK: the rel modes'
 // rel k-steps held in registers (R <= 16 * RK), or 0 for rel rows in shared
-// memory (any R); 0 for kDenseBias.
+// memory (any R); 0 for kNoBias and kDenseBias.
 template <int D, int RK, int BIAS>
-__global__ void __launch_bounds__(kWarps * 32, min_blocks(D, rel_mode(BIAS) && RK == 0))
+__global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS) && RK == 0))
     flash_attention_sm90_kernel(AttnArgs a) {
-  static_assert(BIAS != kNoBias, "modes 1, 2 and 3 only");
   static_assert(D % 32 == 0, "Q K^T takes the head dim 32 lanes per ldmatrix");
   using L = Layout<D, RK, BIAS>;
   constexpr int NT = kWarps * 32;
   constexpr int BQ = L::BQ, LD = L::LD;
   constexpr int KS = D / 16;   // k-steps of Q K^T
-  constexpr int NS = kBK / 8;  // 8-key column tiles of S
+  // keys per sub-tile of S, softmax and P V: K4 (D = 128) takes 32, so that
+  // S's fragments (16 registers) leave room under the 168 of 3 blocks per SM
+  constexpr int SN = BIAS == kNoBias && D > 96 ? 32 : kBK;
+  constexpr int NS = SN / 8;   // 8-key column tiles of S
   constexpr int ND = D / 8;    // 8-wide column tiles of O
   constexpr bool kRel = L::kRel, kRelRows = L::kRelRows;
   static_assert(NT >= kBK, "one thread per key writes E's row");
@@ -307,7 +314,7 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, rel_mode(BIAS) && R
   const int q0 = blockIdx.x * BQ;
   const bf16* bp = nullptr;
   const bf16* mp = nullptr;
-  if constexpr (!kRel) {
+  if constexpr (BIAS == kDenseBias) {
     const int64_t nn = static_cast<int64_t>(a.nq) * a.nk;
     bp = static_cast<const bf16*>(a.bias) + h * nn;
     if (a.mask != nullptr) mp = static_cast<const bf16*>(a.mask) + (b % a.nw) * nn;
@@ -359,7 +366,7 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, rel_mode(BIAS) && R
           jt += (dthw & 1023) + carry;
           key_thw[tid].x = pack3(jt, jh, jw);
         }
-      } else {
+      } else if constexpr (BIAS == kDenseBias) {
         bf16* bt = reinterpret_cast<bf16*>(slot + 2 * L::kKV);
         copy_tile<BQ, NT>(bt, bp, a.nq, a.nk, q0, k0);
         if (mp != nullptr) copy_tile<BQ, NT>(bt + BQ * kBK, mp, a.nq, a.nk, q0, k0);
@@ -390,7 +397,7 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, rel_mode(BIAS) && R
     load_a_frags(qf, operand(a.q, a.qs), a.qs.n, q0 + warp * 16, a.nq);
     if constexpr (kRel && RK > 0)
       load_rel_frags<RK>(rf, operand(a.rel, a.rs), a.rs.n, q0 + warp * 16, a.nq, a.r);
-    if constexpr (!kRel) {
+    if constexpr (BIAS == kDenseBias) {
       const float qscale = round_to<bf16>(a.qscale);
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
@@ -412,132 +419,139 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, rel_mode(BIAS) && R
     const bf16* kt = reinterpret_cast<const bf16*>(slot);
     const bf16* vt = reinterpret_cast<const bf16*>(slot + L::kKV);
     const bf16* xt = reinterpret_cast<const bf16*>(slot + 2 * L::kKV);  // E, or the bias tile
-    const int valid = a.nk - k0;  // keys of this tile in range (may exceed kBK)
+#pragma unroll
+    for (int c0 = 0; c0 < kBK; c0 += SN) {  // sub-tiles of SN keys
+      const int valid = a.nk - k0 - c0;  // keys of this sub-tile in range (may exceed SN)
+      if (valid <= 0) break;
+      const bf16* kc = kt + c0 * LD;
+      const bf16* vc = vt + c0 * LD;
+      const bf16* ec = xt + (kRel ? c0 * ldr : 0);  // the rel modes' E rows
 
-    // S = Q K^T (rel modes: scale * Q K^T + rel E^T), column tiles wholly
-    // past Nk skipped
-    float s[NS][4];
+      // S = Q K^T (rel modes: scale * Q K^T + rel E^T), column tiles wholly
+      // past Nk skipped
+      float s[NS][4];
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      if (n * 8 < valid) {
+      for (int n = 0; n < NS; ++n) {
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        if (n * 8 < valid) {
 #pragma unroll
-        for (int kk = 0; kk < KS; kk += 2) {
-          uint32_t kb[4];
-          ldsm_x4(kb, kt + (n * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
-          mma_bf16(s[n], qf[kk], kb[0], kb[1]);
-          mma_bf16(s[n], qf[kk + 1], kb[2], kb[3]);
+          for (int kk = 0; kk < KS; kk += 2) {
+            uint32_t kb[4];
+            ldsm_x4(kb, kc + (n * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
+            mma_bf16(s[n], qf[kk], kb[0], kb[1]);
+            mma_bf16(s[n], qf[kk + 1], kb[2], kb[3]);
+          }
+          if constexpr (kRel && RK > 0) {
+            // + rel E^T, rel's fragments in registers, on a chain of its own
+            float rb[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int ks = 0; ks < RK; ++ks) {
+              if (ks * 16 < a.r) {
+                uint32_t eb[2];
+                ldsm_x2(eb, ec + (n * 8 + (lane & 7)) * ldr + ks * 16 + ((lane >> 3) & 1) * 8);
+                mma_bf16(rb, rf[ks], eb[0], eb[1]);
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * a.scale + rb[e];
+          } else if constexpr (BIAS != kDenseBias) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] *= a.scale;
+          }
         }
-        if constexpr (kRel && RK > 0) {
-          // + rel E^T, rel's fragments in registers, on a chain of its own
-          float rb[4] = {0.f, 0.f, 0.f, 0.f};
+      }
+      if constexpr (kRelRows) {
+        // + rel E^T, rel's A fragments of the warp's 16 rows from shared
+        // memory, one k-step at a time
+        const bf16* ra_row = rels + (warp * 16 + (lane & 15)) * ldr + (lane >> 4) * 8;
+        for (int c = 0; c < rpad; c += 16) {
+          uint32_t ra[4];
+          ldsm_x4(ra, ra_row + c);
 #pragma unroll
-          for (int ks = 0; ks < RK; ++ks) {
-            if (ks * 16 < a.r) {
+          for (int n = 0; n < NS; ++n) {
+            if (n * 8 < valid) {
               uint32_t eb[2];
-              ldsm_x2(eb, xt + (n * 8 + (lane & 7)) * ldr + ks * 16 + ((lane >> 3) & 1) * 8);
-              mma_bf16(rb, rf[ks], eb[0], eb[1]);
+              ldsm_x2(eb, ec + (n * 8 + (lane & 7)) * ldr + c + ((lane >> 3) & 1) * 8);
+              mma_bf16(s[n], ra, eb[0], eb[1]);
             }
           }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * a.scale + rb[e];
-        } else if constexpr (kRel) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] *= a.scale;
         }
-      }
-    }
-    if constexpr (kRelRows) {
-      // + rel E^T, rel's A fragments of the warp's 16 rows from shared
-      // memory, one k-step at a time
-      const bf16* ra_row = rels + (warp * 16 + (lane & 15)) * ldr + (lane >> 4) * 8;
-      for (int c = 0; c < rpad; c += 16) {
-        uint32_t ra[4];
-        ldsm_x4(ra, ra_row + c);
+      } else if constexpr (BIAS == kDenseBias) {
+        // bias and mask, from the swizzled tiles
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          if (n * 8 < valid) {
-            uint32_t eb[2];
-            ldsm_x2(eb, xt + (n * 8 + (lane & 7)) * ldr + c + ((lane >> 3) & 1) * 8);
-            mma_bf16(s[n], ra, eb[0], eb[1]);
+          const int c = n * 8 + 2 * t4;  // the thread's key columns c, c + 1
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {  // rows row0 + 8 * hr
+            const bf16* br = xt + swz(row0 + 8 * hr, c0 + c);
+            const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(br);
+            s[n][2 * hr] += __low2float(bb);
+            s[n][2 * hr + 1] += __high2float(bb);
+            if (mp != nullptr) {
+              const __nv_bfloat162 mm = *reinterpret_cast<const __nv_bfloat162*>(br + BQ * kBK);
+              s[n][2 * hr] += __low2float(mm);
+              s[n][2 * hr + 1] += __high2float(mm);
+            }
           }
         }
       }
-    } else if constexpr (!kRel) {
-      // bias and mask, from the swizzled tiles
+      if (valid < SN) {  // the ragged last tile: -inf past Nk
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const int c = n * 8 + 2 * t4;  // the thread's key columns c, c + 1
+        for (int n = 0; n < NS; ++n)
 #pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {  // rows row0 + 8 * hr
-          const bf16* br = xt + swz(row0 + 8 * hr, c);
-          const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(br);
-          s[n][2 * hr] += __low2float(bb);
-          s[n][2 * hr + 1] += __high2float(bb);
-          if (mp != nullptr) {
-            const __nv_bfloat162 mm = *reinterpret_cast<const __nv_bfloat162*>(br + BQ * kBK);
-            s[n][2 * hr] += __low2float(mm);
-            s[n][2 * hr + 1] += __high2float(mm);
-          }
+          for (int e = 0; e < 4; ++e)
+            if (n * 8 + 2 * t4 + (e & 1) >= valid) s[n][e] = -INFINITY;
+      }
+
+      // online softmax per row (the quad's 4 threads hold a row's SN columns)
+      float alpha[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * hr], s[n][2 * hr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[hr], mx);  // finite: key k0 + c0 is in range
+        const float m2 = m_new * kLog2e;
+        alpha[hr] = m_new == m_run[hr] ? 1.f : exp2_ftz(m_run[hr] * kLog2e - m2);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          s[n][2 * hr] = exp2_ftz(s[n][2 * hr] * kLog2e - m2);
+          s[n][2 * hr + 1] = exp2_ftz(s[n][2 * hr + 1] * kLog2e - m2);
+          sum += s[n][2 * hr] + s[n][2 * hr + 1];
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l_run[hr] = l_run[hr] * alpha[hr] + sum;
+        m_run[hr] = m_new;
+      }
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a row max moved
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          o[n][0] *= alpha[0];
+          o[n][1] *= alpha[0];
+          o[n][2] *= alpha[1];
+          o[n][3] *= alpha[1];
         }
       }
-    }
-    if (valid < kBK) {  // the ragged last tile: -inf past Nk
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (n * 8 + 2 * t4 + (e & 1) >= valid) s[n][e] = -INFINITY;
-    }
 
-    // online softmax per row (the quad's 4 threads hold a row's 64 columns)
-    float alpha[2];
+      // O += P V: P (bf16) from the S fragments of keys 16kk .. 16kk + 15
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float mx = -INFINITY;
+      for (int kk = 0; kk < SN / 16; ++kk) {
+        if (kk * 16 < valid) {
+          const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                  pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                  pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                  pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * hr], s[n][2 * hr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[hr], mx);  // finite: key k0 is in range
-      const float m2 = m_new * kLog2e;
-      alpha[hr] = m_new == m_run[hr] ? 1.f : exp2_ftz(m_run[hr] * kLog2e - m2);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        s[n][2 * hr] = exp2_ftz(s[n][2 * hr] * kLog2e - m2);
-        s[n][2 * hr + 1] = exp2_ftz(s[n][2 * hr + 1] * kLog2e - m2);
-        sum += s[n][2 * hr] + s[n][2 * hr + 1];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run[hr] = l_run[hr] * alpha[hr] + sum;
-      m_run[hr] = m_new;
-    }
-    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a row max moved
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
-      }
-    }
-
-    // O += P V: P (bf16) from the S fragments of keys 16kk .. 16kk + 15
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      if (kk * 16 < valid) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int dn = 0; dn < ND; dn += 2) {
-          uint32_t vb[4];
-          ldsm_x4_trans(vb, vt + (kk * 16 + (lane & 15)) * LD + dn * 8 + (lane >> 4) * 8);
-          mma_bf16(o[dn], pa, vb[0], vb[1]);
-          mma_bf16(o[dn + 1], pa, vb[2], vb[3]);
+          for (int dn = 0; dn < ND; dn += 2) {
+            uint32_t vb[4];
+            ldsm_x4_trans(vb, vc + (kk * 16 + (lane & 15)) * LD + dn * 8 + (lane >> 4) * 8);
+            mma_bf16(o[dn], pa, vb[0], vb[1]);
+            mma_bf16(o[dn + 1], pa, vb[2], vb[3]);
+          }
         }
       }
     }

@@ -9,97 +9,137 @@
 //
 // What bounds it on the card: 2*M*N*K operations at the tensor cores' rate
 // (989 TFLOP/s bf16, 1979 TOP/s int8) against 3 G^2 elements read and
-// written; at G = 1024 the operations (2.2 us bf16, 1.1 us int8 against
-// 1.9 us and 0.9 us of bytes).
+// written; at G = 1024 the operations: 2.1 GFLOP, 2.2 us of bf16 tensor-core
+// time against 6 MiB, 1.9 us of bytes (int8: 1.1 us against 0.9 us).
 //
-// Design, a first simple tiling: a block owns a 128 x 128 tile of c and walks
-// K, staging a 128-row slab of a and the matching slab of b in shared memory;
-// 8 warps as 2 x 4, each a 64 x 32 sub-tile with its accumulators in
-// registers.
-//   bf16: WMMA 16x16x16 (BK = 32), fragments from shared memory, the fp32
-//         sub-tile staged through shared memory for the bf16 store.
-//   int8: mma.sync.m16n8k32 (BK = 64), the b slab transposed into shared
-//         memory on the way in so that each B fragment is two words along k.
+// bf16, gemm_bf16_sm90_kernel: wgmma fed by TMA (sm90_wgmma.cuh).
+// - A block owns a 64 x 128 tile of c: 128 blocks at G = 1024, one per SM
+//   on 128 of the card's 132 (a 128 x 128 tile left 68 SMs idle). 128 x 64
+//   with two consumer warpgroups of 64 rows ran 6% slower at G = 1024
+//   (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+// - Two warpgroups: a producer and a consumer. One thread of the producer
+//   keeps a ring of 4 stages of 64-deep k tiles in flight (per stage a
+//   [64, 64] box of a and two [64, 64] boxes of b, 24 KiB, by TMA with the
+//   128-byte swizzle), each stage completing on its full mbarrier; the
+//   producer warpgroup drops to 40 registers (setmaxnreg).
+// - The consumer waits on a stage's full barrier, issues four
+//   wgmma.m64n128k16 on it (a K-major, b read in place as the MN-major
+//   operand through the transpose bit), commits, and once the previous
+//   stage's group has completed (wait_group 1) each warp releases that
+//   stage through its empty barrier, so the next stage's products queue
+//   behind the running ones. K % 64 == 32 reads a half tile: TMA fills the
+//   rest with zeros.
+// - Epilogue: the fp32 accumulators are rounded to bf16 in registers and
+//   stored as 4-byte pairs, a quad's four pairs one 16-byte run of a row.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md): 7.1 us of device time
+// at G = 1024 against torch.matmul's 5.5 us, 380 us at G = 4096 against
+// 171 us. The suspect is the traffic from L2: 64 x 128 tiles read a and b
+// at 43 flops per byte, 48 MiB at G = 1024 and 8.5 TB/s at G = 4096. A
+// cluster of two blocks sharing b by TMA multicast, a third less of it,
+// ran 2.1-2.5x slower (each stage then waits for both blocks' releases).
+//
+// int8, gemm_s8_kernel, a first simple tiling: a block owns a 128 x 128 tile
+// of c and walks K, staging a 128-row slab of a and the matching slab of b
+// in shared memory; 8 warps as 2 x 4, each a 64 x 32 sub-tile with its
+// accumulators in registers; mma.sync.m16n8k32 (BK = 64), the b slab
+// transposed into shared memory on the way in so that each B fragment is
+// two words along k.
 
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "int8_mma.cuh"
+#include "sm90_wgmma.cuh"
 
 namespace mspi {
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
-constexpr int GB = 128;      // tile edge of c
+constexpr int GB = 128;      // M and N granularity; the int8 tile edge of c
 constexpr int G_THREADS = 256;
-constexpr int BK16 = 32;     // bf16 k per stage
-constexpr int LDA16 = BK16 + 8;  // bf16 pitches: multiples of 8 elements (WMMA)
-constexpr int LDB16 = GB + 8;
 constexpr int BK8 = 64;      // int8 k per stage
 constexpr int LD8 = BK8 + 16;  // int8 pitch (bytes) of the a slab and the b^T slab
 
-__global__ void __launch_bounds__(G_THREADS)
-gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b, bf16* __restrict__ c,
-                 int N, int K) {
-  __shared__ __align__(32) bf16 as[GB * LDA16];
-  __shared__ __align__(32) bf16 bs[BK16 * LDB16];
-  __shared__ __align__(32) float stage[G_THREADS / 32][256];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // warp sub-tile: rows wm*64, columns wn*32
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * GB;
-  const int n0 = blockIdx.x * GB;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+// the bf16 wgmma GEMM
+namespace wgemm {
+constexpr int kBM = 64;   // rows of c per block: one consumer warpgroup
+constexpr int kBN = 128;  // columns: two 64-wide boxes of b per stage
+constexpr int kBK = 64;   // k per stage: one 128-byte swizzle row of bf16
+constexpr int kStages = 4;
+constexpr int kThreads = 256;  // the consumer warpgroup, then the producer's
+constexpr int kKAlign = 32;    // K granularity
+constexpr uint32_t kABytes = kBM * kBK * 2;
+constexpr uint32_t kBBox = kBK * 64 * 2;  // one [64 k, 64 n] box of b
+constexpr uint32_t kStageBytes = kABytes + 2 * kBBox;
+constexpr size_t kSmem = kStages * kStageBytes + 1024;  // + slack for 1024-byte alignment
+static_assert(kABytes % 1024 == 0 && kBBox % 1024 == 0, "swizzle atoms stay aligned");
+}  // namespace wgemm
 
-  for (int k0 = 0; k0 < K; k0 += BK16) {
-    for (int e = threadIdx.x; e < GB * BK16 / 8; e += G_THREADS) {  // 16-byte loads
-      const int r = e / (BK16 / 8), cc = (e % (BK16 / 8)) * 8;
-      *reinterpret_cast<uint4*>(as + r * LDA16 + cc) =
-          *reinterpret_cast<const uint4*>(a + (m0 + r) * K + k0 + cc);
+// ta: a [M, K] in boxes of [kBM, kBK]; tb: b [K, N] in boxes of [kBK, 64].
+__global__ void __launch_bounds__(wgemm::kThreads, 1)
+    gemm_bf16_sm90_kernel(const __grid_constant__ CUtensorMap ta,
+                          const __grid_constant__ CUtensorMap tb, bf16* __restrict__ c, int N,
+                          int K) {
+  using namespace wgemm;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int n_k = (K + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], 4);  // one arrival per consumer warp
     }
-    for (int e = threadIdx.x; e < BK16 * GB / 8; e += G_THREADS) {
-      const int r = e / (GB / 8), cc = (e % (GB / 8)) * 8;
-      *reinterpret_cast<uint4*>(bs + r * LDB16 + cc) =
-          *reinterpret_cast<const uint4*>(b + static_cast<int64_t>(k0 + r) * N + n0 + cc);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK16; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], as + (wm * 64 + i * 16) * LDA16 + kk, LDA16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], bs + kk * LDB16 + wn * 32 + j * 16, LDB16);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();
+    wg::mbar_fence_init();
   }
-  float* st = stage[warp];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int64_t row = m0 + wm * 64 + i * 16 + e / 16;
-        const int col = n0 + wn * 32 + j * 16 + e % 16;
-        c[row * N + col] = from_f<bf16>(st[e]);
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warpgroup; one thread issues
+    wg::setmaxnreg_dec<40>();
+    if (threadIdx.x == 128) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) wg::mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        unsigned char* st = smem + s * kStageBytes;
+        wg::mbar_arrive_expect_tx(&full[s], kStageBytes);
+        wg::tma_load_2d(st, &ta, &full[s], kt * kBK, m0);
+        wg::tma_load_2d(st + kABytes, &tb, &full[s], n0, kt * kBK);
+        wg::tma_load_2d(st + kABytes + kBBox, &tb, &full[s], n0 + 64, kt * kBK);
       }
-      __syncwarp();
     }
+    return;
+  }
+
+  float d[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) d[i] = 0.f;
+  const int lane = threadIdx.x % 32;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % kStages;
+    wg::mbar_wait(&full[s], (kt / kStages) & 1);
+    const unsigned char* at = smem + s * kStageBytes;
+    const unsigned char* bt = at + kABytes;
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)  // b's second box of 64 n: LBO
+      wg::wgmma_m64n128k16_bf16_tn(d, wg::desc_sw128(at + kk * 32, 16, 1024),
+                                   wg::desc_sw128(bt + kk * 16 * 128, kBBox, 1024));
+    wg::wgmma_commit();
+    wg::wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (kt > 0 && lane == 0) wg::mbar_arrive(&empty[(kt - 1) % kStages]);
+  }
+  wg::wgmma_wait<0>();
+  wg::fence_regs(d);
+
+  bf16* row = c + static_cast<int64_t>(m0 + (threadIdx.x / 32) * 16 + lane / 4) * N + n0 +
+              2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16(d[4 * j], d[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(row + 8 * N + 8 * j) = pack_bf16(d[4 * j + 2], d[4 * j + 3]);
+  }
 }
 
 __global__ void __launch_bounds__(G_THREADS)
@@ -174,16 +214,21 @@ gemm_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 extern "C" int mspi_gemm_lab(const void* a, const void* b, void* c, int M, int N, int K,
                              int dtype, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || M % mspi::GB || N % mspi::GB) return cudaErrorInvalidValue;
-  const dim3 grid(N / mspi::GB, M / mspi::GB);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == mspi::kBFloat16) {
-    if (K % mspi::BK16) return cudaErrorInvalidValue;
-    mspi::gemm_bf16_kernel<<<grid, mspi::G_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-        static_cast<__nv_bfloat16*>(c), N, K);
+    namespace W = mspi::wgemm;
+    if (K % W::kKAlign) return cudaErrorInvalidValue;
+    CUtensorMap ta, tb;
+    cudaError_t err = mspi::wg::make_tma_2d_bf16(&ta, a, M, K, 2ull * K, W::kBM, W::kBK);
+    if (err == cudaSuccess)
+      err = mspi::wg::make_tma_2d_bf16(&tb, b, K, N, 2ull * N, W::kBK, 64);
+    if (err == cudaSuccess) err = mspi::allow_smem(mspi::gemm_bf16_sm90_kernel, W::kSmem);
+    if (err != cudaSuccess) return err;
+    mspi::gemm_bf16_sm90_kernel<<<dim3(N / W::kBN, M / W::kBM), W::kThreads, W::kSmem, s>>>(
+        ta, tb, static_cast<__nv_bfloat16*>(c), N, K);
   } else if (dtype == mspi::kInt8) {
     if (K % mspi::BK8) return cudaErrorInvalidValue;
-    mspi::gemm_s8_kernel<<<grid, mspi::G_THREADS, 0, s>>>(
+    mspi::gemm_s8_kernel<<<dim3(N / mspi::GB, M / mspi::GB), mspi::G_THREADS, 0, s>>>(
         static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), static_cast<int8_t*>(c), N,
         K);
   } else {

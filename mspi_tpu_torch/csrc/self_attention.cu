@@ -9,11 +9,14 @@
 //
 // The TPU kernel runs all heads of a query tile in one grid step on static
 // lane slices. Here each (batch, head) is its own grid row and the flash
-// body of flash_attention.cuh reads a head's D lanes in place through
-// strides, so there are no per-head transpose copies; N = 708 is not a
-// multiple of the 64-row tile and is masked in the kernel.
+// body reads a head's D lanes in place through strides, so there are no
+// per-head transpose copies; N = 708 is not a multiple of the 64-row tile
+// and is masked in the kernel. bf16 runs flash_attention_sm90.cuh's body in
+// bias mode kNoBias (mma.sync fragments in registers, K and V through a
+// cp.async ring; 2 blocks per SM at D = 128), fp32 flash_attention.cuh's
+// FMA body.
 
-#include "flash_attention.cuh"
+#include "flash_attention_sm90.cuh"
 
 // lse: [B*heads, N] fp32 row log-sum-exp, written when not null.
 extern "C" int mspi_self_attention(const void* q, const void* kv, void* out, float* lse,

@@ -70,7 +70,6 @@ using sm90::ldsm_x4;
 using sm90::ldsm_x4_trans;
 using sm90::load_a_frags;
 using sm90::mma_bf16;
-using sm90::pack_bf16;
 using sm90::scale_bf16x2;
 using sm90::swz;
 

@@ -7,8 +7,8 @@ Counterpart of the JAX package's `tools/bench_int8.py`, at a square GEMM
 [G, G] x [G, G] (MSPI_LAB_GEMM=G, default 1024) and the MLP geometry
 [B, N, C], hidden H (MSPI_LAB_SHAPE=B,N,C,H, default 128,5376,96,384):
 
-  gemm_bf16   `ops/kernels/lab.py::gemm` in bf16: WMMA, fp32 accumulate,
-              bf16 out (library: torch.matmul)
+  gemm_bf16   `ops/kernels/lab.py::gemm` in bf16: wgmma fed by TMA, fp32
+              accumulate, bf16 out (library: torch.matmul)
   gemm_int8   the same in int8: mma.sync s8 x s8 -> s32, int8 out by
               wrap-around, held exactly (library: torch._int_mm(a, b) cut
               to int8)

@@ -2,8 +2,9 @@
 
 Each `mspi_tpu_torch/csrc/*.cu` is compiled by the host C++ compiler with
 `-std=c++17 -fsyntax-only` against small stub headers for `cuda_runtime.h`,
-`cuda_bf16.h` and `mma.h` (macros for `__global__` and the other CUDA
-qualifiers, declarations of the intrinsics and types the sources use), after
+`cuda_bf16.h`, `mma.h` and `cuda.h` (macros for `__global__` and the other
+CUDA qualifiers, declarations of the intrinsics and types the sources use,
+`cuda.h`'s tensor-map types for the TMA kernels), after
 two rewrites of a copy of the sources: the `<<<...>>>` launch configurations
 are stripped, so a launch reads as a call, and `asm volatile(` becomes a
 variadic no-op macro. Every template instantiation a source makes is
@@ -41,6 +42,8 @@ CUDA_RUNTIME = r"""
 #define __constant__
 #define __restrict__ __restrict
 #define __launch_bounds__(...)
+#define __grid_constant__
+#define CUDART_VERSION 12080
 #define __align__(n) __attribute__((aligned(n)))
 #define MSPI_ASM(...) ((void)0)
 struct uint3 { unsigned x, y, z; };
@@ -71,6 +74,14 @@ template <typename F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int
 cudaError_t cudaGetLastError();
 cudaError_t cudaMemsetAsync(void*, int, size_t, cudaStream_t = 0);
 const char* cudaGetErrorString(cudaError_t);
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess = 0,
+                                       cudaDriverEntryPointSymbolNotFound = 1 };
+enum { cudaEnableDefault = 0 };
+cudaError_t cudaGetDriverEntryPoint(const char*, void**, unsigned long long,
+                                    cudaDriverEntryPointQueryResult* = 0);
+cudaError_t cudaGetDriverEntryPointByVersion(const char*, void**, unsigned int,
+                                             unsigned long long,
+                                             cudaDriverEntryPointQueryResult* = 0);
 void __syncthreads();
 void __syncwarp(unsigned = 0xffffffffu);
 int __any_sync(unsigned, int);
@@ -137,7 +148,22 @@ template <typename T, typename F> void store_matrix_sync(T*, const F&, unsigned,
 }  // namespace nvcuda
 """
 
-STUBS = {"cuda_runtime.h": CUDA_RUNTIME, "cuda_bf16.h": CUDA_BF16, "mma.h": MMA}
+CUDA_DRIVER = r"""
+#pragma once
+#include <stdint.h>
+typedef uint32_t cuuint32_t;
+typedef uint64_t cuuint64_t;
+enum CUresult { CUDA_SUCCESS = 0 };
+struct alignas(64) CUtensorMap { unsigned long long opaque[16]; };
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 };
+enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 };
+enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_128B = 3 };
+enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_L2_128B = 2 };
+enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 };
+"""
+
+STUBS = {"cuda_runtime.h": CUDA_RUNTIME, "cuda_bf16.h": CUDA_BF16, "mma.h": MMA,
+         "cuda.h": CUDA_DRIVER}
 
 
 def _rewrite(text: str) -> str:
@@ -162,8 +188,10 @@ def stub_tree(tmp_path_factory):
 def test_sources_found():
     """The parametrisation below saw the port's sources, the new flash body's
     launchers among them."""
-    assert {"attention_rel.cu", "window_attention.cu", "self_attention.cu"} <= set(SOURCES)
+    assert {"attention_rel.cu", "window_attention.cu", "self_attention.cu",
+            "gemm_lab.cu"} <= set(SOURCES)
     assert (CSRC / "flash_attention_sm90.cuh").exists()
+    assert (CSRC / "sm90_wgmma.cuh").exists()
 
 
 def _check(stub_tree, source):

@@ -64,7 +64,8 @@ def test_attention_rel_matches_pallas(rng, B, H, Nq, k_shape, D):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("B,N,C,H", [(1, 24, 16, 2), (2, 37, 32, 4)])
+# (1, 70, 256, 2): K4's head dim D = 128, one full 64-row tile and a ragged one
+@pytest.mark.parametrize("B,N,C,H", [(1, 24, 16, 2), (2, 37, 32, 4), (1, 70, 256, 2)])
 def test_self_attention_matches_pallas(rng, B, N, C, H):
     q, kv = _randn(rng, B, N, C), _randn(rng, B, N, 2 * C)
     want = fused_self_attention(jnp.asarray(q), jnp.asarray(kv), num_heads=H, interpret=True)
@@ -150,7 +151,7 @@ def test_attention_rel_grads_match_pallas(rng, B, H, Nq, k_shape, D):
         _assert_grad_close(g, w, name)
 
 
-@pytest.mark.parametrize("B,N,C,H", [(1, 24, 16, 2), (2, 37, 32, 4)])
+@pytest.mark.parametrize("B,N,C,H", [(1, 24, 16, 2), (2, 37, 32, 4), (1, 70, 256, 2)])
 def test_self_attention_grads_match_pallas(rng, B, N, C, H):
     arrays = [_randn(rng, B, N, C), _randn(rng, B, N, 2 * C)]
     dout = _randn(rng, B, N, C)

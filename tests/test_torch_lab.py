@@ -88,15 +88,19 @@ def test_lnmlp_lab_body_matches_pallas(rng, variant):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.int8])
-def test_gemm_matches_pallas_lab(rng, dtype):
+# the square case, and a non-square one whose K spans three 64-deep k tiles
+@pytest.mark.parametrize("dtype,M,K,N", [
+    (np.float32, 64, 64, 64), (np.int8, 64, 64, 64),
+    (np.float32, 256, 192, 384), (np.int8, 256, 192, 384)],
+    ids=["float32", "int8", "float32-256x192x384", "int8-256x192x384"])
+def test_gemm_matches_pallas_lab(rng, dtype, M, K, N):
     if dtype == np.int8:  # the s32 sums leave the int8 range: the wrap-around is tested
-        a, b = (rng.integers(-127, 128, (64, 64)).astype(np.int8) for _ in range(2))
+        a, b = (rng.integers(-127, 128, s).astype(np.int8) for s in ((M, K), (K, N)))
     else:
-        a, b = _f32(rng, 64, 64), _f32(rng, 64, 64)
+        a, b = _f32(rng, M, K), _f32(rng, K, N)
     want = np.asarray(jax_int8._gemm(jnp.asarray(a), jnp.asarray(b), jnp.dtype(dtype)))
     got = lab.gemm(_t(a), _t(b)).numpy()
-    assert got.dtype == want.dtype
+    assert got.shape == (M, N) and got.dtype == want.dtype
     if dtype == np.int8:
         np.testing.assert_array_equal(got, want)
     else:

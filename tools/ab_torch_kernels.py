@@ -1,13 +1,13 @@
-"""Times three attention kernels of the PyTorch/CUDA port in bf16 at the
-models' shapes, from the `mspi_tpu_torch` package of a given tree, so that
-two trees can be compared in turns on one GPU.
+"""Times four kernels of the PyTorch/CUDA port in bf16 at the models' (or
+the lab's) shapes, from the `mspi_tpu_torch` package of a given tree, so
+that two trees can be compared in turns on one GPU.
 
-    python tools/ab_torch_attention.py [--root DIR] [--reps 5]
+    python tools/ab_torch_kernels.py [--root DIR] [--reps 5]
 
 Imports `mspi_tpu_torch` from DIR (default: this checkout; its kernels are
 built into DIR/build on first use) and the shape tables and timing helper
 from this checkout's `chip_smoke.py`, then times with CUDA events (median
-of `--reps`, after warm-up):
+of `--reps` single calls, after warm-up, as `chip_smoke.py` times):
 
 - row 8 `attention_rel_packed` with the residual, MViTv2-S blocks 1-15 at
   batch 8, summed per forward (each shape weighted by its blocks);
@@ -15,7 +15,14 @@ of `--reps`, after warm-up):
   forward's out and lse), VideoSwin-S's eight (stage, shifted) variants at
   batch 2, summed per training step;
 - K4 `self_attention`, the SyncBlock shape (N 708, C 512, 4 heads) at
-  batch 8.
+  batch 8 and 2, beside SDPA on the same operands;
+- row 21's bf16 GEMM (`lab.gemm`) at 1024^3, the lab's shape, and at
+  4096^3, beside `torch.matmul`.
+
+For K4, the GEMM and their library calls it also prints the device time
+per call: torch.profiler's CUDA kernel time over `--reps` x 4 calls,
+divided by the calls. A single call's CUDA-event time includes the host's
+launch path between its events; the device time does not.
 
 Prints the card's name and power limit, one line per shape, and one JSON
 line of the sums. Run it for each tree in turns (parent, change, change,
@@ -51,7 +58,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--reps", type=int, default=5)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
-        raise SystemExit("ab_torch_attention: needs an NVIDIA GPU")
+        raise SystemExit("ab_torch_kernels: needs an NVIDIA GPU")
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     from mspi_tpu_torch.ops import kernels
@@ -66,7 +73,7 @@ def main(argv=None) -> dict:
     print(f"{smi}; tree {root}", flush=True)
     kernels.lib()
     time_ms = lambda fn: cs.time_ms(fn, warmup=2, reps=args.reps)  # noqa: E731
-    sums = {"attention_rel_packed": 0.0, "window_attention_bwd": 0.0, "self_attention": 0.0}
+    sums = {"attention_rel_packed": 0.0, "window_attention_bwd": 0.0}
 
     randn = cs.randn_on(torch.Generator().manual_seed(21))
     scale = cs.MVIT_D ** -0.5
@@ -95,11 +102,47 @@ def main(argv=None) -> dict:
         print(f"window_attention_bwd {label} x{blocks}: {ms:.4f} ms", flush=True)
         del inputs, qkv, bias, mask, dout, out, lse
 
-    q, kv = randn(cs.BATCH, 708, 512).bfloat16(), randn(cs.BATCH, 708, 1024).bfloat16()
-    with torch.no_grad():
-        sums["self_attention"] = time_ms(lambda: PA.self_attention(q, kv, 4))
-    print(f"self_attention sync: {sums['self_attention']:.4f} ms", flush=True)
+    def device_us(fn, calls):
+        """CUDA kernel time per call of fn(), in microseconds: the largest of
+        three profiles (a profile now and then reports no kernels)."""
+        fn()
+        torch.cuda.synchronize()
+        totals = []
+        for _ in range(3):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            totals.append(sum(e.self_device_time_total for e in prof.key_averages()))
+        return max(totals) / calls
+
+    device = {}
+
+    def timed(name, fn, library):
+        with torch.no_grad():
+            sums[name] = time_ms(fn)
+            sums[name + ":library"] = time_ms(library)
+            device[name] = device_us(fn, 4 * args.reps)
+            device[name + ":library"] = device_us(library, 4 * args.reps)
+        print(f"{name}: {sums[name]:.4f} ms (device {device[name]:.2f} us); library "
+              f"{sums[name + ':library']:.4f} ms (device {device[name + ':library']:.2f} us)",
+              flush=True)
+
+    for B in (cs.BATCH, cs.TRAIN_BATCH):
+        q, kv = randn(B, 708, 512).bfloat16(), randn(B, 708, 1024).bfloat16()
+        qh, kh, vh = (cs.heads_major(t, 4) for t in (q, kv[..., :512], kv[..., 512:]))
+        timed(f"self_attention:b{B}", lambda: PA.self_attention(q, kv, 4),
+              lambda: cs.sdpa(qh, kh, vh))
+        del q, kv, qh, kh, vh
+
+    from mspi_tpu_torch.ops.kernels.lab import gemm
+    for G in (1024, 4096):
+        a, b = randn(G, G).bfloat16(), randn(G, G).bfloat16()
+        timed(f"gemm_bf16:{G}", lambda: gemm(a, b), lambda: torch.matmul(a, b))
+        del a, b
     line = {"tree": str(root), "device": smi, "per_forward_or_step_ms": sums,
+            "device_us_per_call": device,
             "launches": {k: v for k, v in kernels.launches.items() if v}}
     print(json.dumps(line), flush=True)
     return line
