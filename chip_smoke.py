@@ -20,8 +20,8 @@ first failure (there is no CPU path):
    versions), by the correlation of the log-density maps;
 6. backward: each backward kernel against its plain version at the
    training shapes (batch 2) of both models, fp32 and bf16, with times;
-   the bf16 window backward (row 16) runs twice at each of its eight
-   shapes and must give bit-identical gradients;
+   the bf16 K1 backward (row 5) and window backward (row 16) run twice at
+   each of their shapes and must give bit-identical gradients;
 7. training path: `make_train_step` on the MViTv2-S model at 224x384,
    batch 2, bf16 compute with fp32 weights, STEPS steps on synthetic
    batches; checks finite loss and gradient norm, trainable weights moved,
@@ -46,8 +46,8 @@ first failure (there is no CPU path):
    (checked only), the depthwise conv3d (row 18) at the 17 stride-1 pools;
    times summed per forward (each shape weighted by its blocks);
 17. layout_backward: at batch 2, row 7's head-major backward of row 6 at
-   the 16 blocks, row 8's backward (K1's after a layout change) at blocks
-   1-15 and row 18's dx;
+   the 16 blocks, row 8's backward (K1's after a layout change, its bf16
+   run twice, bit-identical) at blocks 1-15 and row 18's dx;
 18. layout_main: phase 4 on MViTv2-S with attn_packed and dwconv (row 8 in
    blocks 1-15, K1 in block 0, row 18 in the 17 stride-1 pools), timed in
    turns against the default model;
@@ -66,7 +66,9 @@ first failure (there is no CPU path):
    int8 MLP bodies), each held against its plain version and timed beside
    its library call; the labs' launches are this phase's path. Before
    them the bf16 GEMM is held against its plain version at two non-square
-   shapes (one with K % 64 == 32, a half last k tile).
+   shapes (one with K % 64 == 32, a half last k tile), and row 19 in fp32
+   and bf16 at four ragged shapes (H and W off both its tile widths; C =
+   40, a part channel group, and C = 1, off the 16-byte vector).
 
 Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22) sets the launch counts to 0
 just before it and reads them just after; the kernels' record sums them.
@@ -97,7 +99,8 @@ KERNELS = {
     "ln_mlp_prior": ("mspi_tpu_torch/csrc/ln_mlp.cu", "mspi_tpu/ops/pallas/mlp.py:751"),
     "self_attention": ("mspi_tpu_torch/csrc/self_attention.cu",
                        "mspi_tpu/ops/pallas/pooled_attention.py:761"),
-    "attention_rel_bwd": ("mspi_tpu_torch/csrc/attention_bwd.cu",
+    # bf16 (timed); fp32 runs attention_bwd.cu's FMA passes
+    "attention_rel_bwd": ("mspi_tpu_torch/csrc/attention_rel_bwd_sm90.cu",
                           "mspi_tpu/ops/pallas/pooled_attention.py:385"),
     "attention_bwd": ("mspi_tpu_torch/csrc/attention_bwd.cu",
                       "mspi_tpu/ops/pallas/pooled_attention.py:172"),
@@ -594,6 +597,17 @@ def split_kv(grads, C):
     return dq, dkv[..., :C], dkv[..., C:]
 
 
+def check_repeatable(name, label, bwd, got) -> None:
+    """One writer per element and a fixed summation order: a second run of
+    the bf16 backward gives bit-identical gradients."""
+    again = bwd()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    log("kernels", f"  {name} {label} bf16: a second run "
+                   f"{'bit-identical' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError(f"{name} {label}: two runs differ")
+
+
 def library_grad(fn, inputs, dout):
     """fwd + bwd of one library call on leaf copies of `inputs`."""
     leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
@@ -624,6 +638,8 @@ def phase_backward(records) -> None:
             want = PA.attention_rel_backward_reference(*(t.float() for t in (q, k, v, rel)),
                                                        k_shape, scale, dout.float())
             errs = compare_grads(("dq", "dk", "dv", "drel"), got, want, dtype)
+            if dtype == torch.bfloat16:
+                check_repeatable("attention_rel_bwd", label, bwd, got)
             ms = time_ms(bwd)
             plain_ms = time_ms(lambda: PA.attention_rel_backward_reference(
                 q, k, v, rel, k_shape, scale, dout))
@@ -697,14 +713,8 @@ def phase_backward(records) -> None:
                 dqkv, dbias = g
                 return dqkv[..., :C], dqkv[..., C:2 * C], dqkv[..., 2 * C:], dbias
             errs = compare_grads(("dq", "dk", "dv", "dbias"), parts(got), parts(want), dtype)
-            if dtype == torch.bfloat16:  # one writer per element, fixed sum order
-                again = bwd()
-                same = all(torch.equal(x, y) for x, y in zip(got, again))
-                log("kernels", f"  window_attention_bwd {label} bf16: a second run "
-                               f"{'bit-identical' if same else 'DIFFERS'}")
-                if not same:
-                    raise AssertionError(f"window_attention_bwd {label}: two runs differ")
-                del again
+            if dtype == torch.bfloat16:
+                check_repeatable("window_attention_bwd", label, bwd, got)
             ms = time_ms(bwd)
             plain_ms = time_ms(lambda: WA.window_attention_backward_reference(
                 qkv, bias, mask, heads, n, dout))
@@ -860,6 +870,8 @@ def phase_layout_backward(records) -> None:
             want = PA.attention_rel_packed_backward_reference(
                 *(t.float() for t in (q, k, v, rel)), k_shape, heads, scale, True, dout.float())
             errs = compare_grads(("dq", "dk", "dv", "drel"), got, want, dtype)
+            if dtype == torch.bfloat16:
+                check_repeatable("attention_rel_bwd", f"packed {label}", bwd, got)
             ms = time_ms(bwd)
             plain_ms = time_ms(lambda: PA.attention_rel_packed_backward_reference(
                 q, k, v, rel, k_shape, heads, scale, True, dout))
@@ -943,6 +955,13 @@ def phase_mlp_kernels(records) -> dict:
     return counts
 
 
+# row 19's ragged shapes [N, H, W, C]: H and W off its tiles (8 x 16 at W =
+# 41 and 19, 8 x 32 with H off 8 at W = 64 and 32; the lab's stages fill
+# whole 4 x 8 warp tiles), each tile width with a part channel group (C =
+# 40) and C = 1
+DWCONV2D_RAGGED = ((2, 13, 41, 40), (3, 9, 19, 1), (2, 13, 64, 40), (1, 11, 32, 1))
+
+
 def phase_lab(records) -> dict:
     """The three kernel labs' `main` in this process at their default shapes
     (MSPI_LAB_ITERS repeats, 20 unless set); each kernel variant is held
@@ -951,6 +970,7 @@ def phase_lab(records) -> dict:
     import os
 
     from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.ops.kernels.dwconv import dwconv2d, dwconv2d_reference
     from mspi_tpu_torch.ops.kernels.lab import gemm, gemm_reference
     from mspi_tpu_torch.tools import bench_dwconv, bench_int8, bench_lnmlp
 
@@ -959,6 +979,14 @@ def phase_lab(records) -> dict:
     for M, K, N in ((256, 192, 384), (384, 160, 640)):
         check_kernel(records, "gemm_bf16", f"{M}x{K}x{N}", gemm, gemm_reference,
                      [randn(M, K), randn(K, N)], torch.bfloat16, weight=0)
+    # row 19 off its tiles: a part channel group (C = 40) by the 16-byte
+    # copies, and C = 1 by the element loads
+    for N, H, W, C in DWCONV2D_RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_kernel(records, "dwconv2d", f"[{N},{H},{W},{C}]", dwconv2d,
+                         dwconv2d_reference,
+                         [randn(N, H, W, C), randn(7, 7, C, scale=0.1), randn(C, scale=0.1)],
+                         dtype, weight=0)
     os.environ.setdefault("MSPI_LAB_ITERS", "20")
     kernels.reset_launch_counts()
     results = []
@@ -1240,21 +1268,28 @@ def phase_train_parity(tag: str, encoder: str) -> None:
 
 # Entries the register-resident bodies must hold (mangled-name fragments):
 # row 8's forward (kRelBiasRes = 3) in both rel forms, K4's (kNoBias = 0,
-# D = 128), the bf16 window backward's three passes and row 21's wgmma GEMM
+# D = 128), the bf16 window backward's three passes, the bf16 K1 backward's
+# two passes in its three rel widths (RS = 2, 3, 4), row 19 in both dtypes
+# and tile widths, and row 21's wgmma GEMM
 SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3E",
                 "flash_attention_sm90_kernelILi96ELi0ELi3E",
                 "flash_attention_sm90_kernelILi128ELi0ELi0E", "window_bwd_dq_sm90_kernel",
                 "window_bwd_dkv_sm90_kernel", "window_bwd_dbias_sm90_kernel",
+                *(f"rel_bwd_{p}_sm90_kernelILi96ELi{rs}E" for p in ("dq", "dkv")
+                  for rs in (2, 3, 4)),
+                *(f"dwconv2d_sm90_kernelI{t}Li{tw}E" for t in ("f", "13__nv_bfloat16")
+                  for tw in (16, 32)),
                 "gemm_bf16_sm90_kernel")
 
 
 def check_ptxas() -> None:
     """The register-resident bodies (the sm90 flash forward of K1, K4, rows
-    8 and 15, the bf16 window backward's passes and the wgmma GEMM): each
-    instantiation's registers and spills as ptxas reported them; a spill
-    fails the run, and so does a missing entry of SM90_ENTRIES or an
-    instantiation of the WMMA body (`flash_attention_tc_kernel<DK, DV,
-    BIAS>`) other than row 6's augmented lanes (bias mode 0, DK != DV)."""
+    8 and 15, the bf16 window and K1 backwards' passes, row 19 and the
+    wgmma GEMM): each instantiation's registers and spills as ptxas
+    reported them; a spill fails the run, and so does a missing entry of
+    SM90_ENTRIES or an instantiation of the WMMA body
+    (`flash_attention_tc_kernel<DK, DV, BIAS>`) other than row 6's
+    augmented lanes (bias mode 0, DK != DV)."""
     from mspi_tpu_torch.ops import kernels
 
     report = kernels.ptxas_report("sm90_kernel")
@@ -1263,8 +1298,9 @@ def check_ptxas() -> None:
         raise AssertionError(f"no ptxas entry for {missing}")
     for entry, (regs, st, ld) in sorted(report.items()):
         log("build", f"ptxas {entry}: {regs} registers, spill stores {st} B, loads {ld} B")
-        if st or ld:
-            raise AssertionError(f"{entry} spills registers")
+    spills = [entry for entry, (_, st, ld) in report.items() if st or ld]
+    if spills:
+        raise AssertionError(f"{sorted(spills)} spill registers")
     wmma = []
     for name in kernels.ptxas_report("flash_attention_tc_kernel"):
         dk, dv, bias = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", name).groups()

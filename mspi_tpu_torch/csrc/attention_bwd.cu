@@ -30,9 +30,9 @@
 //   1. delta: D_i = rowsum(dO_i * O_i) per query row (one warp per row);
 //   2. dq pass: one block per 64-query tile walks the keys in tiles of 64,
 //      rebuilds P = exp(S - lse) from the forward's row log-sum-exp and
-//      accumulates dq; drel's columns (sums of dS over the keys that share a
-//      t, h or w index, rebuilt from the key's row-major index as the
-//      forward rebuilds the bias) accumulate in shared memory;
+//      accumulates dq; drel's columns (fp32: sums of dS over the keys that
+//      share a t, h or w index, rebuilt from the key's row-major index as
+//      the forward rebuilds the bias) accumulate in shared memory;
 //   3. dkv pass: one block per 64-key tile and segment of query tiles walks
 //      the queries and accumulates dk and dv; each segment writes fp32
 //      partials (segments keep the card busy when Nk is small next to Nq);
@@ -55,9 +55,11 @@
 // at a time and zero-filled to DK = Da rounded up to 16 in shared memory;
 // only the first Da columns of dq and dk are written, and dk's partials are
 // kept at width Da.
-//   bf16 (rel, self, aug): every product on the tensor cores (WMMA
-//         16x16x16, fp32 accumulate); P and dS rounded to bf16 where they
-//         enter a product, as the TPU kernel rounds them to v's dtype.
+//   bf16 (self, aug): every product on the tensor cores (WMMA 16x16x16,
+//         fp32 accumulate); P and dS rounded to bf16 where they enter a
+//         product, as the TPU kernel rounds them to v's dtype. The bf16 rel
+//         backward (K1) runs attention_rel_bwd_sm90.cu's register-resident
+//         passes instead, and this file's reduce when it has segments.
 //   fp32 (every mode, window included): the FMA pipes (tensor cores would
 //         round to TF32).
 // What bounds it on the card: 8*D flops per (query, key) pair in the two
@@ -659,11 +661,13 @@ cudaError_t dispatch_bwd(const BwdArgs& g, int batch, int d, int dtype, cudaStre
       default: return cudaErrorInvalidValue;
     }
   }
-  if (dtype == kBFloat16) {
-    switch (d) {
-      case 96: return launch_bwd<bf16, 96, 96, BIAS>(g, batch, s);
-      case 128: return launch_bwd<bf16, 128, 128, BIAS>(g, batch, s);
-      default: return cudaErrorInvalidValue;
+  if constexpr (BIAS != kRelBias) {  // bf16 rel: attention_rel_bwd_sm90.cu
+    if (dtype == kBFloat16) {
+      switch (d) {
+        case 96: return launch_bwd<bf16, 96, 96, BIAS>(g, batch, s);
+        case 128: return launch_bwd<bf16, 128, 128, BIAS>(g, batch, s);
+        default: return cudaErrorInvalidValue;
+      }
     }
   }
   return cudaErrorInvalidValue;
@@ -772,14 +776,16 @@ cudaError_t launch_window_bwd(BwdArgs g, int groups, cudaStream_t stream) {
 // K1 backward. q, dq [B,H,Nq,D]; k, v, dk, dv [B,H,Nk,D]; rel, drel
 // [B,H,Nq,R]; out (the forward's O) and dout [B,H,Nq,D]; lse (from the
 // forward) and delta (scratch) [B*H, Nq] fp32; dk_part, dv_part
-// [segments, B*H, Nk, D] fp32 scratch. Returns a cudaError_t code.
+// [segments, B*H, Nk, D] fp32 scratch; rel_pad (bf16 only: D = 96, R <= 64)
+// [B*H, Nq, 16 * max(2, ceil(R / 16))] bf16 scratch. Returns a cudaError_t
+// code.
 extern "C" int mspi_attention_rel_bwd(const void* q, const void* k, const void* v,
                                       const void* rel, const void* out, float* lse,
                                       const void* dout, void* dq, void* dk, void* dv,
                                       void* drel, float* delta, float* dk_part,
-                                      float* dv_part, int segments, int B, int H, int Nq,
-                                      int Nk, int D, int R, int kt, int kh, int kw,
-                                      float scale, int dtype, void* stream) {
+                                      float* dv_part, void* rel_pad, int segments, int B,
+                                      int H, int Nq, int Nk, int D, int R, int kt, int kh,
+                                      int kw, float scale, int dtype, void* stream) {
   if (R != kt + kh + kw || kt * kh * kw != Nk) return cudaErrorInvalidValue;
   mspi::BwdArgs g{};
   mspi::AttnArgs& a = g.f;
@@ -819,7 +825,25 @@ extern "C" int mspi_attention_rel_bwd(const void* q, const void* k, const void* 
   g.dvs = a.vs;
   g.dq_scale = scale;
   g.dk_scale = scale;
-  return mspi::dispatch_bwd<mspi::kRelBias>(g, B, D, dtype, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mspi::kBFloat16) {
+    mspi::RelBwdArgs w{};
+    w.f = a;
+    w.dout = dout;
+    w.dq = dq;
+    w.dk = dk;
+    w.dv = dv;
+    w.drel = drel;
+    w.delta = delta;
+    w.rel_pad = rel_pad;
+    w.dk_part = dk_part;
+    w.dv_part = dv_part;
+    w.segments = segments;
+    cudaError_t err = mspi::attention_rel_bwd_sm90(w, B, D, s);
+    if (err != cudaSuccess || segments == 1) return err;
+    return mspi::launch_reduce<__nv_bfloat16>(g, D, D, B * H, s);
+  }
+  return mspi::dispatch_bwd<mspi::kRelBias>(g, B, D, dtype, s);
 }
 
 // K4 backward on packed lanes. q, out, dout, dq [B,N,C]; kv, dkv [B,N,2C]

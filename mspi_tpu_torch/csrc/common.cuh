@@ -1,6 +1,7 @@
 // Shared helpers for the mspi_tpu_torch kernels: element conversion between the
 // storage types (fp32, bf16) and the fp32 the kernels compute in, warp sums,
-// and the dtype codes the C entry points take.
+// asynchronous global -> shared copies, and the dtype codes the C entry
+// points take.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +42,29 @@ __device__ __forceinline__ float warp_sum(float v) {
 // as the PTX of ldmatrix, cp.async, mbarriers, TMA and wgmma takes it.
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes global -> shared; src-size 0 writes zeros (past the end).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Two fp32 values as one bf16x2 word (x in the low half).

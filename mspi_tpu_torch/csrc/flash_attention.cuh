@@ -631,4 +631,22 @@ cudaError_t window_attention_bwd_sm90(const AttnArgs& f, const void* dout, void*
                                       void* dbias, float* delta, float* dbias_part, int groups,
                                       int windows, int C, cudaStream_t stream);
 
+// The bf16 K1 backward (attention_rel_bwd_sm90.cu; passes dq + delta + drel,
+// then dk + dv). f as mspi_attention_rel_bwd builds it (out = the forward's O,
+// lse its row log-sum-exp); the gradients through f's strides (dq and dout
+// f.qs, dk f.ks, dv f.vs, drel f.rs); delta [B*H, Nq] fp32 and rel_pad [B*H,
+// Nq, 16 * max(2, ceil(R / 16))] bf16 scratch; with segments > 1 the dk / dv pass
+// writes fp32 partials [segments, B*H, Nk, D] (unscaled) instead of dk and
+// dv, for attn_bwd_reduce_kernel. Head dim 96, R <= 64.
+struct RelBwdArgs {
+  AttnArgs f;
+  const void* dout;
+  void *dq, *dk, *dv, *drel;
+  float* delta;
+  void* rel_pad;
+  float *dk_part, *dv_part;
+  int segments, qtiles_per_seg;
+};
+cudaError_t attention_rel_bwd_sm90(const RelBwdArgs& w, int batch, int d, cudaStream_t stream);
+
 }  // namespace mspi

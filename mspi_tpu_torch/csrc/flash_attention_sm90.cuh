@@ -111,23 +111,6 @@ __host__ __device__ constexpr int min_blocks(int d, int bias, bool rel_rows) {
   return rel_rows ? 2 : d <= 32 ? 4 : d <= 96 || bias == kNoBias ? 3 : 2;
 }
 
-// 16 bytes global -> shared; src-size 0 writes zeros (the row is past the end).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's commit groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -253,6 +236,44 @@ __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int nr, in
   }
 }
 
+// The rel modes' key walk: the (t, h, w) of the key a thread writes E's row
+// for, advanced by kBK keys per tile without division. x holds the
+// coordinates and y the per-tile steps, packed 10 bits each (t | h << 10 |
+// w << 20; the launchers check kt, kh, kw < 1024).
+__device__ __forceinline__ int pack3(int t, int h, int w) { return t | h << 10 | w << 20; }
+
+// The walk of key j (< kBK) of the first tile.
+__device__ __forceinline__ int2 key_walk_start(const AttnArgs& a, int j) {
+  return make_int2(pack3(j / (a.kh * a.kw), (j / a.kw) % a.kh, j % a.kw),
+                   pack3(kBK / (a.kh * a.kw), (kBK / a.kw) % a.kh, kBK % a.kw));
+}
+
+// The walked key's row of E at er (cols columns, a multiple of 8, 16-byte
+// aligned): 1 at the key's columns t, kt + h, kt + kh + w, zeros elsewhere
+// and everywhere when the key is past Nk (!in_range); then the walk moves on
+// by kBK keys.
+__device__ __forceinline__ void write_e_row(bf16* er, int cols, bool in_range,
+                                            const AttnArgs& a, int2& thw) {
+  for (int c = 0; c < cols; c += 8)
+    *reinterpret_cast<uint4*>(er + c) = make_uint4(0u, 0u, 0u, 0u);
+  const int jthw = thw.x, dthw = thw.y;
+  int jt = jthw & 1023, jh = (jthw >> 10) & 1023, jw = jthw >> 20;
+  if (in_range) {
+    const bf16 one = __float2bfloat16(1.f);
+    er[jt] = one;
+    er[a.kt + jh] = one;
+    er[a.kt + a.kh + jw] = one;
+  }
+  jw += dthw >> 20;  // key + kBK
+  int carry = jw >= a.kw;
+  jw -= carry * a.kw;
+  jh += ((dthw >> 10) & 1023) + carry;
+  carry = jh >= a.kh;
+  jh -= carry * a.kh;
+  jt += (dthw & 1023) + carry;
+  thw.x = pack3(jt, jh, jw);
+}
+
 template <int D, int RK, int BIAS>
 struct Layout {
   static constexpr bool kRel = rel_mode(BIAS);
@@ -323,16 +344,11 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS
     return static_cast<const bf16*>(base) + b * st.b + h * st.h;
   };
 
-  // rel modes: thread j < kBK writes E's rows of keys j, j + kBK, ... and
-  // keeps that key's (t, h, w), advanced per tile without division;
-  // coordinates (x) and per-tile steps (y) packed 10 bits each (t | h << 10
-  // | w << 20), in shared memory to spare two registers (each thread reads
+  // rel modes: thread j < kBK writes E's rows of keys j, j + kBK, ... (its
+  // key walk in shared memory, to spare two registers; each thread reads
   // only its own entry)
-  auto pack3 = [](int t, int h, int w) { return t | h << 10 | w << 20; };
   __shared__ int2 key_thw[kRel ? kBK : 1];
-  if (kRel && tid < kBK)
-    key_thw[tid] = make_int2(pack3(tid / (a.kh * a.kw), (tid / a.kw) % a.kh, tid % a.kw),
-                             pack3(kBK / (a.kh * a.kw), (kBK / a.kw) % a.kh, kBK % a.kw));
+  if (kRel && tid < kBK) key_thw[tid] = key_walk_start(a, tid);
   // the key tile at k0 into ring slot `si` as one commit group; past the
   // last tile an empty group keeps the count
   auto issue = [&](int si, int k0) {
@@ -343,29 +359,9 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS
       copy_rows<kBK, D, NT>(reinterpret_cast<bf16*>(slot + L::kKV), operand(a.v, a.vs), a.vs.n,
                             k0, a.nk);
       if constexpr (kRel) {
-        // E's row of key k0 + tid: 1 at the key's columns t, kt + h,
-        // kt + kh + w, zeros elsewhere and past Nk
-        if (tid < kBK) {
-          bf16* er = reinterpret_cast<bf16*>(slot + 2 * L::kKV) + tid * ldr;
-          for (int c = 0; c < rpad; c += 8)
-            *reinterpret_cast<uint4*>(er + c) = make_uint4(0u, 0u, 0u, 0u);
-          const int jthw = key_thw[tid].x, dthw = key_thw[tid].y;
-          int jt = jthw & 1023, jh = (jthw >> 10) & 1023, jw = jthw >> 20;
-          if (k0 + tid < a.nk) {
-            const bf16 one = __float2bfloat16(1.f);
-            er[jt] = one;
-            er[a.kt + jh] = one;
-            er[a.kt + a.kh + jw] = one;
-          }
-          jw += dthw >> 20;  // key + kBK
-          int carry = jw >= a.kw;
-          jw -= carry * a.kw;
-          jh += ((dthw >> 10) & 1023) + carry;
-          carry = jh >= a.kh;
-          jh -= carry * a.kh;
-          jt += (dthw & 1023) + carry;
-          key_thw[tid].x = pack3(jt, jh, jw);
-        }
+        if (tid < kBK)
+          write_e_row(reinterpret_cast<bf16*>(slot + 2 * L::kKV) + tid * ldr, rpad,
+                      k0 + tid < a.nk, a, key_thw[tid]);
       } else if constexpr (BIAS == kDenseBias) {
         bf16* bt = reinterpret_cast<bf16*>(slot + 2 * L::kKV);
         copy_tile<BQ, NT>(bt, bp, a.nq, a.nk, q0, k0);

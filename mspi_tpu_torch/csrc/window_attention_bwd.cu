@@ -54,16 +54,14 @@
 // KB without).
 // fp32 runs attention_bwd.cu's FMA passes instead.
 
-#include "flash_attention_sm90.cuh"
+#include "attention_bwd_sm90.cuh"
 
 namespace mspi {
 namespace {
 
+using sm90::at;
 using sm90::copy_rows;
 using sm90::copy_tile;
-using sm90::cp_async16;
-using sm90::cp_async_commit;
-using sm90::cp_async_wait;
 using sm90::exp2_ftz;
 using sm90::kLog2e;
 using sm90::ldsm_x4;
@@ -73,9 +71,9 @@ using sm90::mma_bf16;
 using sm90::scale_bf16x2;
 using sm90::swz;
 
-constexpr int kThreads = 128;  // 4 warps of 16 rows
-constexpr int kTile = 64;      // rows of every tile (queries or keys)
-constexpr int kRing = 2;       // ring slots
+constexpr int kThreads = sm90::kBwdThreads;  // 4 warps of 16 rows
+constexpr int kTile = sm90::kBwdTile;        // rows of every tile (queries or keys)
+constexpr int kRing = sm90::kStages;         // ring slots
 
 struct WindowBwdArgs {
   AttnArgs f;          // qkv (q, k, v), bias, mask, out = O, lse, strides, heads, nq = nk = N
@@ -121,21 +119,6 @@ __device__ __forceinline__ void add_bf16x2(float* v, uint32_t w) {
   const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&w);
   v[0] += __low2float(x);
   v[1] += __high2float(x);
-}
-
-__device__ __forceinline__ float dot_bf16x8(uint4 x, uint4 y) {
-  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
-  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    s += __low2float(a[j]) * __low2float(b[j]) + __high2float(a[j]) * __high2float(b[j]);
-  return s;
-}
-
-// The rows of window b, head h of a bf16 operand with strides st.
-__device__ __forceinline__ const bf16* at(const void* base, const AttnStrides& st, int b, int h) {
-  return static_cast<const bf16*>(base) + b * st.b + h * st.h;
 }
 
 // Pass 1: dq, and delta. Grid (query tiles, windows x heads).
@@ -184,27 +167,9 @@ __global__ void __launch_bounds__(kThreads, 4) window_bwd_dq_sm90_kernel(WindowB
     for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
       for (int j = 0; j < 4; ++j) qf[ks][j] = scale_bf16x2(qf[ks][j], qscale);
-    // delta = rowsum(dO * O): a row's 4 threads take 8 lanes each per 32
-    const bf16* op = at(a.out, a.os, b, h);
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int qi = q0 + row0 + 8 * hr;
-      float s = 0.f;
-      if (qi < a.nq) {
-#pragma unroll
-        for (int c = 8 * t4; c < D; c += 32)
-          s += dot_bf16x8(__ldg(reinterpret_cast<const uint4*>(op + qi * a.os.n + c)),
-                          __ldg(reinterpret_cast<const uint4*>(dop + qi * a.os.n + c)));
-      }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      dlt[hr] = s;
-      if (qi < a.nq) {
-        const int64_t at_row = static_cast<int64_t>(bh) * a.nq + qi;
-        lse2[hr] = a.lse[at_row] * kLog2e;
-        if (t4 == 0) w.delta[at_row] = s;
-      }
-    }
+    const int64_t rows = static_cast<int64_t>(bh) * a.nq;
+    sm90::row_stats<D>(at(a.out, a.os, b, h), dop, a.os.n, a.lse + rows, w.delta + rows,
+                       q0 + row0, a.nq, lse2, dlt);
   }
   float dq[ND][4];
 #pragma unroll

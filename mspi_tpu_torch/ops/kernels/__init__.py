@@ -65,7 +65,7 @@ _SIGNATURES = {
     "mspi_self_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mspi_ln_mlp_bwd": [_P] * 15 + [_I, _I, _I, _F, _I, _I, _P],
     "mspi_ln_mlp_bwd_rows": [_I, _I],
-    "mspi_attention_rel_bwd": [_P] * 14 + [_I] * 10 + [_F, _I, _P],
+    "mspi_attention_rel_bwd": [_P] * 15 + [_I] * 10 + [_F, _I, _P],
     "mspi_self_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
     "mspi_window_attention": [_P] * 5 + [_I] * 6 + [_P],
     "mspi_window_attention_bwd": [_P] * 12 + [_I] * 7 + [_P],

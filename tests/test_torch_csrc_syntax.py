@@ -71,6 +71,11 @@ typedef enum cudaError cudaError_t;
 typedef struct CUstream_st* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <typename F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int);
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+cudaError_t cudaGetDevice(int*);
+cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int);
+template <typename F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, F, int, size_t);
 cudaError_t cudaGetLastError();
 cudaError_t cudaMemsetAsync(void*, int, size_t, cudaStream_t = 0);
 const char* cudaGetErrorString(cudaError_t);
@@ -186,11 +191,12 @@ def stub_tree(tmp_path_factory):
 
 
 def test_sources_found():
-    """The parametrisation below saw the port's sources, the new flash body's
-    launchers among them."""
+    """The parametrisation below saw the port's sources, the register-resident
+    bodies' launchers and headers among them."""
     assert {"attention_rel.cu", "window_attention.cu", "self_attention.cu",
-            "gemm_lab.cu"} <= set(SOURCES)
+            "gemm_lab.cu", "attention_rel_bwd_sm90.cu", "dwconv2d.cu"} <= set(SOURCES)
     assert (CSRC / "flash_attention_sm90.cuh").exists()
+    assert (CSRC / "attention_bwd_sm90.cuh").exists()
     assert (CSRC / "sm90_wgmma.cuh").exists()
 
 

@@ -135,6 +135,7 @@ def _port_grads(fn, arrays, dout):
     (2, 2, 37, (2, 3, 2), 16),    # ragged Nq
     (1, 2, 50, (1, 4, 5), 8),
     (1, 2, 40, (2, 20, 30), 8),   # R = 52
+    (1, 1, 100, (2, 3, 45), 96),  # the bf16 kernel's head dim; Nq, Nk off 64; R = 50
 ])
 def test_attention_rel_grads_match_pallas(rng, B, H, Nq, k_shape, D):
     Nk, R = int(np.prod(k_shape)), sum(k_shape)

@@ -69,6 +69,17 @@ def test_dwconv2d_matches_pallas_lab(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("N,H,W,C", [(2, 13, 41, 40), (1, 11, 19, 3), (1, 9, 64, 1)])
+def test_dwconv2d_ragged_matches_pallas_lab(rng, N, H, W, C):
+    """Row 19's ragged edges, as chip_smoke.py holds the kernel there: H and W
+    off its 8 x 16 and 8 x 32 tiles, C off its 32-channel group and (C = 3,
+    1) off the 16-byte vector, which the kernel takes by element loads."""
+    x, k, b = _f32(rng, N, H, W, C), _f32(rng, 7, 7, C, scale=0.1), _f32(rng, C, scale=0.1)
+    want = jax_dwconv.pallas_dwconv(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))
+    got = dwconv2d(_t(x), _t(k), _t(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
 _BODIES = {"matmul": jax_lnmlp._k_matmul, "matmul_gelu": jax_lnmlp._k_matmul_gelu,
            "ln_matmul": jax_lnmlp._k_ln_matmul,
            "pipe2": functools.partial(jax_lnmlp._k_pipe, k=2),

@@ -1,5 +1,5 @@
-"""Times four kernels of the PyTorch/CUDA port in bf16 at the models' (or
-the lab's) shapes, from the `mspi_tpu_torch` package of a given tree, so
+"""Times six kernels of the PyTorch/CUDA port in bf16 at the models' (or
+the labs') shapes, from the `mspi_tpu_torch` package of a given tree, so
 that two trees can be compared in turns on one GPU.
 
     python tools/ab_torch_kernels.py [--root DIR] [--reps 5]
@@ -17,12 +17,19 @@ of `--reps` single calls, after warm-up, as `chip_smoke.py` times):
 - K4 `self_attention`, the SyncBlock shape (N 708, C 512, 4 heads) at
   batch 8 and 2, beside SDPA on the same operands;
 - row 21's bf16 GEMM (`lab.gemm`) at 1024^3, the lab's shape, and at
-  4096^3, beside `torch.matmul`.
+  4096^3, beside `torch.matmul`;
+- row 5, the K1 backward (`attention_rel_backward`, from the forward's out
+  and lse), MViTv2-S's 16 blocks at batch 2, summed per training step
+  (each shape weighted by its blocks), beside SDPA with rel E^T as its
+  float mask, forward + backward;
+- row 19 (`dwconv.dwconv2d`) at the lab's four ConvNeXt stages
+  (`tools.bench_dwconv.STAGES`), summed, beside grouped `F.conv2d`.
 
-For K4, the GEMM and their library calls it also prints the device time
-per call: torch.profiler's CUDA kernel time over `--reps` x 4 calls,
-divided by the calls. A single call's CUDA-event time includes the host's
-launch path between its events; the device time does not.
+For K4, the GEMM, rows 5 and 19 and their library calls it also prints the
+device time per call: torch.profiler's CUDA kernel time over `--reps` x 4
+calls, divided by the calls (rows 5 and 19: summed like the CUDA-event
+times). A single call's CUDA-event time includes the host's launch path
+between its events; the device time does not.
 
 Prints the card's name and power limit, one line per shape, and one JSON
 line of the sums. Run it for each tree in turns (parent, change, change,
@@ -35,6 +42,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -141,6 +149,40 @@ def main(argv=None) -> dict:
         a, b = randn(G, G).bfloat16(), randn(G, G).bfloat16()
         timed(f"gemm_bf16:{G}", lambda: gemm(a, b), lambda: torch.matmul(a, b))
         del a, b
+
+    def summed(name, label, weight, fn, library, calls):
+        """fn and library at one shape into the weighted sums of both times."""
+        ms, lib_ms = time_ms(fn), time_ms(library)
+        us, lib_us = device_us(fn, calls), device_us(library, calls)
+        for key, value in ((name, ms), (name + ":library", lib_ms)):
+            sums[key] = sums.get(key, 0.0) + weight * value
+        for key, value in ((name, us), (name + ":library", lib_us)):
+            device[key] = device.get(key, 0.0) + weight * value
+        print(f"{name} {label} x{weight}: {ms:.4f} ms (device {us:.2f} us); library "
+              f"{lib_ms:.4f} ms (device {lib_us:.2f} us)", flush=True)
+
+    randn, B = cs.randn_on(torch.Generator().manual_seed(11)), cs.TRAIN_BATCH
+    for label, blocks, heads, nq, k_shape in cs.MVIT_BLOCKS:
+        nk, r = math.prod(k_shape), sum(k_shape)
+        q, dout = (randn(B, heads, nq, cs.MVIT_D).bfloat16() for _ in range(2))
+        k, v = (randn(B, heads, nk, cs.MVIT_D).bfloat16() for _ in range(2))
+        rel = randn(B, heads, nq, r).bfloat16()
+        out, lse = PA._attention_rel_fwd(q, k, v, rel, k_shape, scale, with_lse=True)
+        mask = cs.rel_mask(rel, k_shape)
+        summed("attention_rel_bwd", label, blocks,
+               lambda: PA.attention_rel_backward(q, k, v, rel, out, lse, k_shape, scale, dout),
+               cs.library_grad(lambda *a: cs.sdpa(*a, scale), (q, k, v, mask), dout), args.reps)
+        del q, k, v, rel, dout, out, lse, mask
+
+    from mspi_tpu_torch.ops.kernels.dwconv import dwconv2d
+    from mspi_tpu_torch.tools.bench_dwconv import STAGES, conv2d_library
+    for label, (N, H, W, C) in STAGES.items():
+        x = randn(N, H, W, C).bfloat16()
+        k, b = randn(7, 7, C, scale=0.1).bfloat16(), randn(C, scale=0.1).bfloat16()
+        with torch.no_grad():
+            summed("dwconv2d", label, 1, lambda: dwconv2d(x, k, b),
+                   lambda: conv2d_library(x, k, b), 4 * args.reps)
+        del x, k, b
     line = {"tree": str(root), "device": smi, "per_forward_or_step_ms": sums,
             "device_us_per_call": device,
             "launches": {k: v for k, v in kernels.launches.items() if v}}

@@ -48,6 +48,7 @@ PORT_FAMILIES = (
     ("window attention backward (rows 16/17)", ("window_",)),
     ("window attention backward (rows 16/17)", ("attn_bwd", "2>(")),
     ("K1/K4/row 6 attention backward", ("attn_bwd",)),
+    ("K1/K4/row 6 attention backward", ("rel_bwd_",)),
     ("K2 ln_mlp backward", ("ln_mlp_bwd",)),
     ("K2 ln_mlp backward", ("atb_kernel",)),
     ("K2 ln_mlp backward", ("sum_segments",)),
