@@ -21,7 +21,9 @@ first failure (there is no CPU path):
 6. backward: each backward kernel against its plain version at the
    training shapes (batch 2) of both models, fp32 and bf16, with times;
    the bf16 K1 backward (row 5) and window backward (row 16) run twice at
-   each of their shapes and must give bit-identical gradients;
+   each of their shapes and must give bit-identical gradients; row 5 also
+   at the rel widths of 256x448 (R = 52) and 288x640 (R = 66, its wide
+   form), checked and timed beside SDPA, out of the sums;
 7. training path: `make_train_step` on the MViTv2-S model at 224x384,
    batch 2, bf16 compute with fp32 weights, STEPS steps on synthetic
    batches; checks finite loss and gradient norm, trainable weights moved,
@@ -43,11 +45,14 @@ first failure (there is no CPU path):
    plain versions, fp32 and bf16, at batch 8: the augmented-lane attention
    (row 6) at the 16 blocks' shapes, the packed rel-pos attention (row 8,
    with the residual) at blocks 1-15 and at the rel width 52 of 256x448
-   (checked only), the depthwise conv3d (row 18) at the 17 stride-1 pools;
-   times summed per forward (each shape weighted by its blocks);
+   (checked only), the depthwise conv3d (row 18) at the 17 stride-1 pools
+   (and, checked only, on the packed layout and at ragged shapes, each
+   bf16 tile, a part channel group and C off the 8-channel vector); times
+   summed per forward (each shape weighted by its blocks);
 17. layout_backward: at batch 2, row 7's head-major backward of row 6 at
    the 16 blocks, row 8's backward (K1's after a layout change, its bf16
-   run twice, bit-identical) at blocks 1-15 and row 18's dx;
+   run twice, bit-identical) at blocks 1-15 and at R = 52 and 66, and row
+   18's dx beside grouped `F.conv3d` on the flipped taps;
 18. layout_main: phase 4 on MViTv2-S with attn_packed and dwconv (row 8 in
    blocks 1-15, K1 in block 0, row 18 in the 17 stride-1 pools), timed in
    turns against the default model;
@@ -66,9 +71,11 @@ first failure (there is no CPU path):
    int8 MLP bodies), each held against its plain version and timed beside
    its library call; the labs' launches are this phase's path. Before
    them the bf16 GEMM is held against its plain version at two non-square
-   shapes (one with K % 64 == 32, a half last k tile), and row 19 in fp32
-   and bf16 at four ragged shapes (H and W off both its tile widths; C =
-   40, a part channel group, and C = 1, off the 16-byte vector).
+   shapes (one with K % 64 == 32, a half last k tile), the int8 GEMM
+   exactly at three with K % 128 == 64 (a half last box), in both tile
+   heights, and at 4096^3, and row 19 in fp32 and bf16 at four ragged shapes
+   (H and W off both its tile widths; C = 40, a part channel group, and C
+   = 1, off the 16-byte vector).
 
 Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22) sets the launch counts to 0
 just before it and reads them just after; the kernels' record sums them.
@@ -268,7 +275,8 @@ def record(records, name, label, dtype, errs_tols, ms, plain_ms, library_ms=None
     step; 0 for a check whose times stay out of the sums)."""
     err = max(e for e, _ in errs_tols)
     ok = all(math.isfinite(e) and e <= t for e, t in errs_tols)
-    worst = max(e / t for e, t in errs_tols)  # each output against its own tolerance
+    # each output against its own tolerance (0: exact)
+    worst = max(e / t if t else (0.0 if e == 0 else math.inf) for e, t in errs_tols)
     lib = "" if library_ms is None else f" library {library_ms:.3f} ms"
     times = "" if weight == 1 else f" (x{weight:g} in the sums)"
     log("kernels", f"{name} {label} {str(dtype)[6:]}: max_abs_err {err:.3e} "
@@ -362,6 +370,13 @@ MVIT_BLOCKS = (("blk0", 1, 1, 43008, (8, 7, 12)), ("blk1", 1, 2, 10752, (8, 14, 
 MVIT_WIDE_RES = (256, 448)
 MVIT_WIDE = (("blk1@256x448", 0, 2, 14336, (8, 16, 28)), ("blk3@256x448", 0, 4, 3584, (8, 16, 28)),
              ("blk14@256x448", 0, 8, 896, (8, 16, 28)))
+# The blocks whose rel width passes 64 at `--resolution 288 640` (keys pooled
+# to (8, 18, 40): R = 66), where the bf16 K1 backward runs its wide form
+# (`pooled_attention.rel_bwd_form`); backward checks only, times out of the
+# sums (0 blocks)
+MVIT_R66_RES = (288, 640)
+MVIT_R66 = (("blk1@288x640", 0, 2, 23040, (8, 18, 40)), ("blk3@288x640", 0, 4, 5760, (8, 18, 40)),
+            ("blk14@288x640", 0, 8, 1440, (8, 18, 40)))
 # K2 shapes per clip: label, tokens, C, eps
 LN_MLP_SHAPES = (("mvit-s1", 43008, 96, 1e-6), ("mvit-s2", 10752, 192, 1e-6),
                  ("mvit-s3", 2688, 384, 1e-6), ("mvit-s4", 672, 768, 1e-6),
@@ -624,7 +639,7 @@ def phase_backward(records) -> None:
     randn = randn_on(torch.Generator().manual_seed(11))
     B = TRAIN_BATCH
     rec = records["attention_rel_bwd"]
-    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS + MVIT_WIDE:
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS + MVIT_WIDE + MVIT_R66:
         nk, r = math.prod(k_shape), sum(k_shape)
         scale = 96 ** -0.5
         inputs = [randn(B, heads, nq, 96), randn(B, heads, nk, 96), randn(B, heads, nk, 96),
@@ -740,6 +755,25 @@ DWCONV_SHAPES = (("blk0-q", 1, 1, (8, 56, 96)), ("blk2-q", 1, 2, (8, 28, 48)),
                  ("blk4-13-q", 10, 4, (8, 14, 24)), ("blk14-kv", 2, 8, (8, 14, 24)),
                  ("blk15-qkv", 3, 8, (8, 7, 12)))
 MVIT_D = 96
+# Row 18 off the stage grids of 224x384, [N, T, H, W, C]: the stage grids of
+# 288x640 (tiles 8 x 16, 8 x 16, 8 x 16, 14 x 12 by `dwconv.dwconv3d_tile`),
+# each bf16 tile ragged in H and W, a part channel group (C = 40), T = 1 and
+# 3, and C = 20 (off the 8-channel vector: the fp32-slab kernel in bf16)
+DWCONV3D_RAGGED = (("288x640-s1", (2, 8, 72, 160, 96)), ("288x640-s2", (2, 8, 36, 80, 96)),
+                   ("288x640-s3", (2, 8, 18, 40, 96)), ("288x640-s4", (2, 8, 9, 20, 96)),
+                   ("8x16 ragged", (2, 8, 15, 25, 40)), ("14x12 ragged", (1, 5, 22, 19, 96)),
+                   ("14x12 ragged T 3", (2, 3, 11, 25, 96)),
+                   ("8x16 ragged T 1", (2, 1, 15, 19, 64)),
+                   ("C 20", (1, 4, 11, 19, 20)))
+
+
+def conv3d_library(x, w):
+    """Grouped F.conv3d (stride 1, SAME) on the NCDHW-contiguous copy of
+    channels-last x [N, T, H, W, C], made here: row 18's library call."""
+    import torch.nn.functional as F
+
+    x_ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
+    return lambda: F.conv3d(x_ncdhw, w, None, 1, 1, 1, x.shape[-1])
 
 
 def aug_inputs(randn, batch, heads, nq, k_shape):
@@ -767,9 +801,8 @@ def phase_layout_kernels(records) -> None:
     """Rows 6, 8 and 18 at the MViTv2-S shapes, batch 8, fp32 and bf16; the
     bf16 times (kernel, plain, library, bound) summed per forward. Row 8 is
     also checked at the R = 52 shapes of 256x448 (`MVIT_WIDE`, rel rows in
-    shared memory), out of the sums."""
-    import torch.nn.functional as F
-
+    shared memory), row 18 on the packed layout and off its tiles
+    (`DWCONV3D_RAGGED`), out of the sums."""
     from mspi_tpu_torch.ops.kernels import dwconv as DW
     from mspi_tpu_torch.ops.kernels import pooled_attention as PA
 
@@ -805,18 +838,19 @@ def phase_layout_kernels(records) -> None:
             add_bound(records["attention_rel_packed"], dtype, nbytes(*xs, out),
                       4.0 * BATCH * heads * nq * nk * MVIT_D, weight=blocks)
         del inputs, xs, out
-    # row 18 per head as the pools run it, and once on the packed layout
-    # (all heads' lanes, the kernel tiled over the heads; checked only)
+    # row 18 per head as the pools run it, once on the packed layout (all
+    # heads' lanes, the kernel tiled over the heads), then off its tiles
+    # (checked only)
     shapes = [(label, n, BATCH * heads, thw, MVIT_D) for label, n, heads, thw in DWCONV_SHAPES]
     shapes.append(("blk4-13-q packed", 0, BATCH, (8, 14, 24), 4 * MVIT_D))
+    shapes += [(f"{label} [{N},{T},{H},{W},{C}]", 0, N, (T, H, W), C)
+               for label, (N, T, H, W, C) in DWCONV3D_RAGGED]
     for label, pools, N, thw, C in shapes:
         inputs = [randn(N, *thw, C), randn(C, 1, 3, 3, 3, scale=0.2)]
         for dtype in (torch.float32, torch.bfloat16):
-            def library(x, w, c=C):
-                x_ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
-                return lambda: F.conv3d(x_ncdhw, w, None, 1, 1, 1, c)
             xs, out = check_kernel(records, "dwconv3d", label, DW.dwconv3d,
-                                   DW.dwconv3d_reference, inputs, dtype, library, weight=pools)
+                                   DW.dwconv3d_reference, inputs, dtype, conv3d_library,
+                                   weight=pools)
             add_bound(records["dwconv3d"], dtype, nbytes(*xs, out), 2.0 * 27 * out.numel(),
                       PEAK_FLOPS[torch.float32], weight=pools)
         del inputs, xs, out
@@ -856,7 +890,7 @@ def phase_layout_backward(records) -> None:
                       2.0 * B * heads * nq * nk * (3 * (MVIT_D + r) + 2 * MVIT_D),
                       weight=blocks)
             del got, want, out, lse
-    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS[1:] + MVIT_WIDE:
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS[1:] + MVIT_WIDE + MVIT_R66:
         scale = MVIT_D ** -0.5
         inputs = packed_inputs(randn, B, heads, nq, k_shape) + [randn(B, nq, heads * MVIT_D)]
         for dtype in (torch.float32, torch.bfloat16):
@@ -890,7 +924,12 @@ def phase_layout_backward(records) -> None:
             errs = compare_grads(("dx",), (dx,), (want,), dtype)
             ms = time_ms(dx_fn)
             plain_ms = time_ms(lambda: DW.dwconv3d_reference(dy, w.flip(2, 3, 4)))
-            record(records, "dwconv3d", f"dx {label}", dtype, errs, ms, plain_ms, weight=0)
+            lib_ms = None
+            if dtype == torch.bfloat16:  # grouped conv3d of dy with the flipped taps
+                with torch.no_grad():
+                    lib_ms = time_ms(conv3d_library(dy, w.flip(2, 3, 4).contiguous()))
+            record(records, "dwconv3d", f"dx {label}", dtype, errs, ms, plain_ms, lib_ms,
+                   weight=0)
             del dx, want
 
 
@@ -979,6 +1018,18 @@ def phase_lab(records) -> dict:
     for M, K, N in ((256, 192, 384), (384, 160, 640)):
         check_kernel(records, "gemm_bf16", f"{M}x{K}x{N}", gemm, gemm_reference,
                      [randn(M, K), randn(K, N)], torch.bfloat16, weight=0)
+    # the int8 GEMM exactly, wrap-around included: 1.5 and 2.5 k boxes of 128
+    # (K % 128 == 64) in 64-row tiles, 2.5 in 128-row tiles (144 of them),
+    # and 4096^3 (128-row tiles)
+    gen8 = torch.Generator().manual_seed(4)
+
+    def exact(out, xs):
+        return [((out.int() - gemm_reference(*xs).int()).abs().max().item(), 0.0)]
+    for M, K, N in ((256, 192, 384), (384, 320, 640), (2048, 320, 1152), (4096, 4096, 4096)):
+        a, b = (torch.randint(-127, 128, shape, generator=gen8, dtype=torch.int8).cuda()
+                for shape in ((M, K), (K, N)))
+        check_kernel(records, "gemm_int8", f"{M}x{K}x{N}", gemm, gemm_reference, [a, b],
+                     torch.int8, compare=exact, weight=0)
     # row 19 off its tiles: a part channel group (C = 40) by the 16-byte
     # copies, and C = 1 by the element loads
     for N, H, W, C in DWCONV2D_RAGGED:
@@ -1269,23 +1320,27 @@ def phase_train_parity(tag: str, encoder: str) -> None:
 # Entries the register-resident bodies must hold (mangled-name fragments):
 # row 8's forward (kRelBiasRes = 3) in both rel forms, K4's (kNoBias = 0,
 # D = 128), the bf16 window backward's three passes, the bf16 K1 backward's
-# two passes in its three rel widths (RS = 2, 3, 4), row 19 in both dtypes
-# and tile widths, and row 21's wgmma GEMM
+# two passes in its three rel widths (RS = 2, 3, 4) and its wide form (R >
+# 64), row 19 in both dtypes
+# and tile widths, row 18's bf16 ring kernel in its two tiles (warp outputs
+# OH x OW), and row 21's wgmma GEMMs (int8 at 64 and 128 rows per block)
 SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3E",
                 "flash_attention_sm90_kernelILi96ELi0ELi3E",
                 "flash_attention_sm90_kernelILi128ELi0ELi0E", "window_bwd_dq_sm90_kernel",
                 "window_bwd_dkv_sm90_kernel", "window_bwd_dbias_sm90_kernel",
                 *(f"rel_bwd_{p}_sm90_kernelILi96ELi{rs}E" for p in ("dq", "dkv")
                   for rs in (2, 3, 4)),
+                "rel_bwd_dq_wide_sm90_kernelILi96E", "rel_bwd_dkv_wide_sm90_kernelILi96E",
                 *(f"dwconv2d_sm90_kernelI{t}Li{tw}E" for t in ("f", "13__nv_bfloat16")
                   for tw in (16, 32)),
-                "gemm_bf16_sm90_kernel")
+                *(f"dwconv3d_sm90_kernelILi{oh}ELi{ow}E" for oh, ow in ((4, 8), (7, 6))),
+                "gemm_bf16_sm90_kernel", "gemm_s8_sm90_kernelILi1E", "gemm_s8_sm90_kernelILi2E")
 
 
 def check_ptxas() -> None:
     """The register-resident bodies (the sm90 flash forward of K1, K4, rows
-    8 and 15, the bf16 window and K1 backwards' passes, row 19 and the
-    wgmma GEMM): each instantiation's registers and spills as ptxas
+    8 and 15, the bf16 window and K1 backwards' passes, rows 18 and 19 and
+    the wgmma GEMMs): each instantiation's registers and spills as ptxas
     reported them; a spill fails the run, and so does a missing entry of
     SM90_ENTRIES or an instantiation of the WMMA body
     (`flash_attention_tc_kernel<DK, DV, BIAS>`) other than row 6's

@@ -776,7 +776,7 @@ cudaError_t launch_window_bwd(BwdArgs g, int groups, cudaStream_t stream) {
 // K1 backward. q, dq [B,H,Nq,D]; k, v, dk, dv [B,H,Nk,D]; rel, drel
 // [B,H,Nq,R]; out (the forward's O) and dout [B,H,Nq,D]; lse (from the
 // forward) and delta (scratch) [B*H, Nq] fp32; dk_part, dv_part
-// [segments, B*H, Nk, D] fp32 scratch; rel_pad (bf16 only: D = 96, R <= 64)
+// [segments, B*H, Nk, D] fp32 scratch; rel_pad (bf16 only: D = 96)
 // [B*H, Nq, 16 * max(2, ceil(R / 16))] bf16 scratch. Returns a cudaError_t
 // code.
 extern "C" int mspi_attention_rel_bwd(const void* q, const void* k, const void* v,

@@ -637,7 +637,8 @@ cudaError_t window_attention_bwd_sm90(const AttnArgs& f, const void* dout, void*
 // f.qs, dk f.ks, dv f.vs, drel f.rs); delta [B*H, Nq] fp32 and rel_pad [B*H,
 // Nq, 16 * max(2, ceil(R / 16))] bf16 scratch; with segments > 1 the dk / dv pass
 // writes fp32 partials [segments, B*H, Nk, D] (unscaled) instead of dk and
-// dv, for attn_bwd_reduce_kernel. Head dim 96, R <= 64.
+// dv, for attn_bwd_reduce_kernel. Head dim 96; RS = 2..4 register-resident
+// forms up to R = 64, the wide form (RS at run time) above.
 struct RelBwdArgs {
   AttnArgs f;
   const void* dout;

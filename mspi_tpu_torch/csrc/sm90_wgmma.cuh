@@ -1,8 +1,9 @@
 // Hopper building blocks for kernels that feed the tensor cores through TMA:
 // mbarriers, the 2-D TMA tile load, the wgmma shared-memory matrix
-// descriptor (128-byte swizzle), wgmma's fences, and the bf16 wgmma of a
-// 64-row tile with fp32 accumulators in registers. Used by gemm_lab.cu's
-// bf16 GEMM; written to be included by the later wgmma kernels.
+// descriptor (128-byte swizzle), wgmma's fences, and the bf16 and int8 wgmma
+// of a 64-row tile with fp32 or s32 accumulators in registers. Used by
+// gemm_lab.cu's bf16 and int8 GEMMs; written to be included by the later
+// wgmma kernels.
 //
 // Tensor maps: cuTensorMapEncodeTiled belongs to the CUDA driver API. It is
 // reached through the runtime's cudaGetDriverEntryPoint(ByVersion), so the
@@ -18,6 +19,9 @@
 //     of 64 k by the tile's rows; one row of the box is one 128-byte row.
 //     Descriptor: SBO = 1024 (the next 8 rows), LBO unused (1); a k-step of
 //     16 advances the start address by 32 bytes inside the row.
+//   int8 K-major: the same layout with 128 int8 k per 128-byte row; a
+//     k-step of 32 advances the start address by 32 bytes. Int8 wgmma reads
+//     both operands K-major only, so an int8 b [K, N] needs a K-major copy.
 //   MN-major (an operand whose n is contiguous: b [K, N] row-major, read in
 //     place with wgmma's transpose bit, which bf16 allows and int8 does not):
 //     a TMA box of 64 n by 64 k; one k row of the box is one 128-byte row.
@@ -151,6 +155,41 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_tn(float (&d)[64], uint64_
       : "l"(da), "l"(db), "r"(1));  // scale-d: d += A B
 }
 
+// d[64 x 128] += A[64 x 32] B[32 x 128]: s8 in, s32 accumulate, both
+// operands K-major through their descriptors (B as [128 n][k] rows). The
+// accumulator layout is the bf16 form's: thread t holds rows 16 (t / 32) +
+// (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1) in d[4 j + {0, 1}]
+// (first row) and d[4 j + {2, 3}] (second).
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33,"
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));  // scale-d: d += A B
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // A warpgroup-wide register budget change (all four warps execute it):
 // dec hands registers back to the SM, inc waits for them.
 template <int REGS>
@@ -184,22 +223,22 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// The map of a row-major bf16 matrix [rows, cols] (cols contiguous, rows
-// `row_bytes` apart, a multiple of 16; base 16-byte aligned) read in boxes of
-// [box_rows, box_cols] with the 128-byte swizzle (box_cols * 2 <= 128);
-// zeros past the edges.
-inline cudaError_t make_tma_2d_bf16(CUtensorMap* map, const void* base, uint64_t rows,
-                                    uint64_t cols, uint64_t row_bytes, uint32_t box_rows,
-                                    uint32_t box_cols) {
+// The map of a row-major matrix [rows, cols] of `type` (cols contiguous,
+// rows `row_bytes` apart, a multiple of 16; base 16-byte aligned) read in
+// boxes of [box_rows, box_cols] with the 128-byte swizzle (box_cols elements
+// <= 128 bytes); zeros past the edges.
+inline cudaError_t make_tma_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                               uint64_t rows, uint64_t cols, uint64_t row_bytes,
+                               uint32_t box_rows, uint32_t box_cols) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {row_bytes};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, step,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -72,13 +72,13 @@ _SIGNATURES = {
     "mspi_attention": [_P] * 5 + [_I] * 7 + [_P],
     "mspi_attention_bwd": [_P] * 12 + [_I] * 8 + [_P],
     "mspi_attention_rel_packed": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P],
-    "mspi_dwconv3d": [_P] * 3 + [_I] * 6 + [_P],
+    "mspi_dwconv3d": [_P] * 3 + [_I] * 8 + [_P],
     "mspi_mlp": [_P] * 6 + [_I] * 4 + [_P],
     "mspi_mlp_bwd": [_P] * 12 + [_I] * 5 + [_P],
     "mspi_dwconv2d": [_P] * 4 + [_I] * 5 + [_P],
     "mspi_ln_mlp_lab": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
     "mspi_mlp_int8_lab": [_P] * 6 + [_I] * 3 + [_P],
-    "mspi_gemm_lab": [_P] * 3 + [_I] * 4 + [_P],
+    "mspi_gemm_lab": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

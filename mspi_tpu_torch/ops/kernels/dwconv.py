@@ -9,7 +9,9 @@ custom VJP. Kernel source: `mspi_tpu_torch/csrc/dwconv.cu`.
 with the kernel flipped in t, h and w (a second launch, counted), as the
 JAX package's backward reuses its Pallas kernel; dw is PyTorch's conv
 weight gradient, as the JAX package takes dw from XLA. On the CPU the
-forward and dx run the plain version below.
+forward and dx run the plain version below. In bf16 (C a multiple of 8)
+the kernel is the ring form with a block tile chosen per shape
+(`dwconv3d_tile`); fp32 runs the fp32-slab form.
 """
 
 from __future__ import annotations
@@ -20,6 +22,12 @@ import torch.nn.functional as F
 from mspi_tpu_torch.ops import kernels
 
 KERNEL = (3, 3, 3)  # the kernel the CUDA kernel is compiled for (MViT's pools)
+# The bf16 kernel's block tiles of 2 x 2 warps (output rows, columns;
+# `csrc/dwconv.cu` tile codes 0 and 1), in the order `dwconv3d_tile`
+# prefers them on a tie: 8 x 16 (46 KiB ring, 4 blocks per SM) before
+# 14 x 12 (57 KiB, 3).
+DWCONV3D_TILES = ((8, 16), (14, 12))
+_LEGACY_TILE = -1  # the fp32-slab kernel: fp32, and bf16 off the 8-channel vector
 
 
 def dwconv3d_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -59,6 +67,39 @@ def supported(kernel, stride) -> bool:
     return tuple(stride) == (1, 1, 1) and all(k % 2 == 1 for k in kernel)
 
 
+def dwconv3d_tile(H: int, W: int) -> int:
+    """The bf16 kernel's block tile for an H x W grid: the index in
+    `DWCONV3D_TILES` of the tile that computes the fewest padded outputs
+    (whole tiles over the grid), the first on a tie."""
+    def padded(tile):
+        th, tw = tile
+        return -(-H // th) * th * (-(-W // tw) * tw)
+    return min(range(len(DWCONV3D_TILES)), key=lambda i: (padded(DWCONV3D_TILES[i]), i))
+
+
+def dwconv3d_chunk(N: int, T: int, H: int, W: int, C: int, sms: int) -> int:
+    """The bf16 kernel's split of T: the t steps of one chunk, T halved
+    (rounded up) until the chunks of every (channel group, n, tile) number
+    at least 2.5 per SM, or one t. Each chunk starts with two more halo
+    slabs than it computes; fewer chunks leave SMs idle.
+    `csrc/dwconv.cu`'s grid takes them evenly, whole."""
+    th, tw = DWCONV3D_TILES[dwconv3d_tile(H, W)]
+    units = -(-C // 32) * N * -(-H // th) * -(-W // tw)
+    split = 1
+    while split < T and 2 * units * split < 5 * sms:
+        split *= 2
+    return -(-T // split)
+
+
+def dwconv3d_kernel_tile(dtype: torch.dtype, H: int, W: int, C: int, aligned: bool) -> int:
+    """The tile code `mspi_dwconv3d` takes: `dwconv3d_tile` for bf16 with C a
+    multiple of 8 and x 16-byte aligned (16-byte copies of 8 channels), else
+    the fp32-slab kernel."""
+    if dtype == torch.bfloat16 and C % 8 == 0 and aligned:
+        return dwconv3d_tile(H, W)
+    return _LEGACY_TILE
+
+
 def _dwconv3d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The kernel on the card, the plain version on the CPU."""
     if not kernels.dispatch_device(x, w):
@@ -71,8 +112,10 @@ def _dwconv3d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     taps = w.reshape(C, -1).t().contiguous()  # [27, C], (dt, dh, dw) row-major
     dtype = kernels.check_operands(name, x, taps)
     y = torch.empty_like(x)
+    tile = dwconv3d_kernel_tile(x.dtype, H, W, C, x.data_ptr() % 16 == 0)
+    chunk = dwconv3d_chunk(N, T, H, W, C, kernels.num_sms(x)) if tile >= 0 else T
     err = kernels.lib().mspi_dwconv3d(x.data_ptr(), taps.data_ptr(), y.data_ptr(), N, T, H, W,
-                                      C, dtype, kernels.stream_handle(x))
+                                      C, dtype, tile, chunk, kernels.stream_handle(x))
     kernels.check(err, name)
     kernels.launches[name] += 1
     return y

@@ -17,8 +17,10 @@ them is on a model's path: `ln_mlp.py` stays the production module.
   (the TPU bodies' degree-16 fit is within 2e-7 of it).
 - row 21, `tools/bench_int8.py`: `gemm(a, b)` (`_gemm`; `csrc/gemm_lab.cu`)
   in bf16 and int8 (the s32 sum cut to int8 by wrap-around, as the TPU's
-  astype does); `mlp_bf16(x, w1, w2)` (`_mlp_bf16_kernel`: K2's body with
-  LN, biases and GELU compiled out) and `mlp_int8w(x, w1q, s1, w2q, s2)`
+  astype does; int8 `wgmma` reads b K-major, so the call makes b^T in a
+  scratch tensor first, with 64- or 128-row tiles, `gemm_int8_block_m`);
+  `mlp_bf16(x, w1, w2)` (`_mlp_bf16_kernel`: K2's body with LN, biases and
+  GELU compiled out) and `mlp_int8w(x, w1q, s1, w2q, s2)`
   (`_mlp_int8w_kernel`: row 12's two-pass int8 body with LN, biases and
   GELU compiled out and the lab's divide-form quantisation,
   `csrc/ln_mlp_int8.cu`), with the lab's host weight quantisation
@@ -198,10 +200,18 @@ def mlp_int8w(x, w1q, s1, w2q, s2) -> torch.Tensor:
     return y
 
 
+def gemm_int8_block_m(M: int, N: int, sms: int) -> int:
+    """Rows of c per block of the int8 GEMM (`csrc/gemm_lab.cu`): 128 (two
+    consumer warpgroups sharing each b box) unless 128 x 128 tiles would
+    leave SMs idle, then 64."""
+    return 64 if (M // 128) * (N // 128) < sms else 128
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Row 21's `_gemm`: a [M, K] @ b [K, N], both bf16 (fp32 accumulate,
     bf16 out) or both int8 (s32 accumulate, int8 out by wrap-around).
-    M and N multiples of 128; K a multiple of 32 (bf16) or 64 (int8)."""
+    M and N multiples of 128; K a multiple of 32 (bf16) or 64 (int8).
+    int8: the kernel reads b^T, made inside the call."""
     if not kernels.dispatch_device(a, b):
         return gemm_reference(a, b)
     name = {torch.bfloat16: "gemm_bf16", torch.int8: "gemm_int8"}.get(a.dtype)
@@ -215,9 +225,12 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (a.is_contiguous() and b.is_contiguous()) or a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError(f"{name}: operands must be contiguous and 16-byte aligned")
     c = torch.empty((M, N), device=a.device, dtype=a.dtype)
-    code = _INT8_CODE if a.dtype == torch.int8 else kernels.DTYPE_CODES[torch.bfloat16]
-    err = kernels.lib().mspi_gemm_lab(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, code,
-                                      kernels.stream_handle(a))
+    bt, block_m, code = None, 0, kernels.DTYPE_CODES[torch.bfloat16]
+    if a.dtype == torch.int8:
+        bt = torch.empty((N, K), device=a.device, dtype=torch.int8)  # b^T, K-major
+        block_m, code = gemm_int8_block_m(M, N, kernels.num_sms(a)), _INT8_CODE
+    err = kernels.lib().mspi_gemm_lab(a.data_ptr(), b.data_ptr(), c.data_ptr(), kernels.ptr(bt),
+                                      M, N, K, code, block_m, kernels.stream_handle(a))
     kernels.check(err, name)
     kernels.launches[name] += 1
     return c

@@ -11,8 +11,8 @@ fused_attention_rel`, `::fused_self_attention`, `::fused_attention` and
 `mspi_tpu_torch/csrc/attention_rel.cu` (K1 and row 8),
 `csrc/self_attention.cu`, `csrc/attention.cu` (row 6) and their shared
 flash body `csrc/flash_attention.cuh`; every backward in
-`csrc/attention_bwd.cu` (K1's in bf16 in `csrc/attention_rel_bwd_sm90.cu`;
-row 8's is K1's after a layout change).
+`csrc/attention_bwd.cu` (K1's in bf16 in `csrc/attention_rel_bwd_sm90.cu`,
+in the form `rel_bwd_form` names; row 8's is K1's after a layout change).
 
 All four are `torch.autograd.Function`s: on the card the forward kernel
 also writes the rows' log-sum-exp when a gradient is needed, and the
@@ -34,7 +34,8 @@ PACKED_D = 96  # row 8's head dim (MViT)
 AUG_DA = (113, 144)  # row 6's q_aug/k_aug widths, zero-filled to 128 or 144 lanes
 AUG_DV = 96  # row 6's value width (MViT heads)
 BWD_TILE = 64  # query and key tile of the backward kernels
-REL_BWD_BF16 = (96, 64)  # the bf16 K1 backward's head dim and largest rel width
+REL_BWD_D = 96  # the bf16 K1 backward's head dim (every K1 call of MViTv2-S)
+REL_BWD_SM90_MAX_R = 64  # the widest rel width of its passes compiled per RS
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
@@ -62,6 +63,19 @@ def _segments(q: torch.Tensor, nq: int, nk: int, bh: int) -> int:
     q_tiles = -(-nq // BWD_TILE)
     blocks = -(-nk // BWD_TILE) * bh
     return max(1, min(q_tiles, -(-2 * kernels.num_sms(q) // blocks)))
+
+
+def rel_bwd_form(R: int) -> Tuple[str, int]:
+    """The bf16 K1 backward's form at rel width R, as
+    `csrc/attention_rel_bwd_sm90.cu` chooses it, and its RS = max(2,
+    ceil(R / 16)) rel k-steps (the `rel_pad` scratch has 16 RS columns):
+    ("sm90", RS), the passes compiled per RS with drel and E's fragments in
+    registers, up to R = 64; ("sm90_wide", RS), the form with RS at run time
+    and drel and E's rows in shared memory, above."""
+    if R <= 0:
+        raise ValueError(f"rel width {R}")
+    rs = max(2, -(-R // 16))
+    return ("sm90" if R <= REL_BWD_SM90_MAX_R else "sm90_wide"), rs
 
 
 def _softmax_backward(p, v, dout, out):
@@ -142,17 +156,16 @@ def attention_rel_backward(q, k, v, rel, out, lse, k_shape, scale: float, dout):
         raise ValueError(f"{name}: needs the forward's fp32 lse [{B * H}, {Nq}]")
     _check_aligned(name, q, k, v, rel, out, dout)
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and (D != REL_BWD_BF16[0] or R > REL_BWD_BF16[1]):
-        raise ValueError(f"{name}: the bf16 kernel takes head dim {REL_BWD_BF16[0]} and rel "
-                         f"width <= {REL_BWD_BF16[1]}, got D {D}, R {R}")
+    if bf16 and D != REL_BWD_D:
+        raise ValueError(f"{name}: the bf16 kernel takes head dim {REL_BWD_D}, got {D}")
     segments = _segments(q, Nq, Nk, B * H)
     f32 = dict(device=q.device, dtype=torch.float32)
     delta = torch.empty((B * H, Nq), **f32)
     dk_part = torch.empty((segments, B * H, Nk, D), **f32)
     dv_part = torch.empty_like(dk_part)
-    # the bf16 passes' rel rows at the pitch of their rel k-steps, 16 columns
-    # each, at least 2 (`csrc/attention_rel_bwd_sm90.cu`, RS)
-    rel_pad = q.new_empty((B * H, Nq, 16 * max(2, -(-R // 16)))) if bf16 else None
+    # the bf16 passes' rel rows at the pitch of their rel k-steps, 16
+    # columns each (`rel_bwd_form`)
+    rel_pad = q.new_empty((B * H, Nq, 16 * rel_bwd_form(R)[1])) if bf16 else None
     dq, dk, dv, drel = (torch.empty_like(t) for t in (q, k, v, rel))
     err = kernels.lib().mspi_attention_rel_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(),

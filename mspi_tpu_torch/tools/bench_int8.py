@@ -9,7 +9,8 @@ Counterpart of the JAX package's `tools/bench_int8.py`, at a square GEMM
 
   gemm_bf16   `ops/kernels/lab.py::gemm` in bf16: wgmma fed by TMA, fp32
               accumulate, bf16 out (library: torch.matmul)
-  gemm_int8   the same in int8: mma.sync s8 x s8 -> s32, int8 out by
+  gemm_int8   the same in int8: wgmma s8 x s8 -> s32 on a and b^T (the
+              transposed copy made inside the call), int8 out by
               wrap-around, held exactly (library: torch._int_mm(a, b) cut
               to int8)
   mlp_bf16    x W1 -> bf16 -> W2 -> bf16, no bias, no GELU (K2's body)

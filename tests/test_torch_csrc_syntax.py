@@ -160,7 +160,8 @@ typedef uint32_t cuuint32_t;
 typedef uint64_t cuuint64_t;
 enum CUresult { CUDA_SUCCESS = 0 };
 struct alignas(64) CUtensorMap { unsigned long long opaque[16]; };
-enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 };
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_UINT8 = 0,
+                           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 };
 enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 };
 enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_128B = 3 };
 enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_L2_128B = 2 };

@@ -217,3 +217,19 @@ def test_backward_references_match_autograd(rng, kernel):
         w = w.numpy()
         np.testing.assert_allclose(g.double().numpy(), w,
                                    atol=1e-5 * max(1.0, np.abs(w).max()), rtol=0, err_msg=str(i))
+
+
+# R = 8 + H/16 + W/16 for MViTv2-S's blocks that pool keys to (8, H/16, W/16):
+# 27 and 46 at 224x384, 52 at 256x448, 64 at 256x640, 66 at 288x640
+@pytest.mark.parametrize("R", range(27, 67))
+def test_rel_bwd_form(R):
+    """The bf16 K1 backward's form at every rel width the CLIs reach, with
+    RS = max(2, ceil(R / 16)) rel k-steps (rel_pad holds R): up to R = 64
+    the passes compiled for the three RS that csrc/attention_rel_bwd_sm90.cu
+    instantiates, above them the wide form."""
+    form, rs = PA.rel_bwd_form(R)
+    assert rs >= 2 and 16 * (rs - 1) < max(R, 17) <= 16 * rs
+    assert form == ("sm90" if R <= 64 else "sm90_wide")
+    if form == "sm90":
+        assert rs in (2, 3, 4)
+

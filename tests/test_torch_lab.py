@@ -118,6 +118,15 @@ def test_gemm_matches_pallas_lab(rng, dtype, M, K, N):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("G,sms,block_m", [(1024, 132, 64), (4096, 132, 128), (2048, 132, 128),
+                                            (1536, 132, 128), (1408, 132, 64)])
+def test_gemm_int8_block_m(G, sms, block_m):
+    """The int8 GEMM's tile rows: 128 once 128 x 128 tiles fill the SMs
+    (G / 128 squared >= 132 on the H100), else 64 (128 blocks at the lab's
+    1024^3)."""
+    assert lab.gemm_int8_block_m(G, G, sms) == block_m
+
+
 def _mlp_operands(rng, B=2, N=64, C=32, H=128):
     return _f32(rng, B, N, C), _f32(rng, C, H, scale=0.1), _f32(rng, H, C, scale=0.1)
 
