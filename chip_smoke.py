@@ -12,7 +12,9 @@ first failure (there is no CPU path):
    inference shapes (batch 8) of the MViTv2-S and VideoSwin-S models, in
    fp32 and bf16, with CUDA-event times of both and of the library call
    that computes the same function; K4 also at the training shape (batch
-   2) with the row log-sum-exp that its backward reads;
+   2) with the row log-sum-exp that its backward reads; K2 at its nine
+   shapes and K3 at the prior's four, each weighted by its blocks per
+   forward, and their bf16 runs (the wgmma body) twice, bit-identical;
 4. main path: `predict_video` of the bf16 MViTv2-S AudioVisualSaliencyModel
    at 224x384 (seeded random weights) on 31 synthetic frames and a 16 kHz
    waveform; checks the maps and each kernel's launch count;
@@ -20,7 +22,8 @@ first failure (there is no CPU path):
    versions), by the correlation of the log-density maps;
 6. backward: each backward kernel against its plain version at the
    training shapes (batch 2) of both models, fp32 and bf16, with times;
-   the bf16 K1 backward (row 5) and window backward (row 16) run twice at
+   the bf16 K1 backward (row 5), window backward (row 16) and K4 backward
+   (row 7's K4 part, at D = 128 and, checked only, D = 96) run twice at
    each of their shapes and must give bit-identical gradients; row 5 also
    at the rel widths of 256x448 (R = 52) and 288x640 (R = 66, its wide
    form), checked and timed beside SDPA, out of the sums;
@@ -61,7 +64,8 @@ first failure (there is no CPU path):
 20. relk0_training, relk0_train_parity: phases 7 and 8 on MViTv2-S with
    attn_relk=False and dwconv (rows 6, 7 and 18 with its dx);
 21. mlp_kernels: the fused MLP without LayerNorm (row 13) against its plain
-   version at K2's six shapes (batch 8), its backward (row 14) at batch 2,
+   version at K2's nine shapes (batch 8, bf16 twice, bit-identical), its
+   backward (row 14) at batch 2,
    fp32 and bf16; then its path: one `maybe_fused_mlp` forward and
    backward through the port's MViT `Mlp` (C 96), exactly one launch of
    each;
@@ -102,13 +106,16 @@ KERNELS = {
     # name: (source, TPU kernel it replaces)
     "attention_rel": ("mspi_tpu_torch/csrc/attention_rel.cu",
                       "mspi_tpu/ops/pallas/pooled_attention.py:622"),
-    "ln_mlp": ("mspi_tpu_torch/csrc/ln_mlp.cu", "mspi_tpu/ops/pallas/mlp.py:495"),
-    "ln_mlp_prior": ("mspi_tpu_torch/csrc/ln_mlp.cu", "mspi_tpu/ops/pallas/mlp.py:751"),
+    # K2, K3, rows 10 and 13 in bf16 (timed); fp32 runs ln_mlp.cuh's FMA body
+    "ln_mlp": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh", "mspi_tpu/ops/pallas/mlp.py:495"),
+    "ln_mlp_prior": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh", "mspi_tpu/ops/pallas/mlp.py:751"),
     "self_attention": ("mspi_tpu_torch/csrc/self_attention.cu",
                        "mspi_tpu/ops/pallas/pooled_attention.py:761"),
     # bf16 (timed); fp32 runs attention_bwd.cu's FMA passes
     "attention_rel_bwd": ("mspi_tpu_torch/csrc/attention_rel_bwd_sm90.cu",
                           "mspi_tpu/ops/pallas/pooled_attention.py:385"),
+    # K4's part in bf16 in self_attention_bwd_sm90.cu; row 7 head-major (bf16
+    # WMMA) and fp32 in attention_bwd.cu
     "attention_bwd": ("mspi_tpu_torch/csrc/attention_bwd.cu",
                       "mspi_tpu/ops/pallas/pooled_attention.py:172"),
     "ln_mlp_bwd": ("mspi_tpu_torch/csrc/ln_mlp_bwd.cu", "mspi_tpu/ops/pallas/mlp.py:445"),
@@ -119,14 +126,15 @@ KERNELS = {
     "window_attention_bwd": ("mspi_tpu_torch/csrc/window_attention_bwd.cu",
                              "mspi_tpu/ops/pallas/attention.py:233"),
     "ln_mlp_int8": ("mspi_tpu_torch/csrc/ln_mlp_int8.cu", "mspi_tpu/ops/pallas/mlp.py:985"),
-    "ln_mlp_prior_res": ("mspi_tpu_torch/csrc/ln_mlp.cu", "mspi_tpu/ops/pallas/mlp.py:778"),
+    "ln_mlp_prior_res": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh",
+                         "mspi_tpu/ops/pallas/mlp.py:778"),
     "layernorm_tokens": ("mspi_tpu_torch/csrc/layernorm.cu", "mspi_tpu/ops/pallas/mlp.py:880"),
     "attention": ("mspi_tpu_torch/csrc/attention.cu",
                   "mspi_tpu/ops/pallas/pooled_attention.py:782"),
     "attention_rel_packed": ("mspi_tpu_torch/csrc/attention_rel.cu",
                              "mspi_tpu/ops/pallas/pooled_attention.py:593"),
     "dwconv3d": ("mspi_tpu_torch/csrc/dwconv.cu", "mspi_tpu/ops/pallas/dwconv.py:160"),
-    "mlp": ("mspi_tpu_torch/csrc/ln_mlp.cu", "mspi_tpu/ops/pallas/mlp.py:280"),
+    "mlp": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh", "mspi_tpu/ops/pallas/mlp.py:280"),
     "mlp_bwd": ("mspi_tpu_torch/csrc/ln_mlp_bwd.cu", "mspi_tpu/ops/pallas/mlp.py:232"),
     "dwconv2d": ("mspi_tpu_torch/csrc/dwconv2d.cu", "tools/bench_dwconv.py:81"),
     # row 20: tools/bench_lnmlp.py::_call (:61) with each of its bodies
@@ -295,14 +303,17 @@ def record(records, name, label, dtype, errs_tols, ms, plain_ms, library_ms=None
 
 
 def check_kernel(records, name, label, kernel_fn, plain_fn, inputs, dtype, library_fn=None,
-                 compare=None, weight: float = 1.0):
+                 compare=None, weight: float = 1.0, repeatable: bool = False):
     """Run one forward kernel at one shape against its plain version; record
     the error and the times. By default the plain version runs in fp32 on
     the same dtype-rounded inputs, held to `tolerance`; `compare(out, xs)`
-    replaces that with its own (error, tolerance) pairs."""
+    replaces that with its own (error, tolerance) pairs. `repeatable`: a
+    second bf16 run must give a bit-identical output."""
     xs = [t.to(dtype) if t.is_floating_point() else t for t in inputs]
     out = kernel_fn(*xs)
     torch.cuda.synchronize()
+    if repeatable and dtype == torch.bfloat16:
+        check_repeatable(name, label, lambda: (kernel_fn(*xs),), (out,))
     if compare is None:
         ref = plain_fn(*(t.float() if t.is_floating_point() else t for t in xs))
         errs = [((out.float() - ref).abs().max().item(), tolerance(dtype, ref))]
@@ -322,6 +333,10 @@ def randn_on(gen):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).cuda()
     return randn
+
+
+def added_randn():
+    return randn_on(torch.Generator().manual_seed(99))
 
 
 def mlp_inputs(randn, M, C):
@@ -377,10 +392,15 @@ MVIT_WIDE = (("blk1@256x448", 0, 2, 14336, (8, 16, 28)), ("blk3@256x448", 0, 4, 
 MVIT_R66_RES = (288, 640)
 MVIT_R66 = (("blk1@288x640", 0, 2, 23040, (8, 18, 40)), ("blk3@288x640", 0, 4, 5760, (8, 18, 40)),
             ("blk14@288x640", 0, 8, 1440, (8, 18, 40)))
-# K2 shapes per clip: label, tokens, C, eps
-LN_MLP_SHAPES = (("mvit-s1", 43008, 96, 1e-6), ("mvit-s2", 10752, 192, 1e-6),
-                 ("mvit-s3", 2688, 384, 1e-6), ("mvit-s4", 672, 768, 1e-6),
-                 ("sync", 708, 512, 1e-5), ("decoder0", 21504, 192, 1e-5))
+# K2 shapes per clip: label, tokens, C, eps, and the blocks of the shape in
+# one MViTv2-S and one VideoSwin-S forward (the backbone's stages, the 3
+# SyncBlock blocks, the decoder's 4 blocks); VideoSwin-S's backbone blocks
+# take eps 1e-5, every other call the row's eps
+LN_MLP_SHAPES = (("mvit-s1", 43008, 96, 1e-6, 1, 2), ("mvit-s2", 10752, 192, 1e-6, 2, 2),
+                 ("mvit-s3", 2688, 384, 1e-6, 11, 18), ("mvit-s4", 672, 768, 1e-6, 2, 2),
+                 ("sync", 708, 512, 1e-5, 3, 3), ("decoder0", 21504, 192, 1e-5, 1, 1),
+                 ("decoder1", 5376, 192, 1e-5, 1, 1), ("decoder2", 1344, 192, 1e-5, 1, 1),
+                 ("decoder3", 336, 192, 1e-5, 1, 1))
 
 
 # VideoSwin-S window attention per clip (N = 8*7*7 = 392, D = 32) at the
@@ -451,22 +471,35 @@ def phase_kernels(records) -> None:
             add_bound(records["attention_rel"], dtype, nbytes(*xs, out),
                       4.0 * BATCH * heads * nq * nk * 96, weight=blocks)
         del inputs, xs, out
-    for label, tokens, C, eps in LN_MLP_SHAPES:
-        inputs = mlp_inputs(randn, BATCH * tokens, C)
+    # K2 per MViTv2-S forward (each shape weighted by its blocks); the
+    # VideoSwin-S weights give that model's sum, logged beside it
+    swin = {"ms": 0.0, "bound_ms": 0.0}
+    added = added_randn()
+    for label, tokens, C, eps, blocks, swin_blocks in LN_MLP_SHAPES:
+        inputs = mlp_inputs(added if label in ADDED_SHAPES else randn, BATCH * tokens, C)
         for dtype in (torch.float32, torch.bfloat16):
+            mvit_ms, mvit_bound = records["ln_mlp"]["ms"], records["ln_mlp"]["bound_ms"]
             xs, out = check_kernel(records, "ln_mlp", label, lambda *a, e=eps: ln_mlp(*a, e),
-                                   lambda *a, e=eps: ln_mlp_reference(*a, e), inputs, dtype)
-            add_bound(records["ln_mlp"], dtype, nbytes(*xs, out), 4.0 * BATCH * tokens * C * 4 * C)
-    # K3's call site: the prior's four stages, 16 frames per clip
-    for label, tokens, C in (("prior-s0", 5376, 96), ("prior-s1", 1344, 192),
-                             ("prior-s2", 336, 384), ("prior-s3", 84, 768)):
+                                   lambda *a, e=eps: ln_mlp_reference(*a, e), inputs, dtype,
+                                   weight=blocks, repeatable=True)
+            add_bound(records["ln_mlp"], dtype, nbytes(*xs, out), 4.0 * BATCH * tokens * C * 4 * C,
+                      weight=blocks)
+            for key, mvit in (("ms", mvit_ms), ("bound_ms", mvit_bound)):
+                swin[key] += (records["ln_mlp"][key] - mvit) * swin_blocks / blocks
+        del inputs, xs, out
+    log("kernels", f"ln_mlp per VideoSwin-S forward (its blocks' weights): kernel "
+                   f"{swin['ms']:.3f} ms, bound {swin['bound_ms']:.3f} ms")
+    # K3's call site: the prior's four stages, 16 frames per clip, per forward
+    for label, tokens, C, blocks in PRIOR_SHAPES:
         inputs = mlp_inputs(randn, BATCH * 16 * tokens, C)
         for dtype in (torch.float32, torch.bfloat16):
             xs, out = check_kernel(records, "ln_mlp_prior", label,
                                    lambda *a: ln_mlp_prior(*a, 1e-6),
-                                   lambda *a: ln_mlp_reference(*a, 1e-6), inputs, dtype)
+                                   lambda *a: ln_mlp_reference(*a, 1e-6), inputs, dtype,
+                                   weight=blocks, repeatable=True)
             add_bound(records["ln_mlp_prior"], dtype, nbytes(*xs, out),
-                      4.0 * BATCH * 16 * tokens * C * 4 * C)
+                      4.0 * BATCH * 16 * tokens * C * 4 * C, weight=blocks)
+        del inputs, xs, out
     # K4: SyncBlock, N = 672 + 36
     inputs = [randn(BATCH, 708, 512), randn(BATCH, 708, 1024)]
     for dtype in (torch.float32, torch.bfloat16):
@@ -521,9 +554,14 @@ def phase_kernels(records) -> None:
 # Row 12 shapes per clip (MViTv2-S; VideoSwin-S's stage 3 and 4 have the
 # same token counts): label, tokens, C
 INT8_SHAPES = (("mvit-s3", 2688, 384), ("mvit-s4", 672, 768), ("sync", 708, 512))
-# The prior's stages per frame (16 frames per clip): label, tokens, C
-PRIOR_SHAPES = (("prior-s0", 5376, 96), ("prior-s1", 1344, 192), ("prior-s2", 336, 384),
-                ("prior-s3", 84, 768))
+# Checks added after a phase's shapes were first timed draw their inputs
+# from a generator of their own (`added_randn`), so that every check before
+# them in the phase keeps the inputs it had
+ADDED_SHAPES = ("decoder1", "decoder2", "decoder3", "sync-d96")
+# The prior's stages per frame (16 frames per clip): label, tokens, C and
+# the stage's blocks (ConvNeXt-T's depths 3, 3, 9, 3)
+PRIOR_SHAPES = (("prior-s0", 5376, 96, 3), ("prior-s1", 1344, 192, 3),
+                ("prior-s2", 336, 384, 9), ("prior-s3", 84, 768, 3))
 # Row 11 call sites per frame: stem.1 and stages_{1,2,3}.downsample.0
 LN_SHAPES = (("stem", 5376, 96), ("ds1", 5376, 96), ("ds2", 1344, 192), ("ds3", 336, 384))
 
@@ -565,7 +603,7 @@ def serving_kernels(records, randn) -> None:
             add_bound(records["ln_mlp_int8"], dtype, nbytes(*xs, out, *ops),
                       4.0 * M * C * H, PEAK_INT8_OPS)
         del x32, xs, out
-    for label, tokens, C in PRIOR_SHAPES:
+    for label, tokens, C, blocks in PRIOR_SHAPES:
         M = BATCH * 16 * tokens
         inputs = mlp_inputs(randn, M, C)
         inputs[1:1] = [randn(M, C), 0.2 + randn(C, scale=0.05)]  # shortcut, gamma
@@ -573,9 +611,9 @@ def serving_kernels(records, randn) -> None:
             xs, out = check_kernel(records, "ln_mlp_prior_res", label,
                                    lambda *a: K2.ln_mlp_prior_res(*a, 1e-6),
                                    lambda *a: K2.ln_mlp_prior_res_reference(*a, 1e-6),
-                                   inputs, dtype)
+                                   inputs, dtype, weight=blocks, repeatable=True)
             add_bound(records["ln_mlp_prior_res"], dtype, nbytes(*xs, out),
-                      4.0 * M * C * 4 * C)
+                      4.0 * M * C * 4 * C, weight=blocks)
         del inputs, xs, out
     for label, tokens, C in LN_SHAPES:
         M = BATCH * 16 * tokens
@@ -668,30 +706,41 @@ def phase_backward(records) -> None:
             add_bound(rec, dtype, nbytes(q, k, v, rel, out, lse, dout, *got),
                       10.0 * B * heads * nq * nk * 96, weight=blocks)
             del got, want, out, lse
-    # the bias-free backward at the SyncBlock shape: N = 672 + 36, C 512, 4 heads
-    N, C, heads = 708, 512, 4
-    inputs = [randn(B, N, C), randn(B, N, 2 * C), randn(B, N, C)]
-    for dtype in (torch.float32, torch.bfloat16):
-        q, kv, dout = (t.to(dtype) for t in inputs)
-        out, lse = PA._self_attention_fwd(q, kv, heads, with_lse=True)
-        bwd = lambda: PA.self_attention_backward(q, kv, out, lse, heads, dout)
-        got = bwd()
-        torch.cuda.synchronize()
-        want = PA.self_attention_backward_reference(q.float(), kv.float(), heads, dout.float())
-        errs = compare_grads(("dq", "dk", "dv"), split_kv(got, C), split_kv(want, C), dtype)
-        ms = time_ms(bwd)
-        plain_ms = time_ms(lambda: PA.self_attention_backward_reference(q, kv, heads, dout))
-        lib_ms = None
-        if dtype == torch.bfloat16:
-            qh, kh, vh, doh = (heads_major(t, heads) for t in
-                               (q, kv[..., :C], kv[..., C:], dout))
-            lib_ms = time_ms(library_grad(sdpa, (qh, kh, vh), doh))
-        record(records, "attention_bwd", "sync", dtype, errs, ms, plain_ms, lib_ms)
-        add_bound(records["attention_bwd"], dtype, nbytes(q, kv, out, lse, dout, *got),
-                  10.0 * B * heads * N * N * (C // heads))
-    for label, tokens, C, eps in LN_MLP_SHAPES:
+    # the bias-free backward (row 7's K4 part) at the SyncBlock shape: N = 672
+    # + 36, C 512, 4 heads (D = 128); and at D = 96 (C 384, no model caller:
+    # checked, out of the sums)
+    N, heads = 708, 4
+    added = added_randn()
+    for label, C, weight in (("sync", 512, 1), ("sync-d96", 384, 0)):
+        rn = added if label in ADDED_SHAPES else randn
+        inputs = [rn(B, N, C), rn(B, N, 2 * C), rn(B, N, C)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kv, dout = (t.to(dtype) for t in inputs)
+            out, lse = PA._self_attention_fwd(q, kv, heads, with_lse=True)
+            bwd = lambda: PA.self_attention_backward(q, kv, out, lse, heads, dout)
+            got = bwd()
+            torch.cuda.synchronize()
+            want = PA.self_attention_backward_reference(q.float(), kv.float(), heads,
+                                                        dout.float())
+            errs = compare_grads(("dq", "dk", "dv"), split_kv(got, C), split_kv(want, C), dtype)
+            if dtype == torch.bfloat16:
+                check_repeatable("attention_bwd", label, bwd, got)
+            ms = time_ms(bwd)
+            plain_ms = time_ms(lambda: PA.self_attention_backward_reference(q, kv, heads, dout))
+            lib_ms = None
+            if dtype == torch.bfloat16:
+                qh, kh, vh, doh = (heads_major(t, heads) for t in
+                                   (q, kv[..., :C], kv[..., C:], dout))
+                lib_ms = time_ms(library_grad(sdpa, (qh, kh, vh), doh))
+            record(records, "attention_bwd", label, dtype, errs, ms, plain_ms, lib_ms,
+                   weight=weight)
+            add_bound(records["attention_bwd"], dtype, nbytes(q, kv, out, lse, dout, *got),
+                      10.0 * B * heads * N * N * (C // heads), weight=weight)
+            del got, want, out, lse
+    for label, tokens, C, eps, *_ in LN_MLP_SHAPES:
         M = B * tokens
-        inputs = mlp_inputs(randn, M, C) + [randn(M, C)]
+        rn = added if label in ADDED_SHAPES else randn
+        inputs = mlp_inputs(rn, M, C) + [rn(M, C)]
         for dtype in (torch.float32, torch.bfloat16):
             xs = [t.to(dtype) for t in inputs]
             bwd = lambda: K2.ln_mlp_backward(*xs[:7], eps, xs[7])
@@ -945,18 +994,20 @@ def phase_mlp_kernels(records) -> dict:
     from mspi_tpu_torch.ops.kernels import ln_mlp as K2
 
     randn = randn_on(torch.Generator().manual_seed(41))
-    for label, tokens, C, _ in LN_MLP_SHAPES:
+    added = added_randn()
+    for label, tokens, C, *_ in LN_MLP_SHAPES:
         M = BATCH * tokens
-        x, _, _, w1, b1, w2, b2 = mlp_inputs(randn, M, C)
+        x, _, _, w1, b1, w2, b2 = mlp_inputs(added if label in ADDED_SHAPES else randn, M, C)
         for dtype in (torch.float32, torch.bfloat16):
             xs, out = check_kernel(records, "mlp", label, K2.fused_mlp, K2.mlp_reference,
-                                   [x, w1, b1, w2, b2], dtype)
+                                   [x, w1, b1, w2, b2], dtype, repeatable=True)
             add_bound(records["mlp"], dtype, nbytes(*xs, out), 4.0 * M * C * 4 * C)
         del x, xs, out
-    for label, tokens, C, _ in LN_MLP_SHAPES:
+    for label, tokens, C, *_ in LN_MLP_SHAPES:
         M = TRAIN_BATCH * tokens
-        x, _, _, w1, b1, w2, b2 = mlp_inputs(randn, M, C)
-        inputs = [x, w1, b1, w2, b2, randn(M, C)]
+        rn = added if label in ADDED_SHAPES else randn
+        x, _, _, w1, b1, w2, b2 = mlp_inputs(rn, M, C)
+        inputs = [x, w1, b1, w2, b2, rn(M, C)]
         for dtype in (torch.float32, torch.bfloat16):
             xs = [t.to(dtype) for t in inputs]
             bwd = lambda: K2.mlp_backward(*xs)
@@ -1323,7 +1374,9 @@ def phase_train_parity(tag: str, encoder: str) -> None:
 # two passes in its three rel widths (RS = 2, 3, 4) and its wide form (R >
 # 64), row 19 in both dtypes
 # and tile widths, row 18's bf16 ring kernel in its two tiles (warp outputs
-# OH x OW), and row 21's wgmma GEMMs (int8 at 64 and 128 rows per block)
+# OH x OW), row 21's wgmma GEMMs (int8 at 64 and 128 rows per block), the
+# bf16 K4 backward's two passes at D = 96 and 128, and the wgmma LN+MLP body
+# at every C as K2 (LN), row 10 (LN, RES) and row 13
 SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3E",
                 "flash_attention_sm90_kernelILi96ELi0ELi3E",
                 "flash_attention_sm90_kernelILi128ELi0ELi0E", "window_bwd_dq_sm90_kernel",
@@ -1334,13 +1387,17 @@ SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3E",
                 *(f"dwconv2d_sm90_kernelI{t}Li{tw}E" for t in ("f", "13__nv_bfloat16")
                   for tw in (16, 32)),
                 *(f"dwconv3d_sm90_kernelILi{oh}ELi{ow}E" for oh, ow in ((4, 8), (7, 6))),
-                "gemm_bf16_sm90_kernel", "gemm_s8_sm90_kernelILi1E", "gemm_s8_sm90_kernelILi2E")
+                "gemm_bf16_sm90_kernel", "gemm_s8_sm90_kernelILi1E", "gemm_s8_sm90_kernelILi2E",
+                *(f"self_bwd_{p}_sm90_kernelILi{d}E" for p in ("dq", "dkv") for d in (96, 128)),
+                *(f"ln_mlp_sm90_kernelILi{c}ELb{ln}ELb{res}E" for c in (96, 192, 384, 512, 768)
+                  for ln, res in ((1, 0), (1, 1), (0, 0))))
 
 
 def check_ptxas() -> None:
     """The register-resident bodies (the sm90 flash forward of K1, K4, rows
-    8 and 15, the bf16 window and K1 backwards' passes, rows 18 and 19 and
-    the wgmma GEMMs): each instantiation's registers and spills as ptxas
+    8 and 15, the bf16 window, K1 and K4 backwards' passes, rows 18 and 19,
+    the wgmma GEMMs and the wgmma LN+MLP): each instantiation's registers
+    and spills as ptxas
     reported them; a spill fails the run, and so does a missing entry of
     SM90_ENTRIES or an instantiation of the WMMA body
     (`flash_attention_tc_kernel<DK, DV, BIAS>`) other than row 6's

@@ -55,11 +55,12 @@
 // at a time and zero-filled to DK = Da rounded up to 16 in shared memory;
 // only the first Da columns of dq and dk are written, and dk's partials are
 // kept at width Da.
-//   bf16 (self, aug): every product on the tensor cores (WMMA 16x16x16,
-//         fp32 accumulate); P and dS rounded to bf16 where they enter a
-//         product, as the TPU kernel rounds them to v's dtype. The bf16 rel
-//         backward (K1) runs attention_rel_bwd_sm90.cu's register-resident
-//         passes instead, and this file's reduce when it has segments.
+//   bf16 (aug): every product on the tensor cores (WMMA 16x16x16, fp32
+//         accumulate); P and dS rounded to bf16 where they enter a product,
+//         as the TPU kernel rounds them to v's dtype. The bf16 rel (K1) and
+//         self (K4) backwards run attention_rel_bwd_sm90.cu's and
+//         self_attention_bwd_sm90.cu's register-resident passes instead (K1
+//         with this file's reduce when it has segments, K4 with its own).
 //   fp32 (every mode, window included): the FMA pipes (tensor cores would
 //         round to TF32).
 // What bounds it on the card: 8*D flops per (query, key) pair in the two
@@ -661,15 +662,7 @@ cudaError_t dispatch_bwd(const BwdArgs& g, int batch, int d, int dtype, cudaStre
       default: return cudaErrorInvalidValue;
     }
   }
-  if constexpr (BIAS != kRelBias) {  // bf16 rel: attention_rel_bwd_sm90.cu
-    if (dtype == kBFloat16) {
-      switch (d) {
-        case 96: return launch_bwd<bf16, 96, 96, BIAS>(g, batch, s);
-        case 128: return launch_bwd<bf16, 128, 128, BIAS>(g, batch, s);
-        default: return cudaErrorInvalidValue;
-      }
-    }
-  }
+  // bf16: attention_rel_bwd_sm90.cu (rel) and self_attention_bwd_sm90.cu (none)
   return cudaErrorInvalidValue;
 }
 
@@ -848,7 +841,9 @@ extern "C" int mspi_attention_rel_bwd(const void* q, const void* k, const void* 
 
 // K4 backward on packed lanes. q, out, dout, dq [B,N,C]; kv, dkv [B,N,2C]
 // (k then v, head-major lanes); lse and delta [B*heads, N] fp32; dk_part,
-// dv_part [segments, B*heads, N, C/heads] fp32 scratch.
+// dv_part [segments, B*heads, N, C/heads] fp32 scratch. bf16 runs
+// self_attention_bwd_sm90.cu's passes (its own reduce when segments > 1),
+// fp32 the FMA passes.
 extern "C" int mspi_self_attention_bwd(const void* q, const void* kv, const void* out,
                                        float* lse, const void* dout, void* dq, void* dkv,
                                        float* delta, float* dk_part, float* dv_part,
@@ -890,7 +885,21 @@ extern "C" int mspi_self_attention_bwd(const void* q, const void* kv, const void
   g.dvs = a.vs;
   g.dq_scale = a.scale;
   g.dk_scale = a.scale;
-  return mspi::dispatch_bwd<mspi::kNoBias>(g, B, D, dtype, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mspi::kBFloat16) {
+    mspi::RelBwdArgs w{};
+    w.f = a;
+    w.dout = dout;
+    w.dq = dq;
+    w.dk = g.dk;
+    w.dv = g.dv;
+    w.delta = delta;
+    w.dk_part = dk_part;
+    w.dv_part = dv_part;
+    w.segments = segments;
+    return mspi::self_attention_bwd_sm90(w, B, D, s);
+  }
+  return mspi::dispatch_bwd<mspi::kNoBias>(g, B, D, dtype, s);
 }
 
 // Window attention backward on packed qkv. qkv, dqkv [B_, N, 3C] (lane order

@@ -649,5 +649,9 @@ struct RelBwdArgs {
   int segments, qtiles_per_seg;
 };
 cudaError_t attention_rel_bwd_sm90(const RelBwdArgs& w, int batch, int d, cudaStream_t stream);
+// The bf16 K4 backward (self_attention_bwd_sm90.cu; the same two passes
+// without the rel chain, then its own reduce of the segments) on the same
+// arguments: rel, drel and rel_pad unused, Nq = Nk; head dim 96 or 128.
+cudaError_t self_attention_bwd_sm90(const RelBwdArgs& w, int batch, int d, cudaStream_t stream);
 
 }  // namespace mspi

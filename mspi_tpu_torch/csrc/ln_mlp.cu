@@ -24,8 +24,13 @@
 // LayerNorm stage compiled out, the x tile going into the shared-memory
 // tile that z fills otherwise. The JAX entry pads N to its row tile; here
 // rows past M are guarded, as in K2.
+//
+// Bodies: bf16 runs ln_mlp_sm90.cuh's wgmma + TMA kernel (K2 and K3, row 10
+// with RES, row 13 without LN); fp32 runs ln_mlp.cuh's FMA-pipe kernel. The
+// kernel labs (lnmlp_lab.cu) keep ln_mlp.cuh's WMMA body.
 
 #include "ln_mlp.cuh"
+#include "ln_mlp_sm90.cuh"
 
 namespace mspi {
 namespace {
@@ -34,6 +39,7 @@ using K2 = MlpVariant<kLnTwoPass>;
 using K2Res = MlpVariant<kLnTwoPass, true, true, true>;
 using Row13 = MlpVariant<kLnNone>;
 
+// fp32: ln_mlp.cuh's FMA-pipe body
 template <typename T, class V>
 cudaError_t dispatch_c(const MlpArgs& a, int C, cudaStream_t s) {
   switch (C) {
@@ -47,9 +53,23 @@ cudaError_t dispatch_c(const MlpArgs& a, int C, cudaStream_t s) {
 }
 
 template <class V>
+cudaError_t dispatch_sm90(const MlpArgs& a, int C, cudaStream_t s) {
+  static_assert(V::LN == kLnTwoPass || V::LN == kLnNone, "the sm90 body's LayerNorm");
+  constexpr bool LN = V::LN == kLnTwoPass;
+  switch (C) {
+    case 96: return launch_ln_mlp_sm90<96, LN, V::RES>(a, s);
+    case 192: return launch_ln_mlp_sm90<192, LN, V::RES>(a, s);
+    case 384: return launch_ln_mlp_sm90<384, LN, V::RES>(a, s);
+    case 512: return launch_ln_mlp_sm90<512, LN, V::RES>(a, s);
+    case 768: return launch_ln_mlp_sm90<768, LN, V::RES>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class V>
 cudaError_t dispatch_dtype(const MlpArgs& a, int C, int dtype, cudaStream_t s) {
   if (dtype == kFloat32) return dispatch_c<float, V>(a, C, s);
-  if (dtype == kBFloat16) return dispatch_c<__nv_bfloat16, V>(a, C, s);
+  if (dtype == kBFloat16) return dispatch_sm90<V>(a, C, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
-// The fused (LayerNorm +) MLP forward body shared by K2, rows 10 and 13 (ln_mlp.cu)
-// and the kernel labs (lnmlp_lab.cu): y = fc2(act(fc1(norm(x)))) on token-major
-// rows x [M, C].
+// The fused (LayerNorm +) MLP forward bodies of fp32 K2, rows 10 and 13
+// (ln_mlp.cu; their bf16 calls run ln_mlp_sm90.cuh's wgmma body) and of the
+// kernel labs (lnmlp_lab.cu, bf16 on the WMMA body below): y =
+// fc2(act(fc1(norm(x)))) on token-major rows x [M, C].
 //
 // A variant (MlpVariant) fixes at compile time what the body computes:
 //   LN    kLnNone: z = x; kLnTwoPass: K2's LayerNorm (mean, then the centred

@@ -12,6 +12,10 @@ no backward (the prior is frozen). Kernel sources:
 `ln_mlp` is a `torch.autograd.Function`: it saves x and the weights and
 its backward recomputes LN, u and h from them, as the TPU kernel does.
 
+In bf16 every forward here except row 12 runs the wgmma + TMA body of
+`csrc/ln_mlp_sm90.cuh` in the launch form `sm90_form` mirrors; fp32 runs
+`csrc/ln_mlp.cuh`'s FMA-pipe body, and the kernel labs its WMMA body.
+
 Weights come in `nn.Linear` layout: w1 [H, C], w2 [C, H]. Residual,
 drop-path and layer-scale stay with the caller, except in
 `ln_mlp_prior_res`.
@@ -47,6 +51,7 @@ from torch import nn
 from mspi_tpu_torch.ops import kernels
 
 SUPPORTED_C = (96, 192, 384, 512, 768)
+SM90_HC = 64  # the bf16 body's hidden units per chunk (H % 64 == 0)
 INT8_C = (256, 384, 512, 768)  # widths the int8 kernel is compiled for
 QUANT_MIN_C = 256  # the JAX package's QUANT_MIN_C: narrower blocks stay on K2
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -189,6 +194,22 @@ def mlp_backward_reference(x, w1, b1, w2, b2, dy):
     return dx.to(dt).reshape(x.shape), du_c.T @ xf, du.sum(0), dyf.T @ h, dyf.sum(0)
 
 
+def sm90_form(C: int) -> Tuple[int, int, int, bool]:
+    """The bf16 body's launch form at width C, as `csrc/ln_mlp_sm90.cuh`'s
+    `Form<C>` chooses it: (rows per block, y columns per block, column
+    parts, pipelined). Two consumer warpgroups of 64 rows up to C = 512, one
+    at C = 768 (a 128-row z tile would not fit in shared memory); y's
+    columns whole up to C = 192, else in parts of 192 (C = 384) or 256, each
+    part recomputing fc1 (a 64-row fp32 y wider than 256 columns does not
+    fit beside u and h in a thread's registers); pipelined (chunk j's GELU
+    beside chunk j + 1's fc1, u in two register sets) up to C = 192. The
+    grid is (ceil(M / rows), parts)."""
+    if C not in SUPPORTED_C:
+        raise ValueError(f"C={C} not compiled (have {SUPPORTED_C})")
+    cn = C if C <= 192 else 192 if C == 384 else 256
+    return (128 if C <= 512 else 64), cn, C // cn, C <= 192
+
+
 def _check_weights(name, x, g, b, w1, b1, w2, b2):
     dtype = kernels.check_operands(name, x, g, b, w1, b1, w2, b2)
     C = x.shape[-1]
@@ -203,8 +224,9 @@ def _check_weights(name, x, g, b, w1, b1, w2, b2):
     if M >= 2 ** 31:
         raise ValueError(f"{name}: {M} rows exceed the kernel's int range")
     if dtype == kernels.DTYPE_CODES[torch.bfloat16]:
-        # tensor-core path: 64-unit hidden chunks, 32-byte aligned fragments
-        if H % 64:
+        # tensor-core paths: 64-unit hidden chunks, 32-byte aligned operands
+        # (the weights' TMA boxes need 16)
+        if H % SM90_HC:
             raise ValueError(f"{name}: bf16 needs H % 64 == 0, got H={H}")
         if any(t.data_ptr() % 32 for t in (x, g, b, w1, b1, w2, b2)):
             raise ValueError(f"{name}: bf16 operands must be 32-byte aligned")
@@ -221,6 +243,8 @@ def _launch(x, g, b, w1, b1, w2, b2, eps: float, shortcut=None, gamma=None,
         if tuple(shortcut.shape) != tuple(x.shape) or tuple(gamma.shape) != (C,):
             raise ValueError(f"{name}: shortcut {tuple(shortcut.shape)} / gamma "
                              f"{tuple(gamma.shape)} for x {tuple(x.shape)}")
+        if x.dtype == torch.bfloat16 and (shortcut.data_ptr() % 32 or gamma.data_ptr() % 32):
+            raise ValueError(f"{name}: bf16 operands must be 32-byte aligned")
     y = torch.empty_like(x)
     if M == 0:
         return y

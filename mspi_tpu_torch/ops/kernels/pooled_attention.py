@@ -12,7 +12,9 @@ fused_attention_rel`, `::fused_self_attention`, `::fused_attention` and
 `csrc/self_attention.cu`, `csrc/attention.cu` (row 6) and their shared
 flash body `csrc/flash_attention.cuh`; every backward in
 `csrc/attention_bwd.cu` (K1's in bf16 in `csrc/attention_rel_bwd_sm90.cu`,
-in the form `rel_bwd_form` names; row 8's is K1's after a layout change).
+in the form `rel_bwd_form` names; row 8's is K1's after a layout change;
+K4's in bf16 in `csrc/self_attention_bwd_sm90.cu`, in the form
+`self_bwd_form` names).
 
 All four are `torch.autograd.Function`s: on the card the forward kernel
 also writes the rows' log-sum-exp when a gradient is needed, and the
@@ -76,6 +78,36 @@ def rel_bwd_form(R: int) -> Tuple[str, int]:
         raise ValueError(f"rel width {R}")
     rs = max(2, -(-R // 16))
     return ("sm90" if R <= REL_BWD_SM90_MAX_R else "sm90_wide"), rs
+
+
+def self_bwd_form(D: int) -> str:
+    """The bf16 K4 backward's form at head dim D, as
+    `csrc/self_attention_bwd_sm90.cu` chooses it: "kv_registers" (D = 96:
+    the dk/dv pass holds its keys' K and V A fragments in registers) or
+    "kv_shared" (D = 128: K and V rows resident in shared memory, their
+    fragments read by ldmatrix per use, so that dk and dv fit the registers)."""
+    if D not in SUPPORTED_D:
+        raise ValueError(f"head dim {D} not compiled (have {SUPPORTED_D})")
+    return "kv_registers" if D <= 96 else "kv_shared"
+
+
+SELF_BWD_BLOCKS_PER_SM = 2  # the bf16 K4 dk/dv pass's blocks per SM (__launch_bounds__)
+SELF_BWD_MAX_SEGMENTS = 4  # each segment adds fp32 partials of dk and dv to write and sum
+
+
+def self_bwd_segments(n: int, bh: int, sms: int) -> int:
+    """Query-tile segments of the bf16 K4 backward's dk/dv pass at N = n
+    tokens, bh = batch x heads, on `sms` SMs: the count (at most
+    SELF_BWD_MAX_SEGMENTS) that minimises waves of blocks x query tiles per
+    block, the smallest such. At the SyncBlock's training shape (N 708,
+    batch 2 x 4 heads) on the H100's 132 SMs: 2 (192 blocks, one wave of 6
+    tiles each) where `_segments` gives 3 (288 blocks, two waves of 4)."""
+    tiles = -(-n // BWD_TILE)
+    slots = SELF_BWD_BLOCKS_PER_SM * sms
+
+    def cost(s):
+        return -(-tiles * bh * s // slots) * -(-tiles // s)
+    return min(range(1, min(tiles, SELF_BWD_MAX_SEGMENTS) + 1), key=lambda s: (cost(s), s))
 
 
 def _softmax_backward(p, v, dout, out):
@@ -507,7 +539,10 @@ def self_attention_backward(q, kv, out, lse, num_heads: int, dout):
         raise ValueError(f"{name}: needs the forward's fp32 lse [{B * num_heads}, {N}]")
     _check_aligned(name, q, kv, out, dout)
     bh = B * num_heads
-    segments = _segments(q, N, N, bh)
+    if q.dtype == torch.bfloat16:
+        segments = self_bwd_segments(N, bh, kernels.num_sms(q))
+    else:
+        segments = _segments(q, N, N, bh)
     f32 = dict(device=q.device, dtype=torch.float32)
     delta = torch.empty((bh, N), **f32)
     dk_part = torch.empty((segments, bh, N, C // num_heads), **f32)

@@ -1,0 +1,148 @@
+"""Launch forms of the bf16 wgmma LN+MLP body and the bf16 K4 backward, and
+`chip_smoke.py`'s K2/K3 shape tables against the port's own models.
+
+`ln_mlp.sm90_form` and `pooled_attention.self_bwd_form` mirror the choices
+that `csrc/ln_mlp_sm90.cuh` (`Form<C>`) and `csrc/self_attention_bwd_sm90.cu`
+make at launch; the tests hold them to the register and shared-memory
+budgets those choices rest on. The chip run times K2 at `LN_MLP_SHAPES` and
+K3 at `PRIOR_SHAPES`, each shape weighted by its blocks, and reports the
+sums as per-forward times: the shape tests record the K2 and K3 calls of one
+MViTv2-S and one VideoSwin-S AudioVisualSaliencyModel forward at 16x224x384
+on the meta device (shapes only; the kernel functions run their plain
+versions there) and assert that the tables list exactly those calls with
+those multiplicities.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import pytest
+import torch
+
+import chip_smoke
+from mspi_tpu_torch.models import convnext, fusion
+from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
+from mspi_tpu_torch.ops import kernels
+from mspi_tpu_torch.ops.kernels import ln_mlp as K2
+from mspi_tpu_torch.ops.kernels import pooled_attention as PA
+from tests.torch_port_utils import cpu_share
+
+pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
+
+SMEM_LIMIT = 232448  # a block's shared memory on the H100
+CONSUMER_REGS = {2: 240, 1: 255}  # a consumer's registers by consumer warpgroups
+
+
+@pytest.mark.parametrize("C", K2.SUPPORTED_C)
+def test_ln_mlp_sm90_form(C):
+    """The wgmma body's form at every compiled width: 64-row consumer
+    warpgroups (two per block up to C = 512), y's columns whole up to C =
+    192, else in parts of 192 or 256 (wgmma's widest N); y [64, CN], u [64,
+    64] (two of them where pipelined) and h's fragments fit a consumer's
+    registers with room to spare, and the z tile, two W2 slots and at least
+    two W1 slots fit the block's shared memory."""
+    rows, cn, parts, pipelined = K2.sm90_form(C)
+    assert rows in (64, 128) and cn * parts == C and cn % 8 == 0 and cn <= 256
+    assert cn == C if C <= 192 else cn < C
+    assert pipelined == (cn == C)
+    consumers = rows // 64
+    assert cn // 2 + 32 * (2 if pipelined else 1) + 16 <= CONSUMER_REGS[consumers] - 48
+    z = -(-C // 64) * rows * 128
+    assert z + 2 * cn * 128 + 2 * 64 * 128 + 1024 + 256 <= SMEM_LIMIT
+    if consumers == 1:  # 128 rows would not fit
+        assert 2 * z + 2 * cn * 128 + 2 * 64 * 128 + 1024 > SMEM_LIMIT
+    with pytest.raises(ValueError):
+        K2.sm90_form(C + 32)
+
+
+@pytest.mark.parametrize("D", PA.SUPPORTED_D)
+def test_self_bwd_form(D):
+    """The bf16 K4 backward's dk/dv pass at both head dims: K and V A
+    fragments (D / 2 registers each) stay beside dk and dv (D each) only
+    while the four stay well under the 255-register cap (D = 96); at D = 128
+    they come from shared memory."""
+    form = PA.self_bwd_form(D)
+    assert form == ("kv_registers" if 2 * D + D <= 300 else "kv_shared")
+    assert PA.self_bwd_form(128) == "kv_shared"
+    with pytest.raises(ValueError):
+        PA.self_bwd_form(64)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8])
+def test_self_bwd_segments(batch):
+    """The bf16 K4 backward's dk/dv segments at the SyncBlock shape (N 708, 4
+    heads) on the H100's 132 SMs: no other count up to the cap gives fewer
+    waves x query tiles per block, and at the training batch it is 2 (one
+    full wave of 192 blocks)."""
+    bh, sms, tiles = 4 * batch, 132, -(-708 // PA.BWD_TILE)
+    seg = PA.self_bwd_segments(708, bh, sms)
+    slots = PA.SELF_BWD_BLOCKS_PER_SM * sms
+
+    def cost(s):
+        return -(-tiles * bh * s // slots) * -(-tiles // s)
+    assert 1 <= seg <= PA.SELF_BWD_MAX_SEGMENTS
+    assert all(cost(seg) < cost(s) or (cost(seg) == cost(s) and seg <= s)
+               for s in range(1, PA.SELF_BWD_MAX_SEGMENTS + 1))
+    if batch == chip_smoke.TRAIN_BATCH:
+        assert seg == 2
+
+
+@pytest.fixture
+def k2_calls(monkeypatch):
+    """Counters of the K2 calls (rows per clip, C, eps) and K3 calls (rows
+    per clip, C) that one forward of the model makes on the meta device."""
+    dispatch = kernels.dispatch_device
+    monkeypatch.setattr(kernels, "dispatch_device",
+                        lambda *t: False if t[0].device.type == "meta" else dispatch(*t))
+    calls = {"k2": Counter(), "prior": Counter()}
+
+    def spy(kind, fn):
+        def call(x, g, b, w1, b1, w2, b2, eps=1e-6):
+            C = x.shape[-1]
+            calls[kind][(x.numel() // C, C) + ((eps,) if kind == "k2" else ())] += 1
+            return fn(x, g, b, w1, b1, w2, b2, eps)
+        return call
+    monkeypatch.setattr(K2, "ln_mlp", spy("k2", K2.ln_mlp))  # ln_mlp_block's
+    monkeypatch.setattr(fusion, "ln_mlp", spy("k2", fusion.ln_mlp))
+    monkeypatch.setattr(convnext, "ln_mlp_prior", spy("prior", convnext.ln_mlp_prior))
+
+    def forward(encoder):
+        with torch.device("meta"):
+            model = AudioVisualSaliencyModel(chip_smoke.model_config(encoder), device="meta",
+                                             dtype=torch.bfloat16)
+            clips = torch.empty(1, 16, *chip_smoke.RES, 3)
+            audios = torch.empty(1, *chip_smoke.SPECTRO, 1)
+        with torch.no_grad():
+            model(clips, audios)
+        return calls
+    return forward
+
+
+def _prior_want():
+    return Counter({(16 * tokens, C): blocks for _, tokens, C, blocks in chip_smoke.PRIOR_SHAPES})
+
+
+def test_mvit_ln_mlp_shapes(k2_calls):
+    calls = k2_calls("mvitv2s")
+    want = Counter({(tokens, C, eps): blocks
+                    for _, tokens, C, eps, blocks, _ in chip_smoke.LN_MLP_SHAPES})
+    assert calls["k2"] == want
+    assert sum(want.values()) == chip_smoke.PER_FORWARD["mvitv2s"]["ln_mlp"]
+    assert calls["prior"] == _prior_want()
+    assert sum(_prior_want().values()) == chip_smoke.PER_FORWARD["mvitv2s"]["ln_mlp_prior"]
+
+
+def test_videoswin_ln_mlp_shapes(k2_calls):
+    """VideoSwin-S's backbone blocks take eps 1e-5; the SyncBlock and decoder
+    calls are the MViTv2-S model's."""
+    calls = k2_calls("videoswins")
+    assert {eps for *_, eps in calls["k2"]} == {1e-5}
+    got = Counter()
+    for (tokens, C, _), n in calls["k2"].items():
+        got[(tokens, C)] += n
+    want = Counter({(tokens, C): blocks
+                    for _, tokens, C, _, _, blocks in chip_smoke.LN_MLP_SHAPES})
+    assert got == want
+    assert sum(want.values()) == chip_smoke.PER_FORWARD["videoswins"]["ln_mlp"]
+    assert calls["prior"] == _prior_want()

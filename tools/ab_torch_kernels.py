@@ -32,9 +32,35 @@ of `--reps` single calls, after warm-up, as `chip_smoke.py` times):
   (the kernel on dy with the flipped taps) at batch 2, summed per training
   step, each beside grouped `F.conv3d` on the NCDHW-contiguous operand;
 - row 21's int8 GEMM (`lab.gemm` on int8) at 1024^3 and 4096^3, beside
-  `torch._int_mm` cut to int8 (as the lab times it).
+  `torch._int_mm` cut to int8 (as the lab times it);
+- row 7's K4 part, the SyncBlock backward (`self_attention_backward`, from
+  the forward's out and lse) at batch 2, beside SDPA forward + backward;
+- K2 (`ln_mlp`) at `chip_smoke.LN_MLP_SHAPES` at batch 8, summed per
+  MViTv2-S forward and per VideoSwin-S forward (`ln_mlp:swin`), each shape
+  weighted by its blocks, and K3's call site (`ln_mlp_prior`) at
+  `PRIOR_SHAPES` (16 frames per clip), summed per forward, and row 10
+  (`ln_mlp_prior_res`) there too; beside each the unfused chain
+  `F.layer_norm` -> `F.linear` -> `F.gelu` -> `F.linear` (row 10: then
+  `torch.addcmul` with the shortcut) as a yardstick (no one PyTorch call
+  computes the function), and each shape's share of the bf16 peak by
+  device time; with `ln_mlp`, row 13 (`fused_mlp`) at K2's shapes, summed
+  once each;
+- `gelu_floor` (no timing): the issue floor of the bf16 LN+MLP body's
+  GELU from SASS. Two probe kernels are compiled with nvcc for sm_90a into
+  DIR/build/gelu_floor/, each thread taking 32 fp32 values as the body
+  holds one 64-unit chunk of u and adding b1; the `gelu` probe applies the
+  tree's `ln_mlp.cuh` `gelu_erf` (the exact erff) before packing pairs to
+  bf16 as the body repacks h, the `plain` probe packs u + b1 as it is.
+  `cuobjdump -sass` lists both; their difference over 32 is what one
+  hidden element's GELU costs a thread. An SM issues one warp instruction
+  per clock on each of its four sub-partitions (128 thread instructions a
+  clock), so the floor at a shape is M H x that cost over 132 SMs x 128 x
+  the card's top SM clock (`nvidia-smi`'s clocks.max.sm), printed beside
+  the tensor-core bound 16 M C^2 / 989 TFLOP/s at the K2 and K3 shapes
+  and summed per MViTv2-S forward, each shape weighted by its blocks.
 
-For K4, the GEMMs, rows 5, 18 and 19 and their library calls it also
+For K4 and its backward, the GEMMs, rows 5, 18 and 19, K2, K3 and their
+library calls (or chains) it also
 prints the device time per call: torch.profiler's CUDA kernel time over
 `--reps` x 4 calls, divided by the calls (rows 5, 18 and 19: summed like
 the CUDA-event times). A single call's CUDA-event time includes the host's
@@ -61,7 +87,79 @@ import torch
 
 CHECKOUT = Path(__file__).resolve().parents[1]
 SECTIONS = ("attention_rel_packed", "window_attention_bwd", "self_attention", "gemm_bf16",
-            "attention_rel_bwd", "attention_rel_bwd_r66", "dwconv2d", "dwconv3d", "gemm_int8")
+            "attention_rel_bwd", "attention_rel_bwd_r66", "dwconv2d", "dwconv3d", "gemm_int8",
+            "self_attention_bwd", "ln_mlp", "ln_mlp_prior", "gelu_floor")
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core peak, FLOP/s
+SMS, ISSUE_LANES = 132, 128  # H100 SXM: SMs, thread instructions issued per SM per clock
+GELU_PROBE = r"""
+#include "ln_mlp.cuh"
+namespace mspi {
+__global__ void probe_%(name)s(const float* __restrict__ u, const float* __restrict__ b1,
+                               uint32_t* __restrict__ h) {
+  float v[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) v[i] = u[threadIdx.x + 128 * i] + b1[i & 15];
+  uint32_t o[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) o[i] = pack_bf16(%(f)s(v[2 * i]), %(f)s(v[2 * i + 1]));
+#pragma unroll
+  for (int i = 0; i < 16; ++i) h[threadIdx.x + 128 * i] = o[i];
+}
+}  // namespace mspi
+"""
+
+
+def _cuda_tool(name: str) -> str:
+    import shutil
+
+    path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
+    if not Path(path).exists():
+        raise SystemExit(f"ab_torch_kernels: {name} not found (gelu_floor needs the CUDA toolkit)")
+    return path
+
+
+def sass_count(root: Path, name: str, fn: str) -> int:
+    """Instructions in the SASS of the GELU probe `name` applying `fn` (NOP
+    padding and the EXIT/BRA tail excluded)."""
+    import re
+
+    out = root / "build" / "gelu_floor"
+    out.mkdir(parents=True, exist_ok=True)
+    src, cubin = out / f"{name}.cu", out / f"{name}.cubin"
+    src.write_text(GELU_PROBE % {"name": name, "f": fn})
+    subprocess.run([_cuda_tool("nvcc"), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-I", str(root / "mspi_tpu_torch" / "csrc"),
+                    "-o", str(cubin), str(src)], check=True)
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True).stdout
+    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sass)
+    return sum(op.split(".")[0] not in ("NOP", "EXIT", "BRA") for op in ops)
+
+
+def gelu_floor(cs, root: Path) -> dict:
+    """The `gelu_floor` section: the GELU's SASS cost per hidden element and
+    its floor beside the tensor-core bound at the K2 and K3 shapes."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    gelu, plain = sass_count(root, "gelu", "gelu_erf"), sass_count(root, "plain", "")
+    per_elem = (gelu - plain) / 32
+    rate = SMS * ISSUE_LANES * mhz * 1e6  # thread instructions per second
+    print(f"gelu_floor: max SM clock {mhz:g} MHz; probe SASS gelu {gelu}, plain {plain} "
+          f"instructions -> {per_elem:.2f} per hidden element", flush=True)
+    shapes = [(label, cs.BATCH * tokens, C, blocks)
+              for label, tokens, C, _, blocks, _ in cs.LN_MLP_SHAPES]
+    shapes += [(label, cs.BATCH * 16 * tokens, C, blocks)
+               for label, tokens, C, blocks in cs.PRIOR_SHAPES]
+    sums = {"gelu_ms": 0.0, "tensor_ms": 0.0}
+    for label, M, C, blocks in shapes:
+        gelu_us = M * 4 * C * per_elem / rate * 1e6
+        tensor_us = 16.0 * M * C * C / PEAK_BF16 * 1e6
+        sums["gelu_ms"] += blocks * gelu_us / 1e3
+        sums["tensor_ms"] += blocks * tensor_us / 1e3
+        print(f"gelu_floor {label} [{M}, {C}] x{blocks}: GELU floor {gelu_us:.2f} us, tensor "
+              f"bound {tensor_us:.2f} us ({gelu_us / tensor_us:.2f}x)", flush=True)
+    return {"instructions_per_element": per_elem, "per_mvit_forward": sums}
 
 
 def _smoke():
@@ -146,6 +244,24 @@ def main(argv=None) -> dict:
 
     device = {}
 
+    def breakdown(fn, calls):
+        """Device us per call of fn() by kernel name, largest first: the
+        profile with the largest total of three, as `device_us` takes it."""
+        fn()
+        torch.cuda.synchronize()
+        best = []
+        for _ in range(3):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            rows = [(e.key, e.self_device_time_total / calls) for e in prof.key_averages()
+                    if e.self_device_time_total > 0]
+            if sum(us for _, us in rows) > sum(us for _, us in best):
+                best = rows
+        return sorted(best, key=lambda r: -r[1])
+
     def timed(name, fn, library):
         with torch.no_grad():
             sums[name] = time_ms(fn)
@@ -229,9 +345,81 @@ def main(argv=None) -> dict:
         timed(f"gemm_int8:{G}", lambda: gemm(a, b),
               lambda: torch._int_mm(a, b).to(torch.int8))
         del a, b
+    randn, B = cs.randn_on(torch.Generator().manual_seed(11)), cs.TRAIN_BATCH
+    if "self_attention_bwd" in only:  # row 7's K4 part: N 708, C 512, 4 heads
+        q, kv, dout = (randn(B, 708, n).bfloat16() for n in (512, 1024, 512))
+        out, lse = PA._self_attention_fwd(q, kv, 4, with_lse=True)
+        qh, kh, vh, doh = (cs.heads_major(t, 4) for t in (q, kv[..., :512], kv[..., 512:], dout))
+        fn = lambda: PA.self_attention_backward(q, kv, out, lse, 4, dout)  # noqa: E731
+        lib = cs.library_grad(cs.sdpa, (qh, kh, vh), doh)
+        summed("self_attention_bwd", f"b{B}", 1, fn, lib, 4 * args.reps)
+        for tag, f in (("kernel", fn), ("library", lib)):
+            print(f"self_attention_bwd {tag} by kernel: " + "; ".join(
+                f"{name[:60]} {us:.2f} us" for name, us in breakdown(f, 4 * args.reps)[:6]),
+                flush=True)
+        del q, kv, dout, out, lse, qh, kh, vh, doh
+
+    import torch.nn.functional as F
+    from mspi_tpu_torch.ops.kernels import ln_mlp as K2
+
+    def chain(x, g, b, w1, b1, w2, b2, eps):
+        C = x.shape[-1]
+        return lambda: F.linear(F.gelu(F.linear(F.layer_norm(x, (C,), g, b, eps), w1, b1)),
+                                w2, b2)
+
+    def mlp_section(name, kernel, shapes):
+        """K2, K3 or row 10 at each (label, rows, C, eps, weights) into the
+        sums of each weight's key, beside the unfused chain (row 10's with
+        the folded residual)."""
+        randn = cs.randn_on(torch.Generator().manual_seed(1))
+        for label, M, C, eps, weights in shapes:
+            xs = [t.bfloat16() for t in cs.mlp_inputs(randn, M, C)]
+            with torch.no_grad():
+                fn, lib = (lambda: kernel(*xs, eps)), chain(*xs, eps)
+                if name == "ln_mlp_prior_res":  # shortcut + gamma * mlp(LN(x))
+                    sc, gm = randn(M, C).bfloat16(), (0.2 + randn(C, scale=0.05)).bfloat16()
+                    fn = lambda: kernel(xs[0], sc, gm, *xs[1:], eps)  # noqa: E731
+                    lib = (lambda f: lambda: torch.addcmul(sc, gm, f()))(chain(*xs, eps))
+                ms, lib_ms = time_ms(fn), time_ms(lib)
+                us, lib_us = device_us(fn, 2 * args.reps), device_us(lib, 2 * args.reps)
+            for key, weight in weights.items():
+                for k, v in ((key, ms), (key + ":chain", lib_ms)):
+                    sums[k] = sums.get(k, 0.0) + weight * v
+                for k, v in ((key, us), (key + ":chain", lib_us)):
+                    device[k] = device.get(k, 0.0) + weight * v
+            flops = 16.0 * M * C * C
+            print(f"{name} {label} [{M}, {C}] x{weights}: {ms:.4f} ms (device {us:.2f} us, "
+                  f"{flops / (us * 1e-6) / PEAK_BF16:.1%} of the bf16 peak); chain "
+                  f"{lib_ms:.4f} ms (device {lib_us:.2f} us)", flush=True)
+            del xs
+
+    if "ln_mlp" in only:
+        mlp_section("ln_mlp", K2.ln_mlp,
+                    [(label, cs.BATCH * tokens, C, eps, {"ln_mlp": mvit, "ln_mlp:swin": swin})
+                     for label, tokens, C, eps, mvit, swin in cs.LN_MLP_SHAPES])
+    if "ln_mlp_prior" in only:
+        for name in ("ln_mlp_prior", "ln_mlp_prior_res"):  # K3 and row 10
+            mlp_section(name, getattr(K2, name),
+                        [(label, cs.BATCH * 16 * tokens, C, 1e-6, {name: blocks})
+                         for label, tokens, C, blocks in cs.PRIOR_SHAPES])
+    if "ln_mlp" in only:  # row 13, the MLP without its LayerNorm, at K2's shapes
+        randn = cs.randn_on(torch.Generator().manual_seed(41))
+        for label, tokens, C, *_ in cs.LN_MLP_SHAPES:
+            x, _, _, w1, b1, w2, b2 = (t.bfloat16() for t in cs.mlp_inputs(
+                randn, cs.BATCH * tokens, C))
+            with torch.no_grad():
+                fn = lambda: K2.fused_mlp(x, w1, b1, w2, b2)  # noqa: E731
+                ms, us = time_ms(fn), device_us(fn, 2 * args.reps)
+            sums["mlp"] = sums.get("mlp", 0.0) + ms
+            device["mlp"] = device.get("mlp", 0.0) + us
+            print(f"mlp {label}: {ms:.4f} ms (device {us:.2f} us)", flush=True)
+            del x, w1, b1, w2, b2
+    floor = gelu_floor(cs, root) if "gelu_floor" in only else None
     line = {"tree": str(root), "device": smi, "per_forward_or_step_ms": sums,
             "device_us_per_call": device,
             "launches": {k: v for k, v in kernels.launches.items() if v}}
+    if floor is not None:
+        line["gelu_floor"] = floor
     print(json.dumps(line), flush=True)
     return line
 

@@ -43,12 +43,14 @@ from mspi_tpu_torch.train.synthetic import make_batch  # noqa: E402
 # The port's kernels: a name matches when it holds every key. The flash
 # kernels' template arguments are the score and value widths and the bias
 # mode (0 none, 1 rel, 2 dense, 3 rel with the residual epilogue); row 6 is
-# the bias-free kernel with a value width (96) below its score width.
+# the bias-free kernel with a value width (96) below its score width. The
+# bf16 LN+MLP body's are C, LN and RES (row 10: RES true).
 PORT_FAMILIES = (
     ("window attention backward (rows 16/17)", ("window_",)),
     ("window attention backward (rows 16/17)", ("attn_bwd", "2>(")),
     ("K1/K4/row 6 attention backward", ("attn_bwd",)),
     ("K1/K4/row 6 attention backward", ("rel_bwd_",)),
+    ("K1/K4/row 6 attention backward", ("self_bwd_",)),
     ("K2 ln_mlp backward", ("ln_mlp_bwd",)),
     ("K2 ln_mlp backward", ("atb_kernel",)),
     ("K2 ln_mlp backward", ("sum_segments",)),
