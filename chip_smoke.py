@@ -114,11 +114,12 @@ KERNELS = {
     # bf16 (timed); fp32 runs attention_bwd.cu's FMA passes
     "attention_rel_bwd": ("mspi_tpu_torch/csrc/attention_rel_bwd_sm90.cu",
                           "mspi_tpu/ops/pallas/pooled_attention.py:385"),
-    # K4's part in bf16 in self_attention_bwd_sm90.cu; row 7 head-major (bf16
-    # WMMA) and fp32 in attention_bwd.cu
+    # entered in attention_bwd.cu: K4's part in bf16 in self_attention_bwd_sm90.cu,
+    # row 7 head-major in bf16 in attention_aug_bwd_sm90.cu; fp32 its FMA passes
     "attention_bwd": ("mspi_tpu_torch/csrc/attention_bwd.cu",
                       "mspi_tpu/ops/pallas/pooled_attention.py:172"),
-    "ln_mlp_bwd": ("mspi_tpu_torch/csrc/ln_mlp_bwd.cu", "mspi_tpu/ops/pallas/mlp.py:445"),
+    # rows 9 and 14 in bf16 (timed); fp32 runs ln_mlp_bwd.cu's FMA passes
+    "ln_mlp_bwd": ("mspi_tpu_torch/csrc/ln_mlp_bwd_sm90.cuh", "mspi_tpu/ops/pallas/mlp.py:445"),
     "window_attention": ("mspi_tpu_torch/csrc/window_attention.cu",
                          "mspi_tpu/ops/pallas/attention.py:423"),
     # rows 16 (:233, stages 1-2) and 17 (:332, stages 3-4): one kernel here
@@ -135,7 +136,7 @@ KERNELS = {
                              "mspi_tpu/ops/pallas/pooled_attention.py:593"),
     "dwconv3d": ("mspi_tpu_torch/csrc/dwconv.cu", "mspi_tpu/ops/pallas/dwconv.py:160"),
     "mlp": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh", "mspi_tpu/ops/pallas/mlp.py:280"),
-    "mlp_bwd": ("mspi_tpu_torch/csrc/ln_mlp_bwd.cu", "mspi_tpu/ops/pallas/mlp.py:232"),
+    "mlp_bwd": ("mspi_tpu_torch/csrc/ln_mlp_bwd_sm90.cuh", "mspi_tpu/ops/pallas/mlp.py:232"),
     "dwconv2d": ("mspi_tpu_torch/csrc/dwconv2d.cu", "tools/bench_dwconv.py:81"),
     # row 20: tools/bench_lnmlp.py::_call (:61) with each of its bodies
     "lab_matmul": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:78"),
@@ -671,6 +672,8 @@ def library_grad(fn, inputs, dout):
 
 
 def phase_backward(records) -> None:
+    import torch.nn.functional as F
+
     from mspi_tpu_torch.ops.kernels import ln_mlp as K2
     from mspi_tpu_torch.ops.kernels import pooled_attention as PA
 
@@ -737,7 +740,13 @@ def phase_backward(records) -> None:
             add_bound(records["attention_bwd"], dtype, nbytes(q, kv, out, lse, dout, *got),
                       10.0 * B * heads * N * N * (C // heads), weight=weight)
             del got, want, out, lse
-    for label, tokens, C, eps, *_ in LN_MLP_SHAPES:
+    # row 9 at K2's nine shapes, each weighted by its MViTv2-S blocks (per
+    # training step at batch 2); VideoSwin-S's weighting logged beside it, and
+    # the unfused chain F.layer_norm -> F.linear -> F.gelu -> F.linear
+    # (forward + autograd backward; no one PyTorch call computes the
+    # function, so it is no library time)
+    swin = {"kernel": 0.0, "chain": 0.0, "bound": 0.0}
+    for label, tokens, C, eps, mvit_blocks, swin_blocks in LN_MLP_SHAPES:
         M = B * tokens
         rn = added if label in ADDED_SHAPES else randn
         inputs = mlp_inputs(rn, M, C) + [rn(M, C)]
@@ -750,10 +759,29 @@ def phase_backward(records) -> None:
                                                 xs[7].float())
             errs = compare_grads(("dx", "dg", "db", "dw1", "db1", "dw2", "db2"), got, want,
                                  dtype)
+            if dtype == torch.bfloat16:
+                check_repeatable("ln_mlp_bwd", label, bwd, got)
             ms = time_ms(bwd)
             plain_ms = time_ms(lambda: K2.ln_mlp_backward_reference(*xs[:7], eps, xs[7]))
-            record(records, "ln_mlp_bwd", label, dtype, errs, ms, plain_ms)
-            add_bound(records["ln_mlp_bwd"], dtype, nbytes(*xs, *got), 10.0 * M * C * 4 * C)
+            record(records, "ln_mlp_bwd", label, dtype, errs, ms, plain_ms, weight=mvit_blocks)
+            flops = 10.0 * M * C * 4 * C
+            add_bound(records["ln_mlp_bwd"], dtype, nbytes(*xs, *got), flops, weight=mvit_blocks)
+            if dtype == torch.bfloat16:
+                chain_ms = time_ms(library_grad(
+                    lambda x, g, b, w1, b1, w2, b2: F.linear(F.gelu(F.linear(
+                        F.layer_norm(x, (C,), g, b, eps), w1, b1)), w2, b2), xs[:7], xs[7]))
+                bound = max(nbytes(*xs, *got) / HBM_BYTES_PER_S,
+                            flops / PEAK_FLOPS[dtype]) * 1e3
+                for key, v in (("kernel", ms), ("chain", chain_ms), ("bound", bound)):
+                    swin[key] += swin_blocks * v
+                share = flops / (ms * 1e-3) / PEAK_FLOPS[dtype]
+                log("kernels", f"  ln_mlp_bwd {label} bf16: unfused chain (fwd + bwd) "
+                               f"{chain_ms:.3f} ms; kernel {share:.1%} of the bf16 peak")
+            del got, want
+    rec = records["ln_mlp_bwd"]
+    log("kernels", f"ln_mlp_bwd per MViTv2-S step (batch 2): kernel {rec['ms']:.3f} ms, bound "
+                   f"{rec['bound_ms']:.3f} ms; per VideoSwin-S step: kernel {swin['kernel']:.3f} "
+                   f"ms, unfused chain {swin['chain']:.3f} ms, bound {swin['bound']:.3f} ms")
     # rows 16/17: the window backward at the eight VideoSwin variants
     from mspi_tpu_torch.ops.kernels import window_attention as WA
 
@@ -928,6 +956,8 @@ def phase_layout_backward(records) -> None:
             want = PA.attention_backward_reference(q.float(), k.float(), v.float(),
                                                    dout.float())
             errs = compare_grads(("dq", "dk", "dv"), got, want, dtype)
+            if dtype == torch.bfloat16:
+                check_repeatable("attention_bwd", f"{label} Da {MVIT_D + r}", bwd, got)
             ms = time_ms(bwd)
             plain_ms = time_ms(lambda: PA.attention_backward_reference(q, k, v, dout))
             lib_ms = None
@@ -1015,6 +1045,8 @@ def phase_mlp_kernels(records) -> dict:
             torch.cuda.synchronize()
             want = K2.mlp_backward_reference(*(t.float() for t in xs))
             errs = compare_grads(("dx", "dw1", "db1", "dw2", "db2"), got, want, dtype)
+            if dtype == torch.bfloat16:
+                check_repeatable("mlp_bwd", label, bwd, got)
             ms = time_ms(bwd)
             plain_ms = time_ms(lambda: K2.mlp_backward_reference(*xs))
             record(records, "mlp_bwd", label, dtype, errs, ms, plain_ms)
@@ -1375,8 +1407,11 @@ def phase_train_parity(tag: str, encoder: str) -> None:
 # 64), row 19 in both dtypes
 # and tile widths, row 18's bf16 ring kernel in its two tiles (warp outputs
 # OH x OW), row 21's wgmma GEMMs (int8 at 64 and 128 rows per block), the
-# bf16 K4 backward's two passes at D = 96 and 128, and the wgmma LN+MLP body
-# at every C as K2 (LN), row 10 (LN, RES) and row 13
+# bf16 K4 backward's two passes at D = 96 and 128, the wgmma LN+MLP body
+# at every C as K2 (LN), row 10 (LN, RES) and row 13, row 7 head-major's
+# two bf16 passes at both score widths (DK = 128, 144), and the bf16 K2
+# backward's row pass at every C as row 9 (LN) and row 14, and its wgmma
+# products (dz = du W1; the weight gradients A^T B)
 SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3E",
                 "flash_attention_sm90_kernelILi96ELi0ELi3E",
                 "flash_attention_sm90_kernelILi128ELi0ELi0E", "window_bwd_dq_sm90_kernel",
@@ -1390,7 +1425,11 @@ SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3E",
                 "gemm_bf16_sm90_kernel", "gemm_s8_sm90_kernelILi1E", "gemm_s8_sm90_kernelILi2E",
                 *(f"self_bwd_{p}_sm90_kernelILi{d}E" for p in ("dq", "dkv") for d in (96, 128)),
                 *(f"ln_mlp_sm90_kernelILi{c}ELb{ln}ELb{res}E" for c in (96, 192, 384, 512, 768)
-                  for ln, res in ((1, 0), (1, 1), (0, 0))))
+                  for ln, res in ((1, 0), (1, 1), (0, 0))),
+                *(f"aug_bwd_{p}_sm90_kernelILi{dk}E" for p in ("dq", "dkv") for dk in (128, 144)),
+                *(f"ln_mlp_bwd_rows_sm90_kernelILi{c}ELb{ln}E" for c in (96, 192, 384, 512, 768)
+                  for ln in (1, 0)),
+                "wgemm_f32_sm90_kernelILb0E", "wgemm_f32_sm90_kernelILb1E")
 
 
 def check_ptxas() -> None:

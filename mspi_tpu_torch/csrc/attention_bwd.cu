@@ -55,14 +55,12 @@
 // at a time and zero-filled to DK = Da rounded up to 16 in shared memory;
 // only the first Da columns of dq and dk are written, and dk's partials are
 // kept at width Da.
-//   bf16 (aug): every product on the tensor cores (WMMA 16x16x16, fp32
-//         accumulate); P and dS rounded to bf16 where they enter a product,
-//         as the TPU kernel rounds them to v's dtype. The bf16 rel (K1) and
-//         self (K4) backwards run attention_rel_bwd_sm90.cu's and
-//         self_attention_bwd_sm90.cu's register-resident passes instead (K1
-//         with this file's reduce when it has segments, K4 with its own).
 //   fp32 (every mode, window included): the FMA pipes (tensor cores would
-//         round to TF32).
+//         round to TF32). Every bf16 backward runs register-resident passes
+//         on the tensor cores instead: attention_rel_bwd_sm90.cu (K1, with
+//         this file's reduce when it has segments), self_attention_bwd_sm90.cu
+//         (K4), attention_aug_bwd_sm90.cu (the augmented lanes) and
+//         window_attention_bwd.cu (the window).
 // What bounds it on the card: 8*D flops per (query, key) pair in the two
 // passes plus 2*D to recompute S -- the arithmetic; q, k, v, dO are read
 // once per tile of the other side.
@@ -97,12 +95,10 @@ struct BwdArgs {
   int windows;               // window: B_
 };
 
-using bf16 = __nv_bfloat16;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Operand tiles of width D in shared memory: fp32 as they are (pitch D+1),
-// bf16 for WMMA (pitch D+8, a multiple of 8 elements; tiles start on 32-byte
-// boundaries).
+// Operand tiles of width D in shared memory, fp32 (pitch D+1). The passes
+// below run fp32 only: every bf16 backward has register-resident passes of
+// its own (attention_rel_bwd_sm90.cu, self_attention_bwd_sm90.cu,
+// attention_aug_bwd_sm90.cu, window_attention_bwd.cu).
 template <typename T, int D>
 struct Path;
 template <int D>
@@ -110,18 +106,10 @@ struct Path<float, D> {
   using Op = float;
   static constexpr int LD = D + 1;
   static constexpr int LDP = LDS;  // P and dS are the fp32 tiles themselves
-  static constexpr bool kTc = false;
-};
-template <int D>
-struct Path<bf16, D> {
-  using Op = bf16;
-  static constexpr int LD = D + 8;
-  static constexpr int LDP = BM + 8;
-  static constexpr bool kTc = true;
 };
 
 struct Layout {
-  size_t q, dout, k, v, s, dp, p, ds, stage, rel, drel, kidx, lse, delta, dbias, total;
+  size_t q, dout, k, v, s, dp, rel, drel, kidx, lse, delta, dbias, total;
 };
 
 __host__ __device__ inline size_t take(size_t& at, size_t bytes) {
@@ -138,7 +126,6 @@ __host__ __device__ inline Layout layout(int r, int wide = 0) {
   const size_t op_k = sizeof(typename P::Op) * BM * P::LD;
   const size_t op_v = sizeof(typename P::Op) * BM * Path<T, DV>::LD;
   const size_t score = sizeof(float) * BM * LDS;
-  const size_t prob = P::kTc ? sizeof(bf16) * BM * P::LDP : 0;
   Layout L;
   size_t at = 0;
   L.q = take(at, op_k);
@@ -147,9 +134,6 @@ __host__ __device__ inline Layout layout(int r, int wide = 0) {
   L.v = take(at, op_v);
   L.s = take(at, score);
   L.dp = take(at, score);
-  L.p = take(at, prob);
-  L.ds = take(at, prob);
-  L.stage = take(at, P::kTc ? sizeof(float) * 8 * 256 : 0);
   L.rel = take(at, sizeof(float) * BM * r);
   L.drel = take(at, sizeof(float) * BM * r);
   L.kidx = take(at, sizeof(int) * 3 * BM);
@@ -161,19 +145,15 @@ __host__ __device__ inline Layout layout(int r, int wide = 0) {
 }
 
 // rows [t0, t0+64) of a token-major operand (row stride `stride`, D features
-// contiguous) into dst [64][LD]; zeros past n. scale != 1 (fp32 only: the
-// window backward's q_s) multiplies every value.
+// contiguous) into dst [64][LD]; zeros past n. scale != 1 (the window
+// backward's q_s) multiplies every value.
 template <typename T, int D>
 __device__ __forceinline__ void load_op(const T* src, int64_t stride, int t0, int n,
                                         typename Path<T, D>::Op* dst, float scale = 1.f) {
   constexpr int LD = Path<T, D>::LD;
-  if constexpr (Path<T, D>::kTc) {
-    load_rows_bf16<D, THREADS>(src, stride, t0, n, dst, LD);
-  } else {
-    for (int e = threadIdx.x; e < BM * D; e += THREADS) {
-      const int r = e / D, d = e % D;
-      dst[r * LD + d] = (t0 + r < n) ? src[(t0 + r) * stride + d] * scale : 0.f;
-    }
+  for (int e = threadIdx.x; e < BM * D; e += THREADS) {
+    const int r = e / D, d = e % D;
+    dst[r * LD + d] = (t0 + r < n) ? src[(t0 + r) * stride + d] * scale : 0.f;
   }
 }
 
@@ -191,8 +171,6 @@ __device__ __forceinline__ void load_qk(const T* src, int64_t stride, int t0, in
 // The factor load_op applies to q: the fp32 window backward's q_s, else none.
 template <typename T, int BIAS>
 __device__ __forceinline__ float q_load_scale(const AttnArgs& a) {
-  static_assert(!(Path<T, 32>::kTc && BIAS == kDenseBias),
-                "the bf16 window backward is window_attention_bwd.cu's");
   return BIAS == kDenseBias ? a.qscale : 1.f;
 }
 
@@ -201,24 +179,7 @@ template <typename T, int D>
 __device__ __forceinline__ void scores(const typename Path<T, D>::Op* A,
                                        const typename Path<T, D>::Op* B, float* C) {
   constexpr int LD = Path<T, D>::LD;
-  if constexpr (Path<T, D>::kTc) {
-    const int warp = threadIdx.x >> 5, rt = warp >> 1;
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int ct = (warp & 1) * 2 + c;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int d = 0; d < D; d += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, A + rt * 16 * LD + d, LD);
-        wmma::load_matrix_sync(b, B + ct * 16 * LD + d, LD);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(C + rt * 16 * LDS + ct * 16, acc, LDS, wmma::mem_row_major);
-    }
-  } else {
+  {
     const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
     float s[4][4] = {};
 #pragma unroll 4
@@ -275,67 +236,12 @@ struct Acc<float, D> {
     }
   }
   template <typename F>
-  __device__ __forceinline__ void emit(float*, F&& f) const {
+  __device__ __forceinline__ void emit(F&& f) const {
     const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int dd = 0; dd < D / 16; ++dd) f(ty * 4 + i, tx + 16 * dd, v[i][dd]);
-  }
-};
-
-template <int D>
-struct Acc<bf16, D> {
-  static constexpr int LD = Path<bf16, D>::LD;
-  static constexpr int NT = 4 * (D / 16);  // 16x16 tiles of the [64, D] sum
-  static constexpr int NF = (NT + 7) / 8;  // tiles per warp: warp + 8*n
-  FragC f[NF];
-
-  // tile warp + 8*n exists (D = 144: 36 tiles, the fifth only in warps 0-3)
-  __device__ __forceinline__ static bool owns(int t) { return NT % 8 == 0 || t < NT; }
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int n = 0; n < NF; ++n) wmma::fill_fragment(f[n], 0.f);
-  }
-  template <bool TRANS>
-  __device__ __forceinline__ void add(const bf16* A, int lda, const bf16* B) {
-    const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int n = 0; n < NF; ++n) {
-      const int t = warp + 8 * n, rt = t / (D / 16), ct = t % (D / 16);
-      if (!owns(t)) continue;
-#pragma unroll
-      for (int j = 0; j < BM; j += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + j * LD + ct * 16, LD);
-        if constexpr (TRANS) {
-          // element (m, k) of the col-major fragment is A[j+k][rt*16+m]
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-          wmma::load_matrix_sync(a, A + j * lda + rt * 16, lda);
-          wmma::mma_sync(f[n], a, b, f[n]);
-        } else {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, A + rt * 16 * lda + j, lda);
-          wmma::mma_sync(f[n], a, b, f[n]);
-        }
-      }
-    }
-  }
-  // through the warp's 16x16 fp32 staging tile
-  template <typename F>
-  __device__ __forceinline__ void emit(float* stage, F&& fn) const {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    float* sc = stage + warp * 256;
-#pragma unroll
-    for (int n = 0; n < NF; ++n) {
-      const int t = warp + 8 * n, rt = t / (D / 16), ct = t % (D / 16);
-      if (!owns(t)) continue;
-      wmma::store_matrix_sync(sc, f[n], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) fn(rt * 16 + e / 16, ct * 16 + e % 16, sc[e]);
-      __syncwarp();
-    }
   }
 };
 
@@ -390,7 +296,7 @@ __device__ __forceinline__ void load_row_stats(const BwdArgs& g, int bh, int q0,
 }
 
 // ss (scores) -> P = exp(scale*s + bias - lse) and dps (dO v^T) -> dS, in
-// place in fp32; the bf16 path also writes the rounded operand copies. With
+// place in fp32. With
 // dbias (the window dq/dbias pass), dS also accumulates into dbias[r][k0+c]
 // of the block's [64][ldb] rows; element (r, c) always belongs to thread
 // (64 r + c) % THREADS, so the sum over windows has one fixed order.
@@ -399,10 +305,7 @@ __device__ __forceinline__ void probs_and_ds(const AttnArgs& a, int b, int h, in
                                              const float* rels, const int* kidx,
                                              const float* lse_s, const float* delta_s,
                                              float* ss, float* dps,
-                                             typename Path<T, D>::Op* pb,
-                                             typename Path<T, D>::Op* dsb,
                                              float* dbias = nullptr, int ldb = 0) {
-  constexpr int LDP = Path<T, D>::LDP;
   for (int e = threadIdx.x; e < BM * BM; e += THREADS) {
     const int r = e >> 6, c = e & 63;
     float p = 0.f, ds = 0.f;
@@ -419,10 +322,6 @@ __device__ __forceinline__ void probs_and_ds(const AttnArgs& a, int b, int h, in
     }
     ss[r * LDS + c] = p;
     dps[r * LDS + c] = ds;
-    if constexpr (Path<T, D>::kTc) {
-      pb[r * LDP + c] = __float2bfloat16(p);
-      dsb[r * LDP + c] = __float2bfloat16(ds);
-    }
   }
 }
 
@@ -430,7 +329,7 @@ template <typename T, int DK, int DV>
 struct Tiles {
   using Op = typename Path<T, DK>::Op;
   Op *q, *dout, *k, *v, *p, *ds;
-  float *s, *dp, *stage, *rel, *drel, *lse, *delta, *dbias;
+  float *s, *dp, *rel, *drel, *lse, *delta, *dbias;
   int* kidx;
 
   __device__ Tiles(unsigned char* base, int r, int wide = 0) {
@@ -441,14 +340,8 @@ struct Tiles {
     v = reinterpret_cast<Op*>(base + L.v);
     s = reinterpret_cast<float*>(base + L.s);
     dp = reinterpret_cast<float*>(base + L.dp);
-    if constexpr (Path<T, DK>::kTc) {
-      p = reinterpret_cast<Op*>(base + L.p);
-      ds = reinterpret_cast<Op*>(base + L.ds);
-    } else {  // fp32: P and dS are used in place
-      p = reinterpret_cast<Op*>(s);
-      ds = reinterpret_cast<Op*>(dp);
-    }
-    stage = reinterpret_cast<float*>(base + L.stage);
+    p = reinterpret_cast<Op*>(s);  // P and dS are used in place
+    ds = reinterpret_cast<Op*>(dp);
     rel = reinterpret_cast<float*>(base + L.rel);
     drel = reinterpret_cast<float*>(base + L.drel);
     kidx = reinterpret_cast<int*>(base + L.kidx);
@@ -513,8 +406,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(BwdArgs g) {
     scores<T, DK>(t.q, t.k, t.s);
     scores<T, DV>(t.dout, t.v, t.dp);
     __syncthreads();
-    probs_and_ds<T, DK, BIAS>(a, b, h, q0, k0, t.rel, t.kidx, t.lse, t.delta, t.s, t.dp, t.p,
-                              t.ds);
+    probs_and_ds<T, DK, BIAS>(a, b, h, q0, k0, t.rel, t.kidx, t.lse, t.delta, t.s, t.dp);
     __syncthreads();
     dq.template add<false>(t.ds, LDP, t.k);  // dq += dS k
     if (REL) accumulate_drel(a, k0, t.dp, t.drel);
@@ -524,7 +416,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(BwdArgs g) {
   const float scale = g.dq_scale;
   const int nq = a.nq;
   const int64_t dq_n = g.dqs.n;
-  dq.emit(t.stage, [&](int r, int c, float v) {
+  dq.emit([&](int r, int c, float v) {
     if (q0 + r < nq && c < cols) dqp[(q0 + r) * dq_n + c] = from_f<T>(v * scale);
   });
   if (REL) {
@@ -573,8 +465,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(BwdArgs g) {
     scores<T, DK>(t.q, t.k, t.s);
     scores<T, DV>(t.dout, t.v, t.dp);
     __syncthreads();
-    probs_and_ds<T, DK, BIAS>(a, b, h, q0, k0, t.rel, t.kidx, t.lse, t.delta, t.s, t.dp, t.p,
-                              t.ds);
+    probs_and_ds<T, DK, BIAS>(a, b, h, q0, k0, t.rel, t.kidx, t.lse, t.delta, t.s, t.dp);
     __syncthreads();
     dv.template add<true>(t.p, LDP, t.dout);  // dv += P^T dO
     dk.template add<true>(t.ds, LDP, t.q);    // dk += dS^T q
@@ -586,10 +477,10 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(BwdArgs g) {
   float* dvp = g.dv_part + row0 * DV;
   const int nk = a.nk;
   __syncthreads();  // the staging tiles alias nothing, but keep warps together
-  dk.emit(t.stage, [&](int r, int c, float v) {
+  dk.emit([&](int r, int c, float v) {
     if (k0 + r < nk && c < cols) dkp[r * cols + c] = v;
   });
-  dv.emit(t.stage, [&](int r, int c, float v) {
+  dv.emit([&](int r, int c, float v) {
     if (k0 + r < nk) dvp[r * DV + c] = v;
   });
 }
@@ -719,13 +610,13 @@ __global__ void __launch_bounds__(THREADS) window_bwd_dq_kernel(BwdArgs g) {
       scores<T, D>(t.dout, t.v, t.dp);
       __syncthreads();
       probs_and_ds<T, D, kDenseBias>(a, b, h, q0, k0, nullptr, nullptr, t.lse, t.delta, t.s,
-                                     t.dp, t.p, t.ds, t.dbias, ldb);
+                                     t.dp, t.dbias, ldb);
       __syncthreads();
       dq.template add<false>(t.ds, LDP, t.k);  // dq += dS k
     }
     T* dqp = static_cast<T*>(g.dq) + b * g.dqs.b + h * g.dqs.h;
     const int64_t dq_n = g.dqs.n;
-    dq.emit(t.stage, [&](int r, int c, float v) {
+    dq.emit([&](int r, int c, float v) {
       if (q0 + r < nq) dqp[(q0 + r) * dq_n + c] = from_f<T>(v * dq_scale);
     });
   }
@@ -953,14 +844,24 @@ extern "C" int mspi_window_attention_bwd(const void* qkv, const void* bias, cons
 // Backward of the augmented-lane attention (head-major, scale 1): q, dq
 // [B,H,Nq,Da]; k, dk [B,H,Nk,Da]; v, dv [B,H,Nk,Dv]; out (the forward's O)
 // and dout [B,H,Nq,Dv]; lse (from the forward) and delta (scratch) [B*H, Nq]
-// fp32; dk_part [segments, B*H, Nk, Da] and dv_part [segments, B*H, Nk, Dv]
-// fp32 scratch. Da in (112, 144], Dv = 96. dk includes the k_aug lanes of E,
-// which the caller drops.
+// fp32. Da in (112, 144], Dv = 96. dk includes the k_aug lanes of E, which
+// the caller drops. fp32 (the FMA passes): dk_part [segments, B*H, Nk, Da]
+// and dv_part [segments, B*H, Nk, Dv] fp32 scratch, pad unused. bf16
+// (attention_aug_bwd_sm90.cu): dk_part [segments, B*H, Nk, DK] with DK = 128
+// for Da <= 128, else 144 (unused with one segment), pad [B*H, Nq + Nk, DK]
+// bf16 scratch.
 extern "C" int mspi_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                   float* lse, const void* dout, void* dq, void* dk, void* dv,
-                                  float* delta, float* dk_part, float* dv_part, int segments,
-                                  int B, int H, int Nq, int Nk, int Da, int Dv, int dtype,
-                                  void* stream) {
+                                  float* delta, float* dk_part, float* dv_part, void* pad,
+                                  int segments, int B, int H, int Nq, int Nk, int Da, int Dv,
+                                  int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mspi::kBFloat16) {
+    if (Dv != 96) return cudaErrorInvalidValue;
+    return mspi::attention_aug_bwd_sm90(q, k, v, lse, dout, dq, dk, dv, delta, dk_part, dv_part,
+                                        pad, segments, B * H, Nq, Nk, Da, s);
+  }
+  if (dtype != mspi::kFloat32) return cudaErrorInvalidValue;
   mspi::BwdArgs g{};
   mspi::AttnArgs& a = g.f;
   a.q = q;
@@ -993,8 +894,5 @@ extern "C" int mspi_attention_bwd(const void* q, const void* k, const void* v, c
   g.dvs = a.vs;
   g.dq_scale = 1.f;
   g.dk_scale = 1.f;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mspi::kFloat32) return mspi::dispatch_bwd_aug<float>(g, B, Dv, s);
-  if (dtype == mspi::kBFloat16) return mspi::dispatch_bwd_aug<__nv_bfloat16>(g, B, Dv, s);
-  return cudaErrorInvalidValue;
+  return mspi::dispatch_bwd_aug<float>(g, B, Dv, s);
 }

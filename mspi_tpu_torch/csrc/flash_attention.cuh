@@ -653,5 +653,15 @@ cudaError_t attention_rel_bwd_sm90(const RelBwdArgs& w, int batch, int d, cudaSt
 // without the rel chain, then its own reduce of the segments) on the same
 // arguments: rel, drel and rel_pad unused, Nq = Nk; head dim 96 or 128.
 cudaError_t self_attention_bwd_sm90(const RelBwdArgs& w, int batch, int d, cudaStream_t stream);
+// The bf16 backward of row 6's augmented lanes (attention_aug_bwd_sm90.cu):
+// head-major q, dq [bh, nq, da]; k, dk [bh, nk, da]; v, dv [bh, nk, 96];
+// dout [bh, nq, 96]; lse and delta [bh, nq] fp32; dk_part and dv_part
+// [segments, bh, nk, DK | 96] fp32 (segments > 1); pad [bh, nq + nk, DK]
+// bf16 scratch, DK = 128 for da <= 128, else 144; da in (112, 144].
+cudaError_t attention_aug_bwd_sm90(const void* q, const void* k, const void* v,
+                                   const float* lse, const void* dout, void* dq, void* dk,
+                                   void* dv, float* delta, float* dk_part, float* dv_part,
+                                   void* pad, int segments, int bh, int nq, int nk, int da,
+                                   cudaStream_t stream);
 
 }  // namespace mspi

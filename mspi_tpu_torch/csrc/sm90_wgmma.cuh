@@ -2,8 +2,8 @@
 // mbarriers, the 2-D TMA tile load, the wgmma shared-memory matrix
 // descriptor (128-byte swizzle), wgmma's fences, and the bf16 and int8 wgmma
 // of a 64-row tile with fp32 or s32 accumulators in registers, A from shared
-// memory or (bf16) from registers. Used by gemm_lab.cu's bf16 and int8 GEMMs
-// and ln_mlp_sm90.cuh's fused LayerNorm + MLP.
+// memory or (bf16) from registers. Used by gemm_lab.cu's bf16 and int8 GEMMs,
+// ln_mlp_sm90.cuh's fused LayerNorm + MLP and ln_mlp_bwd_sm90.cuh's backward.
 //
 // Tensor maps: cuTensorMapEncodeTiled belongs to the CUDA driver API. It is
 // reached through the runtime's cudaGetDriverEntryPoint(ByVersion), so the
@@ -22,8 +22,9 @@
 //   int8 K-major: the same layout with 128 int8 k per 128-byte row; a
 //     k-step of 32 advances the start address by 32 bytes. Int8 wgmma reads
 //     both operands K-major only, so an int8 b [K, N] needs a K-major copy.
-//   MN-major (an operand whose n is contiguous: b [K, N] row-major, read in
-//     place with wgmma's transpose bit, which bf16 allows and int8 does not):
+//   MN-major (an operand whose n is contiguous: b [K, N] row-major, or a^T
+//     for an a [K, M] row-major, read in place with wgmma's transpose bit,
+//     which bf16 allows for A and B and int8 does not):
 //     a TMA box of 64 n by 64 k; one k row of the box is one 128-byte row.
 //     Descriptor: SBO = 1024 (the next 8 k rows), LBO = the bytes between
 //     two boxes of 64 n (unused when N = 64); a k-step of 16 advances the
@@ -125,12 +126,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 // d[64 x 128] += A[64 x 16] B[16 x 128]: bf16 in, fp32 accumulate; A
-// K-major and B MN-major (transposed) through their descriptors, B's two
-// 64-wide boxes LBO bytes apart. Thread t of the warpgroup holds rows
-// 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1):
-// d[4 j + {0, 1}] on the first row, d[4 j + {2, 3}] on the second, as
-// mma.sync's m16n8 accumulators.
-__device__ __forceinline__ void wgmma_m64n128k16_bf16_tn(float (&d)[64], uint64_t da,
+// K-major (TA = 0) or MN-major (TA = 1, read in place through the transpose
+// bit, its descriptor laid out as B's) and B MN-major (transposed) through
+// their descriptors, B's two 64-wide boxes LBO bytes apart. Thread t of the
+// warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2
+// (t % 4) (+ 1): d[4 j + {0, 1}] on the first row, d[4 j + {2, 3}] on the
+// second, as mma.sync's m16n8 accumulators.
+template <int TA = 0>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_xn(float (&d)[64], uint64_t da,
                                                          uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -140,7 +143,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_tn(float (&d)[64], uint64_
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
       "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -152,7 +155,12 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_tn(float (&d)[64], uint64_
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));  // scale-d: d += A B
+      : "l"(da), "l"(db), "r"(1), "n"(TA));  // scale-d: d += A B
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_tn(float (&d)[64], uint64_t da,
+                                                         uint64_t db) {
+  wgmma_m64n128k16_bf16_xn<0>(d, da, db);
 }
 
 // d[64 x 128] += A[64 x 32] B[32 x 128]: s8 in, s32 accumulate, both
@@ -190,12 +198,14 @@ __device__ __forceinline__ void fence_regs(int (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64]: bf16 in, fp32 accumulate, both
-// operands K-major through their descriptors (B as [64 n][k] rows, as a
-// weight [out, in] is stored); scale_d 0 overwrites d, 1 adds. The
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64]: bf16 in, fp32 accumulate, A
+// K-major and B K-major (TB = 0: [64 n][k] rows, as a weight [out, in] is
+// stored) or MN-major (TB = 1: [k][64 n] rows through the transpose bit)
+// through their descriptors; scale_d 0 overwrites d, 1 adds. The
 // accumulator layout is wgmma_m64n128k16_bf16_tn's: thread t holds rows
 // 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1) in
 // d[4 j + {0, 1}] (first row) and d[4 j + {2, 3}] (second).
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32], uint64_t da, uint64_t db,
                                                        int scale_d) {
   asm volatile(
@@ -205,13 +215,13 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32], uint64_t
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
 // d[64 x 96] += A[64 x 16] B[16 x 96]: A from registers (four bf16x2 words

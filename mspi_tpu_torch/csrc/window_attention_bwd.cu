@@ -1,7 +1,7 @@
 // The bf16 backward of VideoSwin's window attention (window_attention.cu),
 // register-resident on the tensor cores and fed by asynchronous copies:
 //   S = q_s k^T + bias[h] (+ mask[b mod nW]),  P = softmax(S),  O = P v,
-//   dv = P^T dO,  dP = dO v^T,  dS = P * (dP - rowsum(dO * O)),
+//   dv = P^T dO,  dP = dO v^T,  dS = P * (dP - rowsum(P * dP)),
 //   dq = scale * dS k,  dk = dS^T q_s,  dbias = sum over the B_ windows of dS
 // per window b and head h, with q_s = q * scale (scale = D^-0.5 rounded to
 // bf16) rounded to bf16 as the plain version rounds it; packed qkv and dqkv
@@ -19,13 +19,17 @@
 // 64-wide tiles through a 2-slot cp.async ring and one barrier per tile, as
 // flash_attention_sm90.cuh's forward:
 //   1. dq: one block per (64-query tile, window x head). q_s and dO stay in
-//      registers as A fragments; delta = rowsum(dO * O) is computed in the
-//      prologue from the O rows and written out for passes 2 and 3. Per key
-//      tile (K, V and the swizzled bias and mask tiles through the ring) S,
-//      P = exp(S - lse), dP and dS live in the accumulator fragments; dS is
-//      rounded to bf16 and repacked into A fragments (as the forward repacks
-//      P) for dq += dS K with K's B fragments from ldmatrix.trans. dq is
-//      written once, scaled, in bf16.
+//      registers as A fragments. The key tiles (K, V and the swizzled bias
+//      and mask tiles through the ring) are walked twice. The first sweep
+//      sums delta = rowsum(P * dP) in fp32 from S, P = exp(S - lse) and dP in
+//      the accumulator fragments, as the TPU kernel takes it, and writes it
+//      out for passes 2 and 3 (FlashAttention-2's rowsum(dO * O) taken from
+//      the forward's bf16-rounded O moved dq and dk off the TPU kernel's by a
+//      large share of their bf16 tolerance; PERF.md). The second forms dS,
+//      rounds it to bf16 and repacks it into A fragments (as the forward
+//      repacks P) for dq += dS K with K's B fragments from ldmatrix.trans. dq
+//      is written once, scaled, in bf16. The first sweep costs the pass S and
+//      dP once more.
 //   2. dkv: one block per (64-key tile, window x head), each warp owning 16
 //      keys whose K and V A fragments stay in registers. Per query tile
 //      (q, dO, the bias and mask tiles, and the 64 queries' lse and delta
@@ -159,28 +163,42 @@ __global__ void __launch_bounds__(kThreads, 4) window_bwd_dq_sm90_kernel(WindowB
   uint32_t qf[KS][4], df[KS][4];
   float lse2[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};  // lse * log2(e), delta
   if (active) {
-    const bf16* dop = at(w.dout, a.os, b, h);
     load_a_frags(qf, at(a.q, a.qs, b, h), a.qs.n, q0 + warp * 16, a.nq);
-    load_a_frags(df, dop, a.os.n, q0 + warp * 16, a.nq);
+    load_a_frags(df, at(w.dout, a.os, b, h), a.os.n, q0 + warp * 16, a.nq);
     const float qscale = round_to<bf16>(a.qscale);
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
       for (int j = 0; j < 4; ++j) qf[ks][j] = scale_bf16x2(qf[ks][j], qscale);
-    const int64_t rows = static_cast<int64_t>(bh) * a.nq;
-    sm90::row_stats<D>(at(a.out, a.os, b, h), dop, a.os.n, a.lse + rows, w.delta + rows,
-                       q0 + row0, a.nq, lse2, dlt);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int qi = q0 + row0 + 8 * hr;
+      lse2[hr] = qi < a.nq ? __ldg(a.lse + static_cast<int64_t>(bh) * a.nq + qi) * kLog2e : 0.f;
+    }
   }
   float dq[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
+  // Two sweeps over the key tiles: the first sums delta = rowsum(P * dP) in
+  // fp32 (the TPU kernel's delta), the second forms dS and dq from it.
   const int n_t = (a.nk + kTile - 1) / kTile;
-  for (int t = 0, k0 = 0; t < n_t; ++t, k0 += kTile) {
+  for (int t = 0; t < 2 * n_t; ++t) {
+    const bool first = t < n_t;
+    const int k0 = (first ? t : t - n_t) * kTile;
     cp_async_wait<0>();
     __syncthreads();  // tile t's slot is full; every warp is done with t - 1's slot
-    issue((t + 1) % kRing, k0 + kTile);
+    issue((t + 1) % kRing, t + 1 < 2 * n_t ? (t + 1 < n_t ? t + 1 : t + 1 - n_t) * kTile : a.nk);
     if (!active) continue;
+    if (t == n_t) {  // the first sweep is done: the quad's sums are the rows' delta
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        dlt[hr] += __shfl_xor_sync(0xffffffffu, dlt[hr], 1);
+        dlt[hr] += __shfl_xor_sync(0xffffffffu, dlt[hr], 2);
+        const int qi = q0 + row0 + 8 * hr;
+        if (t4 == 0 && qi < a.nq) w.delta[static_cast<int64_t>(bh) * a.nq + qi] = dlt[hr];
+      }
+    }
     const unsigned char* slot = smem_wdq + (t % kRing) * slot_bytes;
     const bf16* kt = reinterpret_cast<const bf16*>(slot);
     const bf16* vt = reinterpret_cast<const bf16*>(slot + Z::kOp);
@@ -215,13 +233,15 @@ __global__ void __launch_bounds__(kThreads, 4) window_bwd_dq_sm90_kernel(WindowB
           if (masked)
             add_bf16x2(&s[j][2 * hr], *reinterpret_cast<const uint32_t*>(br + kTile * kTile));
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {  // dS = P (dP - delta), P = 0 past Nk
+          for (int e = 0; e < 2; ++e) {  // P = 0 past Nk; delta += P dP, or dS = P (dP - delta)
             const int i = 2 * hr + e;
             const float p = c + e < valid ? exp2_ftz(s[j][i] * kLog2e - lse2[hr]) : 0.f;
-            s[j][i] = p * (dp[j][i] - dlt[hr]);
+            if (first) dlt[hr] += p * dp[j][i];
+            else s[j][i] = p * (dp[j][i] - dlt[hr]);
           }
         }
       }
+      if (first) continue;
       // dq += dS K: dS (bf16) as the A fragment of these 16 keys
       const uint32_t da[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
                               pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};

@@ -14,7 +14,10 @@ its backward recomputes LN, u and h from them, as the TPU kernel does.
 
 In bf16 every forward here except row 12 runs the wgmma + TMA body of
 `csrc/ln_mlp_sm90.cuh` in the launch form `sm90_form` mirrors; fp32 runs
-`csrc/ln_mlp.cuh`'s FMA-pipe body, and the kernel labs its WMMA body.
+`csrc/ln_mlp.cuh`'s FMA-pipe body, and the kernel labs its WMMA body. The
+bf16 backwards (K2's and row 14) run `csrc/ln_mlp_bwd_sm90.cuh`'s wgmma +
+TMA kernels in the form `bwd_sm90_form` mirrors; fp32 the FMA passes of
+`csrc/ln_mlp_bwd.cu`.
 
 Weights come in `nn.Linear` layout: w1 [H, C], w2 [C, H]. Residual,
 drop-path and layer-scale stay with the caller, except in
@@ -256,25 +259,79 @@ def _launch(x, g, b, w1, b1, w2, b2, eps: float, shortcut=None, gamma=None,
     return y
 
 
+BWD_SMEM_LIMIT = 232448  # a block's shared memory on the H100
+
+
+def bwd_sm90_form(C: int) -> Tuple[int, int, int]:
+    """The bf16 backward's row pass at width C, as `csrc/ln_mlp_bwd_sm90.cuh`'s
+    `Form<C>` chooses it: (rows per block, weight ring slots, dynamic
+    shared memory bytes). Two consumer warpgroups of 64 rows up to C = 384,
+    one above (two 128-row z and dy tiles would not fit); the block holds
+    its z and dy tiles in [rows, 64] boxes of the 128-byte swizzle, 1 KiB of
+    alignment slack and a ring of [64, 64] weight boxes, as many slots as
+    fit beside the static barriers and db1 sums, at most 16. u and dh take 32 fp32
+    registers each; dz = du W1 runs as its own product (a 64-row fp32 dz
+    would take C / 2 registers a thread)."""
+    if C not in SUPPORTED_C:
+        raise ValueError(f"C={C} not compiled (have {SUPPORTED_C})")
+    rows = 128 if C <= 384 else 64
+    fixed = 2 * -(-C // 64) * rows * 128 + 1024
+    static = 2 * (rows // 64) * 4 * 64 * 4 + 128  # the barriers and the db1 sums
+    slots = min(16, (BWD_SMEM_LIMIT - fixed - static) // (64 * 128))
+    return rows, slots, fixed + slots * 64 * 128
+
+
+def bwd_parts(M: int, C: int, sms: int) -> int:
+    """The bf16 row pass's hidden parts at M rows: the P in 1 .. H / 64 (blocks
+    per row tile, each taking a contiguous run of the 64-unit chunks) that
+    minimises waves x (chunks per block + 1) on `sms` SMs at one block per
+    SM, the smallest such; the + 1 stands for a block's prologue (its rows'
+    LayerNorm and the z and dy tiles), which every part repeats. At the
+    MViTv2-S shapes (batch 2, 132 SMs): 1 at stage 1, 3 at stages 2-3, 6 at
+    stage 4."""
+    rows = bwd_sm90_form(C)[0]
+    tiles, n_h = -(-M // rows), 4 * C // SM90_HC
+    return min(range(1, n_h + 1),
+               key=lambda p: (-(-tiles * p // sms) * (-(-n_h // p) + 1), p))
+
+
+BWD_SM90_TILE = (64, 128)  # the bf16 weight products' output tile (rows, columns)
+
+
+def bwd_segments(dtype: int, M: int, C: int, H: int, sms: int) -> int:
+    """Row segments of the weight-gradient sums: enough blocks for two waves
+    of the card's SMs over the output tiles of dW1 [H, C] (fp32: 64 x 64
+    tiles; bf16: 64 x 128, and segments of whole 64-row tiles), at most one
+    segment per 256 rows (fp32) or per 64-row tile (bf16)."""
+    if dtype == kernels.DTYPE_CODES[torch.bfloat16]:
+        out_tiles, most = -(-H // BWD_SM90_TILE[0]) * -(-C // BWD_SM90_TILE[1]), -(-M // 64)
+    else:
+        out_tiles, most = -(-H // 64) * -(-C // 64), -(-M // 256)
+    return max(1, min(most, -(-2 * sms // out_tiles)))
+
+
 def _bwd_buffers(name, x, dy, dtype: int, M: int, C: int, H: int):
     """What the K2 and row-14 backward kernels need of dy, and their
-    buffers -> (row segments of the weight sums, (dx; h and du_c [M, H] for
-    the weight products; the fp32 column sums per row tile [tiles, 3C + H]
-    and their total; the fp32 weight sums per segment [segments, 2HC] and
-    their total))."""
+    buffers -> (row segments of the weight sums, hidden parts of the bf16
+    row pass (1 in fp32), (dx; h and du_c [M, H] for
+    the weight products; bf16: dz = du W1 [M, C] in fp32, else None; the fp32
+    column sums per row tile [tiles, 3C + H] and their total; the fp32
+    weight sums per segment [segments, 2HC] and their total))."""
     kernels.check_operands(name, x, dy)
     if tuple(dy.shape) != tuple(x.shape):
         raise ValueError(f"{name}: dy {tuple(dy.shape)} for x {tuple(x.shape)}")
     if M == 0:
         raise ValueError(f"{name}: no rows")
-    if dtype == kernels.DTYPE_CODES[torch.bfloat16] and dy.data_ptr() % 32:
+    bf16 = dtype == kernels.DTYPE_CODES[torch.bfloat16]
+    if bf16 and dy.data_ptr() % 32:
         raise ValueError(f"{name}: bf16 operands must be 32-byte aligned")
     tiles = -(-M // kernels.lib().mspi_ln_mlp_bwd_rows(C, dtype))
-    out_tiles = -(-H // 64) * -(-C // 64)
-    segments = max(1, min(-(-M // 256), -(-2 * kernels.num_sms(x) // out_tiles)))
+    segments = bwd_segments(dtype, M, C, H, kernels.num_sms(x))
+    parts = bwd_parts(M, C, kernels.num_sms(x)) if bf16 else 1
     f32 = dict(device=x.device, dtype=torch.float32)
     hc = torch.empty((M, H), device=x.device, dtype=x.dtype)
-    return segments, (torch.empty_like(x), hc, torch.empty_like(hc),
+    dz = torch.empty((M, C), **f32) if bf16 else None
+    return segments, parts, (torch.empty_like(x), hc, torch.empty_like(hc), dz,
                       torch.empty((tiles, 3 * C + H), **f32), torch.empty(3 * C + H, **f32),
                       torch.empty((segments, 2 * H * C), **f32), torch.empty(2 * H * C, **f32))
 
@@ -287,14 +344,15 @@ def ln_mlp_backward(x, g, b, w1, b1, w2, b2, eps: float, dy):
         return ln_mlp_backward_reference(x, g, b, w1, b1, w2, b2, eps, dy)
     name = "ln_mlp_bwd"
     dtype, M, C, H = _check_weights(name, x, g, b, w1, b1, w2, b2)
-    segments, (dx, hc, duc, col_part, col_out, w_part, w_out) = _bwd_buffers(
+    segments, parts, (dx, hc, duc, dz, col_part, col_out, w_part, w_out) = _bwd_buffers(
         name, x, dy, dtype, M, C, H)
     zc = torch.empty((M, C), device=x.device, dtype=x.dtype)
     err = kernels.lib().mspi_ln_mlp_bwd(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), dy.data_ptr(), dx.data_ptr(), zc.data_ptr(), hc.data_ptr(),
-        duc.data_ptr(), col_part.data_ptr(), col_out.data_ptr(), w_part.data_ptr(),
-        w_out.data_ptr(), M, C, H, float(eps), segments, dtype, kernels.stream_handle(x))
+        duc.data_ptr(), kernels.ptr(dz), col_part.data_ptr(), col_out.data_ptr(),
+        w_part.data_ptr(), w_out.data_ptr(), M, C, H, float(eps), segments, parts, dtype,
+        kernels.stream_handle(x))
     kernels.check(err, name)
     kernels.launches[name] += 1
     dg, dbe, db2, db1 = col_out.split([C, C, C, H])
@@ -481,12 +539,13 @@ def mlp_backward(x, w1, b1, w2, b2, dy):
         return mlp_backward_reference(x, w1, b1, w2, b2, dy)
     name = "mlp_bwd"
     dtype, M, C, H = _check_mlp(name, x, w1, b1, w2, b2)
-    segments, (dx, hc, duc, col_part, col_out, w_part, w_out) = _bwd_buffers(
+    segments, parts, (dx, hc, duc, dz, col_part, col_out, w_part, w_out) = _bwd_buffers(
         name, x, dy, dtype, M, C, H)
     err = kernels.lib().mspi_mlp_bwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        hc.data_ptr(), duc.data_ptr(), col_part.data_ptr(), col_out.data_ptr(),
-        w_part.data_ptr(), w_out.data_ptr(), M, C, H, segments, dtype, kernels.stream_handle(x))
+        hc.data_ptr(), duc.data_ptr(), kernels.ptr(dz), col_part.data_ptr(),
+        col_out.data_ptr(), w_part.data_ptr(), w_out.data_ptr(), M, C, H, segments, parts,
+        dtype, kernels.stream_handle(x))
     kernels.check(err, name)
     kernels.launches[name] += 1
     db2, db1 = col_out[2 * C:].split([C, H])

@@ -14,7 +14,8 @@ flash body `csrc/flash_attention.cuh`; every backward in
 `csrc/attention_bwd.cu` (K1's in bf16 in `csrc/attention_rel_bwd_sm90.cu`,
 in the form `rel_bwd_form` names; row 8's is K1's after a layout change;
 K4's in bf16 in `csrc/self_attention_bwd_sm90.cu`, in the form
-`self_bwd_form` names).
+`self_bwd_form` names; row 6's in bf16 in `csrc/attention_aug_bwd_sm90.cu`,
+in the form `aug_bwd_form` names).
 
 All four are `torch.autograd.Function`s: on the card the forward kernel
 also writes the rows' log-sum-exp when a gradient is needed, and the
@@ -254,6 +255,21 @@ def attention_backward_reference(q, k, v, dout):
     return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
 
 
+def aug_bwd_form(Da: int) -> Tuple[int, int, int]:
+    """The bf16 row 7 head-major backward's form at Da, as
+    `csrc/attention_aug_bwd_sm90.cu` (`AugBytes<DK>`) lays it out: (DK, dq
+    pass and dk/dv pass shared memory bytes). q_aug and k_aug are copied into
+    zero-filled rows of DK = 128 lanes (Da <= 128) or 144, whose 16-byte rows
+    its `cp.async` ring copies; the dq pass rings (K, V) tiles of 64 rows
+    through 2 slots, the dk/dv pass (q, dO, lse, delta) and holds its K and V
+    rows; operand rows at a pitch of 8 lanes more."""
+    if not AUG_DA[0] <= Da <= AUG_DA[1]:
+        raise ValueError(f"Da {Da} outside {AUG_DA[0]}..{AUG_DA[1]}")
+    dk = 128 if Da <= 128 else 144
+    op_k, op_v = 2 * BWD_TILE * (dk + 8), 2 * BWD_TILE * (AUG_DV + 8)
+    return dk, 2 * (op_k + op_v), 2 * (op_k + op_v + 8 * BWD_TILE) + op_k + op_v
+
+
 def _aug_geometry(name, q, k, v):
     B, H, Nq, Da = q.shape
     Nk, Dv = k.shape[2], v.shape[3]
@@ -288,8 +304,10 @@ def _attention_fwd(q, k, v, with_lse: bool = False
 
 def attention_backward(q, k, v, out, lse, dout):
     """Row 6 backward -> (dq, dk, dv): row 7's kernel on head-major operands
-    with Da != Dv and scale 1 on the card, from the forward's out and lse;
-    the plain version on the CPU."""
+    with Da != Dv and scale 1 on the card, from the forward's lse (bf16:
+    the register-resident passes, delta = rowsum(P dP) as the TPU kernel
+    takes it; fp32: the FMA passes, delta from out); the plain version on
+    the CPU."""
     if not kernels.dispatch_device(q, k, v, dout):
         return attention_backward_reference(q, k, v, dout)
     name = "attention_bwd"
@@ -304,14 +322,20 @@ def attention_backward(q, k, v, out, lse, dout):
     segments = _segments(q, Nq, Nk, B * H)
     f32 = dict(device=q.device, dtype=torch.float32)
     delta = torch.empty((B * H, Nq), **f32)
-    dk_part = torch.empty((segments, B * H, Nk, Da), **f32)
+    pad = None
+    if q.dtype == torch.bfloat16:  # q_aug and k_aug in zero-filled rows of DK lanes
+        dk_width = aug_bwd_form(Da)[0]
+        pad = q.new_empty((B * H * (Nq + Nk), dk_width))
+    else:
+        dk_width = Da
+    dk_part = torch.empty((segments, B * H, Nk, dk_width), **f32)
     dv_part = torch.empty((segments, B * H, Nk, Dv), **f32)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     err = kernels.lib().mspi_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        dk_part.data_ptr(), dv_part.data_ptr(), segments, B, H, Nq, Nk, Da, Dv, dtype,
-        kernels.stream_handle(q))
+        dk_part.data_ptr(), dv_part.data_ptr(), kernels.ptr(pad), segments, B, H, Nq, Nk, Da,
+        Dv, dtype, kernels.stream_handle(q))
     kernels.check(err, name)
     kernels.launches[name] += 1
     return dq, dk, dv

@@ -11,9 +11,10 @@ sources, by dtype:
   `mma.sync` body of `csrc/flash_attention_sm90.cuh` (bias and mask tiles
   through a `cp.async` ring); any N that is a multiple of 8.
 - bf16 backward: `csrc/window_attention_bwd.cu`, three register-resident
-  passes without atomics (dq and delta; dk and dv; dbias summed over each
-  group of windows in registers), then, with more than one group, a pass
-  that sums the groups' fp32 partials in order (`dbias_groups`).
+  passes without atomics (delta = rowsum(P dP) in fp32 as the TPU kernel
+  takes it, then dq; dk and dv; dbias summed over each group of windows in
+  registers), then, with more than one group, a pass that sums the groups'
+  fp32 partials in order (`dbias_groups`).
 - fp32, both directions: the FMA bodies of `csrc/flash_attention.cuh` and
   `csrc/attention_bwd.cu`, whose dq/dbias pass keeps a block's [64, N] fp32
   dbias rows in shared memory: N <= `MAX_N`.
@@ -105,6 +106,38 @@ def window_attention_backward_reference(qkv, bias, mask, num_heads: int,
     dk = ds.transpose(-1, -2) @ qs
     dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, N, C3)
     return dqkv.to(qkv.dtype), ds.sum(0).to(bias.dtype)
+
+
+def window_attention_backward_rounded_reference(qkv, bias, mask, num_heads: int,
+                                                num_windows: int, dout, out=None):
+    """Plain version of the backward that rounds where the TPU kernel
+    `_packed_bwd_kernel` rounds: q_s in the storage dtype, P rounded to v's
+    dtype before dv = P^T dO, dS rounded before dq = scale dS k and dk =
+    dS^T q_s, every product summed in fp32. delta = rowsum(dP * P) in fp32,
+    as the TPU kernel takes it; with `out` (the forward's output in the
+    storage dtype) delta = rowsum(dO * out) instead, FlashAttention-2's
+    identity on the rounded O. Returns (dqkv, dbias) as
+    `window_attention_backward_reference`; dbias sums the unrounded dS."""
+    B, N, C3 = qkv.shape
+    dt = qkv.dtype
+    q, k, v = _split(qkv, num_heads)
+    qs = _scaled_q(q).float()
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(B, N, num_heads, -1).transpose(1, 2)
+    p = torch.softmax(_scores(qs, kf, bias, mask, num_windows), dim=-1)
+    dv = p.to(dt).float().transpose(-1, -2) @ do
+    dp = do @ vf.transpose(-1, -2)
+    if out is None:
+        delta = (dp * p).sum(-1, keepdim=True)
+    else:
+        delta = (do * out.float().reshape(B, N, num_heads, -1).transpose(1, 2)).sum(
+            -1, keepdim=True)
+    ds = p * (dp - delta)
+    ds_c = ds.to(dt).float()
+    dq = (q.shape[-1] ** -0.5) * ds_c @ kf
+    dk = ds_c.transpose(-1, -2) @ qs
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, N, C3)
+    return dqkv.to(dt), ds.sum(0).to(bias.dtype)
 
 
 def _geometry(name, qkv, bias, mask, num_heads: int, num_windows: int):

@@ -195,10 +195,13 @@ def test_sources_found():
     """The parametrisation below saw the port's sources, the register-resident
     bodies' launchers and headers among them."""
     assert {"attention_rel.cu", "window_attention.cu", "self_attention.cu",
-            "gemm_lab.cu", "attention_rel_bwd_sm90.cu", "dwconv2d.cu"} <= set(SOURCES)
+            "gemm_lab.cu", "attention_rel_bwd_sm90.cu", "dwconv2d.cu",
+            "attention_aug_bwd_sm90.cu", "ln_mlp_bwd.cu"} <= set(SOURCES)
     assert (CSRC / "flash_attention_sm90.cuh").exists()
     assert (CSRC / "attention_bwd_sm90.cuh").exists()
     assert (CSRC / "sm90_wgmma.cuh").exists()
+    # ln_mlp_bwd.cu checks the wgmma backward's header with it
+    assert '#include "ln_mlp_bwd_sm90.cuh"' in (CSRC / "ln_mlp_bwd.cu").read_text()
 
 
 def _check(stub_tree, source):

@@ -146,3 +146,70 @@ def test_videoswin_ln_mlp_shapes(k2_calls):
     assert got == want
     assert sum(want.values()) == chip_smoke.PER_FORWARD["videoswins"]["ln_mlp"]
     assert calls["prior"] == _prior_want()
+
+
+@pytest.mark.parametrize("C", K2.SUPPORTED_C)
+def test_ln_mlp_bwd_sm90_form(C):
+    """The bf16 K2 backward's row pass at every compiled width: two 64-row
+    consumer warpgroups up to C = 384, one above, where 128-row z and dy
+    tiles would not fit beside the weight ring; the tiles, a ring of as
+    many slots as fit (at most 16, at least 3) and the pass's static shared
+    memory fit the block's. u and dh
+    (32 fp32 registers each) sit well under the 168-register cap of three
+    warpgroups, and dz (C / 2 registers a thread) is not held beside them."""
+    rows, slots, smem = K2.bwd_sm90_form(C)
+    static = 2 * (rows // 64) * 4 * 64 * 4 + 128
+    assert rows == (128 if C <= 384 else 64) and 3 <= slots <= 16
+    assert smem == 2 * -(-C // 64) * rows * 128 + slots * 64 * 128 + 1024
+    assert smem + static <= SMEM_LIMIT
+    assert slots == 16 or smem + static + 64 * 128 > SMEM_LIMIT
+    if C <= 192:  # two chunks' W1 and W2 boxes: the consumers may drift a chunk apart
+        assert slots >= 2 * 2 * -(-C // 64)
+    if rows == 64:
+        assert 2 * -(-C // 64) * 128 * 128 + 3 * 64 * 128 + 1024 + 2 * static > SMEM_LIMIT
+    assert 2 * 32 + 48 <= 65536 // (128 * (rows // 64 + 1)) - 48
+    assert 2 * 32 + C // 2 > 65536 // 384 - 48 or C <= 96
+    with pytest.raises(ValueError):
+        K2.bwd_sm90_form(C + 32)
+
+
+@pytest.mark.parametrize("label,tokens,C", [(s[0], s[1], s[2]) for s in chip_smoke.LN_MLP_SHAPES])
+def test_ln_mlp_bwd_segments(label, tokens, C):
+    """The bf16 weight products' row segments at each K2 shape at batch 2 on
+    132 SMs: whole 64-row tiles each, no more segments than tiles, and
+    enough blocks over dW1's 64 x 128 output tiles for two waves of 2 blocks
+    per SM, unless every segment is already one tile. The row pass's hidden
+    parts: a run of whole 64-unit chunks each, and no other count gives
+    fewer waves x (chunks per block + 1), so the row tiles of a stage with
+    few rows (stage 3: 42 tiles of 128) are spread over the SMs by parts."""
+    M, H, sms = 2 * tokens, 4 * C, 132
+    rows, n_h = K2.bwd_sm90_form(C)[0], H // 64
+    parts = K2.bwd_parts(M, C, sms)
+    tiles_rows = -(-M // rows)
+    cost = lambda p: -(-tiles_rows * p // sms) * (-(-n_h // p) + 1)  # noqa: E731
+    assert 1 <= parts <= n_h and all(cost(parts) <= cost(p) for p in range(1, n_h + 1))
+    if tiles_rows < sms // 2:
+        assert tiles_rows * parts > sms // 2
+    bf16 = kernels.DTYPE_CODES[torch.bfloat16]
+    seg = K2.bwd_segments(bf16, M, C, H, sms)
+    tiles = -(-M // 64)
+    out_tiles = -(-H // 64) * -(-C // 128)
+    assert 1 <= seg <= tiles
+    per = -(-(-(-M // seg)) // 64) * 64
+    assert (seg - 1) * per < M  # no empty segment
+    assert out_tiles * seg >= 2 * sms or seg == tiles
+    assert K2.bwd_segments(kernels.DTYPE_CODES[torch.float32], M, C, H, sms) <= -(-M // 256)
+
+
+@pytest.mark.parametrize("Da", [113, 123, 128, 129, 142, 144])
+def test_aug_bwd_form(Da):
+    """The bf16 row 7 head-major backward at the augmented widths: Da lanes
+    zero-filled to 128 or 144 (whole 16-lane k-steps, the 144 form's last
+    one alone), and both passes' shared memory fits two blocks per SM."""
+    dk, dq_smem, dkv_smem = PA.aug_bwd_form(Da)
+    assert dk == (128 if Da <= 128 else 144) and dk >= Da and dk % 16 == 0
+    assert 2 * max(dq_smem, dkv_smem) <= 228 * 1024
+    assert dkv_smem > dq_smem
+    for bad in (112, 145):
+        with pytest.raises(ValueError):
+            PA.aug_bwd_form(bad)

@@ -125,3 +125,41 @@ def test_dbias_groups_none_empty(windows, dtype):
         if dtype == torch.float32:
             want = max(1, min(windows, -(-2 * sms // (7 * heads))))
             assert groups == -(-windows // -(-windows // want))
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_window_backward_rounded_matches_pallas_bf16(rng, masked):
+    """The plain version that rounds where the TPU kernel rounds (q_s, P
+    before dv, dS before dq and dk; delta = rowsum(P dP) in fp32) against
+    jax.vjp of the Pallas backward in interpret mode, both in bf16 on the
+    same bf16 inputs. The two differ only in fp32 summation order, which can
+    flip the bf16 rounding of a dS element or of an output: each gradient
+    within one bf16 step (2^-8) of its largest magnitude. With the
+    forward's bf16 O in place of P for delta (FlashAttention-2's identity on
+    the rounded O) its dk moves further from the TPU kernel's, on average
+    over the elements."""
+    B, H, N, D, nW = 4, 3, 56, 32, 2
+    qkv, bias, mask = _inputs(rng, B, H, N, D, nW, masked)
+    bias *= 0.5
+    dout = rng.standard_normal((B, N, H * D)).astype(np.float32)
+    nw = nW if masked else 1
+    bf = jnp.bfloat16
+    jmask = None if mask is None else jnp.asarray(mask, bf)
+    _, vjp = jax.vjp(lambda a, b: fused_window_attention(a, b, jmask, num_heads=H,
+                                                         num_windows=nw, interpret=True),
+                     jnp.asarray(qkv, bf), jnp.asarray(bias, bf))
+    want = vjp(jnp.asarray(dout, bf))
+    tq, tb, td = (torch.from_numpy(a).bfloat16() for a in (qkv, bias, dout))
+    tm = None if mask is None else torch.from_numpy(mask).bfloat16()
+    got = WA.window_attention_backward_rounded_reference(tq, tb, tm, H, nw, td)
+    out = WA.window_attention_reference(tq, tb, tm, H, nw)
+    flash2 = WA.window_attention_backward_rounded_reference(tq, tb, tm, H, nw, td, out)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.bfloat16
+    dk = slice(H * D, 2 * H * D)
+    for name, g, w in (("dqkv", got[0], want[0]), ("dbias", got[1], want[1])):
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=2.0 ** -8 * np.abs(w).max(), err_msg=name)
+    w = np.asarray(want[0].astype(jnp.float32))[..., dk]
+    assert (np.abs(flash2[0].float().numpy()[..., dk] - w).mean()
+            > np.abs(got[0].float().numpy()[..., dk] - w).mean())

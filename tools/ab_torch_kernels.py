@@ -45,6 +45,27 @@ of `--reps` single calls, after warm-up, as `chip_smoke.py` times):
   computes the function), and each shape's share of the bf16 peak by
   device time; with `ln_mlp`, row 13 (`fused_mlp`) at K2's shapes, summed
   once each;
+- row 9, the K2 backward (`ln_mlp_backward`), at `chip_smoke.LN_MLP_SHAPES`
+  at batch 2, summed per MViTv2-S training step and per VideoSwin-S step
+  (`ln_mlp_bwd:swin`), each shape weighted by its blocks, beside the unfused
+  chain `F.layer_norm` -> `F.linear` -> `F.gelu` -> `F.linear`, forward +
+  autograd backward (a yardstick: no one PyTorch call computes the
+  function), with each shape's share of the bf16 peak (10 M C H flops) and
+  the device time of each of its kernels at one shape per width;
+- row 7 head-major (`attention_backward`, row 6's backward on the augmented
+  lanes, from the forward's out and lse), MViTv2-S's 16 blocks at batch 2,
+  summed per relk0 training step, beside SDPA forward + backward (scale 1),
+  with the device time of each pass at blocks 0 and 4-13;
+- `bwd_seeds` (no timing): the bf16 window backward (rows 16-17) at the
+  eight VideoSwin-S variants over 32 draws of its inputs (seeds 1000-1031,
+  `chip_smoke.window_inputs` at batch 2), each gradient's error over its
+  bf16 tolerance (3 x 2^-8 of its max|ref|, `chip_smoke.tolerance`) against
+  (a) the plain fp32 version, (b) this checkout's
+  `window_attention_backward_rounded_reference` (the TPU kernel's
+  roundings, delta = rowsum(P dP)) and (c) the same with delta =
+  rowsum(dO O) from the forward's bf16 O; (b) and (c) against (a) too; and
+  over the same draws the bf16 K1 backward (row 5, MViTv2-S's 7 block
+  shapes) and K4's (the SyncBlock shape) against their plain versions;
 - `gelu_floor` (no timing): the issue floor of the bf16 LN+MLP body's
   GELU from SASS. Two probe kernels are compiled with nvcc for sm_90a into
   DIR/build/gelu_floor/, each thread taking 32 fp32 values as the body
@@ -88,7 +109,9 @@ import torch
 CHECKOUT = Path(__file__).resolve().parents[1]
 SECTIONS = ("attention_rel_packed", "window_attention_bwd", "self_attention", "gemm_bf16",
             "attention_rel_bwd", "attention_rel_bwd_r66", "dwconv2d", "dwconv3d", "gemm_int8",
-            "self_attention_bwd", "ln_mlp", "ln_mlp_prior", "gelu_floor")
+            "self_attention_bwd", "ln_mlp", "ln_mlp_prior", "gelu_floor", "ln_mlp_bwd",
+            "attention_bwd_aug", "bwd_seeds")
+SEEDS = 32  # bwd_seeds: input draws per shape
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core peak, FLOP/s
 SMS, ISSUE_LANES = 132, 128  # H100 SXM: SMs, thread instructions issued per SM per clock
 GELU_PROBE = r"""
@@ -160,6 +183,70 @@ def gelu_floor(cs, root: Path) -> dict:
         print(f"gelu_floor {label} [{M}, {C}] x{blocks}: GELU floor {gelu_us:.2f} us, tensor "
               f"bound {tensor_us:.2f} us ({gelu_us / tensor_us:.2f}x)", flush=True)
     return {"instructions_per_element": per_elem, "per_mvit_forward": sums}
+
+
+def bwd_seeds(cs, PA, WA, root: Path) -> dict:
+    """The `bwd_seeds` section: the largest error over tolerance of each
+    bf16 backward gradient over SEEDS draws of its inputs, per shape and
+    reference (see the module docstring)."""
+    spec = importlib.util.spec_from_file_location(
+        "checkout_window_attention",
+        CHECKOUT / "mspi_tpu_torch" / "ops" / "kernels" / "window_attention.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)  # the rounded reference of this checkout, any tree's kernel
+    B, worst = cs.TRAIN_BATCH, {}
+
+    def note(key, names, got, want):
+        for name, g, w in zip(names, got, want):
+            w = w.float()
+            r = (g.float() - w).abs().max().item() / cs.tolerance(torch.bfloat16, w, floor=0.0)
+            worst[f"{key}:{name}"] = max(worst.get(f"{key}:{name}", 0.0), r)
+
+    for seed in range(1000, 1000 + SEEDS):
+        randn = cs.randn_on(torch.Generator().manual_seed(seed))
+        for label, _, nw, heads, C, grid, shift in cs.SWIN_SHAPES:
+            inputs = [t.bfloat16() for t in cs.window_inputs(randn, B, nw, heads, C, grid, shift)]
+            qkv, bias = inputs[:2]
+            mask = inputs[2] if grid is not None else None
+            n = nw if grid is not None else 1
+            dout = randn(B * nw, cs.SWIN_N, C).bfloat16()
+            out, lse = WA._window_attention_fwd(qkv, bias, mask, heads, n, with_lse=True)
+            got = WA.window_attention_backward(qkv, bias, mask, out, lse, heads, n, dout)
+            f32 = [None if t is None else t.float() for t in (qkv, bias, mask)]
+            a = WA.window_attention_backward_reference(*f32, heads, n, dout.float())
+            b = ref.window_attention_backward_rounded_reference(qkv, bias, mask, heads, n, dout)
+            c = ref.window_attention_backward_rounded_reference(qkv, bias, mask, heads, n, dout,
+                                                                out)
+
+            def parts(grads):
+                dqkv, dbias = grads
+                return dqkv[..., :C], dqkv[..., C:2 * C], dqkv[..., 2 * C:], dbias
+            names = ("dq", "dk", "dv", "dbias")
+            for key, g, w in (("kernel-a", got, a), ("kernel-b", got, b), ("kernel-c", got, c),
+                              ("b-a", b, a), ("c-a", c, a)):
+                note(f"window {label} {key}", names, parts(g), parts(w))
+            del inputs, qkv, bias, mask, dout, out, lse, got, a, b, c
+        for label, _, heads, nq, k_shape in cs.MVIT_BLOCKS:  # row 5
+            nk, r, D = math.prod(k_shape), sum(k_shape), cs.MVIT_D
+            q, k, v, rel, dout = (randn(*shape).bfloat16() for shape in (
+                (B, heads, nq, D), (B, heads, nk, D), (B, heads, nk, D), (B, heads, nq, r),
+                (B, heads, nq, D)))
+            out, lse = PA._attention_rel_fwd(q, k, v, rel, k_shape, D ** -0.5, with_lse=True)
+            got = PA.attention_rel_backward(q, k, v, rel, out, lse, k_shape, D ** -0.5, dout)
+            want = PA.attention_rel_backward_reference(*(t.float() for t in (q, k, v, rel)),
+                                                       k_shape, D ** -0.5, dout.float())
+            note(f"rel {label} kernel-a", ("dq", "dk", "dv", "drel"), got, want)
+            del q, k, v, rel, dout, out, lse, got, want
+        q, kv, dout = (randn(B, 708, n).bfloat16() for n in (512, 1024, 512))  # K4
+        out, lse = PA._self_attention_fwd(q, kv, 4, with_lse=True)
+        got = cs.split_kv(PA.self_attention_backward(q, kv, out, lse, 4, dout), 512)
+        want = cs.split_kv(PA.self_attention_backward_reference(q.float(), kv.float(), 4,
+                                                                dout.float()), 512)
+        note("self sync kernel-a", ("dq", "dk", "dv"), got, want)
+        del q, kv, dout, out, lse, got, want
+    for key, r in sorted(worst.items()):
+        print(f"bwd_seeds {key}: worst err/tol {r:.3f} over {SEEDS} seeds", flush=True)
+    return worst
 
 
 def _smoke():
@@ -414,12 +501,54 @@ def main(argv=None) -> dict:
             device["mlp"] = device.get("mlp", 0.0) + us
             print(f"mlp {label}: {ms:.4f} ms (device {us:.2f} us)", flush=True)
             del x, w1, b1, w2, b2
+    if "ln_mlp_bwd" in only:
+        randn = cs.randn_on(torch.Generator().manual_seed(11))
+        for label, tokens, C, eps, mvit, swin in cs.LN_MLP_SHAPES:
+            M = cs.TRAIN_BATCH * tokens
+            xs = [t.bfloat16() for t in cs.mlp_inputs(randn, M, C) + [randn(M, C)]]
+            fn = lambda: K2.ln_mlp_backward(*xs[:7], eps, xs[7])  # noqa: E731
+            chain_fn = cs.library_grad(
+                lambda x, g, b, w1, b1, w2, b2: F.linear(F.gelu(F.linear(
+                    F.layer_norm(x, (C,), g, b, eps), w1, b1)), w2, b2), xs[:7], xs[7])
+            ms, lib_ms = time_ms(fn), time_ms(chain_fn)
+            us, lib_us = device_us(fn, 2 * args.reps), device_us(chain_fn, 2 * args.reps)
+            for key, weight in (("ln_mlp_bwd", mvit), ("ln_mlp_bwd:swin", swin)):
+                for k, v in ((key, ms), (key + ":chain", lib_ms)):
+                    sums[k] = sums.get(k, 0.0) + weight * v
+                for k, v in ((key, us), (key + ":chain", lib_us)):
+                    device[k] = device.get(k, 0.0) + weight * v
+            flops = 10.0 * M * C * 4 * C
+            print(f"ln_mlp_bwd {label} [{M}, {C}] x{mvit} (Swin x{swin}): {ms:.4f} ms (device "
+                  f"{us:.2f} us, {flops / (us * 1e-6) / PEAK_BF16:.1%} of the bf16 peak); chain "
+                  f"{lib_ms:.4f} ms (device {lib_us:.2f} us)", flush=True)
+            if label in ("mvit-s1", "mvit-s2", "mvit-s3", "mvit-s4", "sync"):
+                print(f"ln_mlp_bwd {label} by kernel: " + "; ".join(
+                    f"{name[:60]} {k_us:.2f} us" for name, k_us in breakdown(fn, 2 * args.reps)),
+                    flush=True)
+            del xs
+    if "attention_bwd_aug" in only:  # row 7 head-major, per relk0 step
+        randn, B = cs.randn_on(torch.Generator().manual_seed(31)), cs.TRAIN_BATCH
+        for label, blocks, heads, nq, k_shape in cs.MVIT_BLOCKS:
+            q, k, v = (t.bfloat16() for t in cs.aug_inputs(randn, B, heads, nq, k_shape))
+            dout = randn(B, heads, nq, cs.MVIT_D).bfloat16()
+            out, lse = PA._attention_fwd(q, k, v, with_lse=True)
+            fn = lambda: PA.attention_backward(q, k, v, out, lse, dout)  # noqa: E731
+            lib = cs.library_grad(lambda *a: cs.sdpa(*a, scale=1.0), (q, k, v), dout)
+            summed("attention_bwd_aug", f"{label} Da {q.shape[-1]}", blocks, fn, lib, args.reps)
+            if label in ("blk0", "blk4-13"):
+                print(f"attention_bwd_aug {label} by kernel: " + "; ".join(
+                    f"{name[:60]} {k_us:.2f} us" for name, k_us in breakdown(fn, args.reps)),
+                    flush=True)
+            del q, k, v, dout, out, lse
+    seeds = bwd_seeds(cs, PA, WA, root) if "bwd_seeds" in only else None
     floor = gelu_floor(cs, root) if "gelu_floor" in only else None
     line = {"tree": str(root), "device": smi, "per_forward_or_step_ms": sums,
             "device_us_per_call": device,
             "launches": {k: v for k, v in kernels.launches.items() if v}}
     if floor is not None:
         line["gelu_floor"] = floor
+    if seeds is not None:
+        line["bwd_seeds"] = seeds
     print(json.dumps(line), flush=True)
     return line
 

@@ -15,7 +15,14 @@ Prints the card's name and power limit, the wall time per forward or step
 (CUDA events), the summed device-kernel time, the idle share of the device,
 and the kernels grouped by family (the port's own kernels by name,
 cuDNN/cuBLAS, elementwise, other), largest first. With `--table`, the full
-key_averages table is written to PATH. `--quant int8`, `--prior_fold_res`
+key_averages table is written to PATH. With `--train` it also splits each
+step's host wall time from the profiler's CPU events (each step inside a
+`profile_train_step` range): the forward's dispatch (from the step's start
+to its first autograd event), autograd's backward dispatch (the first to
+the last `autograd::engine::evaluate_function` event), the optimizer
+(`Optimizer.zero_grad`, `aten::_foreach_norm`, `Optimizer.step`, each
+event's own span) and the rest (the metrics' read-back, which waits for
+the device, and everything else), per step. `--quant int8`, `--prior_fold_res`
 and `--prior_ln_t` build the model with the serving options (inference
 only); their kernels (rows 12, 10 and 11) are families of their own.
 `--no_attn_relk`, `--attn_packed` (inference only) and `--dwconv` build
@@ -51,9 +58,13 @@ PORT_FAMILIES = (
     ("K1/K4/row 6 attention backward", ("attn_bwd",)),
     ("K1/K4/row 6 attention backward", ("rel_bwd_",)),
     ("K1/K4/row 6 attention backward", ("self_bwd_",)),
+    ("K1/K4/row 6 attention backward", ("aug_bwd_",)),
+    ("K1/K4/row 6 attention backward", ("aug_pad_",)),
     ("K2 ln_mlp backward", ("ln_mlp_bwd",)),
+    ("K2 ln_mlp backward", ("lnbwd::",)),
     ("K2 ln_mlp backward", ("atb_kernel",)),
     ("K2 ln_mlp backward", ("sum_segments",)),
+    ("K2 ln_mlp backward", ("colsum_kernel",)),
     ("window attention (row 15)", ("flash_attention", "2>(")),
     ("K1 attention_rel", ("flash_attention", "1>(")),
     ("row 6 attention (augmented lanes)", ("flash_attention", ",96,0>(")),
@@ -76,6 +87,11 @@ FAMILIES = (
 )
 
 
+# Ranges that the profiler also lays on the device timeline: the step's own
+# range and the optimizer's, which span its kernels without being one
+ANNOTATIONS = ("profile_train_step", "Optimizer.")
+
+
 def family(name: str) -> str:
     low = name.lower().replace(" ", "")
     for fam, keys in PORT_FAMILIES:
@@ -85,6 +101,32 @@ def family(name: str) -> str:
         if any(k in low for k in keys):
             return fam
     return "other"
+
+
+def host_split(prof, steps: int) -> None:
+    """Each profiled training step's host wall time by phase (see the module
+    docstring), averaged over the steps, in ms."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "profile_train_step")
+    optimizer = ("Optimizer.zero_grad", "aten::_foreach_norm", "Optimizer.step")
+    split = defaultdict(float)
+    for t0, t1 in spans:
+        inside = [e for e in events if t0 <= e.time_range.start and e.time_range.end <= t1]
+        bwd = [e for e in inside if e.name.startswith("autograd::engine::evaluate_function")]
+        b0 = min((e.time_range.start for e in bwd), default=t1)
+        b1 = max((e.time_range.end for e in bwd), default=t1)
+        opt = [e for e in inside if e.name.startswith(optimizer)]
+        before = sum(e.time_range.end - e.time_range.start for e in opt if e.time_range.end <= b0)
+        after = sum(e.time_range.end - e.time_range.start for e in opt if e.time_range.start >= b1)
+        split["wall"] += t1 - t0
+        split["forward dispatch"] += b0 - t0 - before
+        split["autograd backward dispatch"] += b1 - b0
+        split["optimizer"] += before + after
+        split["rest"] += t1 - b1 - after
+    n = max(len(spans), 1)
+    print(f"host split per step over {len(spans)} profiled steps (of {steps}): " + "; ".join(
+        f"{k} {v / n / 1000:.2f} ms" for k, v in split.items()))
 
 
 def main() -> None:
@@ -131,7 +173,8 @@ def main() -> None:
                                             cfg.data.resolution, (257, 111)), "cuda")
 
         def run():
-            step(state, batch, cfg.solver.lr)
+            with torch.profiler.record_function("profile_train_step"):
+                step(state, batch, cfg.solver.lr)
     else:
         gen = torch.Generator().manual_seed(1)
         clips = torch.randint(0, 256, (args.batch, 16, *cfg.data.resolution, 3),
@@ -161,7 +204,8 @@ def main() -> None:
         t = getattr(evt, "self_device_time_total", None)
         if t is None:
             t = evt.self_cuda_time_total
-        if t <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+        if (t <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA
+                or evt.key.startswith(ANNOTATIONS)):  # ranges on the device, not kernels
             continue
         ms = t / 1000.0 / args.steps
         device_ms += ms
@@ -173,6 +217,8 @@ def main() -> None:
           f"{max(0.0, 1 - device_ms / wall_ms):.1%}")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:38s} {ms:8.2f} ms  {ms / max(device_ms, 1e-9):6.1%}")
+    if args.train:
+        host_split(prof, args.steps)
     if args.table:
         Path(args.table).parent.mkdir(parents=True, exist_ok=True)
         Path(args.table).write_text(
