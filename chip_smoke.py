@@ -14,7 +14,12 @@ first failure (there is no CPU path):
    that computes the same function; K4 also at the training shape (batch
    2) with the row log-sum-exp that its backward reads; K2 at its nine
    shapes and K3 at the prior's four, each weighted by its blocks per
-   forward, and their bf16 runs (the wgmma body) twice, bit-identical;
+   forward, and their bf16 runs (the wgmma body) twice, bit-identical; the
+   serving options' kernels, row 12 at its three shapes weighted by its
+   blocks per MViTv2-S serving forward (logged per VideoSwin-S int8
+   forward too), each bf16 run twice and bit-identical, its flipped codes
+   printed, and (checked only) on rows whose hidden pre-activations all lie
+   below zero, where its second pass runs again;
 4. main path: `predict_video` of the bf16 MViTv2-S AudioVisualSaliencyModel
    at 224x384 (seeded random weights) on 31 synthetic frames and a 16 kHz
    waveform; checks the maps and each kernel's launch count;
@@ -46,16 +51,20 @@ first failure (there is no CPU path):
 15. swin_int8_main: phase 4 on the VideoSwin-S model with quant="int8";
 16. layout_kernels: the kernels of MViT's layout options against their
    plain versions, fp32 and bf16, at batch 8: the augmented-lane attention
-   (row 6) at the 16 blocks' shapes, the packed rel-pos attention (row 8,
+   (row 6) at the 16 blocks' shapes and (batch 2, checked only) at the
+   wide form's Da 148 and 162 of 256x448 and 288x640 (`MVIT_WIDE`,
+   `MVIT_R66`), each bf16 run twice, bit-identical; the packed rel-pos
+   attention (row 8,
    with the residual) at blocks 1-15 and at the rel width 52 of 256x448
    (checked only), the depthwise conv3d (row 18) at the 17 stride-1 pools
    (and, checked only, on the packed layout and at ragged shapes, each
    bf16 tile, a part channel group and C off the 8-channel vector); times
    summed per forward (each shape weighted by its blocks);
 17. layout_backward: at batch 2, row 7's head-major backward of row 6 at
-   the 16 blocks, row 8's backward (K1's after a layout change, its bf16
-   run twice, bit-identical) at blocks 1-15 and at R = 52 and 66, and row
-   18's dx beside grouped `F.conv3d` on the flipped taps;
+   the 16 blocks and (checked only) at Da 148 and 162, row 8's backward
+   (K1's after a layout change, its bf16 run twice, bit-identical) at
+   blocks 1-15 and at R = 52 and 66, and row 18's dx beside grouped
+   `F.conv3d` on the flipped taps;
 18. layout_main: phase 4 on MViTv2-S with attn_packed and dwconv (row 8 in
    blocks 1-15, K1 in block 0, row 18 in the 17 stride-1 pools), timed in
    turns against the default model;
@@ -93,7 +102,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import re
 import statistics
 import subprocess
 import sys
@@ -130,7 +138,9 @@ KERNELS = {
     "ln_mlp_prior_res": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh",
                          "mspi_tpu/ops/pallas/mlp.py:778"),
     "layernorm_tokens": ("mspi_tpu_torch/csrc/layernorm.cu", "mspi_tpu/ops/pallas/mlp.py:880"),
-    "attention": ("mspi_tpu_torch/csrc/attention.cu",
+    # row 6 in bf16 (timed): flash_attention_sm90.cuh's body with DK != DV,
+    # entered in attention.cu; fp32 runs flash_attention.cuh's FMA body
+    "attention": ("mspi_tpu_torch/csrc/flash_attention_sm90.cuh",
                   "mspi_tpu/ops/pallas/pooled_attention.py:782"),
     "attention_rel_packed": ("mspi_tpu_torch/csrc/attention_rel.cu",
                              "mspi_tpu/ops/pallas/pooled_attention.py:593"),
@@ -554,7 +564,10 @@ def phase_kernels(records) -> None:
 
 # Row 12 shapes per clip (MViTv2-S; VideoSwin-S's stage 3 and 4 have the
 # same token counts): label, tokens, C
-INT8_SHAPES = (("mvit-s3", 2688, 384), ("mvit-s4", 672, 768), ("sync", 708, 512))
+# Row 12 per clip: label, tokens, C and the blocks of the shape in one
+# MViTv2-S serving forward (stage 3's 11 blocks, stage 4's 2, the 3 SyncBlock
+# blocks) and one VideoSwin-S int8 forward (stage 3's 18 at the same grid)
+INT8_SHAPES = (("s3", 2688, 384, 11, 18), ("s4", 672, 768, 2, 2), ("sync", 708, 512, 3, 3))
 # Checks added after a phase's shapes were first timed draw their inputs
 # from a generator of their own (`added_randn`), so that every check before
 # them in the phase keeps the inputs it had
@@ -588,7 +601,8 @@ def serving_kernels(records, randn) -> None:
     from mspi_tpu_torch.ops.kernels import ln_mlp as K2
     from mspi_tpu_torch.ops.kernels.layernorm import layernorm_tokens, layernorm_tokens_reference
 
-    for label, tokens, C in INT8_SHAPES:
+    swin = {"ms": 0.0, "bound_ms": 0.0}  # the sums per VideoSwin-S int8 forward
+    for label, tokens, C, blocks, swin_blocks in INT8_SHAPES:
         M, H = BATCH * tokens, 4 * C
         g, b, w1, b1, w2, b2 = (t.float() for t in mlp_inputs(randn, 1, C)[1:])
         w1q, s1 = K2.quantize_weight(w1)
@@ -600,10 +614,34 @@ def serving_kernels(records, randn) -> None:
                 records, "ln_mlp_int8", label, lambda x: K2.ln_mlp_int8(x, *ops, 1e-6),
                 lambda x: K2.ln_mlp_int8_reference(x, *ops, 1e-6), [x32], dtype,
                 compare=lambda out, xs: int8_errors(
-                    out, K2.ln_mlp_int8_reference(xs[0], *ops, 1e-6)))
-            add_bound(records["ln_mlp_int8"], dtype, nbytes(*xs, out, *ops),
-                      4.0 * M * C * H, PEAK_INT8_OPS)
+                    out, K2.ln_mlp_int8_reference(xs[0], *ops, 1e-6)),
+                weight=blocks, repeatable=True)
+            n_bytes, n_ops = nbytes(*xs, out, *ops), 4.0 * M * C * H
+            add_bound(records["ln_mlp_int8"], dtype, n_bytes, n_ops, PEAK_INT8_OPS,
+                      weight=blocks)
+            if dtype == torch.bfloat16:
+                swin["ms"] += swin_blocks * time_ms(lambda: K2.ln_mlp_int8(xs[0], *ops, 1e-6))
+                swin["bound_ms"] += swin_blocks * max(n_bytes / HBM_BYTES_PER_S,
+                                                      n_ops / PEAK_INT8_OPS) * 1e3
         del x32, xs, out
+    log("kernels", f"ln_mlp_int8 per VideoSwin-S int8 forward (18 s3, 2 s4, 3 sync; bf16): "
+                   f"kernel {swin['ms']:.3f} ms bound {swin['bound_ms']:.4f} ms; per MViTv2-S "
+                   f"serving forward (11, 2, 3): the record's sums")
+    # rows whose hidden pre-activations all lie below zero, where a row's
+    # largest u does not give its max |h|: the kernel's second pass 2 (at
+    # each form; checked only)
+    rnd = added_randn()
+    for C in (384, 768):
+        g, b, w1, b1, w2, b2 = (t.float() for t in mlp_inputs(rnd, 1, C)[1:])
+        w1q, s1 = K2.quantize_weight(0.25 * w1)
+        w2q, s2 = K2.quantize_weight(w2)
+        ops = (g, b, w1q, s1, b1 - 1.5, w2q, s2, b2)
+        for dtype in (torch.float32, torch.bfloat16):
+            check_kernel(records, "ln_mlp_int8", f"C {C} u < 0", lambda x: K2.ln_mlp_int8(
+                x, *ops, 1e-6), lambda x: K2.ln_mlp_int8_reference(x, *ops, 1e-6),
+                [rnd(BATCH * 64, C)], dtype, compare=lambda out, xs: int8_errors(
+                    out, K2.ln_mlp_int8_reference(xs[0], *ops, 1e-6)),
+                weight=0, repeatable=True)
     for label, tokens, C, blocks in PRIOR_SHAPES:
         M = BATCH * 16 * tokens
         inputs = mlp_inputs(randn, M, C)
@@ -884,16 +922,22 @@ def phase_layout_kernels(records) -> None:
     from mspi_tpu_torch.ops.kernels import pooled_attention as PA
 
     randn = randn_on(torch.Generator().manual_seed(21))
-    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS:
+    # row 6 at the 16 blocks (batch 8, in the sums), then at the augmented
+    # widths of 256x448 (Da 148) and 288x640 (Da 162), the wide form (batch
+    # 2, checked only); each bf16 run twice, bit-identical
+    shapes = [(BATCH, *shape) for shape in MVIT_BLOCKS]
+    shapes += [(TRAIN_BATCH, *shape) for shape in MVIT_WIDE + MVIT_R66]
+    for batch, label, blocks, heads, nq, k_shape in shapes:
         nk, r = math.prod(k_shape), sum(k_shape)
-        inputs = aug_inputs(randn, BATCH, heads, nq, k_shape)
+        inputs = aug_inputs(randn if blocks else added_randn(), batch, heads, nq, k_shape)
         for dtype in (torch.float32, torch.bfloat16):
             xs, out = check_kernel(
                 records, "attention", f"{label} Da {MVIT_D + r}", PA.attention,
                 PA.attention_reference, inputs, dtype,
-                lambda q, k, v: (lambda: sdpa(q, k, v, scale=1.0)), weight=blocks)
+                lambda q, k, v: (lambda: sdpa(q, k, v, scale=1.0)), weight=blocks,
+                repeatable=True)
             add_bound(records["attention"], dtype, nbytes(*xs, out),
-                      2.0 * BATCH * heads * nq * nk * (MVIT_D + r + MVIT_D), weight=blocks)
+                      2.0 * batch * heads * nq * nk * (MVIT_D + r + MVIT_D), weight=blocks)
         del inputs, xs, out
     # the blocks with heads > 1, and the R = 52 shapes (checked only)
     for label, blocks, heads, nq, k_shape in MVIT_BLOCKS[1:] + MVIT_WIDE:
@@ -944,9 +988,12 @@ def phase_layout_backward(records) -> None:
 
     randn = randn_on(torch.Generator().manual_seed(31))
     B = TRAIN_BATCH
-    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS:
+    # the 16 blocks (in the sums), then the augmented widths of 256x448 (Da
+    # 148) and 288x640 (Da 162), the wide form (checked only)
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS + MVIT_WIDE + MVIT_R66:
         nk, r = math.prod(k_shape), sum(k_shape)
-        inputs = aug_inputs(randn, B, heads, nq, k_shape) + [randn(B, heads, nq, MVIT_D)]
+        rnd = randn if blocks else added_randn()
+        inputs = aug_inputs(rnd, B, heads, nq, k_shape) + [rnd(B, heads, nq, MVIT_D)]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, dout = (t.to(dtype) for t in inputs)
             out, lse = PA._attention_fwd(q, k, v, with_lse=True)
@@ -1402,19 +1449,23 @@ def phase_train_parity(tag: str, encoder: str) -> None:
 
 # Entries the register-resident bodies must hold (mangled-name fragments):
 # row 8's forward (kRelBiasRes = 3) in both rel forms, K4's (kNoBias = 0,
-# D = 128), the bf16 window backward's three passes, the bf16 K1 backward's
-# two passes in its three rel widths (RS = 2, 3, 4) and its wide form (R >
-# 64), row 19 in both dtypes
-# and tile widths, row 18's bf16 ring kernel in its two tiles (warp outputs
-# OH x OW), row 21's wgmma GEMMs (int8 at 64 and 128 rows per block), the
-# bf16 K4 backward's two passes at D = 96 and 128, the wgmma LN+MLP body
-# at every C as K2 (LN), row 10 (LN, RES) and row 13, row 7 head-major's
-# two bf16 passes at both score widths (DK = 128, 144), and the bf16 K2
-# backward's row pass at every C as row 9 (LN) and row 14, and its wgmma
-# products (dz = du W1; the weight gradients A^T B)
-SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3E",
-                "flash_attention_sm90_kernelILi96ELi0ELi3E",
-                "flash_attention_sm90_kernelILi128ELi0ELi0E", "window_bwd_dq_sm90_kernel",
+# D = 128), row 6's (kNoBias, score width 128, 144 or 176, value width 96),
+# the bf16 window backward's three passes, the bf16 K1 backward's two
+# passes in its three rel widths (RS = 2, 3, 4) and its wide form (R > 64),
+# row 19 in both dtypes and tile widths, row 18's bf16 ring kernel in its
+# two tiles (warp outputs OH x OW), row 21's wgmma GEMMs (int8 at 64 and
+# 128 rows per block), the bf16 K4 backward's two passes at D = 96 and 128,
+# the wgmma LN+MLP body at every C as K2 (LN), row 10 (LN, RES) and row 13,
+# row 7 head-major's two bf16 passes at the three score widths (DK = 128,
+# 144 and the wide 176), row 12's s8 wgmma body at its four widths in both
+# x dtypes, and the bf16 K2 backward's row pass at every C as row 9 (LN)
+# and row 14, and its wgmma products (dz = du W1; the weight gradients A^T
+# B)
+SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3ELi96E",
+                "flash_attention_sm90_kernelILi96ELi0ELi3ELi96E",
+                "flash_attention_sm90_kernelILi128ELi0ELi0ELi128E",
+                *(f"flash_attention_sm90_kernelILi{dk}ELi0ELi0ELi96E" for dk in (128, 144, 176)),
+                "window_bwd_dq_sm90_kernel",
                 "window_bwd_dkv_sm90_kernel", "window_bwd_dbias_sm90_kernel",
                 *(f"rel_bwd_{p}_sm90_kernelILi96ELi{rs}E" for p in ("dq", "dkv")
                   for rs in (2, 3, 4)),
@@ -1426,7 +1477,10 @@ SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3E",
                 *(f"self_bwd_{p}_sm90_kernelILi{d}E" for p in ("dq", "dkv") for d in (96, 128)),
                 *(f"ln_mlp_sm90_kernelILi{c}ELb{ln}ELb{res}E" for c in (96, 192, 384, 512, 768)
                   for ln, res in ((1, 0), (1, 1), (0, 0))),
-                *(f"aug_bwd_{p}_sm90_kernelILi{dk}E" for p in ("dq", "dkv") for dk in (128, 144)),
+                *(f"aug_bwd_{p}_sm90_kernelILi{dk}E" for p in ("dq", "dkv")
+                  for dk in (128, 144, 176)),
+                *(f"ln_mlp_int8_sm90_kernelI{t}Li{c}E" for t in ("f", "13__nv_bfloat16")
+                  for c in (256, 384, 512, 768)),
                 *(f"ln_mlp_bwd_rows_sm90_kernelILi{c}ELb{ln}E" for c in (96, 192, 384, 512, 768)
                   for ln in (1, 0)),
                 "wgemm_f32_sm90_kernelILb0E", "wgemm_f32_sm90_kernelILb1E")
@@ -1438,9 +1492,9 @@ def check_ptxas() -> None:
     the wgmma GEMMs and the wgmma LN+MLP): each instantiation's registers
     and spills as ptxas
     reported them; a spill fails the run, and so does a missing entry of
-    SM90_ENTRIES or an instantiation of the WMMA body
-    (`flash_attention_tc_kernel<DK, DV, BIAS>`) other than row 6's
-    augmented lanes (bias mode 0, DK != DV)."""
+    SM90_ENTRIES or any instantiation of the retired WMMA flash body
+    (`flash_attention_tc_kernel`, retired: row 6, its last user, runs the
+    sm90 body)."""
     from mspi_tpu_torch.ops import kernels
 
     report = kernels.ptxas_report("sm90_kernel")
@@ -1452,13 +1506,9 @@ def check_ptxas() -> None:
     spills = [entry for entry, (_, st, ld) in report.items() if st or ld]
     if spills:
         raise AssertionError(f"{sorted(spills)} spill registers")
-    wmma = []
-    for name in kernels.ptxas_report("flash_attention_tc_kernel"):
-        dk, dv, bias = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", name).groups()
-        if bias != "0" or dk == dv:
-            wmma.append(name)
+    wmma = sorted(kernels.ptxas_report("flash_attention_tc_kernel"))
     if wmma:
-        raise AssertionError(f"the WMMA body has instantiations other than row 6's: {wmma}")
+        raise AssertionError(f"the retired WMMA flash body is instantiated: {wmma}")
 
 
 def main() -> None:

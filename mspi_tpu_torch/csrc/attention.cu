@@ -4,32 +4,35 @@
 // q_aug [B, H, Nq, Da] = [q * scale | rel_t | rel_h | rel_w] and k_aug
 // [B, H, Nk, Da] = [k | E] (E the 0/1 expansion of the key's t, h, w index),
 // built by the caller, so the rel-pos bias is part of the one contraction;
-// v [B, H, Nk, Dv], out [B, H, Nq, Dv]. On MViTv2-S, Da = 96 + 27 = 123 or
-// 96 + 46 = 142 and Dv = 96.
+// v [B, H, Nk, Dv], out [B, H, Nq, Dv]. On MViTv2-S, Da = 96 + R: 123 or 142
+// at 224x384, up to 148 at --resolution 256 448 and 162 at 288x640; Dv = 96.
 //
 // Replaces: mspi_tpu/ops/pallas/pooled_attention.py::fused_attention (kernel
 // _fwd_kernel), all 16 MViTv2-S blocks when the rel-pos kernel is off.
 //
 // The TPU kernel holds a whole [TQ, Nk] score tile in VMEM, one MXU lane tile
-// wide in the contraction (123 or 142 lanes). Here it is the flash body of
-// flash_attention.cuh with separate score and value widths: the rows of Da
-// bf16 values (246 or 284 bytes) are not 16-byte aligned, so q_aug and k_aug
-// are loaded one element at a time and zero-filled to DK = 128 or 144 lanes
-// in shared memory (exact: the padded lanes add 0 to every score) instead of
-// being padded by a copy in device memory.
+// wide in the contraction. Here the score width is Da zero-filled to DK =
+// 128, 144 or 176 lanes (aug_width in flash_attention.cuh; exact, the padded
+// lanes add 0 to every score). bf16 runs flash_attention_sm90.cuh's
+// register-resident body with DK != DV: k_aug's unaligned rows are first
+// copied once into zero-filled DK-lane rows in the caller's `pad` scratch, so
+// its cp.async ring copies 16-byte rows; q_aug is read into registers once per
+// block. fp32 runs flash_attention.cuh's FMA body, which loads both one
+// element at a time into zero-filled rows in shared memory.
 //
-// What bounds it on the card: 2*(Da + Dv) flops per (query, key) pair, read
-// once per query tile; like K1 it sits far above the memory roofline, and the
-// narrow loads of q_aug/k_aug add to the block's synchronised shared-memory
-// work per key tile.
+// What bounds it on the card: 2*(Da + Dv) flops per (query, key) pair against
+// q, k, v read once per query tile: the tensor cores (bf16), the FMA pipes
+// (fp32).
 
-#include "flash_attention.cuh"
+#include "flash_attention_sm90.cuh"
 
 // lse: [B*H, Nq] fp32 row log-sum-exp, written when not null (the training
-// forward keeps it for mspi_attention_bwd in attention_bwd.cu).
+// forward keeps it for mspi_attention_bwd in attention_bwd.cu). pad: bf16
+// only, [B*H*Nk, aug_width(Da)] scratch (16-byte aligned) for k_aug's padded
+// rows; unused in fp32.
 extern "C" int mspi_attention(const void* q, const void* k, const void* v, void* out,
-                              float* lse, int B, int H, int Nq, int Nk, int Da, int Dv,
-                              int dtype, void* stream) {
+                              float* lse, void* pad, int B, int H, int Nq, int Nk, int Da,
+                              int Dv, int dtype, void* stream) {
   mspi::AttnArgs a{};
   a.q = q;
   a.k = k;
@@ -48,8 +51,13 @@ extern "C" int mspi_attention(const void* q, const void* k, const void* v, void*
   a.dk = Da;
   a.scale = 1.f;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mspi::kFloat32) return mspi::launch_flash_attention_aug<float>(a, B, Dv, s);
-  if (dtype == mspi::kBFloat16)
-    return mspi::launch_flash_attention_aug<__nv_bfloat16>(a, B, Dv, s);
-  return cudaErrorInvalidValue;
+  if (dtype == mspi::kFloat32) return mspi::launch_flash_attention_aug_f32(a, B, Dv, s);
+  if (dtype != mspi::kBFloat16 || Dv != 96 || pad == nullptr) return cudaErrorInvalidValue;
+  auto* p = static_cast<__nv_bfloat16*>(pad);
+  switch (mspi::aug_width(Da)) {
+    case 128: return mspi::launch_flash_attention_aug_sm90<128>(a, B, p, s);
+    case 144: return mspi::launch_flash_attention_aug_sm90<144>(a, B, p, s);
+    case 176: return mspi::launch_flash_attention_aug_sm90<176>(a, B, p, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -7,7 +7,7 @@
 // per (batch, head) on head-major operands: q_aug, dq [B, H, Nq, Da]; k_aug,
 // dk [B, H, Nk, Da]; v, dv [B, H, Nk, 96]; out, dout [B, H, Nq, 96]. The
 // score width Da = 96 + R (q * scale, then the rel lanes; k, then the 0/1
-// expansion E of the key grid) is in (112, 144]; dk includes the k_aug lanes
+// expansion E of the key grid) is in (112, 176]; dk includes the k_aug lanes
 // of E, which take a gradient the caller drops. lse is the forward's fp32
 // row log-sum-exp. Numerics are the TPU kernel's: delta = rowsum(P * dP) in
 // fp32, dS rounded to bf16 where it enters dq and dk, P where it enters dv.
@@ -24,9 +24,14 @@
 // other side through a 2-slot cp.async ring with one barrier per tile:
 //   0. pad: Da-lane rows are not 16-byte aligned (Da is odd at 123), so
 //      q_aug and k_aug are first copied once into zero-filled rows of DK =
-//      128 or 144 lanes (aug_pad_kernel); the zero lanes add nothing to S.
+//      128, 144 or 176 lanes (aug_width; flash_attention_sm90.cuh's
+//      aug_pad_kernel); the zero lanes add nothing to S.
 //   1. dq + delta: one block per (64-query tile, b x h). q and dO stay in
-//      registers as A fragments. The key tiles (K and V rows) are walked
+//      registers as A fragments; in the wide form (DK = 176, Da 145..176:
+//      MViTv2-S's 148 at --resolution 256 448 and 162 at 288x640) q's 64
+//      rows stay in shared memory instead and each warp reads its A
+//      fragments by ldmatrix per key tile, since q's 44 registers beside
+//      dq's 88 would leave too few. The key tiles (K and V rows) are walked
 //      twice: the first sweep sums delta = rowsum(P * dP) in fp32 and writes
 //      it for pass 2; the second recomputes S and dP, forms dS, rounds it to
 //      bf16 and repacks it into A fragments for dq += dS K (K's B fragments
@@ -86,32 +91,13 @@ struct AugBytes {
   static constexpr int kOpK = sizeof(bf16) * kTile * LDK;  // one [64][DK] tile
   static constexpr int kOpV = sizeof(bf16) * kTile * LDV;  // one [64][96] tile
   static constexpr int kStats = 2 * sizeof(float) * kTile;  // 64 rows' lse and delta
-  static constexpr int kDq = kRing * (kOpK + kOpV);         // the ring of (K, V) tiles
+  static constexpr bool kQShared = DK > 144;  // the wide form: q's rows in shared memory
+  // the ring of (K, V) tiles, then (wide form) the block's q rows
+  static constexpr int kDq = kRing * (kOpK + kOpV) + (kQShared ? kOpK : 0);
   static constexpr int kDkvSlot = kOpK + kOpV + kStats;     // q, dO, lse and delta
   static constexpr int kDkv = kRing * kDkvSlot + kOpK + kOpV;  // + the block's K and V rows
   static_assert(kOpK % 16 == 0 && kOpV % 16 == 0, "16-byte regions");
 };
-
-// Rows of Da lanes (any alignment) into zero-filled rows of DK lanes, 8
-// lanes a thread: the 16-byte rows pass 1 and 2 copy.
-__global__ void __launch_bounds__(256) aug_pad_kernel(const bf16* __restrict__ src,
-                                                      bf16* __restrict__ dst, int64_t rows,
-                                                      int da, int dk) {
-  const int vec = dk / 8;
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= rows * vec) return;
-  const int64_t r = i / vec;
-  const int c = static_cast<int>(i % vec) * 8;
-  const unsigned short* s = reinterpret_cast<const unsigned short*>(src) + r * da;
-  uint32_t w[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const uint32_t lo = c + 2 * e < da ? s[c + 2 * e] : 0u;
-    const uint32_t hi = c + 2 * e + 1 < da ? s[c + 2 * e + 1] : 0u;
-    w[e] = lo | hi << 16;
-  }
-  *reinterpret_cast<uint4*>(dst + r * dk + c) = make_uint4(w[0], w[1], w[2], w[3]);
-}
 
 // d += A B^T over k-steps [0, KS) of one 8-row B column tile: A fragments
 // af (rows of the warp), B's rows at `brow` (the tile's first row, pitch
@@ -140,12 +126,22 @@ __global__ void __launch_bounds__(kThreads, 2) aug_bwd_dq_sm90_kernel(AugBwdArgs
   using Z = AugBytes<DK>;
   constexpr int KSK = DK / 16, KSV = kDv / 16, NDK = DK / 8;
   constexpr int LDK = Z::LDK, LDV = Z::LDV;
+  constexpr bool kQShared = Z::kQShared;
   extern __shared__ __align__(128) unsigned char smem_adq[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kTile;
   const bf16* kp = w.k + static_cast<int64_t>(bh) * w.nk * DK;
   const bf16* vp = w.v + static_cast<int64_t>(bh) * w.nk * kDv;
+  const int64_t rows = static_cast<int64_t>(bh) * w.nq;
+  // the wide form: the block's q rows [64][LDK] after the ring, one commit
+  // group of their own ahead of the ring's; the lane's row for ldmatrix
+  bf16* qs = reinterpret_cast<bf16*>(smem_adq + kRing * (Z::kOpK + Z::kOpV));
+  const bf16* qa_row = qs + (warp * 16 + (lane & 15)) * LDK + (lane >> 4) * 8;
+  if constexpr (kQShared) {
+    copy_rows<kTile, DK, kThreads>(qs, w.q + rows * DK, DK, q0, w.nq);
+    cp_async_commit();
+  }
   // key tile k0 (K and V rows) into slot si as one commit group; k0 >= Nk
   // commits an empty group
   auto issue = [&](int si, int k0) {
@@ -161,11 +157,10 @@ __global__ void __launch_bounds__(kThreads, 2) aug_bwd_dq_sm90_kernel(AugBwdArgs
 
   const bool active = q0 + warp * 16 < w.nq;  // a row of this warp is in range
   const int row0 = warp * 16 + g;             // the thread's rows row0, row0 + 8
-  uint32_t qf[KSK][4], df[KSV][4];
+  uint32_t qf[kQShared ? 1 : KSK][4], df[KSV][4];
   float lse2[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};  // lse * log2(e), delta
-  const int64_t rows = static_cast<int64_t>(bh) * w.nq;
   if (active) {
-    load_a_frags(qf, w.q + rows * DK, DK, q0 + warp * 16, w.nq);
+    if constexpr (!kQShared) load_a_frags(qf, w.q + rows * DK, DK, q0 + warp * 16, w.nq);
     load_a_frags(df, w.dout + rows * kDv, kDv, q0 + warp * 16, w.nq);
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -203,20 +198,36 @@ __global__ void __launch_bounds__(kThreads, 2) aug_bwd_dq_sm90_kernel(AugBwdArgs
     for (int kk = 0; kk < kTile / 16; ++kk) {  // 16 keys: two 8-key column tiles
       if (kk * 16 >= valid) break;
       uint32_t da[4];  // dS (bf16) as the A fragment of these 16 keys
+      float s[2][4] = {}, dp[2][4] = {};  // S = q K^T, dP = dO V^T of both column tiles
+      if constexpr (kQShared) {  // q's A fragments one k-step at a time by ldmatrix
+#pragma unroll
+        for (int ks = 0; ks < KSK; ++ks) {
+          uint32_t qa[4];
+          ldsm_x4(qa, qa_row + ks * 16);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            uint32_t kb[2];
+            ldsm_x2(kb, kt + ((2 * kk + j) * 8 + (lane & 7)) * LDK + ks * 16 +
+                            ((lane >> 3) & 1) * 8);
+            mma_bf16(s[j], qa, kb[0], kb[1]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) mma_rows<KSK, LDK>(s[j], qf, kt + (2 * kk + j) * 8 * LDK);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) mma_rows<KSV, LDV>(dp[j], df, vt + (2 * kk + j) * 8 * LDV);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int n = 2 * kk + j;
-        float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_rows<KSK, LDK>(s, qf, kt + n * 8 * LDK);  // S = q K^T
-        mma_rows<KSV, LDV>(dp, df, vt + n * 8 * LDV);  // dP = dO V^T
-        const int c = n * 8 + 2 * t4;  // the thread's key columns c, c + 1
+        const int c = (2 * kk + j) * 8 + 2 * t4;  // the thread's key columns c, c + 1
         float ds[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {  // P = 0 past Nk; delta += P dP, or dS = P (dP - delta)
           const int hr = i >> 1;
-          const float pr = c + (i & 1) < valid ? exp2_ftz(s[i] * kLog2e - lse2[hr]) : 0.f;
-          if (first) dlt[hr] += pr * dp[i];
-          ds[i] = pr * (dp[i] - dlt[hr]);
+          const float pr = c + (i & 1) < valid ? exp2_ftz(s[j][i] * kLog2e - lse2[hr]) : 0.f;
+          if (first) dlt[hr] += pr * dp[j][i];
+          ds[i] = pr * (dp[j][i] - dlt[hr]);
         }
         da[2 * j] = pack_bf16(ds[0], ds[1]);
         da[2 * j + 1] = pack_bf16(ds[2], ds[3]);
@@ -453,13 +464,10 @@ cudaError_t launch(AugBwdArgs w, const bf16* q, const bf16* k, bf16* pad, int bh
   // 0. q and k into zero-filled DK-lane rows
   bf16* qpad = pad;
   bf16* kpad = pad + static_cast<int64_t>(bh) * w.nq * DK;
-  const int64_t qv = static_cast<int64_t>(bh) * w.nq * (DK / 8);
-  const int64_t kv = static_cast<int64_t>(bh) * w.nk * (DK / 8);
-  aug_pad_kernel<<<static_cast<unsigned>((qv + 255) / 256), 256, 0, stream>>>(
-      q, qpad, static_cast<int64_t>(bh) * w.nq, w.da, DK);
-  aug_pad_kernel<<<static_cast<unsigned>((kv + 255) / 256), 256, 0, stream>>>(
-      k, kpad, static_cast<int64_t>(bh) * w.nk, w.da, DK);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = sm90::launch_aug_pad<DK>(q, qpad, static_cast<int64_t>(bh) * w.nq, w.da,
+                                             stream);
+  if (err == cudaSuccess)
+    err = sm90::launch_aug_pad<DK>(k, kpad, static_cast<int64_t>(bh) * w.nk, w.da, stream);
   if (err != cudaSuccess) return err;
   w.q = qpad;
   w.k = kpad;
@@ -490,7 +498,7 @@ cudaError_t attention_aug_bwd_sm90(const void* q, const void* k, const void* v,
                                    cudaStream_t stream) {
   // 16-byte rows of v and dO (the ring's copies), of the padded rows and of
   // the partials; 4-byte pairs of dv and the lse and delta words
-  if (segments <= 0 || da <= 112 || da > 144 || pad == nullptr ||
+  if (segments <= 0 || aug_width(da) == 0 || pad == nullptr ||
       (segments > 1 && (dk_part == nullptr || dv_part == nullptr)))
     return cudaErrorInvalidValue;
   if (!aligned(v, 16) || !aligned(dout, 16) || !aligned(pad, 16) || !aligned(dv, 16) ||
@@ -514,8 +522,11 @@ cudaError_t attention_aug_bwd_sm90(const void* q, const void* k, const void* v,
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   bf16* pb = static_cast<bf16*>(pad);
-  if (da <= 128) return launch<128>(w, qb, kb, pb, bh, stream);
-  return launch<144>(w, qb, kb, pb, bh, stream);
+  switch (aug_width(da)) {
+    case 128: return launch<128>(w, qb, kb, pb, bh, stream);
+    case 144: return launch<144>(w, qb, kb, pb, bh, stream);
+    default: return launch<176>(w, qb, kb, pb, bh, stream);
+  }
 }
 
 }  // namespace mspi

@@ -52,7 +52,7 @@
 // windows' packed [B_, N, 3C] qkv need no head transposes.
 // Every pass is templated on DK (q, k, dq, dk: the score width) and DV (v,
 // dO, dv). The augmented lanes' rows of Da elements are loaded one element
-// at a time and zero-filled to DK = Da rounded up to 16 in shared memory;
+// at a time and zero-filled to DK = aug_width(Da) in shared memory;
 // only the first Da columns of dq and dk are written, and dk's partials are
 // kept at width Da.
 //   fp32 (every mode, window included): the FMA pipes (tensor cores would
@@ -557,13 +557,17 @@ cudaError_t dispatch_bwd(const BwdArgs& g, int batch, int d, int dtype, cudaStre
   return cudaErrorInvalidValue;
 }
 
-// The augmented lanes: q/k rows of g.f.dk lanes (zero-filled to DK = 128 or
-// 144), v and dO of dv = 96 lanes, no bias.
+// The augmented lanes: q/k rows of g.f.dk lanes (zero-filled to DK =
+// aug_width(g.f.dk): 128, 144 or 176), v and dO of dv = 96 lanes, no bias.
 template <typename T>
 cudaError_t dispatch_bwd_aug(const BwdArgs& g, int batch, int dv, cudaStream_t s) {
-  if (g.segments <= 0 || dv != 96 || g.f.dk <= 112 || g.f.dk > 144) return cudaErrorInvalidValue;
-  if (g.f.dk <= 128) return launch_bwd<T, 128, 96, kNoBias>(g, batch, s);
-  return launch_bwd<T, 144, 96, kNoBias>(g, batch, s);
+  if (g.segments <= 0 || dv != 96) return cudaErrorInvalidValue;
+  switch (aug_width(g.f.dk)) {
+    case 128: return launch_bwd<T, 128, 96, kNoBias>(g, batch, s);
+    case 144: return launch_bwd<T, 144, 96, kNoBias>(g, batch, s);
+    case 176: return launch_bwd<T, 176, 96, kNoBias>(g, batch, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ---- window attention: fp32 dq/dbias pass ------------------------------------
@@ -844,12 +848,12 @@ extern "C" int mspi_window_attention_bwd(const void* qkv, const void* bias, cons
 // Backward of the augmented-lane attention (head-major, scale 1): q, dq
 // [B,H,Nq,Da]; k, dk [B,H,Nk,Da]; v, dv [B,H,Nk,Dv]; out (the forward's O)
 // and dout [B,H,Nq,Dv]; lse (from the forward) and delta (scratch) [B*H, Nq]
-// fp32. Da in (112, 144], Dv = 96. dk includes the k_aug lanes of E, which
+// fp32. Da in (112, 176], Dv = 96. dk includes the k_aug lanes of E, which
 // the caller drops. fp32 (the FMA passes): dk_part [segments, B*H, Nk, Da]
 // and dv_part [segments, B*H, Nk, Dv] fp32 scratch, pad unused. bf16
-// (attention_aug_bwd_sm90.cu): dk_part [segments, B*H, Nk, DK] with DK = 128
-// for Da <= 128, else 144 (unused with one segment), pad [B*H, Nq + Nk, DK]
-// bf16 scratch.
+// (attention_aug_bwd_sm90.cu): dk_part [segments, B*H, Nk, DK] with DK =
+// aug_width(Da) (128, 144 or 176; unused with one segment), pad [B*H, Nq +
+// Nk, DK] bf16 scratch.
 extern "C" int mspi_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                   float* lse, const void* dout, void* dq, void* dk, void* dv,
                                   float* delta, float* dk_part, float* dv_part, void* pad,

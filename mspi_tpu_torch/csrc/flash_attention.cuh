@@ -1,7 +1,7 @@
 // Flash-style attention body shared by attention_rel.cu (MViT pooled attention
 // with the decomposed relative-position bias, head-major or token-major with
 // the residual epilogue), self_attention.cu (SyncBlock multi-head
-// self-attention, and MViT attention on augmented q/k lanes) and
+// self-attention), attention.cu (MViT attention on augmented q/k lanes) and
 // window_attention.cu (VideoSwin window attention with a dense bias and shift
 // mask).
 //
@@ -20,9 +20,9 @@
 // Score and value widths: the kernels are templated on DK, the width of the
 // q k^T contraction, and DV, the width of v and out. They are equal except
 // for the augmented-lane attention (q_aug = [q*scale | rel], k_aug = [k | E],
-// Da = 96 + 27 or 96 + 46 lanes, DV = 96): its rows of Da elements are not
-// 16-byte aligned, so they are loaded one element at a time and zero-filled
-// to DK = Da rounded up to 16 in shared memory, which leaves the scores exact.
+// Da = 96 + R lanes, DV = 96): its rows of Da elements need not be 16-byte
+// (or, at an odd Da, 4-byte) aligned, and are zero-filled to DK = 128, 144 or
+// 176 lanes (aug_width), which leaves the scores exact.
 //
 // The bias mode (template argument BIAS):
 //   kNoBias:    S = scale * q k^T.
@@ -43,33 +43,25 @@
 //               in the storage type (the token-major packed attention).
 //
 // Which body serves which mode and dtype:
-//   bf16, every mode with DK == DV (K4, K1, row 8, row 15):
-//         flash_attention_sm90.cuh (flash_attention_sm90_kernel: mma.sync
-//         fragments in registers, cp.async ring); launch_flash_attention
-//         routes them there.
-//   bf16, kNoBias with DK != DV (row 6's augmented lanes;
-//         flash_attention_tc_kernel below): Q K^T and P V on the tensor
-//         cores (WMMA 16x16x16, fp32 accumulate)
-//         through shared memory: the score tile and each tile's P V product
-//         land in fp32 shared memory, where the threads apply the scale and
-//         the online softmax (P rounded to bf16 for P V, as the TPU kernel
-//         rounds probs to v's dtype);
+//   bf16, every mode (K4, K1, row 8, row 15, and row 6's augmented lanes
+//         with DK != DV): flash_attention_sm90.cuh
+//         (flash_attention_sm90_kernel: mma.sync fragments in registers,
+//         cp.async ring); launch_flash_attention routes the equal widths
+//         there, attention.cu row 6;
 //   fp32, every mode (flash_attention_kernel below): both products on the
 //         fp32 FMA pipes (tensor cores would round to TF32), 4x4 register
-//         tiles per thread.
-// Thread layout of the last two (256 threads): ty = tid / 16 owns query rows
+//         tiles per thread; the augmented lanes load one element at a time
+//         into zero-filled rows of DK lanes in shared memory.
+// Thread layout of the fp32 body (256 threads): ty = tid / 16 owns query rows
 // ty*4 .. ty*4+3, tx = tid % 16 owns keys tx*4 .. tx*4+3 of the score tile
 // and output columns tx + 16*dd of the [64, D] accumulator. A row's 16
 // owners sit in one half warp, so row max and row sum are 4 xor-shuffles.
 //
 // What bounds it on the card: 4*D flops per (query, key) pair; q, k, v and
 // rel are read once per query tile, which at D = 96 and BQ = 64 keeps it far
-// above the memory roofline. The WMMA bf16 body syncs the block four times per
-// key tile, so at these small tiles it is bounded by shared-memory traffic
-// and synchronisation rather than by the tensor cores.
+// above the memory roofline: the fp32 pipes (67 TFLOP/s).
 #pragma once
 
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -339,44 +331,7 @@ __global__ void __launch_bounds__(kAttnThreads) flash_attention_kernel(AttnArgs 
   store_rows<float, DV, BIAS>(a, b, h, q0, tx, ty, o, m_run, l_run);
 }
 
-// ---- bf16: tensor cores --------------------------------------------------------
-
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
-
-template <int DK, int DV>
-struct TcLayout {
-  static constexpr int LDK = DK + 8;   // bf16 pitch of qs, ks (rows = tokens)
-  static constexpr int LDV = DV + 8;   // bf16 pitch of vs
-  static constexpr int LDS = kBK + 4;  // fp32 pitch of the score tile
-  static constexpr int LDP = kBK + 8;  // bf16 pitch of the probability tile
-  static constexpr int LDO = DV + 4;   // fp32 pitch of the P V tile
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + sizeof(bf16) * kBQ * LDK;
-  static constexpr size_t kV = kK + sizeof(bf16) * kBK * LDK;
-  static constexpr size_t kS = kV + sizeof(bf16) * kBK * LDV;
-  static constexpr size_t kP = kS + sizeof(float) * kBQ * LDS;
-  static constexpr size_t kO = kP + sizeof(bf16) * kBQ * LDP;
-  static constexpr size_t kBytes = kO + sizeof(float) * kBQ * LDO;
-  // every region starts on a 32-byte boundary, as WMMA loads need
-  static_assert(kK % 32 == 0 && kV % 32 == 0 && kS % 32 == 0 && kP % 32 == 0 &&
-                    kO % 32 == 0,
-                "WMMA tiles need 32-byte aligned shared memory");
-};
-
-// rows [t0, t0+64) of a token-major [N, D] bf16 operand into dst [64][ld],
-// 16 bytes per load (the wrapper passes 16-byte aligned rows); zeros past n.
-template <int D, int THREADS>
-__device__ __forceinline__ void load_rows_bf16(const bf16* src, int64_t stride, int t0, int n,
-                                               bf16* dst, int ld) {
-  constexpr int VEC = D / 8;  // 16-byte vectors per row
-  for (int e = threadIdx.x; e < 64 * VEC; e += THREADS) {
-    const int r = e / VEC, c = (e % VEC) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (t0 + r < n) v = *reinterpret_cast<const uint4*>(src + (t0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
-}
 
 // rows [t0, t0+64) of an operand whose rows hold `cols` <= D elements at any
 // alignment (the augmented lanes), one element per load, into dst [64][ld]:
@@ -390,132 +345,6 @@ __device__ __forceinline__ void load_rows_narrow(const T* src, int64_t stride, i
   }
 }
 
-template <int D, int LD>
-__device__ __forceinline__ void load_tile_bf16(const bf16* src, int64_t stride, int t0, int n,
-                                               bf16* dst) {
-  load_rows_bf16<D, kAttnThreads>(src, stride, t0, n, dst, LD);
-}
-
-template <int DK, int DV, int BIAS>
-__global__ void __launch_bounds__(kAttnThreads) flash_attention_tc_kernel(AttnArgs a) {
-  static_assert(BIAS == kNoBias && DK != DV,
-                "equal widths and the bias modes run flash_attention_sm90_kernel");
-  using L = TcLayout<DK, DV>;
-  constexpr int DPT = DV / 16;
-  constexpr int NOT = (kBQ / 16) * (DV / 16);  // 16x16 tiles of P V
-  constexpr bool kNarrow = DK != DV;            // augmented lanes: q/k rows of a.dk elements
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  extern __shared__ __align__(128) unsigned char smem_tc[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_tc + L::kQ);
-  bf16* ks = reinterpret_cast<bf16*>(smem_tc + L::kK);
-  bf16* vs = reinterpret_cast<bf16*>(smem_tc + L::kV);
-  float* ss = reinterpret_cast<float*>(smem_tc + L::kS);
-  bf16* ps = reinterpret_cast<bf16*>(smem_tc + L::kP);
-  float* os = reinterpret_cast<float*>(smem_tc + L::kO);
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int warp = tid >> 5;
-  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
-  const int q0 = blockIdx.x * kBQ;
-  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
-
-  if constexpr (kNarrow)
-    load_rows_narrow<DK, kAttnThreads>(qp, a.qs.n, q0, a.nq, a.dk, qs, L::LDK);
-  else
-    load_tile_bf16<DK, L::LDK>(qp, a.qs.n, q0, a.nq, qs);
-
-  float m_run[4], l_run[4], o[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) o[i][dd] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < a.nk; k0 += kBK) {
-    if constexpr (kNarrow)
-      load_rows_narrow<DK, kAttnThreads>(kp, a.ks.n, k0, a.nk, a.dk, ks, L::LDK);
-    else
-      load_tile_bf16<DK, L::LDK>(kp, a.ks.n, k0, a.nk, ks);
-    load_tile_bf16<DV, L::LDV>(vp, a.vs.n, k0, a.nk, vs);
-    __syncthreads();
-
-    // S = Q K^T: warp -> row tile warp/2, column tiles (warp%2)*2 + {0, 1}
-    {
-      const int rt = warp >> 1;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int ct = (warp & 1) * 2 + c;
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int d = 0; d < DK; d += 16) {
-          FragA qa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-          wmma::load_matrix_sync(qa, qs + rt * 16 * L::LDK + d, L::LDK);
-          wmma::load_matrix_sync(kb, ks + ct * 16 * L::LDK + d, L::LDK);
-          wmma::mma_sync(acc, qa, kb, acc);
-        }
-        wmma::store_matrix_sync(ss + rt * 16 * L::LDS + ct * 16, acc, L::LDS,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-
-    float s[4][4], alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 v = *reinterpret_cast<const float4*>(ss + (ty * 4 + i) * L::LDS + tx * 4);
-      s[i][0] = v.x;
-      s[i][1] = v.y;
-      s[i][2] = v.z;
-      s[i][3] = v.w;
-    }
-    softmax_update<bf16, BIAS>(a, nullptr, b, h, q0, k0, tx, ty, s, m_run, l_run, alpha);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        ps[(ty * 4 + i) * L::LDP + tx * 4 + jj] = __float2bfloat16(s[i][jj]);
-    __syncthreads();
-
-    // P V: tiles warp + 8*i of the [64, D] product
-#pragma unroll
-    for (int i = 0; i < (NOT + 7) / 8; ++i) {
-      const int t = warp + 8 * i;
-      if (t < NOT) {
-        const int rt = t / (DV / 16), ct = t % (DV / 16);
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int j = 0; j < kBK; j += 16) {
-          FragA pa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-          wmma::load_matrix_sync(pa, ps + rt * 16 * L::LDP + j, L::LDP);
-          wmma::load_matrix_sync(vb, vs + j * L::LDV + ct * 16, L::LDV);
-          wmma::mma_sync(acc, pa, vb, acc);
-        }
-        wmma::store_matrix_sync(os + rt * 16 * L::LDO + ct * 16, acc, L::LDO,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int dd = 0; dd < DPT; ++dd)
-        o[i][dd] = o[i][dd] * alpha[i] + os[(ty * 4 + i) * L::LDO + tx + 16 * dd];
-    // the next tile's loads touch ks / vs only; ss, ps and os are rewritten
-    // after the next __syncthreads, when every thread is done with them here
-  }
-  store_rows<bf16, DV, BIAS>(a, b, h, q0, tx, ty, o, m_run, l_run);
-}
-
 // The bf16 body of equal score and value widths, defined in
 // flash_attention_sm90.cuh (included by the sources that launch it).
 template <int D, int BIAS>
@@ -523,21 +352,17 @@ cudaError_t launch_flash_attention_sm90(const AttnArgs& a, int batch, cudaStream
 
 template <typename T, int DK, int DV, int BIAS>
 cudaError_t launch_flash_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
-  const dim3 grid((a.nq + kBQ - 1) / kBQ, batch * a.heads);
-  if constexpr (std::is_same<T, bf16>::value && DK == DV) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(DK == DV, "bf16 with DK != DV (row 6) runs launch_flash_attention_aug_sm90");
     return launch_flash_attention_sm90<DK, BIAS>(a, batch, stream);
-  } else if constexpr (std::is_same<T, bf16>::value) {
-    const size_t smem = TcLayout<DK, DV>::kBytes;
-    cudaError_t err = allow_smem(flash_attention_tc_kernel<DK, DV, BIAS>, smem);
-    if (err != cudaSuccess) return err;
-    flash_attention_tc_kernel<DK, DV, BIAS><<<grid, kAttnThreads, smem, stream>>>(a);
   } else {
+    const dim3 grid((a.nq + kBQ - 1) / kBQ, batch * a.heads);
     const size_t smem = attn_smem_bytes<DK, DV>(rel_mode(BIAS) ? a.r : 0);
     cudaError_t err = allow_smem(flash_attention_kernel<DK, DV, BIAS>, smem);
     if (err != cudaSuccess) return err;
     flash_attention_kernel<DK, DV, BIAS><<<grid, kAttnThreads, smem, stream>>>(a);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 // Head dims by bias mode: 96 and 128 (MViT, SyncBlock) without a dense bias,
@@ -555,13 +380,31 @@ cudaError_t launch_flash_attention_d(const AttnArgs& a, int batch, int d, cudaSt
   return cudaErrorInvalidValue;
 }
 
-// The augmented-lane attention: q/k rows of a.dk lanes (zero-filled to
-// DK = 128 or 144), v and out of dv = 96 lanes, no bias and no scale.
-template <typename T>
-cudaError_t launch_flash_attention_aug(const AttnArgs& a, int batch, int dv, cudaStream_t s) {
-  if (dv != 96 || a.dk <= 112 || a.dk > 144) return cudaErrorInvalidValue;
-  if (a.dk <= 128) return launch_flash_attention<T, 128, 96, kNoBias>(a, batch, s);
-  return launch_flash_attention<T, 144, 96, kNoBias>(a, batch, s);
+// The augmented lanes' score widths: q_aug / k_aug rows of Da = 96 + R lanes
+// zero-filled to DK = 128 (Da <= 128), 144 (Da <= 144) or 176 (the wide
+// form, Da <= 176: R up to 80, MViTv2-S's R = 52 at --resolution 256 448 and
+// 66 at 288 640); 0 outside (112, 176]. Row 6's forward and its backward
+// (row 7 head-major) take the same form in fp32 and bf16;
+// pooled_attention.py's AUG_FORMS mirrors it.
+constexpr int kAugMinDa = 113;
+constexpr int kAugMaxDa = 176;
+__host__ __device__ constexpr int aug_width(int da) {
+  return da < kAugMinDa ? 0 : da <= 128 ? 128 : da <= 144 ? 144 : da <= kAugMaxDa ? 176 : 0;
+}
+
+// fp32 augmented-lane attention on the FMA pipes: q/k rows of a.dk lanes
+// (zero-filled to aug_width(a.dk) in shared memory), v and out of dv = 96
+// lanes, no bias and no scale. bf16 runs flash_attention_sm90.cuh's body
+// (attention.cu).
+inline cudaError_t launch_flash_attention_aug_f32(const AttnArgs& a, int batch, int dv,
+                                                  cudaStream_t s) {
+  if (dv != 96) return cudaErrorInvalidValue;
+  switch (aug_width(a.dk)) {
+    case 128: return launch_flash_attention<float, 128, 96, kNoBias>(a, batch, s);
+    case 144: return launch_flash_attention<float, 144, 96, kNoBias>(a, batch, s);
+    case 176: return launch_flash_attention<float, 176, 96, kNoBias>(a, batch, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int BIAS>
@@ -657,7 +500,7 @@ cudaError_t self_attention_bwd_sm90(const RelBwdArgs& w, int batch, int d, cudaS
 // head-major q, dq [bh, nq, da]; k, dk [bh, nk, da]; v, dv [bh, nk, 96];
 // dout [bh, nq, 96]; lse and delta [bh, nq] fp32; dk_part and dv_part
 // [segments, bh, nk, DK | 96] fp32 (segments > 1); pad [bh, nq + nk, DK]
-// bf16 scratch, DK = 128 for da <= 128, else 144; da in (112, 144].
+// bf16 scratch, DK = aug_width(da); da in (112, 176].
 cudaError_t attention_aug_bwd_sm90(const void* q, const void* k, const void* v,
                                    const float* lse, const void* dout, void* dq, void* dk,
                                    void* dv, float* delta, float* dk_part, float* dv_part,

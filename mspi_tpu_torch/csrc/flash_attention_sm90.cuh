@@ -1,7 +1,10 @@
 // The bf16 flash-attention forward of four bias modes, register-resident on
 // the tensor cores and fed by asynchronous copies:
 //   kNoBias     K4 (self_attention.cu: SyncBlock self-attention on packed
-//               q and kv lanes, D = 128);
+//               q and kv lanes, D = 128) and row 6 (attention.cu: MViT
+//               attention on augmented q/k lanes, attn_relk=False: score
+//               width D = 128, 144 or 176 zero-filled lanes, value width DV
+//               = 96, no scale);
 //   kRelBias    K1 (attention_rel.cu: MViT pooled attention with the
 //               decomposed rel-pos bias, head-major; and row 8's training
 //               forward on token-major strides);
@@ -9,13 +12,13 @@
 //               packed token-major strides, + q in the epilogue);
 //   kDenseBias  row 15 (window_attention.cu: VideoSwin W-MSA / SW-MSA with a
 //               dense bias and the shift mask).
-// Replaces, for those modes in bf16 with equal score and value widths,
-// flash_attention.cuh's WMMA body, which stored every score tile and every
-// P V product to shared memory, synced the block four times per key tile and
-// loaded K and V synchronously; the fp32 FMA body and row 6's augmented
-// lanes (DK != DV) stay there. The TPU kernels:
-// pooled_attention.py::_self_fwd_kernel, ::_fwd_kernel_rel,
-// ::_rel_packed_kernel and attention.py::_packed_fwd_kernel.
+// Replaces, in bf16, flash_attention.cuh's WMMA body, which stored every
+// score tile and every P V product to shared memory, synced the block four
+// times per key tile and loaded K and V synchronously (row 6's unaligned
+// q_aug / k_aug rows one element at a time); the fp32 FMA body stays there.
+// The TPU kernels: pooled_attention.py::_self_fwd_kernel, ::_fwd_kernel
+// (row 6), ::_fwd_kernel_rel, ::_rel_packed_kernel and
+// attention.py::_packed_fwd_kernel.
 //
 // FlashAttention-2's structure on mma.sync (m16n8k16, bf16 in, fp32
 // accumulate) and cp.async:
@@ -47,6 +50,15 @@
 //   memory once and each k-step's fragments are read with ldmatrix per key
 //   tile, after Q K^T (1.1-1.2x slower per forward at R <= 48, PERF.md).
 // - K4 is the rel mode without E and without rel: S = scale * Q K^T.
+// - Row 6 is K4 with unequal widths and scale 1: q_aug and k_aug rows of Da
+//   = 96 + R lanes (123 and 142 at 224x384, 148 at 256x448, 162 at 288x640)
+//   are not 16-byte aligned (nor 4-byte at an odd Da). k_aug is first copied
+//   into zero-filled rows of D = 128, 144 or 176 lanes (aug_pad_kernel, one
+//   pass over the pooled keys), which the ring then copies by cp.async; Q's
+//   A fragments are read from q_aug two bytes at a time, zeros past Da, once
+//   per block. The odd last k-step of D = 144 and 176 takes ldmatrix.x2. At
+//   D = 176 (11 k-steps, 44 registers of Q) the 32-key sub-tiles keep 3
+//   blocks per SM (the 2-slot ring is 72 KB).
 // - Row 15's bias [H, N, N] and mask [nW, N, N]: the [64, 64] tiles of the
 //   block's queries and the key tile are copied into the slot beside K and V
 //   (a slot holds a mask tile only when there is a mask). q_s = q * D^-0.5
@@ -274,13 +286,15 @@ __device__ __forceinline__ void write_e_row(bf16* er, int cols, bool in_range,
   thw.x = pack3(jt, jh, jw);
 }
 
-template <int D, int RK, int BIAS>
+template <int D, int RK, int BIAS, int DV = D>
 struct Layout {
   static constexpr bool kRel = rel_mode(BIAS);
   static constexpr bool kRelRows = kRel && RK == 0;  // rel rows in shared memory
   static constexpr int BQ = 16 * kWarps;
-  static constexpr int LD = D + 8;                        // bf16 pitch of k and v rows
-  static constexpr size_t kKV = sizeof(bf16) * kBK * LD;  // one K or V tile
+  static constexpr int LD = D + 8;                        // bf16 pitch of k rows
+  static constexpr int LDV = DV + 8;                      // bf16 pitch of v rows
+  static constexpr size_t kK = sizeof(bf16) * kBK * LD;   // one K tile
+  static constexpr size_t kV = sizeof(bf16) * kBK * LDV;  // one V tile
   static constexpr size_t kB = sizeof(bf16) * BQ * kBK;   // one (swizzled) bias or mask tile
   // the rel modes: the bf16 pitch of E's rows (and of the rel rows), R rounded
   // up to the 16 columns of a k-step (RK of them in registers) plus 8: rows
@@ -292,7 +306,7 @@ struct Layout {
   // ring slot: K, V, then E [kBK][ldr] (rel modes) or the bias tile and,
   // with a mask, the mask tile (kDenseBias); K and V alone (kNoBias)
   __host__ __device__ static int slot(int ldr, bool masked) {
-    return static_cast<int>(2 * kKV + (kRel                  ? sizeof(bf16) * kBK * ldr
+    return static_cast<int>(kK + kV + (kRel                  ? sizeof(bf16) * kBK * ldr
                                        : BIAS == kDenseBias ? (masked ? 2 : 1) * kB
                                                             : 0));
   }
@@ -300,26 +314,33 @@ struct Layout {
   static size_t bytes(int ldr, bool masked) {
     return kStages * slot(ldr, masked) + (kRelRows ? sizeof(bf16) * BQ * ldr : 0);
   }
-  static_assert(kKV % 16 == 0 && kB % 16 == 0, "16-byte regions");
+  static_assert(kK % 16 == 0 && kV % 16 == 0 && kB % 16 == 0, "16-byte regions");
 };
 
 // One block: BQ query rows of head blockIdx.y % heads and batch entry (or
 // window) blockIdx.y / heads, over all key tiles of 64. RK: the rel modes'
 // rel k-steps held in registers (R <= 16 * RK), or 0 for rel rows in shared
-// memory (any R); 0 for kNoBias and kDenseBias.
-template <int D, int RK, int BIAS>
+// memory (any R); 0 for kNoBias and kDenseBias. D is the score width (q and
+// k), DV the value width (v and out): equal but for row 6's augmented lanes
+// (kNoBias, D = 128, 144 or 176 zero-filled lanes, DV = 96), whose q rows of
+// a.dk lanes (any alignment) are read into Q's fragments two bytes at a
+// time and whose k rows come padded to D lanes (aug_pad_kernel).
+template <int D, int RK, int BIAS, int DV = D>
 __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS) && RK == 0))
     flash_attention_sm90_kernel(AttnArgs a) {
-  static_assert(D % 32 == 0, "Q K^T takes the head dim 32 lanes per ldmatrix");
-  using L = Layout<D, RK, BIAS>;
+  static_assert(D % 16 == 0 && DV % 16 == 0, "whole 16-lane k-steps");
+  static_assert(D == DV || BIAS == kNoBias, "unequal widths: row 6, no bias");
+  using L = Layout<D, RK, BIAS, DV>;
   constexpr int NT = kWarps * 32;
-  constexpr int BQ = L::BQ, LD = L::LD;
-  constexpr int KS = D / 16;   // k-steps of Q K^T
-  // keys per sub-tile of S, softmax and P V: K4 (D = 128) takes 32, so that
-  // S's fragments (16 registers) leave room under the 168 of 3 blocks per SM
+  constexpr int BQ = L::BQ, LD = L::LD, LDV = L::LDV;
+  constexpr int KS = D / 16;   // k-steps of Q K^T (an odd last one by ldmatrix.x2)
+  constexpr bool kAug = D != DV;
+  // keys per sub-tile of S, softmax and P V: K4 (D = 128) and row 6 take 32,
+  // so that S's fragments (16 registers) leave room under the 168 of 3
+  // blocks per SM beside Q's (up to 44 at D = 176) and O's
   constexpr int SN = BIAS == kNoBias && D > 96 ? 32 : kBK;
   constexpr int NS = SN / 8;   // 8-key column tiles of S
-  constexpr int ND = D / 8;    // 8-wide column tiles of O
+  constexpr int ND = DV / 8;   // 8-wide column tiles of O
   constexpr bool kRel = L::kRel, kRelRows = L::kRelRows;
   static_assert(NT >= kBK, "one thread per key writes E's row");
   extern __shared__ __align__(128) unsigned char smem_sm90[];
@@ -356,14 +377,14 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS
       unsigned char* slot = ring + si * slot_bytes;
       copy_rows<kBK, D, NT>(reinterpret_cast<bf16*>(slot), operand(a.k, a.ks), a.ks.n, k0,
                             a.nk);
-      copy_rows<kBK, D, NT>(reinterpret_cast<bf16*>(slot + L::kKV), operand(a.v, a.vs), a.vs.n,
-                            k0, a.nk);
+      copy_rows<kBK, DV, NT>(reinterpret_cast<bf16*>(slot + L::kK), operand(a.v, a.vs), a.vs.n,
+                             k0, a.nk);
       if constexpr (kRel) {
         if (tid < kBK)
-          write_e_row(reinterpret_cast<bf16*>(slot + 2 * L::kKV) + tid * ldr, rpad,
+          write_e_row(reinterpret_cast<bf16*>(slot + L::kK + L::kV) + tid * ldr, rpad,
                       k0 + tid < a.nk, a, key_thw[tid]);
       } else if constexpr (BIAS == kDenseBias) {
-        bf16* bt = reinterpret_cast<bf16*>(slot + 2 * L::kKV);
+        bf16* bt = reinterpret_cast<bf16*>(slot + L::kK + L::kV);
         copy_tile<BQ, NT>(bt, bp, a.nq, a.nk, q0, k0);
         if (mp != nullptr) copy_tile<BQ, NT>(bt + BQ * kBK, mp, a.nq, a.nk, q0, k0);
       }
@@ -390,7 +411,10 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS
   uint32_t qf[KS][4];
   uint32_t rf[RK > 0 ? RK : 1][4];  // rel's A fragments (RK > 0)
   if (active) {
-    load_a_frags(qf, operand(a.q, a.qs), a.qs.n, q0 + warp * 16, a.nq);
+    if constexpr (kAug)  // q rows of a.dk lanes at any alignment, zeros past them
+      load_rel_frags<KS>(qf, operand(a.q, a.qs), a.qs.n, q0 + warp * 16, a.nq, a.dk);
+    else
+      load_a_frags(qf, operand(a.q, a.qs), a.qs.n, q0 + warp * 16, a.nq);
     if constexpr (kRel && RK > 0)
       load_rel_frags<RK>(rf, operand(a.rel, a.rs), a.rs.n, q0 + warp * 16, a.nq, a.r);
     if constexpr (BIAS == kDenseBias) {
@@ -413,14 +437,14 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS
     if (!active) continue;
     const unsigned char* slot = ring + (t % kStages) * slot_bytes;
     const bf16* kt = reinterpret_cast<const bf16*>(slot);
-    const bf16* vt = reinterpret_cast<const bf16*>(slot + L::kKV);
-    const bf16* xt = reinterpret_cast<const bf16*>(slot + 2 * L::kKV);  // E, or the bias tile
+    const bf16* vt = reinterpret_cast<const bf16*>(slot + L::kK);
+    const bf16* xt = reinterpret_cast<const bf16*>(slot + L::kK + L::kV);  // E, or the bias tile
 #pragma unroll
     for (int c0 = 0; c0 < kBK; c0 += SN) {  // sub-tiles of SN keys
       const int valid = a.nk - k0 - c0;  // keys of this sub-tile in range (may exceed SN)
       if (valid <= 0) break;
       const bf16* kc = kt + c0 * LD;
-      const bf16* vc = vt + c0 * LD;
+      const bf16* vc = vt + c0 * LDV;
       const bf16* ec = xt + (kRel ? c0 * ldr : 0);  // the rel modes' E rows
 
       // S = Q K^T (rel modes: scale * Q K^T + rel E^T), column tiles wholly
@@ -431,11 +455,16 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS
         s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
         if (n * 8 < valid) {
 #pragma unroll
-          for (int kk = 0; kk < KS; kk += 2) {
+          for (int kk = 0; kk + 1 < KS; kk += 2) {
             uint32_t kb[4];
             ldsm_x4(kb, kc + (n * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
             mma_bf16(s[n], qf[kk], kb[0], kb[1]);
             mma_bf16(s[n], qf[kk + 1], kb[2], kb[3]);
+          }
+          if constexpr (KS % 2 == 1) {  // row 6 at D = 144, 176: the odd last k-step
+            uint32_t kb[2];
+            ldsm_x2(kb, kc + (n * 8 + (lane & 7)) * LD + (KS - 1) * 16 + ((lane >> 3) & 1) * 8);
+            mma_bf16(s[n], qf[KS - 1], kb[0], kb[1]);
           }
           if constexpr (kRel && RK > 0) {
             // + rel E^T, rel's fragments in registers, on a chain of its own
@@ -544,7 +573,7 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS
 #pragma unroll
           for (int dn = 0; dn < ND; dn += 2) {
             uint32_t vb[4];
-            ldsm_x4_trans(vb, vc + (kk * 16 + (lane & 15)) * LD + dn * 8 + (lane >> 4) * 8);
+            ldsm_x4_trans(vb, vc + (kk * 16 + (lane & 15)) * LDV + dn * 8 + (lane >> 4) * 8);
             mma_bf16(o[dn], pa, vb[0], vb[1]);
             mma_bf16(o[dn + 1], pa, vb[2], vb[3]);
           }
@@ -580,16 +609,50 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// Row 6's q_aug / k_aug rows of da lanes (any alignment) into zero-filled
+// rows of DK lanes, 8 lanes a thread: the 16-byte rows that the forward's
+// ring (k) and the backward's passes (q and k) copy; the zero lanes add
+// nothing to S.
+template <int DK>
+__global__ void __launch_bounds__(256) aug_pad_kernel(const bf16* __restrict__ src,
+                                                      bf16* __restrict__ dst, int64_t rows,
+                                                      int da) {
+  constexpr int VEC = DK / 8;
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= rows * VEC) return;
+  const int64_t r = i / VEC;
+  const int c = static_cast<int>(i % VEC) * 8;
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src) + r * da;
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t lo = c + 2 * e < da ? s[c + 2 * e] : 0u;
+    const uint32_t hi = c + 2 * e + 1 < da ? s[c + 2 * e + 1] : 0u;
+    w[e] = lo | hi << 16;
+  }
+  *reinterpret_cast<uint4*>(dst + r * DK + c) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <int DK>
+cudaError_t launch_aug_pad(const bf16* src, bf16* dst, int64_t rows, int da,
+                           cudaStream_t stream) {
+  const int64_t threads = rows * (DK / 8);
+  if (threads > 0)
+    aug_pad_kernel<DK><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
+        src, dst, rows, da);
+  return cudaGetLastError();
+}
+
 }  // namespace sm90
 
 namespace sm90 {
 
-template <int D, int RK, int BIAS>
+template <int D, int RK, int BIAS, int DV = D>
 cudaError_t launch(const AttnArgs& a, int batch, cudaStream_t stream) {
-  using L = Layout<D, RK, BIAS>;
+  using L = Layout<D, RK, BIAS, DV>;
   const size_t smem = L::bytes(rel_mode(BIAS) ? L::rel_pitch(a.r) : 0, a.mask != nullptr);
   const dim3 grid((a.nq + L::BQ - 1) / L::BQ, batch * a.heads);
-  auto kernel = flash_attention_sm90_kernel<D, RK, BIAS>;
+  auto kernel = flash_attention_sm90_kernel<D, RK, BIAS, DV>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kWarps * 32, smem, stream>>>(a);
@@ -619,6 +682,27 @@ cudaError_t launch_flash_attention_sm90(const AttnArgs& a, int batch, cudaStream
     if (a.r <= 16 * sm90::kRelRegK) return sm90::launch<D, sm90::kRelRegK, BIAS>(a, batch, stream);
   }
   return sm90::launch<D, 0, BIAS>(a, batch, stream);
+}
+
+// Row 6 in bf16 (attention.cu): head-major q_aug [B, H, Nq, a.dk] read in
+// place (its rows need not be aligned), k_aug [B, H, Nk, a.dk] first copied
+// into `pad` [B*H*Nk, DK] (zero-filled rows of DK = aug_width(a.dk) lanes,
+// 16-byte aligned), v [B, H, Nk, 96] 16-byte aligned rows; no bias, no scale.
+// The same body as K4 with S in 32-key sub-tiles (kNoBias above D = 96).
+template <int DK>
+cudaError_t launch_flash_attention_aug_sm90(AttnArgs a, int batch, bf16* pad,
+                                            cudaStream_t stream) {
+  if (!sm90::aligned16(a.v) || !sm90::aligned16(pad) || a.vs.n % 8 != 0 ||
+      a.vs.h % 8 != 0 || a.vs.b % 8 != 0 || reinterpret_cast<uintptr_t>(a.q) % 2 != 0)
+    return cudaErrorMisalignedAddress;
+  const int64_t per_head = static_cast<int64_t>(a.nk) * DK;
+  cudaError_t err = sm90::launch_aug_pad<DK>(static_cast<const bf16*>(a.k), pad,
+                                             static_cast<int64_t>(batch) * a.heads * a.nk, a.dk,
+                                             stream);
+  if (err != cudaSuccess) return err;
+  a.k = pad;
+  a.ks = {a.heads * per_head, per_head, DK};
+  return sm90::launch<DK, 0, kNoBias, 96>(a, batch, stream);
 }
 
 }  // namespace mspi

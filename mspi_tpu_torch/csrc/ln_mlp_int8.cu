@@ -20,43 +20,82 @@
 // (__fmul_rn / __fadd_rn, no contraction into FMAs), as the plain PyTorch
 // version computes them. What still differs from it: the order of the LN
 // sums and the square root (1/sqrtf), which may move an element across a
-// rounding boundary and flip one int8 code on rare elements.
+// rounding boundary and flip one int8 code on rare elements. Products over
+// int32 are exact in any order, so u, h and the codes depend on z alone.
 //
 // What bounds it on the card: 4*C*H int8 operations per row against 2*C
-// values read and written per row -- the tensor cores (int8 peak 1979 TOPS,
-// twice bf16) and, in this first version, the weight fragments streamed
-// from L2 per row tile.
+// values read and written per row -- the tensor cores (int8 peak 1979 TOPS).
 //
-// Design: one block of 8 warps per tile of R rows (64 for C <= 384, 32
-// above: the [R, C] int32 accumulator of fc2 lives in registers). h has to
-// be quantised per row over all H hidden units before fc2 can start, and the
-// kernel never holds a whole [R, H] hidden tile. So it makes two passes over
-// fc1: pass 1 computes u and h chunk by chunk (64 hidden units) and keeps
-// only each row's running max of |h|; pass 2 recomputes the same u (integer
-// products are exact, so h is bit-identical), quantises each chunk of h with
-// the row's final scale into shared memory, and accumulates fc2 from it.
-// fc1 thus runs twice: 1.5x the work of the two products, at int8 rates.
-// Both products run on mma.sync.m16n8k32 s8 x s8 -> s32; A fragments come
-// from shared memory (row pitches padded so a warp's 32 fragment loads hit
-// 32 banks), B fragments straight from global memory (L2/L1), the int8
-// weights in nn.Linear layout being exactly the column-major B operand.
-// Static shared memory is at most 31 KB.
+// h has to be quantised per row over all H hidden units before fc2 can
+// start, and no body holds a whole [rows, H] hidden tile. So fc1 runs twice:
+// pass 1 computes u chunk by chunk (64 hidden units) and keeps one running
+// maximum per row; pass 2 recomputes the same u (integer products are exact,
+// so h is bit-identical), quantises each chunk of h with the row's scale,
+// and accumulates fc2 from it: 1.5x the work of the two products.
+//
+// Row 12, both x dtypes (i8sm90::ln_mlp_int8_sm90_kernel, the Hopper body):
+// - s8 wgmma (m64nNk32, s32 accumulate) on operands that TMA brings into
+//   shared memory in the 128-byte swizzle (sm90_wgmma.cuh). The int8 weights
+//   in nn.Linear layout, w1q [H, C] and w2q [C, H], are both K-major B
+//   operands as stored, the only form int8 wgmma takes.
+// - Two consumer warpgroups and a producer warpgroup a block. Up to C = 512
+//   the consumers share the block's 64 rows: per step of 128 hidden units
+//   consumer w runs fc1 and the GELU on units 64 w .. 64 w + 63 and fc2 on
+//   y's columns w C / 2 .. (w + 1) C / 2 - 1, over both consumers' codes, so
+//   nothing is computed twice. At C = 768 a [64, 384] s32 accumulator would
+//   take 192 registers a thread: each consumer owns 64 of 128 rows, and y's
+//   columns come in parts of 256 over the grid, each part recomputing fc1
+//   and the GELU (Form<C>).
+// - One thread of the producer keeps two TMA rings full in the order the
+//   consumers read them: W1 boxes [128 or 64 units, 128 k] (3-12 slots, what
+//   shared memory leaves) for every step of pass 1, then each step of pass 2
+//   with, after every 128 units, W2's [C or 256, 128 units] (2 slots). The
+//   producer drops to 24 registers (setmaxnreg) and the consumers rise to
+//   240.
+// - The consumers normalise the block's rows, one warp per row as the first
+//   body did (the same sums in the same order), into the swizzled z tile:
+//   fc1's A from shared memory, u [64, 64] s32 in registers, one commit per
+//   W1 box.
+// - An s32 accumulator is not laid out as an s8 A fragment, so pass 2 writes
+//   h's codes as byte pairs into a swizzled [64, 128] int8 tile (two, by
+//   step) and fc2 reads it as its A from shared memory, in flight while the
+//   next step's fc1 is issued (whose first wait retires it).
+// - The GELU runs once per hidden element, in pass 2: pass 1 keeps each
+//   row's largest u and takes amax = |gelu(u_max)|, the row's max |h|
+//   wherever the GELU grows with u and no negative u's |h| is larger (a row
+//   whose hidden pre-activations all lie below ~0.3 breaks it). Pass 2 also
+//   takes the true max |h| of each row; if a row's differs, the block runs
+//   pass 2 again with the true maxima (the consumers' verdict, an OR over a
+//   barrier, tells the producer to stream it again), so the codes and y are
+//   always those of the exact row maxima, as the first body computed them.
+//   Row maxima meet in shared memory where the consumers share rows.
+// - Measured on the way (PERF.md): a 4-slot W1 ring ran as fast as 12; the
+//   GELU (the fast-erf polynomial, each product and sum rounded alone, ~30
+//   FP32 instructions) took a third of the time at C = 384 when both passes
+//   ran it and every column part recomputed it.
+// Every output element has one writer and one summation order: two runs are
+// bit-identical.
 //
 // Also replaces the int8 body of tools/bench_int8.py::_mlp_call
-// (_mlp_int8w_kernel, the int8 lab's mlp_int8w; template flag LAB, bf16 at
-// the lab's C = 96): the same two-pass body with the LayerNorm, the biases
-// and the GELU compiled out and the lab's own quantisation, in its order of
-// operations: per row scale = max(amax, 1e-6) * (1/127) and code =
-// round(v / scale) half to even (a true division, where row 12 multiplies
-// by 127 / amax); uf = fp32(acc) * sx * s1 (left to right), h = uf; y =
-// fp32(acc) * sh * s2, one cast to T. The weight codes and per-channel
+// (_mlp_int8w_kernel, the int8 lab's mlp_int8w, bf16 at the lab's C = 96),
+// which keeps row 12's first body as mlp_int8_lab_kernel<C>: 8 warps of
+// mma.sync.m16n8k32 s8 on 64-row tiles with B fragments read from L2 per row
+// tile, without the LayerNorm, the biases and the GELU, and with the lab's
+// own quantisation, in its order of operations: per row scale = max(amax,
+// 1e-6) * (1/127) and code = round(v / scale) half to even (a true
+// division, where row 12 multiplies by 127 / amax); uf = fp32(acc) * sx *
+// s1 (left to right), h = uf; y = fp32(acc) * sh * s2, one cast to bf16.
+// The weight codes and per-channel
 // scales are the lab's host quantisation (amax / 127, no floor). At C = 96
 // the 12 eight-column tiles of y fall on warps 0-5.
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "int8_mma.cuh"
+#include "sm90_wgmma.cuh"
 
 namespace mspi {
 namespace {
@@ -77,8 +116,8 @@ constexpr float kInvSqrt2 = static_cast<float>(0.70710678118654752440);
 constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
 constexpr float kAmaxFloor = static_cast<float>(1e-6);
 
-template <int C>
-__host__ __device__ constexpr int q_rows() { return C <= 384 ? 64 : 32; }
+constexpr int Q_ROWS = 64;      // the lab body's rows per block
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float erf_fast(float x) {
   const float z = fminf(fmaxf(x, -4.f), 4.f);
@@ -93,9 +132,14 @@ __device__ __forceinline__ float gelu_fast(float u) {
   return __fmul_rn(__fmul_rn(0.5f, u), __fadd_rn(1.f, erf_fast(__fmul_rn(u, kInvSqrt2))));
 }
 
-// u = fp32(acc) * (sz * s1) + b1, then h = gelu(u)
+// u = fp32(acc) * (sz * s1) + b1
+__device__ __forceinline__ float pre_gelu(int acc, float sz, float s1, float b1) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(sz, s1)), b1);
+}
+
+// h = gelu(u) of that u
 __device__ __forceinline__ float hidden(int acc, float sz, float s1, float b1) {
-  return gelu_fast(__fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(sz, s1)), b1));
+  return gelu_fast(pre_gelu(acc, sz, s1, b1));
 }
 
 // The lab's hidden value: uf = fp32(acc) * sx * s1, left to right.
@@ -138,16 +182,16 @@ __device__ __forceinline__ void fc1_chunk(int (&acc)[NT1][4], const int8_t* z0,
   }
 }
 
-template <typename T, int C, bool LAB>
+// The int8 lab's body (bf16 x [M, C], 64 rows a block, 8 warps).
+template <int C>
 __global__ void __launch_bounds__(Q_THREADS)
-ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                   const float* __restrict__ beta,
-                   const int8_t* __restrict__ w1q,  // [H, C]
-                   const float* __restrict__ s1, const float* __restrict__ b1,  // [H]
-                   const int8_t* __restrict__ w2q,  // [C, H]
-                   const float* __restrict__ s2, const float* __restrict__ b2,  // [C]
-                   T* __restrict__ y, int M, int H, float eps) {
-  constexpr int R = q_rows<C>();
+mlp_int8_lab_kernel(const bf16* __restrict__ x,
+                    const int8_t* __restrict__ w1q,  // [H, C]
+                    const float* __restrict__ s1,    // [H]
+                    const int8_t* __restrict__ w2q,  // [C, H]
+                    const float* __restrict__ s2,    // [C]
+                    bf16* __restrict__ y, int M, int H) {
+  constexpr int R = Q_ROWS;
   constexpr int MT = R / 16;      // 16-row tiles
   constexpr int WPM = 8 / MT;     // fc1: warps per row tile
   constexpr int NT1 = 8 / WPM;    // fc1: 8-unit column tiles per warp and chunk
@@ -155,17 +199,17 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   constexpr int LDZ = C + 16;     // pitch (bytes) of the zq tile
   constexpr int PER = C / 32;
   static_assert(C % 32 == 0 && MT * WPM == 8 && WPM * NT1 == 8, "tile layout");
-  static_assert(LAB || C % 128 == 0, "row 12's widths");
   __shared__ __align__(16) int8_t zq[R * LDZ];
   __shared__ __align__(16) int8_t hq[R * Q_LDH];
-  __shared__ float sz[R], inv_h[R], sh[R];
+  __shared__ float sz[R], sh[R];
   __shared__ float part[R][WPM];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * R;
 
-  // 1. LayerNorm in fp32 and the per-row quantisation of z, one warp per row.
+  // 1. The per-row quantisation of x (a division by the row's scale), one
+  //    warp per row.
   for (int r = warp; r < R; r += 8) {
     const int64_t m = row0 + r;
     int8_t* zr = zq + r * LDZ;
@@ -174,44 +218,18 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       if (lane == 0) sz[r] = 0.f;
       continue;
     }
-    const T* xr = x + m * C;
+    const bf16* xr = x + m * C;
     float v[PER];
-    if constexpr (LAB) {  // the lab: x itself, quantised with a division
-      float amax = 0.f;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        v[i] = to_f(xr[lane + 32 * i]);
-        amax = fmaxf(amax, fabsf(v[i]));
-      }
-      const float scale = lab_scale(warp_max(amax));
-#pragma unroll
-      for (int i = 0; i < PER; ++i) zr[lane + 32 * i] = lab_code(v[i], scale);
-      if (lane == 0) sz[r] = scale;
-      continue;
-    }
-    float s = 0.f, q = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      v[i] = to_f(xr[lane + 32 * i]);
-      s = __fadd_rn(s, v[i]);
-      q = __fadd_rn(q, __fmul_rn(v[i], v[i]));
-    }
-    const float mu = warp_sum(s) / C;
-    const float var = __fsub_rn(warp_sum(q) / C, __fmul_rn(mu, mu));
-    const float rstd = 1.f / sqrtf(__fadd_rn(var, eps));
     float amax = 0.f;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], mu), rstd), gamma[c]), beta[c]);
+      v[i] = to_f(xr[lane + 32 * i]);
       amax = fmaxf(amax, fabsf(v[i]));
     }
-    amax = fmaxf(warp_max(amax), kAmaxFloor);
-    const float inv = 127.f / amax;
+    const float scale = lab_scale(warp_max(amax));
 #pragma unroll
-    for (int i = 0; i < PER; ++i)
-      zr[lane + 32 * i] = static_cast<int8_t>(__float2int_rn(__fmul_rn(v[i], inv)));
-    if (lane == 0) sz[r] = __fmul_rn(amax, kInv127);
+    for (int i = 0; i < PER; ++i) zr[lane + 32 * i] = lab_code(v[i], scale);
+    if (lane == 0) sz[r] = scale;
   }
   __syncthreads();
 
@@ -233,9 +251,7 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = j0 + n0 + n * 8 + 2 * t + (e & 1);
-        const float sx = e < 2 ? sza : szb;
-        const float h = fabsf(LAB ? hidden_lab(acc[n][e], sx, s1[j])
-                                  : hidden(acc[n][e], sx, s1[j], b1[j]));
+        const float h = fabsf(hidden_lab(acc[n][e], e < 2 ? sza : szb, s1[j]));
         if (e < 2) ma = fmaxf(ma, h); else mb = fmaxf(mb, h);
       }
   }
@@ -253,25 +269,19 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     float amax = part[r][0];
 #pragma unroll
     for (int i = 1; i < WPM; ++i) amax = fmaxf(amax, part[r][i]);
-    if constexpr (LAB) {
-      sh[r] = lab_scale(amax);
-    } else {
-      amax = fmaxf(amax, kAmaxFloor);
-      inv_h[r] = 127.f / amax;
-      sh[r] = __fmul_rn(amax, kInv127);
-    }
+    sh[r] = lab_scale(amax);
   }
   __syncthreads();
 
-  // 3. Pass 2: recompute u and h per chunk, quantise h with its row's scale
-  //    into shared memory, y += hq . w2q[:, chunk]. This warp owns y columns
+  // 3. Pass 2: recompute h per chunk, quantise it with its row's scale into
+  //    shared memory, y += hq . w2q[:, chunk]. This warp owns y columns
   //    warp*NT2*8 .. +NT2*8-1 of every row tile.
   int yacc[MT][NT2][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int n = 0; n < NT2; ++n) yacc[m][n][0] = yacc[m][n][1] = yacc[m][n][2] = yacc[m][n][3] = 0;
-  const float inva = LAB ? sh[ra] : inv_h[ra], invb = LAB ? sh[rb] : inv_h[rb];
+  const float sha = sh[ra], shb = sh[rb];
   for (int j0 = 0; j0 < H; j0 += Q_HC) {
     int acc[NT1][4];
     fc1_chunk<C, NT1>(acc, z0, z1, w1q, j0 + n0, g, t);
@@ -280,15 +290,8 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int jl = n0 + n * 8 + 2 * t + (e & 1);
-        const float sx = e < 2 ? sza : szb;
-        int8_t code;
-        if constexpr (LAB) {  // inva / invb hold the rows' scales
-          code = lab_code(hidden_lab(acc[n][e], sx, s1[j0 + jl]), e < 2 ? inva : invb);
-        } else {
-          const float h = hidden(acc[n][e], sx, s1[j0 + jl], b1[j0 + jl]);
-          code = static_cast<int8_t>(__float2int_rn(__fmul_rn(h, e < 2 ? inva : invb)));
-        }
-        hq[(e < 2 ? ra : rb) * Q_LDH + jl] = code;
+        const float h = hidden_lab(acc[n][e], e < 2 ? sza : szb, s1[j0 + jl]);
+        hq[(e < 2 ? ra : rb) * Q_LDH + jl] = lab_code(h, e < 2 ? sha : shb);
       }
     __syncthreads();
 #pragma unroll
@@ -310,7 +313,7 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     __syncthreads();  // hq is rewritten by the next chunk
   }
 
-  // 4. y = fp32(acc) * (sh * s2) + b2, one cast to T.
+  // 4. y = fp32(acc) * sh * s2, one cast to bf16.
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -323,25 +326,425 @@ ln_mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       for (int n = 0; n < NT2; ++n) {
         if (C % 64 != 0 && (warp * NT2 + n) * 8 >= C) continue;
         const int c = (warp * NT2 + n) * 8 + 2 * t + (e & 1);
-        const float v =
-            LAB ? __fmul_rn(__fmul_rn(__int2float_rn(yacc[m][n][e]), shr), s2[c])
-                : __fadd_rn(__fmul_rn(__int2float_rn(yacc[m][n][e]), __fmul_rn(shr, s2[c])),
-                            b2[c]);
-        y[gm * C + c] = from_f<T>(v);
+        y[gm * C + c] =
+            __float2bfloat16(__fmul_rn(__fmul_rn(__int2float_rn(yacc[m][n][e]), shr), s2[c]));
       }
     }
 }
 
-template <typename T, int C, bool LAB = false>
-cudaError_t launch_int8(const void* x, const float* g, const float* be, const int8_t* w1q,
-                        const float* s1, const float* b1, const int8_t* w2q, const float* s2,
-                        const float* b2, void* y, int M, int H, float eps, cudaStream_t s) {
-  constexpr int R = q_rows<C>();
-  if (H % Q_HC != 0) return cudaErrorInvalidValue;
-  const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(M) + R - 1) / R);
-  ln_mlp_int8_kernel<T, C, LAB><<<blocks, Q_THREADS, 0, s>>>(
-      static_cast<const T*>(x), g, be, w1q, s1, b1, w2q, s2, b2, static_cast<T*>(y), M, H,
-      eps);
+// ---- row 12 on Hopper: s8 wgmma fed by TMA -------------------------------------
+
+namespace i8sm90 {
+constexpr int kHC = 64;          // hidden units of one fc1 product (a consumer's step)
+constexpr int kBox = 128;        // k per box: one 128-byte swizzle row of int8
+constexpr int kW2Stages = 2;     // W2 ring slots
+constexpr int kSmemLimit = 232448;  // a block's shared memory on the H100
+constexpr int kStatic = 1280;       // the static barriers, row scales and maxima (1264 B)
+constexpr int kConsumerRegs = 240;  // 2 x 240 + 24 (producer) = 3 x 168, the launch's share
+
+// The launch form at width C; ops/kernels/ln_mlp.py::int8_sm90_form mirrors it.
+//   SHARED (C <= 512): the two consumer warpgroups share a block's 64 rows.
+//     Per step of 128 hidden units consumer w takes units 64 w .. 64 w + 63
+//     of fc1 (and of the GELU) and y's columns w C / 2 .. (w + 1) C / 2 - 1
+//     of fc2, over the h codes of both: nothing is computed twice.
+//   parts (C = 768, where a [64, C / 2] s32 accumulator would take 192
+//     registers): each consumer owns 64 of a block's 128 rows, steps are 64
+//     units, and y's columns come in parts of 256 over the grid's y, each
+//     part recomputing fc1 and the GELU.
+template <int C>
+struct Form {
+  static constexpr bool SHARED = C <= 512;
+  static constexpr int NC = 2;                           // consumer warpgroups
+  static constexpr int BM = SHARED ? 64 : 64 * NC;       // rows per block
+  static constexpr int CN = SHARED ? C / 2 : 256;        // y columns per consumer
+  static constexpr int PARTS = SHARED ? 1 : C / CN;      // column parts (grid y)
+  static constexpr int UNITS = SHARED ? 2 * kHC : kHC;   // hidden units per step
+  static constexpr int KB = C / kBox;                    // k boxes of z and of a step's W1
+  static constexpr uint32_t kZBox = BM * kBox;           // one k box of the z codes
+  static constexpr uint32_t kW1Box = UNITS * kBox;       // one [UNITS, 128 k] box of W1
+  static constexpr int kW2Rows = SHARED ? C / 2 : CN;    // rows of one W2 box
+  static constexpr uint32_t kW2Slot = (SHARED ? C : CN) * kBox;  // W2 of 128 units
+  static constexpr uint32_t kHq = 64 * kBox;  // h codes of 128 units: one tile
+  static constexpr int kFixed = KB * kZBox + kW2Stages * kW2Slot + 2 * kHq + 1024;  // + alignment
+  // W1 ring slots: what shared memory leaves, at most 12
+  static constexpr int W1S = (kSmemLimit - kStatic - kFixed) / kW1Box < 12
+                                 ? (kSmemLimit - kStatic - kFixed) / kW1Box
+                                 : 12;
+  static constexpr int kSmem = kFixed + W1S * kW1Box;
+  static constexpr int kThreads = 128 * (NC + 1);
+  static_assert(C % kBox == 0 && C % CN == 0 && CN % 64 == 0 && CN <= 256, "widths");
+  static_assert(W1S >= 3 && kSmem + kStatic <= kSmemLimit, "shared memory");
+  static_assert(kZBox % 1024 == 0 && kW1Box % 1024 == 0 && kW2Slot % 1024 == 0,
+                "swizzle atoms stay aligned");
+};
+
+// y[64 x CN] += hq[64 x 32] W2[CN x 32]^T: one k-step of fc2 in pieces of
+// 128 columns and a 64-column rest, each reading hq's descriptor again. y's
+// registers stay in the m64nN layout (y[4 j + e]: column 8 j + 2 (t % 4) +
+// (e % 2) of the consumer's columns, row + 8 (e / 2)).
+template <int CN>
+__device__ __forceinline__ void fc2_kstep(int (&y)[CN / 2], uint64_t da,
+                                          const unsigned char* w2k) {
+#pragma unroll
+  for (int p = 0; p < CN / 128; ++p)
+    wg::wgmma_m64n128k32_s8(*reinterpret_cast<int(*)[64]>(&y[64 * p]), da,
+                            wg::desc_sw128(w2k + p * 128 * kBox, 16, 1024));
+  if constexpr (CN % 128 != 0)
+    wg::wgmma_m64n64k32_s8(*reinterpret_cast<int(*)[32]>(&y[64 * (CN / 128)]), da,
+                           wg::desc_sw128(w2k + (CN / 128) * 128 * kBox, 16, 1024));
+}
+
+// Byte (r, k) of a swizzled K-major int8 tile of 128-byte rows: chunk k / 16
+// of row r at chunk (k / 16) ^ (r % 8).
+__device__ __forceinline__ int swz8(int r, int k) {
+  return r * kBox + ((((k >> 4) ^ r) & 7) << 4) + (k & 15);
+}
+
+// Grid (row tiles of BM, column parts). tw1: w1q [H, C] in [UNITS, 128]
+// boxes; tw2: w2q [C, H] in [kW2Rows, 128] boxes.
+template <typename T, int C>
+__global__ void __launch_bounds__(Form<C>::kThreads, 1)
+    ln_mlp_int8_sm90_kernel(const __grid_constant__ CUtensorMap tw1,
+                            const __grid_constant__ CUtensorMap tw2, const T* __restrict__ x,
+                            const float* __restrict__ gamma, const float* __restrict__ beta,
+                            const float* __restrict__ s1, const float* __restrict__ b1,
+                            const float* __restrict__ s2, const float* __restrict__ b2,
+                            T* __restrict__ y, int M, int H, float eps) {
+  using F = Form<C>;
+  constexpr bool SHARED = F::SHARED;
+  constexpr int CN = F::CN, KB = F::KB, PER = C / 32, W1S = F::W1S;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full1[W1S], empty1[W1S], full2[kW2Stages], empty2[kW2Stages];
+  __shared__ float zscale[F::BM];   // the rows' z scales
+  __shared__ float hmax[2][64];     // SHARED: each consumer's rows' maxima over its units
+  __shared__ __align__(8) uint64_t verdict_bar;  // a pass 2 is done: its verdict is set
+  __shared__ int verdict;                         // pass 2 again, with the true maxima
+  unsigned char* zs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* w1s = zs + KB * F::kZBox;
+  unsigned char* w2s = w1s + W1S * F::kW1Box;
+  unsigned char* hqs = w2s + kW2Stages * F::kW2Slot;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * F::BM;
+  const int n_s = H / F::UNITS;  // steps per pass
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W1S; ++s) {
+      wg::mbar_init(&full1[s], 1);
+      wg::mbar_init(&empty1[s], 4 * F::NC);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < kW2Stages; ++s) {
+      wg::mbar_init(&full2[s], 1);
+      wg::mbar_init(&empty2[s], 4 * F::NC);
+    }
+    wg::mbar_init(&verdict_bar, 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // after pass 2's step s, fc2 over the last 128 units' codes: every step
+  // (SHARED), every second one (parts)
+  auto fc2_after = [](int s) { return SHARED || s % 2 == 1; };
+  if (threadIdx.x >= 128 * F::NC) {  // the producer warpgroup; one thread issues
+    wg::setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * F::NC) {
+      int i1 = 0, i2 = 0;  // W1 boxes and W2 slots issued
+      auto w1_step = [&](int st) {
+        for (int kb = 0; kb < KB; ++kb, ++i1) {
+          const int sl = i1 % W1S;
+          if (i1 >= W1S) wg::mbar_wait(&empty1[sl], ((i1 / W1S) & 1) ^ 1);
+          wg::mbar_arrive_expect_tx(&full1[sl], F::kW1Box);
+          wg::tma_load_2d(w1s + sl * F::kW1Box, &tw1, &full1[sl], kb * kBox, st * F::UNITS);
+        }
+      };
+      for (int st = 0; st < n_s; ++st) w1_step(st);  // pass 1
+      // pass 2 (a step, then its W2), again while the consumers' verdict asks
+      for (int attempt = 0, st = 0;; ++st) {
+        if (st == n_s) {
+          wg::mbar_wait(&verdict_bar, attempt & 1);
+          if (!*static_cast<volatile int*>(&verdict)) break;
+          ++attempt;
+          st = 0;
+        }
+        w1_step(st);
+        if (!fc2_after(st)) continue;
+        const int sl = i2 % kW2Stages, u0 = (st + 1) * F::UNITS - 2 * kHC;
+        if (i2 >= kW2Stages) wg::mbar_wait(&empty2[sl], ((i2 / kW2Stages) & 1) ^ 1);
+        wg::mbar_arrive_expect_tx(&full2[sl], F::kW2Slot);
+        unsigned char* dst = w2s + sl * F::kW2Slot;
+        if constexpr (SHARED) {
+          wg::tma_load_2d(dst, &tw2, &full2[sl], u0, 0);
+          wg::tma_load_2d(dst + F::kW2Rows * kBox, &tw2, &full2[sl], u0, F::kW2Rows);
+        } else {
+          wg::tma_load_2d(dst, &tw2, &full2[sl], u0, blockIdx.y * CN);
+        }
+        ++i2;
+      }
+    }
+    return;
+  }
+  wg::setmaxnreg_inc<kConsumerRegs>();
+
+  const int wgi = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x / 32) % 4, g = lane / 4, t4 = lane % 4;
+
+  // 1. LayerNorm in fp32 and the per-row quantisation of z, one warp per row
+  //    (the first body's arithmetic, in its order), BM / 8 rows per warp, the
+  //    codes into the swizzled K-major tile that wgmma reads as fc1's A
+  //    (byte (r, c) in box c / 128 at swz8(r, c % 128)).
+  constexpr int RPW = F::BM / (4 * F::NC);
+#pragma unroll 1
+  for (int i = 0; i < RPW; ++i) {
+    const int r = (threadIdx.x / 32) * RPW + i;  // the block's row
+    const int64_t m = m0 + r;
+    float scale = 0.f;
+    int8_t code[PER];
+    if (m >= M) {
+#pragma unroll
+      for (int k = 0; k < PER; ++k) code[k] = 0;
+    } else {
+      const T* xr = x + m * C;
+      float v[PER];
+      float s = 0.f, q = 0.f;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        v[k] = to_f(xr[lane + 32 * k]);
+        s = __fadd_rn(s, v[k]);
+        q = __fadd_rn(q, __fmul_rn(v[k], v[k]));
+      }
+      const float mu = warp_sum(s) / C;
+      const float var = __fsub_rn(warp_sum(q) / C, __fmul_rn(mu, mu));
+      const float rstd = 1.f / sqrtf(__fadd_rn(var, eps));
+      float amax = 0.f;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int c = lane + 32 * k;
+        v[k] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[k], mu), rstd), gamma[c]), beta[c]);
+        amax = fmaxf(amax, fabsf(v[k]));
+      }
+      amax = fmaxf(warp_max(amax), kAmaxFloor);
+      const float inv = 127.f / amax;
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        code[k] = static_cast<int8_t>(__float2int_rn(__fmul_rn(v[k], inv)));
+      scale = __fmul_rn(amax, kInv127);
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int c = lane + 32 * k;
+      zs[(c / kBox) * F::kZBox + swz8(r, c % kBox)] = static_cast<unsigned char>(code[k]);
+    }
+    if (lane == 0) zscale[r] = scale;
+  }
+  wg::fence_proxy_async();              // z's stores, seen by wgmma
+  wg::named_barrier(1, 128 * F::NC);    // every row is in place
+  // the thread's accumulator rows arow, arow + 8 of the block
+  const int arow = (SHARED ? 0 : 64 * wgi) + 16 * warp + g;
+  const float sz[2] = {zscale[arow], zscale[arow + 8]};
+
+  const unsigned char* za = zs + (SHARED ? 0 : wgi * 64 * kBox);  // fc1's A rows
+  const int w1_off = SHARED ? wgi * kHC * kBox : 0;  // this consumer's units of a W1 box
+  int i1 = 0;              // W1 boxes taken from the ring
+  int fc2_pending = -1;    // the W2 slot of the fc2 in flight
+  // u = zq W1[this consumer's 64 units of step st]^T: one commit per W1
+  // box, released once the next box's products are queued; box 0's wait
+  // also retires the fc2 in flight
+  auto fc1 = [&](int (&u)[kHC / 2]) {
+#pragma unroll
+    for (int i = 0; i < kHC / 2; ++i) u[i] = 0;
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb, ++i1) {
+      const int sl = i1 % W1S;
+      wg::mbar_wait(&full1[sl], (i1 / W1S) & 1);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBox / 32; ++kk)
+        wg::wgmma_m64n64k32_s8(u, wg::desc_sw128(za + kb * F::kZBox + kk * 32, 16, 1024),
+                               wg::desc_sw128(w1s + sl * F::kW1Box + w1_off + kk * 32, 16, 1024));
+      wg::wgmma_commit();
+      wg::wgmma_wait<1>();  // all but this box's products are done
+      if (kb > 0) {
+        if (lane == 0) wg::mbar_arrive(&empty1[(i1 - 1) % W1S]);
+      } else if (fc2_pending >= 0) {
+        if (lane == 0) wg::mbar_arrive(&empty2[fc2_pending % kW2Stages]);
+        fc2_pending = -1;
+      }
+    }
+    wg::wgmma_wait<0>();
+    wg::fence_regs(u);
+    if (lane == 0) wg::mbar_arrive(&empty1[(i1 - 1) % W1S]);
+  };
+  // the first of this consumer's 64 units at step st
+  auto unit0 = [&](int st) { return st * F::UNITS + (SHARED ? wgi * kHC : 0); };
+
+  // the maxima of the thread's two rows over the block's units: over the
+  // quad, then (SHARED) over both consumers; hmax is free again once every
+  // consumer has passed a later barrier
+  auto row_max = [&](float (&mx)[2]) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    }
+    if constexpr (SHARED) {
+      if (t4 == 0) {
+        hmax[wgi][arow] = mx[0];
+        hmax[wgi][arow + 8] = mx[1];
+      }
+      wg::named_barrier(1, 128 * F::NC);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        mx[hr] = fmaxf(hmax[0][arow + 8 * hr], hmax[1][arow + 8 * hr]);
+    }
+  };
+
+  // 2. Pass 1: each row's largest u over the whole hidden width (a row's
+  //    columns of a product lie on one quad). Its h, |gelu(u_max)|, is the
+  //    row's max |h| wherever the GELU grows with u and no negative u's
+  //    |h| is larger, which pass 2 checks: the GELU once per hidden element,
+  //    in pass 2, and not in both passes.
+  int u[kHC / 2];
+  float amax[2] = {-INFINITY, -INFINITY};
+#pragma unroll 1
+  for (int st = 0; st < n_s; ++st) {
+    fc1(u);
+    const float2* s1p = reinterpret_cast<const float2*>(s1 + unit0(st) + 2 * t4);
+    const float2* b1p = reinterpret_cast<const float2*>(b1 + unit0(st) + 2 * t4);
+#pragma unroll
+    for (int jj = 0; jj < kHC / 8; ++jj) {
+      const float2 sc = __ldg(s1p + 4 * jj), bb = __ldg(b1p + 4 * jj);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        amax[hr] = fmaxf(amax[hr], pre_gelu(u[4 * jj + 2 * hr], sz[hr], sc.x, bb.x));
+        amax[hr] = fmaxf(amax[hr], pre_gelu(u[4 * jj + 2 * hr + 1], sz[hr], sc.y, bb.y));
+      }
+    }
+  }
+  row_max(amax);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) amax[hr] = fmaxf(fabsf(gelu_fast(amax[hr])), kAmaxFloor);
+
+  // 3. Pass 2: u again (integer products are exact: the same h), h's codes
+  //    with the rows' scales into a swizzled [64, 128] int8 tile (the 128
+  //    units of an fc2 step; SHARED: consumer w's 64 at bytes 64 w-, two
+  //    tiles by step parity; parts: the consumer's own tile, a step's 64 at
+  //    bytes 64 (st % 2)-), then fc2 over its 128 units from W2's slot, in
+  //    flight while the next step's fc1 is issued. Then the verdict: if a
+  //    row's max |h| is not the amax its codes took, the block runs pass 2
+  //    again with the true maxima (the producer streams it again), which
+  //    then hold: the codes and y are those of the exact row maxima.
+  int yacc[CN / 2];
+  float inv[2], sh[2];
+  int i2 = 0;  // W2 slots taken
+#pragma unroll 1
+  for (;;) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      inv[hr] = 127.f / amax[hr];
+      sh[hr] = __fmul_rn(amax[hr], kInv127);
+    }
+#pragma unroll
+    for (int i = 0; i < CN / 2; ++i) yacc[i] = 0;
+    float hmx[2] = {0.f, 0.f};  // the rows' true max |h|
+#pragma unroll 1
+    for (int st = 0; st < n_s; ++st) {
+      fc1(u);  // retires the fc2 in flight, which read its tile
+      unsigned char* hq = hqs + (SHARED ? (st % 2) : wgi) * F::kHq;
+      const int k0 = SHARED ? wgi * kHC : (st % 2) * kHC;
+      const float2* s1p = reinterpret_cast<const float2*>(s1 + unit0(st) + 2 * t4);
+      const float2* b1p = reinterpret_cast<const float2*>(b1 + unit0(st) + 2 * t4);
+#pragma unroll
+      for (int jj = 0; jj < kHC / 8; ++jj) {
+        const float2 sc = __ldg(s1p + 4 * jj), bb = __ldg(b1p + 4 * jj);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const float h0 = hidden(u[4 * jj + 2 * hr], sz[hr], sc.x, bb.x);
+          const float h1 = hidden(u[4 * jj + 2 * hr + 1], sz[hr], sc.y, bb.y);
+          hmx[hr] = fmaxf(hmx[hr], fmaxf(fabsf(h0), fabsf(h1)));
+          const int c0 = __float2int_rn(__fmul_rn(h0, inv[hr]));
+          const int c1 = __float2int_rn(__fmul_rn(h1, inv[hr]));
+          *reinterpret_cast<uint16_t*>(hq + swz8(16 * warp + g + 8 * hr, k0 + 8 * jj + 2 * t4)) =
+              static_cast<uint16_t>((c0 & 0xff) | (c1 & 0xff) << 8);
+        }
+      }
+      if (!fc2_after(st)) continue;
+      wg::fence_proxy_async();  // hq's stores, seen by wgmma
+      // SHARED: both consumers' codes in place (and, with it, both consumers'
+      // fc2 two steps back done: the tile rewritten next step is free)
+      wg::named_barrier(SHARED ? 1 : 2 + wgi, SHARED ? 256 : 128);
+      const int sl = i2 % kW2Stages;
+      wg::mbar_wait(&full2[sl], (i2 / kW2Stages) & 1);
+      wg::wgmma_fence();
+      const unsigned char* w2c = w2s + sl * F::kW2Slot + (SHARED ? wgi * CN * kBox : 0);
+#pragma unroll
+      for (int kk = 0; kk < kBox / 32; ++kk)
+        fc2_kstep<CN>(yacc, wg::desc_sw128(hq + kk * 32, 16, 1024), w2c + kk * 32);
+      wg::wgmma_commit();
+      fc2_pending = i2++;
+    }
+    wg::wgmma_wait<0>();
+    wg::fence_regs(yacc);
+    if (lane == 0) wg::mbar_arrive(&empty2[fc2_pending % kW2Stages]);  // the last fc2's W2
+    fc2_pending = -1;
+    row_max(hmx);
+    bool off = false;  // a row of this thread whose codes took another amax
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      hmx[hr] = fmaxf(hmx[hr], kAmaxFloor);
+      off = off || (m0 + arow + 8 * hr < M && hmx[hr] != amax[hr]);
+      amax[hr] = hmx[hr];
+    }
+    const bool again = wg::named_barrier_or(1, 128 * F::NC, off);
+    if (threadIdx.x == 0) {
+      verdict = again;
+      wg::mbar_arrive(&verdict_bar);
+    }
+    if (!again) break;
+  }
+
+  // 4. y = fp32(acc) * (sh * s2) + b2, one cast to T, the thread's rows and
+  //    the consumer's columns
+  const int n0 = SHARED ? wgi * CN : blockIdx.y * CN;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int64_t m = m0 + arow + 8 * hr;
+    if (m >= M) continue;
+#pragma unroll
+    for (int jj = 0; jj < CN / 8; ++jj) {
+      const int c = n0 + 8 * jj + 2 * t4;
+      const float2 sc = __ldg(reinterpret_cast<const float2*>(s2 + c));
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(b2 + c));
+      const float v0 = __fadd_rn(
+          __fmul_rn(__int2float_rn(yacc[4 * jj + 2 * hr]), __fmul_rn(sh[hr], sc.x)), bb.x);
+      const float v1 = __fadd_rn(
+          __fmul_rn(__int2float_rn(yacc[4 * jj + 2 * hr + 1]), __fmul_rn(sh[hr], sc.y)), bb.y);
+      if constexpr (std::is_same<T, float>::value)
+        *reinterpret_cast<float2*>(y + m * C + c) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<uint32_t*>(y + m * C + c) = pack_bf16(v0, v1);
+    }
+  }
+}
+
+}  // namespace i8sm90
+
+// Row 12: x, y, the codes (16-byte aligned) and the fp32 vectors; H % 128 == 0.
+template <typename T, int C>
+cudaError_t launch_int8_sm90(const void* x, const float* g, const float* be, const int8_t* w1q,
+                             const float* s1, const float* b1, const int8_t* w2q,
+                             const float* s2, const float* b2, void* y, int M, int H, float eps,
+                             cudaStream_t stream) {
+  using F = i8sm90::Form<C>;
+  if (H % (2 * i8sm90::kHC) != 0) return cudaErrorInvalidValue;
+  if (M == 0) return cudaSuccess;
+  constexpr CUtensorMapDataType kU8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUtensorMap tw1, tw2;
+  cudaError_t err = wg::make_tma_2d(&tw1, kU8, w1q, H, C, C, F::UNITS, i8sm90::kBox);
+  if (err == cudaSuccess)
+    err = wg::make_tma_2d(&tw2, kU8, w2q, C, H, H, F::kW2Rows, i8sm90::kBox);
+  auto kernel = i8sm90::ln_mlp_int8_sm90_kernel<T, C>;
+  if (err == cudaSuccess) err = allow_smem(kernel, F::kSmem);
+  if (err != cudaSuccess) return err;
+  const unsigned tiles = static_cast<unsigned>((static_cast<int64_t>(M) + F::BM - 1) / F::BM);
+  kernel<<<dim3(tiles, F::PARTS), F::kThreads, F::kSmem, stream>>>(
+      tw1, tw2, static_cast<const T*>(x), g, be, s1, b1, s2, b2, static_cast<T*>(y), M, H, eps);
   return cudaGetLastError();
 }
 
@@ -351,10 +754,10 @@ cudaError_t dispatch_int8(const void* x, const float* g, const float* be, const 
                           const float* s2, const float* b2, void* y, int M, int C, int H,
                           float eps, cudaStream_t s) {
   switch (C) {
-    case 256: return launch_int8<T, 256>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);
-    case 384: return launch_int8<T, 384>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);
-    case 512: return launch_int8<T, 512>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);
-    case 768: return launch_int8<T, 768>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);
+    case 256: return launch_int8_sm90<T, 256>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);
+    case 384: return launch_int8_sm90<T, 384>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);
+    case 512: return launch_int8_sm90<T, 512>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);
+    case 768: return launch_int8_sm90<T, 768>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -364,7 +767,8 @@ cudaError_t dispatch_int8(const void* x, const float* g, const float* be, const 
 
 // x, y: [M, C] of one dtype (0 fp32, 1 bf16); gamma, beta, s2, b2: [C] fp32;
 // w1q: [H, C] int8, s1, b1: [H] fp32; w2q: [C, H] int8; all contiguous, the
-// int8 codes 16-byte aligned. Returns a cudaError_t code.
+// int8 codes 16-byte aligned, x, y and the vectors 8-byte aligned; H % 128
+// == 0. Returns a cudaError_t code.
 extern "C" int mspi_ln_mlp_int8(const void* x, const void* gamma, const void* beta,
                                 const void* w1q, const void* s1, const void* b1,
                                 const void* w2q, const void* s2, const void* b2, void* y,
@@ -378,6 +782,11 @@ extern "C" int mspi_ln_mlp_int8(const void* x, const void* gamma, const void* be
   const auto* sc2 = static_cast<const float*>(s2);
   const auto* bb1 = static_cast<const float*>(b1);
   const auto* bb2 = static_cast<const float*>(b2);
+  const void* pairs[] = {x, y, s1, b1, s2, b2};  // read and written two elements at a time
+  for (const void* p : pairs)
+    if (reinterpret_cast<uintptr_t>(p) % 8 != 0) return cudaErrorMisalignedAddress;
+  if (reinterpret_cast<uintptr_t>(w1q) % 16 != 0 || reinterpret_cast<uintptr_t>(w2q) % 16 != 0)
+    return cudaErrorMisalignedAddress;
   if (dtype == mspi::kFloat32)
     return mspi::dispatch_int8<float>(x, g, be, q1, sc1, bb1, q2, sc2, bb2, y, M, C, H, eps, s);
   if (dtype == mspi::kBFloat16)
@@ -392,9 +801,14 @@ extern "C" int mspi_ln_mlp_int8(const void* x, const void* gamma, const void* be
 extern "C" int mspi_mlp_int8_lab(const void* x, const void* w1q, const void* s1,
                                  const void* w2q, const void* s2, void* y, int M, int C, int H,
                                  void* stream) {
-  if (C != 96) return cudaErrorInvalidValue;
-  return mspi::launch_int8<__nv_bfloat16, 96, true>(
-      x, nullptr, nullptr, static_cast<const int8_t*>(w1q), static_cast<const float*>(s1),
-      nullptr, static_cast<const int8_t*>(w2q), static_cast<const float*>(s2), nullptr, y, M, H,
-      0.f, static_cast<cudaStream_t>(stream));
+  if (C != 96 || H % mspi::Q_HC != 0) return cudaErrorInvalidValue;
+  const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(M) + mspi::Q_ROWS - 1) /
+                                                mspi::Q_ROWS);
+  if (blocks == 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mspi::mlp_int8_lab_kernel<96><<<blocks, mspi::Q_THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w1q),
+      static_cast<const float*>(s1), static_cast<const int8_t*>(w2q),
+      static_cast<const float*>(s2), static_cast<__nv_bfloat16*>(y), M, H);
+  return cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 // descriptor (128-byte swizzle), wgmma's fences, and the bf16 and int8 wgmma
 // of a 64-row tile with fp32 or s32 accumulators in registers, A from shared
 // memory or (bf16) from registers. Used by gemm_lab.cu's bf16 and int8 GEMMs,
-// ln_mlp_sm90.cuh's fused LayerNorm + MLP and ln_mlp_bwd_sm90.cuh's backward.
+// ln_mlp_sm90.cuh's fused LayerNorm + MLP, ln_mlp_bwd_sm90.cuh's backward and
+// ln_mlp_int8.cu's int8 LayerNorm + MLP (row 12).
 //
 // Tensor maps: cuTensorMapEncodeTiled belongs to the CUDA driver API. It is
 // reached through the runtime's cudaGetDriverEntryPoint(ByVersion), so the
@@ -192,6 +193,25 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, u
       : "l"(da), "l"(db), "r"(1));  // scale-d: d += A B
 }
 
+// d[64 x 64] += A[64 x 32] B[32 x 64]: s8 in, s32 accumulate, both operands
+// K-major through their descriptors (B as [64 n][k] rows), in the layout of
+// wgmma_m64n128k32_s8 with columns 8 j + 2 (t % 4) (+ 1), j < 8.
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));  // scale-d: d += A B
+}
+
 template <int R>
 __device__ __forceinline__ void fence_regs(int (&d)[R]) {
 #pragma unroll
@@ -355,6 +375,18 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // (1-15; __syncthreads uses 0).
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// named_barrier that also ORs `v` over its threads: every thread gets the OR.
+__device__ __forceinline__ bool named_barrier_or(int id, int threads, bool v) {
+  int r;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.b32 p, %1, 0;\nbar.red.or.pred q, %2, %3, p;\n"
+      "selp.b32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"(static_cast<int>(v)), "r"(id), "r"(threads)
+      : "memory");
+  return r != 0;
 }
 
 // ---- host: tensor maps -------------------------------------------------------------

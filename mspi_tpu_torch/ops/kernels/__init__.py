@@ -69,7 +69,7 @@ _SIGNATURES = {
     "mspi_self_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
     "mspi_window_attention": [_P] * 5 + [_I] * 6 + [_P],
     "mspi_window_attention_bwd": [_P] * 12 + [_I] * 7 + [_P],
-    "mspi_attention": [_P] * 5 + [_I] * 7 + [_P],
+    "mspi_attention": [_P] * 6 + [_I] * 7 + [_P],
     "mspi_attention_bwd": [_P] * 13 + [_I] * 8 + [_P],
     "mspi_attention_rel_packed": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P],
     "mspi_dwconv3d": [_P] * 3 + [_I] * 8 + [_P],

@@ -29,7 +29,8 @@ Two serving options live here too, each with its own launch count:
   residual sum folded into the kernel's epilogue;
 - `ln_mlp_int8` (TPU row 12, `fused_ln_mlp_int8`): int8 weights quantised
   per output channel once (`int8_operands`), activations quantised per row
-  in the kernel, int8 x int8 -> int32 products (`csrc/ln_mlp_int8.cu`).
+  in the kernel, int8 x int8 -> int32 products on s8 wgmma fed by TMA
+  (`csrc/ln_mlp_int8.cu`, in the launch form `int8_sm90_form` mirrors).
   Inference only. `ln_mlp_block` routes a transformer block's norm + MLP
   to it as the JAX package's `_dispatch_ln_mlp` does.
 
@@ -56,6 +57,7 @@ from mspi_tpu_torch.ops import kernels
 SUPPORTED_C = (96, 192, 384, 512, 768)
 SM90_HC = 64  # the bf16 body's hidden units per chunk (H % 64 == 0)
 INT8_C = (256, 384, 512, 768)  # widths the int8 kernel is compiled for
+INT8_HC = 128  # the int8 kernel's W2 box: two 64-unit chunks (H % 128 == 0)
 QUANT_MIN_C = 256  # the JAX package's QUANT_MIN_C: narrower blocks stay on K2
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -211,6 +213,31 @@ def sm90_form(C: int) -> Tuple[int, int, int, bool]:
         raise ValueError(f"C={C} not compiled (have {SUPPORTED_C})")
     cn = C if C <= 192 else 192 if C == 384 else 256
     return (128 if C <= 512 else 64), cn, C // cn, C <= 192
+
+
+def int8_sm90_form(C: int) -> Tuple[int, int, int, int, int]:
+    """Row 12's launch form at width C, as `csrc/ln_mlp_int8.cu`'s
+    `i8sm90::Form<C>` chooses it: (rows per block, y columns per consumer
+    warpgroup, column parts, W1 ring slots, shared memory bytes). Up to C =
+    512 the two consumer warpgroups share a block's 64 rows: each takes half
+    of every 128 hidden units of fc1 and half of y's columns of fc2, so
+    nothing is computed twice. At C = 768 (a [64, 384] s32 accumulator
+    would take 192 registers a thread) each consumer owns 64 of 128 rows
+    and y's columns come in parts of 256, each part recomputing fc1's two
+    passes. Shared memory holds the block's z codes [rows, C], a 2-slot
+    ring of W2 for 128 hidden units (all C columns, or the part's 256), two
+    [64, 128] tiles of h codes and 1024 bytes of alignment; the ring of W1
+    boxes (128 or 64 units by 128 k) takes what is left of the block's
+    227 KiB less 1280 bytes of static memory, at most 12 slots. The grid is
+    (ceil(M / rows), parts)."""
+    if C not in INT8_C:
+        raise ValueError(f"C={C} not compiled (have {INT8_C})")
+    shared = C <= 512
+    rows, cn = (64, C // 2) if shared else (128, 256)
+    box = (128 if shared else 64) * 128
+    fixed = rows * C + 2 * (C if shared else cn) * 128 + 2 * 64 * 128 + 1024
+    slots = min(12, (232448 - 1280 - fixed) // box)
+    return rows, cn, 1 if shared else C // cn, slots, fixed + slots * box
 
 
 def _check_weights(name, x, g, b, w1, b1, w2, b2):
@@ -430,8 +457,8 @@ def _check_int8(name, x, g, b, w1q, s1, b1, w2q, s2, b2):
     C, H = x.shape[-1], w1q.shape[0]
     if C not in INT8_C:
         raise ValueError(f"{name}: C={C} not compiled (have {INT8_C})")
-    if H % 64:
-        raise ValueError(f"{name}: needs H % 64 == 0, got H={H}")
+    if H % INT8_HC:
+        raise ValueError(f"{name}: needs H % {INT8_HC} == 0, got H={H}")
     if w1q.dtype != torch.int8 or w2q.dtype != torch.int8:
         raise TypeError(f"{name}: weight codes must be int8")
     if tuple(w1q.shape) != (H, C) or tuple(w2q.shape) != (C, H):

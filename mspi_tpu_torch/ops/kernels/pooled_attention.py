@@ -9,8 +9,10 @@ fused_attention_rel`, `::fused_self_attention`, `::fused_attention` and
 `::fused_attention_rel_packed` and their custom VJPs (`_bwd_impl_rel`,
 `_bwd_impl`, `_attention_rel_packed_bwd`). Kernel sources:
 `mspi_tpu_torch/csrc/attention_rel.cu` (K1 and row 8),
-`csrc/self_attention.cu`, `csrc/attention.cu` (row 6) and their shared
-flash body `csrc/flash_attention.cuh`; every backward in
+`csrc/self_attention.cu`, `csrc/attention.cu` (row 6, in the form
+`aug_form` names) and their shared flash bodies
+`csrc/flash_attention_sm90.cuh` (bf16) and `csrc/flash_attention.cuh`
+(fp32); every backward in
 `csrc/attention_bwd.cu` (K1's in bf16 in `csrc/attention_rel_bwd_sm90.cu`,
 in the form `rel_bwd_form` names; row 8's is K1's after a layout change;
 K4's in bf16 in `csrc/self_attention_bwd_sm90.cu`, in the form
@@ -34,7 +36,12 @@ from mspi_tpu_torch.ops import kernels
 
 SUPPORTED_D = (96, 128)  # MViT heads, SyncBlock heads
 PACKED_D = 96  # row 8's head dim (MViT)
-AUG_DA = (113, 144)  # row 6's q_aug/k_aug widths, zero-filled to 128 or 144 lanes
+# row 6's q_aug/k_aug widths Da = 96 + R, zero-filled to the score width of
+# the first form that holds them (`csrc/flash_attention.cuh::aug_width`); the
+# widest, 176, takes R <= 80 (MViTv2-S: R = 52 at --resolution 256 448, 66 at
+# 288 640)
+AUG_DA = (113, 176)
+AUG_FORMS = (128, 144, 176)
 AUG_DV = 96  # row 6's value width (MViT heads)
 BWD_TILE = 64  # query and key tile of the backward kernels
 REL_BWD_D = 96  # the bf16 K1 backward's head dim (every K1 call of MViTv2-S)
@@ -255,19 +262,41 @@ def attention_backward_reference(q, k, v, dout):
     return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
 
 
+def aug_form(Da: int) -> int:
+    """Row 6's and row 7 head-major's score width DK at augmented width Da,
+    as `csrc/flash_attention.cuh::aug_width` chooses it: q_aug and k_aug rows
+    zero-filled to the narrowest of AUG_FORMS that holds them. Past the
+    widest form (Da > 176) no kernel is compiled: ValueError."""
+    if not AUG_DA[0] <= Da <= AUG_DA[1]:
+        raise ValueError(f"Da {Da} outside {AUG_DA[0]}..{AUG_DA[1]}: the widest compiled "
+                         f"form zero-fills {AUG_FORMS[-1]} lanes (R <= {AUG_FORMS[-1] - AUG_DV})")
+    return next(dk for dk in AUG_FORMS if Da <= dk)
+
+
+def aug_fwd_form(Da: int) -> Tuple[int, int]:
+    """The bf16 row 6 forward's form at Da, as `csrc/flash_attention_sm90.cuh`
+    (`Layout<DK, 0, kNoBias, 96>`) lays it out: (DK, shared memory bytes).
+    k_aug is copied into zero-filled rows of DK lanes (the `pad` scratch of
+    `_attention_fwd`) and its 2-slot ring holds 64-key tiles of K [64][DK + 8]
+    and V [64][96 + 8]; 3 blocks of 4 warps per SM at every DK."""
+    dk = aug_form(Da)
+    return dk, 2 * 2 * BWD_TILE * ((dk + 8) + (AUG_DV + 8))
+
+
 def aug_bwd_form(Da: int) -> Tuple[int, int, int]:
     """The bf16 row 7 head-major backward's form at Da, as
     `csrc/attention_aug_bwd_sm90.cu` (`AugBytes<DK>`) lays it out: (DK, dq
     pass and dk/dv pass shared memory bytes). q_aug and k_aug are copied into
-    zero-filled rows of DK = 128 lanes (Da <= 128) or 144, whose 16-byte rows
-    its `cp.async` ring copies; the dq pass rings (K, V) tiles of 64 rows
-    through 2 slots, the dk/dv pass (q, dO, lse, delta) and holds its K and V
-    rows; operand rows at a pitch of 8 lanes more."""
-    if not AUG_DA[0] <= Da <= AUG_DA[1]:
-        raise ValueError(f"Da {Da} outside {AUG_DA[0]}..{AUG_DA[1]}")
-    dk = 128 if Da <= 128 else 144
+    zero-filled rows of DK = `aug_form(Da)` lanes, whose 16-byte rows its
+    `cp.async` ring copies; the dq pass rings (K, V) tiles of 64 rows
+    through 2 slots (and in the wide form, DK = 176, holds its 64 q rows,
+    whose A fragments leave the registers), the dk/dv pass (q, dO, lse,
+    delta) and holds its K and V rows; operand rows at a pitch of 8 lanes
+    more."""
+    dk = aug_form(Da)
     op_k, op_v = 2 * BWD_TILE * (dk + 8), 2 * BWD_TILE * (AUG_DV + 8)
-    return dk, 2 * (op_k + op_v), 2 * (op_k + op_v + 8 * BWD_TILE) + op_k + op_v
+    dq = 2 * (op_k + op_v) + (op_k if dk > 144 else 0)
+    return dk, dq, 2 * (op_k + op_v + 8 * BWD_TILE) + op_k + op_v
 
 
 def _aug_geometry(name, q, k, v):
@@ -278,7 +307,8 @@ def _aug_geometry(name, q, k, v):
                          f"v {tuple(v.shape)}")
     if Dv != AUG_DV or not AUG_DA[0] <= Da <= AUG_DA[1]:
         raise ValueError(f"{name}: widths Da {Da} / Dv {Dv} not compiled (Da in "
-                         f"{AUG_DA[0]}..{AUG_DA[1]}, Dv {AUG_DV})")
+                         f"{AUG_DA[0]}..{AUG_DA[1]}, the widest form zero-filling "
+                         f"{AUG_FORMS[-1]} lanes; Dv {AUG_DV})")
     return B, H, Nq, Nk, Da, Dv
 
 
@@ -291,12 +321,14 @@ def _attention_fwd(q, k, v, with_lse: bool = False
     name = "attention"
     dtype = kernels.check_operands(name, q, k, v)
     B, H, Nq, Nk, Da, Dv = _aug_geometry(name, q, k, v)
-    _check_aligned(name, v)  # q_aug / k_aug rows are loaded one element at a time
+    _check_aligned(name, v)  # q_aug / k_aug rows need no alignment
     out = q.new_empty((B, H, Nq, Dv))
     lse = q.new_empty((B * H, Nq), dtype=torch.float32) if with_lse else None
+    # bf16: k_aug's rows zero-filled to the form's DK lanes, for the ring's copies
+    pad = (q.new_empty((B * H * Nk, aug_form(Da))) if q.dtype == torch.bfloat16 else None)
     err = kernels.lib().mspi_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kernels.ptr(lse),
-        B, H, Nq, Nk, Da, Dv, dtype, kernels.stream_handle(q))
+        kernels.ptr(pad), B, H, Nq, Nk, Da, Dv, dtype, kernels.stream_handle(q))
     kernels.check(err, name)
     kernels.launches[name] += 1
     return out, lse

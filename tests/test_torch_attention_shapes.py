@@ -8,7 +8,9 @@ asserts that the tables list exactly those calls with those multiplicities:
 K1's (heads, Nq, pooled key grid), the window kernel's (windows per clip,
 heads, C, mask or not) with the mask's window count, and the shift masks'
 (padded grid, window, shift); `MVIT_WIDE` and `MVIT_R66`, the K1 calls
-whose rel width passes 48 at 256x448 and 64 at 288x640; and row 18's
+whose rel width passes 48 at 256x448 and 64 at 288x640; row 6's
+augmented widths under attn_relk=False at those three resolutions, each
+with a compiled form, the wide ones those two tables; and row 18's
 `DWCONV_SHAPES` with the bf16 kernel's tile at every pool shape of
 224x384, 256x448 and 288x640. The forwards run on the meta device (shapes
 only), where the kernel functions are routed to their plain versions.
@@ -16,6 +18,7 @@ only), where the kernel functions are routed to their plain versions.
 
 from __future__ import annotations
 
+import math
 from collections import Counter
 
 import pytest
@@ -26,7 +29,7 @@ from mspi_tpu_torch.config import get_config
 from mspi_tpu_torch.models import mvit, videoswin
 from mspi_tpu_torch.models.registry import build_backbone
 from mspi_tpu_torch.ops import kernels
-from mspi_tpu_torch.ops.kernels import dwconv
+from mspi_tpu_torch.ops.kernels import dwconv, pooled_attention
 from tests.torch_port_utils import cpu_share
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
@@ -102,6 +105,41 @@ def test_mvit_r66_rel_shapes(meta_plain, monkeypatch):
     assert calls == Counter({(heads, nq, k_shape): 1
                              for _, _, heads, nq, k_shape in chip_smoke.MVIT_R66})
     assert all(sum(k_shape) == 66 for *_, k_shape in chip_smoke.MVIT_R66)
+
+
+@pytest.mark.parametrize("res", [chip_smoke.RES, chip_smoke.MVIT_WIDE_RES,
+                                 chip_smoke.MVIT_R66_RES], ids=lambda r: f"{r[0]}x{r[1]}")
+def test_mvit_relk0_aug_widths(meta_plain, monkeypatch, res):
+    """Row 6's calls under attn_relk=False (the augmented lanes, Da = 96 +
+    R): every block's Da has a compiled form (`aug_form`, the forward's and
+    the backward's) at 224x384 and at the training CLI's 256x448 and
+    288x640. At 224x384 they are MVIT_BLOCKS (Da 123 or 142); the calls past
+    Da 144, the wide form, are MVIT_WIDE's (Da 148) and MVIT_R66's (Da 162),
+    the tables `chip_smoke.py` checks rows 6 and 7 at."""
+    calls = Counter()
+    kernel = mvit.attention
+
+    def spy(q_aug, k_aug, v):
+        assert q_aug.shape[-1] == k_aug.shape[-1] and v.shape[-1] == chip_smoke.MVIT_D
+        calls[(q_aug.shape[1], q_aug.shape[2], k_aug.shape[2], q_aug.shape[-1])] += 1
+        return kernel(q_aug, k_aug, v)
+    monkeypatch.setattr(mvit, "attention", spy)
+    _forward("mvitv2s", res, {"attn_relk": False})
+    assert sum(calls.values()) == chip_smoke.PER_FORWARD["mvitv2s+relk0"]["attention"]
+    for (_, _, _, da) in calls:
+        dk = pooled_attention.aug_form(da)
+        assert pooled_attention.aug_fwd_form(da)[0] == pooled_attention.aug_bwd_form(da)[0] == dk
+
+    def table(shapes):
+        return Counter({(heads, nq, math.prod(ks), chip_smoke.MVIT_D + sum(ks)): blocks or 1
+                        for _, blocks, heads, nq, ks in shapes})
+    wide = Counter({key: n for key, n in calls.items() if key[3] > 144})
+    if tuple(res) == chip_smoke.RES:
+        assert calls == table(chip_smoke.MVIT_BLOCKS) and not wide
+    else:
+        wide_res = tuple(res) == chip_smoke.MVIT_WIDE_RES
+        assert wide == table(chip_smoke.MVIT_WIDE if wide_res else chip_smoke.MVIT_R66)
+        assert {da for *_, da in wide} == {148 if wide_res else 162}
 
 
 @pytest.mark.parametrize("res", [chip_smoke.RES, chip_smoke.MVIT_WIDE_RES,

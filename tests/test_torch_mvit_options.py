@@ -124,6 +124,8 @@ def _counting(fns, counts, monkeypatch):
 @pytest.mark.parametrize("B,H,Nq,k_shape,R", [
     (1, 2, 40, (2, 3, 4), 27),   # Da = 96 + 27 = 123
     (2, 1, 70, (2, 4, 6), 46),   # Da = 96 + 46 = 142, ragged against the tiles
+    (1, 1, 36, (1, 2, 49), 52),  # Da = 148: 256x448's width, the wide form
+    (1, 2, 20, (1, 1, 64), 66),  # Da = 162: 288x640's width
 ])
 def test_attention_matches_pallas(rng, B, H, Nq, k_shape, R):
     """Row 6 on q_aug/k_aug at the model's widths (the expansion lanes of

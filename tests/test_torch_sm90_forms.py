@@ -201,15 +201,53 @@ def test_ln_mlp_bwd_segments(label, tokens, C):
     assert K2.bwd_segments(kernels.DTYPE_CODES[torch.float32], M, C, H, sms) <= -(-M // 256)
 
 
-@pytest.mark.parametrize("Da", [113, 123, 128, 129, 142, 144])
+@pytest.mark.parametrize("Da", [113, 123, 128, 129, 142, 144, 145, 148, 162, 176])
 def test_aug_bwd_form(Da):
     """The bf16 row 7 head-major backward at the augmented widths: Da lanes
-    zero-filled to 128 or 144 (whole 16-lane k-steps, the 144 form's last
-    one alone), and both passes' shared memory fits two blocks per SM."""
+    zero-filled to 128, 144 or, past 144, the wide form's 176 (whole 16-lane
+    k-steps, an odd count's last one alone), and both passes' shared memory
+    fits two blocks per SM (the wide dq pass holds its q rows too). Past the
+    widest form, Da 177, it refuses."""
     dk, dq_smem, dkv_smem = PA.aug_bwd_form(Da)
-    assert dk == (128 if Da <= 128 else 144) and dk >= Da and dk % 16 == 0
-    assert 2 * max(dq_smem, dkv_smem) <= 228 * 1024
+    assert dk == (128 if Da <= 128 else 144 if Da <= 144 else 176) and dk >= Da
+    assert dk % 16 == 0 and dk == PA.aug_form(Da)
+    assert 2 * (max(dq_smem, dkv_smem) + 1024) <= 228 * 1024
     assert dkv_smem > dq_smem
-    for bad in (112, 145):
+    for bad in (112, PA.AUG_DA[1] + 1):
         with pytest.raises(ValueError):
             PA.aug_bwd_form(bad)
+
+
+@pytest.mark.parametrize("Da", [113, 123, 142, 144, 148, 162, 176])
+def test_aug_fwd_form(Da):
+    """The bf16 row 6 forward's form: the backward's score width, and its
+    2-slot ring of K [64][DK + 8] and V [64][104] tiles fits 3 blocks of 4
+    warps per SM at every form (the register cap of 168 that its
+    `__launch_bounds__` asks for); refused past the widest form."""
+    dk, smem = PA.aug_fwd_form(Da)
+    assert dk == PA.aug_form(Da) == PA.aug_bwd_form(Da)[0]
+    assert smem == 2 * 2 * 64 * (dk + 8 + 96 + 8)
+    assert 3 * (smem + 1024) <= 228 * 1024
+    with pytest.raises(ValueError, match="176"):
+        PA.aug_fwd_form(PA.AUG_DA[1] + 1)
+
+
+@pytest.mark.parametrize("C", [96, *K2.INT8_C])
+def test_int8_sm90_form(C):
+    """Row 12's wgmma form: up to C = 512 two consumer warpgroups share 64
+    rows (each half of the hidden units and of y's columns), at C = 768
+    128-row blocks with y in column parts; a consumer's s32 accumulator
+    (CN / 2 registers) beside u's 32 stays under its 240 with room for the
+    rest, shared memory within the block's 227 KiB. C = 96 is the int8
+    lab's width, which keeps its mma.sync body: no form."""
+    if C not in K2.INT8_C:
+        with pytest.raises(ValueError):
+            K2.int8_sm90_form(C)
+        return
+    rows, cn, parts, slots, smem = K2.int8_sm90_form(C)
+    consumers = 2 if rows == 64 else 1  # consumers per row: the column split
+    assert cn * consumers * parts == C and cn % 64 == 0 and 3 <= slots <= 12
+    assert (rows, parts) == ((64, 1) if C <= 512 else (128, 3))
+    assert cn // 2 + 32 <= CONSUMER_REGS[2] - 64
+    assert smem + 1280 <= SMEM_LIMIT
+    assert 4 * C % K2.INT8_HC == 0  # H = 4C: whole W2 slots of 128 hidden units

@@ -56,6 +56,23 @@ of `--reps` single calls, after warm-up, as `chip_smoke.py` times):
   lanes, from the forward's out and lse), MViTv2-S's 16 blocks at batch 2,
   summed per relk0 training step, beside SDPA forward + backward (scale 1),
   with the device time of each pass at blocks 0 and 4-13;
+- row 6 (`attention`, the forward on the augmented lanes,
+  `attention_aug`), MViTv2-S's 16 blocks at batch 8, summed per forward,
+  beside SDPA (scale 1) on the same operands, with device times and the
+  device time of each kernel at blocks 0 and 4-13; `attention_aug_wide`:
+  the same at the wide widths, the three blocks of 256x448 (Da 148,
+  `chip_smoke.MVIT_WIDE`) and of 288x640 (Da 162, `chip_smoke.MVIT_R66`)
+  at batch 2, summed once each (a tree without the wide form refuses
+  them: printed, not summed); `attention_bwd_aug_wide`: row 7 head-major
+  at those six shapes, batch 2;
+- row 12 (`ln_mlp_int8`, bf16 x) at `chip_smoke.INT8_SHAPES` at batch 8,
+  summed per MViTv2-S serving forward and per VideoSwin-S int8 forward
+  (`ln_mlp_int8:swin`), each shape weighted by its blocks, with device
+  times and each shape's share of the int8 peak (4 M C H operations at
+  1979 TOP/s); and its flips: the outputs more than 1e-3 x RMS off the
+  plain version on the same inputs (a flipped int8 code; what
+  `chip_smoke.int8_errors` counts), in fp32 and bf16, into the JSON line
+  (`int8_flips`) for the trees to be compared;
 - `bwd_seeds` (no timing): the bf16 window backward (rows 16-17) at the
   eight VideoSwin-S variants over 32 draws of its inputs (seeds 1000-1031,
   `chip_smoke.window_inputs` at batch 2), each gradient's error over its
@@ -110,7 +127,8 @@ CHECKOUT = Path(__file__).resolve().parents[1]
 SECTIONS = ("attention_rel_packed", "window_attention_bwd", "self_attention", "gemm_bf16",
             "attention_rel_bwd", "attention_rel_bwd_r66", "dwconv2d", "dwconv3d", "gemm_int8",
             "self_attention_bwd", "ln_mlp", "ln_mlp_prior", "gelu_floor", "ln_mlp_bwd",
-            "attention_bwd_aug", "bwd_seeds")
+            "attention_bwd_aug", "bwd_seeds", "attention_aug", "attention_aug_wide",
+            "attention_bwd_aug_wide", "ln_mlp_int8")
 SEEDS = 32  # bwd_seeds: input draws per shape
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core peak, FLOP/s
 SMS, ISSUE_LANES = 132, 128  # H100 SXM: SMs, thread instructions issued per SM per clock
@@ -540,6 +558,75 @@ def main(argv=None) -> dict:
                     f"{name[:60]} {k_us:.2f} us" for name, k_us in breakdown(fn, args.reps)),
                     flush=True)
             del q, k, v, dout, out, lse
+    randn = cs.randn_on(torch.Generator().manual_seed(21))
+    aug_tables = (("attention_aug", [(cs.BATCH, *shape) for shape in cs.MVIT_BLOCKS]),
+                  ("attention_aug_wide", [(cs.TRAIN_BATCH, lb, 1, *rest) for lb, _, *rest in
+                                          cs.MVIT_WIDE + cs.MVIT_R66]))
+    for name, batch, label, blocks, heads, nq, k_shape in (
+            (name, *shape) for name, table in aug_tables if name in only for shape in table):
+        q, k, v = (t.bfloat16() for t in cs.aug_inputs(randn, batch, heads, nq, k_shape))
+        try:
+            with torch.no_grad():
+                PA.attention(q, k, v)
+        except (RuntimeError, ValueError) as err:  # a tree without the wide form
+            print(f"{name} {label} Da {q.shape[-1]}: refused ({err})", flush=True)
+            continue
+        fn = lambda: PA.attention(q, k, v)  # noqa: E731
+        with torch.no_grad():
+            summed(name, f"{label} Da {q.shape[-1]}", blocks, fn,
+                   lambda: cs.sdpa(q, k, v, scale=1.0), 4 * args.reps)
+            if label in ("blk0", "blk4-13"):
+                print(f"{name} {label} by kernel: " + "; ".join(
+                    f"{kn[:60]} {k_us:.2f} us" for kn, k_us in breakdown(fn, args.reps)),
+                    flush=True)
+        del q, k, v
+    if "attention_bwd_aug_wide" in only:  # row 7 head-major at the wide widths
+        randn, B = cs.randn_on(torch.Generator().manual_seed(31)), cs.TRAIN_BATCH
+        for label, _, heads, nq, k_shape in cs.MVIT_WIDE + cs.MVIT_R66:
+            q, k, v = (t.bfloat16() for t in cs.aug_inputs(randn, B, heads, nq, k_shape))
+            dout = randn(B, heads, nq, cs.MVIT_D).bfloat16()
+            try:
+                out, lse = PA._attention_fwd(q, k, v, with_lse=True)
+                PA.attention_backward(q, k, v, out, lse, dout)
+            except (RuntimeError, ValueError) as err:
+                print(f"attention_bwd_aug_wide {label}: refused ({err})", flush=True)
+                continue
+            fn = lambda: PA.attention_backward(q, k, v, out, lse, dout)  # noqa: E731
+            lib = cs.library_grad(lambda *a: cs.sdpa(*a, scale=1.0), (q, k, v), dout)
+            summed("attention_bwd_aug_wide", f"{label} Da {q.shape[-1]}", 1, fn, lib, args.reps)
+            del q, k, v, dout, out, lse
+    flips = {}
+    if "ln_mlp_int8" in only:  # row 12 per serving forward, and its flipped codes
+        from mspi_tpu_torch.ops.kernels import ln_mlp as K2
+        randn = cs.randn_on(torch.Generator().manual_seed(1))
+        for label, tokens, C, mvit, swin in cs.INT8_SHAPES:
+            M, H = cs.BATCH * tokens, 4 * C
+            g, b, w1, b1, w2, b2 = (t.float() for t in cs.mlp_inputs(randn, 1, C)[1:])
+            w1q, s1 = K2.quantize_weight(w1)
+            w2q, s2 = K2.quantize_weight(w2)
+            ops = (g, b, w1q, s1, b1, w2q, s2, b2)
+            x32 = randn(M, C)
+            with torch.no_grad():
+                for x in (x32, x32.bfloat16()):
+                    d = (K2.ln_mlp_int8(x, *ops, 1e-6).double()
+                         - K2.ln_mlp_int8_reference(x, *ops, 1e-6).double())
+                    rms = K2.ln_mlp_int8_reference(x, *ops, 1e-6).double().pow(2).mean().sqrt()
+                    flips[f"{label}:{str(x.dtype)[6:]}"] = int((d.abs() > 1e-3 * rms).sum())
+                x = x32.bfloat16()
+                fn = lambda: K2.ln_mlp_int8(x, *ops, 1e-6)  # noqa: E731
+                ms, us = time_ms(fn), device_us(fn, 4 * args.reps)
+            for key, weight in (("ln_mlp_int8", mvit), ("ln_mlp_int8:swin", swin)):
+                sums[key] = sums.get(key, 0.0) + weight * ms
+                device[key] = device.get(key, 0.0) + weight * us
+            print(f"ln_mlp_int8 {label} [{M}, {C}] x{mvit} (Swin x{swin}): {ms:.4f} ms (device "
+                  f"{us:.2f} us, {4.0 * M * C * H / (us * 1e-6) / 1979e12:.1%} of the int8 "
+                  f"peak); flips fp32 {flips[label + ':float32']} bf16 "
+                  f"{flips[label + ':bfloat16']}", flush=True)
+            if label == "s3":
+                print(f"ln_mlp_int8 {label} by kernel: " + "; ".join(
+                    f"{kn[:60]} {k_us:.2f} us" for kn, k_us in breakdown(fn, args.reps)),
+                    flush=True)
+            del x32, x
     seeds = bwd_seeds(cs, PA, WA, root) if "bwd_seeds" in only else None
     floor = gelu_floor(cs, root) if "gelu_floor" in only else None
     line = {"tree": str(root), "device": smi, "per_forward_or_step_ms": sums,
@@ -547,6 +634,8 @@ def main(argv=None) -> dict:
             "launches": {k: v for k, v in kernels.launches.items() if v}}
     if floor is not None:
         line["gelu_floor"] = floor
+    if flips:
+        line["int8_flips"] = flips
     if seeds is not None:
         line["bwd_seeds"] = seeds
     print(json.dumps(line), flush=True)

@@ -33,6 +33,7 @@ families of their own too.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 from collections import defaultdict
@@ -47,11 +48,15 @@ from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel  # noqa: E402
 from mspi_tpu_torch.train import engine  # noqa: E402
 from mspi_tpu_torch.train.synthetic import make_batch  # noqa: E402
 
-# The port's kernels: a name matches when it holds every key. The flash
-# kernels' template arguments are the score and value widths and the bias
-# mode (0 none, 1 rel, 2 dense, 3 rel with the residual epilogue); row 6 is
-# the bias-free kernel with a value width (96) below its score width. The
-# bf16 LN+MLP body's are C, LN and RES (row 10: RES true).
+# The flash forwards by bias mode (0 none, 1 rel, 2 dense, 3 rel with the
+# residual epilogue); row 6 is the bias-free kernel whose value width (96)
+# differs from its score width. Template arguments: flash_attention_kernel
+# (fp32) <DK, DV, BIAS>, flash_attention_sm90_kernel (bf16) <D, RK, BIAS, DV>.
+FLASH_MODES = {0: "K4 self_attention", 1: "K1 attention_rel", 2: "window attention (row 15)",
+               3: "row 8 attention_rel_packed"}
+FLASH_ROW6 = "row 6 attention (augmented lanes)"
+# The port's other kernels: a name matches when it holds every key. The
+# bf16 LN+MLP body's arguments are C, LN and RES (row 10: RES true).
 PORT_FAMILIES = (
     ("window attention backward (rows 16/17)", ("window_",)),
     ("window attention backward (rows 16/17)", ("attn_bwd", "2>(")),
@@ -59,17 +64,12 @@ PORT_FAMILIES = (
     ("K1/K4/row 6 attention backward", ("rel_bwd_",)),
     ("K1/K4/row 6 attention backward", ("self_bwd_",)),
     ("K1/K4/row 6 attention backward", ("aug_bwd_",)),
-    ("K1/K4/row 6 attention backward", ("aug_pad_",)),
+    ("row 6/7 pad copy of q_aug, k_aug", ("aug_pad_",)),
     ("K2 ln_mlp backward", ("ln_mlp_bwd",)),
     ("K2 ln_mlp backward", ("lnbwd::",)),
     ("K2 ln_mlp backward", ("atb_kernel",)),
     ("K2 ln_mlp backward", ("sum_segments",)),
     ("K2 ln_mlp backward", ("colsum_kernel",)),
-    ("window attention (row 15)", ("flash_attention", "2>(")),
-    ("K1 attention_rel", ("flash_attention", "1>(")),
-    ("row 6 attention (augmented lanes)", ("flash_attention", ",96,0>(")),
-    ("row 8 attention_rel_packed", ("flash_attention", "3>(")),
-    ("K4 self_attention", ("flash_attention", "0>(")),
     ("row 18 dwconv3d", ("dwconv3d",)),
     ("row 12 ln_mlp_int8", ("ln_mlp_int8",)),
     ("row 10 ln_mlp_prior_res (folded K2)", ("ln_mlp", "true>(")),
@@ -92,7 +92,20 @@ FAMILIES = (
 ANNOTATIONS = ("profile_train_step", "Optimizer.")
 
 
+def flash_family(name: str):
+    """The flash forward's family by its template arguments, or None."""
+    m = re.search(r"flash_attention_(sm90_)?kernel<([-0-9, ]+)>", name)
+    if m is None:
+        return None
+    args = [int(a) for a in m.group(2).split(",")]
+    d, dv, bias = (args[0], args[3], args[2]) if m.group(1) else args
+    return FLASH_ROW6 if bias == 0 and d != dv else FLASH_MODES.get(bias, "other")
+
+
 def family(name: str) -> str:
+    fam = flash_family(name)
+    if fam is not None:
+        return fam
     low = name.lower().replace(" ", "")
     for fam, keys in PORT_FAMILIES:
         if all(k.lower() in low for k in keys):
