@@ -88,7 +88,11 @@ first failure (there is no CPU path):
    exactly at three with K % 128 == 64 (a half last box), in both tile
    heights, and at 4096^3, and row 19 in fp32 and bf16 at four ragged shapes
    (H and W off both its tile widths; C = 40, a part channel group, and C
-   = 1, off the 16-byte vector).
+   = 1, off the 16-byte vector), and the eight LN+MLP lab bodies (row 20's
+   six and row 21's `mlp_bf16` on K2's wgmma body, `mlp_int8w` on row 12's,
+   in their lab variants) at ragged row counts (M = 1000 and 63, C 96, H
+   384), each run twice and bit-identical, `mlp_int8w` with an all-zero
+   row.
 
 Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22) sets the launch counts to 0
 just before it and reads them just after; the kernels' record sums them.
@@ -148,17 +152,18 @@ KERNELS = {
     "mlp": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh", "mspi_tpu/ops/pallas/mlp.py:280"),
     "mlp_bwd": ("mspi_tpu_torch/csrc/ln_mlp_bwd_sm90.cuh", "mspi_tpu/ops/pallas/mlp.py:232"),
     "dwconv2d": ("mspi_tpu_torch/csrc/dwconv2d.cu", "tools/bench_dwconv.py:81"),
-    # row 20: tools/bench_lnmlp.py::_call (:61) with each of its bodies
-    "lab_matmul": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:78"),
-    "lab_matmul_gelu": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:86"),
-    "lab_ln_matmul": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:96"),
-    "lab_pipe2": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:107"),
-    "lab_pipe4": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:107"),
-    "lab_mxu_stats": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_lnmlp.py:134"),
+    # row 20: tools/bench_lnmlp.py::_call (:61) with each of its bodies, K2's
+    # bf16 body in variants (entered in lnmlp_lab.cu)
+    "lab_matmul": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh", "tools/bench_lnmlp.py:78"),
+    "lab_matmul_gelu": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh", "tools/bench_lnmlp.py:86"),
+    "lab_ln_matmul": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh", "tools/bench_lnmlp.py:96"),
+    "lab_pipe2": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh", "tools/bench_lnmlp.py:107"),
+    "lab_pipe4": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh", "tools/bench_lnmlp.py:107"),
+    "lab_mxu_stats": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh", "tools/bench_lnmlp.py:134"),
     # row 21: tools/bench_int8.py::_gemm and _mlp_call (:98) with its two bodies
     "gemm_bf16": ("mspi_tpu_torch/csrc/gemm_lab.cu", "tools/bench_int8.py:53"),
     "gemm_int8": ("mspi_tpu_torch/csrc/gemm_lab.cu", "tools/bench_int8.py:53"),
-    "mlp_bf16": ("mspi_tpu_torch/csrc/lnmlp_lab.cu", "tools/bench_int8.py:67"),
+    "mlp_bf16": ("mspi_tpu_torch/csrc/ln_mlp_sm90.cuh", "tools/bench_int8.py:67"),
     "mlp_int8w": ("mspi_tpu_torch/csrc/ln_mlp_int8.cu", "tools/bench_int8.py:83"),
 }
 LAB_KERNELS = ("dwconv2d", "lab_matmul", "lab_matmul_gelu", "lab_ln_matmul", "lab_pipe2",
@@ -1131,6 +1136,43 @@ def phase_mlp_kernels(records) -> dict:
 DWCONV2D_RAGGED = ((2, 13, 41, 40), (3, 9, 19, 1), (2, 13, 64, 40), (1, 11, 32, 1))
 
 
+LAB_RAGGED_M = (1000, 63)  # off the bf16 bodies' 128-row and the int8 body's 192-row tiles
+
+
+def check_lab_mlp_ragged(records) -> None:
+    """Row 20's six bodies and row 21's two MLP bodies at C 96, H 384 on
+    ragged row counts, checked only: the bf16 bodies within 3 x 2^-8 of the
+    output scale, `mlp_int8w` within row 12's int8 tolerance with one row
+    all zeros (its amax at the 1e-6 floor, its outputs zero); each run twice,
+    bit-identical."""
+    from mspi_tpu_torch.ops.kernels import lab
+
+    randn = randn_on(torch.Generator().manual_seed(15))
+    for M in LAB_RAGGED_M:
+        xs = mlp_inputs(randn, M, lab.LAB_C)
+        for v in lab.LAB_VARIANTS:
+            check_kernel(records, f"lab_{v}", f"M={M}",
+                         lambda *a, v=v: lab.ln_mlp_lab(*a, v),
+                         lambda *a, v=v: lab.ln_mlp_lab_reference(*a, v), xs, torch.bfloat16,
+                         weight=0, repeatable=True)
+        check_kernel(records, "mlp_bf16", f"M={M}", lab.mlp_bf16, lab.mlp_bf16_reference,
+                     [xs[0], xs[3], xs[5]], torch.bfloat16, weight=0, repeatable=True)
+        x = xs[0].bfloat16()
+        x[M // 2] = 0
+        (w1q, s1), (w2q, s2) = (lab.quantize_weight_lab(w) for w in (xs[3], xs[5]))
+        ops = (x, w1q, s1, w2q, s2)
+        out = lab.mlp_int8w(*ops)
+        torch.cuda.synchronize()
+        check_repeatable("mlp_int8w", f"M={M}", lambda: (lab.mlp_int8w(*ops),), (out,))
+        if out[M // 2].abs().max().item() != 0:
+            raise AssertionError(f"mlp_int8w M={M}: the all-zero row's output is not zero")
+        record(records, "mlp_int8w", f"M={M} (row {M // 2} all zeros)", torch.bfloat16,
+               int8_errors(out, lab.mlp_int8w_reference(*ops)),
+               time_ms(lambda: lab.mlp_int8w(*ops)),
+               time_ms(lambda: lab.mlp_int8w_reference(*ops)), weight=0)
+        del xs, x, ops, out
+
+
 def phase_lab(records) -> dict:
     """The three kernel labs' `main` in this process at their default shapes
     (MSPI_LAB_ITERS repeats, 20 unless set); each kernel variant is held
@@ -1168,6 +1210,7 @@ def phase_lab(records) -> dict:
                          dwconv2d_reference,
                          [randn(N, H, W, C), randn(7, 7, C, scale=0.1), randn(C, scale=0.1)],
                          dtype, weight=0)
+    check_lab_mlp_ragged(records)
     os.environ.setdefault("MSPI_LAB_ITERS", "20")
     kernels.reset_launch_counts()
     results = []
@@ -1475,8 +1518,15 @@ SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3ELi96E",
                 *(f"dwconv3d_sm90_kernelILi{oh}ELi{ow}E" for oh, ow in ((4, 8), (7, 6))),
                 "gemm_bf16_sm90_kernel", "gemm_s8_sm90_kernelILi1E", "gemm_s8_sm90_kernelILi2E",
                 *(f"self_bwd_{p}_sm90_kernelILi{d}E" for p in ("dq", "dkv") for d in (96, 128)),
-                *(f"ln_mlp_sm90_kernelILi{c}ELb{ln}ELb{res}E" for c in (96, 192, 384, 512, 768)
-                  for ln, res in ((1, 0), (1, 1), (0, 0))),
+                *(f"ln_mlp_sm90_kernelILi{c}ELi{ln}ELb1ELb1ELb{res}ELi0EE"
+                  for c in (96, 192, 384, 512, 768) for ln, res in ((1, 0), (1, 1), (0, 0))),
+                # the labs' bodies at C = 96: <LN, GELU, BIAS, RES, PIPE> of
+                # matmul, ln_matmul, pipe2, pipe4, mxu_stats and mlp_bf16
+                # (matmul_gelu is row 13's)
+                *(f"ln_mlp_sm90_kernelILi96ELi{ln}ELb{gelu}ELb{bias}ELb0ELi{pipe}EE"
+                  for ln, gelu, bias, pipe in ((0, 0, 1, 0), (2, 0, 1, 0), (2, 1, 1, 0),
+                                               (2, 1, 1, 4), (3, 1, 1, 0), (0, 0, 0, 0))),
+                "ln_mlp_int8_sm90_kernelI13__nv_bfloat16Li96ELb1EE",  # mlp_int8w
                 *(f"aug_bwd_{p}_sm90_kernelILi{dk}E" for p in ("dq", "dkv")
                   for dk in (128, 144, 176)),
                 *(f"ln_mlp_int8_sm90_kernelI{t}Li{c}E" for t in ("f", "13__nv_bfloat16")
@@ -1486,15 +1536,19 @@ SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3ELi96E",
                 "wgemm_f32_sm90_kernelILb0E", "wgemm_f32_sm90_kernelILb1E")
 
 
+# bodies that the sm90 ones replaced, by ptxas entry: none may be built again
+RETIRED = {"flash_attention_tc_kernel": "WMMA flash body (row 6 runs the sm90 body)",
+           "ln_mlp_tc_kernel": "WMMA LN+MLP (the labs run K2's wgmma body)",
+           "mlp_int8_lab_kernel": "mma.sync int8 lab body (mlp_int8w runs row 12's)"}
+
+
 def check_ptxas() -> None:
     """The register-resident bodies (the sm90 flash forward of K1, K4, rows
     8 and 15, the bf16 window, K1 and K4 backwards' passes, rows 18 and 19,
     the wgmma GEMMs and the wgmma LN+MLP): each instantiation's registers
     and spills as ptxas
     reported them; a spill fails the run, and so does a missing entry of
-    SM90_ENTRIES or any instantiation of the retired WMMA flash body
-    (`flash_attention_tc_kernel`, retired: row 6, its last user, runs the
-    sm90 body)."""
+    SM90_ENTRIES or any instantiation of a retired body (`RETIRED`)."""
     from mspi_tpu_torch.ops import kernels
 
     report = kernels.ptxas_report("sm90_kernel")
@@ -1506,9 +1560,10 @@ def check_ptxas() -> None:
     spills = [entry for entry, (_, st, ld) in report.items() if st or ld]
     if spills:
         raise AssertionError(f"{sorted(spills)} spill registers")
-    wmma = sorted(kernels.ptxas_report("flash_attention_tc_kernel"))
-    if wmma:
-        raise AssertionError(f"the retired WMMA flash body is instantiated: {wmma}")
+    for key, what in RETIRED.items():
+        found = sorted(kernels.ptxas_report(key))
+        if found:
+            raise AssertionError(f"the retired {what} is instantiated: {found}")
 
 
 def main() -> None:

@@ -1,6 +1,6 @@
 // Fused LayerNorm + MLP forward, y = fc2(gelu(fc1(LN(x)))), and the fused MLP
 // without the LayerNorm, y = fc2(gelu(fc1(x))), on token-major rows x [M, C].
-// The body is in ln_mlp.cuh.
+// The bodies are in ln_mlp_sm90.cuh (bf16) and ln_mlp.cuh (fp32).
 //
 // Replaces: mspi_tpu/ops/pallas/mlp.py::fused_ln_mlp (kernel _ln_fwd_kernel),
 // used by the MViT, SyncBlock and decoder ConvNextBlock3d MLPs. It also
@@ -27,7 +27,7 @@
 //
 // Bodies: bf16 runs ln_mlp_sm90.cuh's wgmma + TMA kernel (K2 and K3, row 10
 // with RES, row 13 without LN); fp32 runs ln_mlp.cuh's FMA-pipe kernel. The
-// kernel labs (lnmlp_lab.cu) keep ln_mlp.cuh's WMMA body.
+// kernel labs (lnmlp_lab.cu) run the wgmma body in variants of their own.
 
 #include "ln_mlp.cuh"
 #include "ln_mlp_sm90.cuh"
@@ -54,14 +54,12 @@ cudaError_t dispatch_c(const MlpArgs& a, int C, cudaStream_t s) {
 
 template <class V>
 cudaError_t dispatch_sm90(const MlpArgs& a, int C, cudaStream_t s) {
-  static_assert(V::LN == kLnTwoPass || V::LN == kLnNone, "the sm90 body's LayerNorm");
-  constexpr bool LN = V::LN == kLnTwoPass;
   switch (C) {
-    case 96: return launch_ln_mlp_sm90<96, LN, V::RES>(a, s);
-    case 192: return launch_ln_mlp_sm90<192, LN, V::RES>(a, s);
-    case 384: return launch_ln_mlp_sm90<384, LN, V::RES>(a, s);
-    case 512: return launch_ln_mlp_sm90<512, LN, V::RES>(a, s);
-    case 768: return launch_ln_mlp_sm90<768, LN, V::RES>(a, s);
+    case 96: return launch_ln_mlp_sm90<96, V>(a, s);
+    case 192: return launch_ln_mlp_sm90<192, V>(a, s);
+    case 384: return launch_ln_mlp_sm90<384, V>(a, s);
+    case 512: return launch_ln_mlp_sm90<512, V>(a, s);
+    case 768: return launch_ln_mlp_sm90<768, V>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }

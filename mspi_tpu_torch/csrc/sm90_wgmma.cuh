@@ -212,6 +212,29 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t da, ui
       : "l"(da), "l"(db), "r"(1));  // scale-d: d += A B
 }
 
+// d[64 x 96] += A[64 x 32] B[32 x 96]: s8 in, s32 accumulate, both operands
+// K-major through their descriptors (B as [96 n][k] rows), in the layout of
+// wgmma_m64n128k32_s8 with columns 8 j + 2 (t % 4) (+ 1), j < 12.
+__device__ __forceinline__ void wgmma_m64n96k32_s8(int (&d)[48], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+      : "l"(da), "l"(db), "r"(1));  // scale-d: d += A B
+}
+
 template <int R>
 __device__ __forceinline__ void fence_regs(int (&d)[R]) {
 #pragma unroll
@@ -242,6 +265,20 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32], uint64_t
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// d[64 x 8] (+)= A[64 x 16] B[16 x 8]: bf16 in, fp32 accumulate, A and B
+// K-major (B as [8 n][k] rows) through their descriptors; scale_d 0
+// overwrites d, 1 adds. Thread t holds row 16 (t / 32) + (t % 32) / 4 in
+// d[0, 1] and that row + 8 in d[2, 3], columns 2 (t % 4) (+ 1).
+__device__ __forceinline__ void wgmma_m64n8k16_bf16_ss(float (&d)[4], uint64_t da, uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d[64 x 96] += A[64 x 16] B[16 x 96]: A from registers (four bf16x2 words

@@ -6,24 +6,27 @@ the 7x7 depthwise conv of `bench_dwconv.py`, is `dwconv.dwconv2d`). None of
 them is on a model's path: `ln_mlp.py` stays the production module.
 
 - `ln_mlp_lab(x, g, b, w1, b1, w2, b2, variant)`: row 20,
-  `tools/bench_lnmlp.py::_call` with one of its five bodies, as K2's body
-  compiled in a variant (`csrc/lnmlp_lab.cu`; bf16, C = 96 only):
-  `matmul` (`_k_matmul`: no LN, no GELU), `matmul_gelu`
-  (`_k_matmul_gelu`), `ln_matmul` (`_k_ln_matmul`: no GELU), `pipe2` /
-  `pipe4` (`_k_pipe`, k = 2 / 4: the row tile in k groups, each group's
-  fc1 tensor-core products issued before the previous group's GELU) and
-  `mxu_stats` (`_k_mxu_stats`: the LN row sums on the tensor cores). The LN
-  is the labs' `_ln_f32` (var = E[x^2] - mu^2); the GELU is K2's exact erf
-  (the TPU bodies' degree-16 fit is within 2e-7 of it).
+  `tools/bench_lnmlp.py::_call` with one of its five bodies, as K2's bf16
+  `wgmma` + TMA body (`csrc/ln_mlp_sm90.cuh`) compiled in a variant
+  (`csrc/lnmlp_lab.cu`; bf16, C = 96 only, in the form `lab_sm90_form`
+  mirrors): `matmul` (`_k_matmul`: no LN, no GELU), `matmul_gelu`
+  (`_k_matmul_gelu`), `ln_matmul` (`_k_ln_matmul`: no GELU), `pipe2`
+  (`_k_pipe`, k = 2: K2's own schedule, a hidden chunk's GELU in two
+  slices beside the next chunk's fc1 products), `pipe4` (k = 4: the GELU
+  in four slices) and `mxu_stats` (`_k_mxu_stats`: the LN row sums as
+  `wgmma` products). The LN is the labs' `_ln_f32` (var = E[x^2] - mu^2);
+  the GELU is K2's exact erf (the TPU bodies' degree-16 fit is within 2e-7
+  of it).
 - row 21, `tools/bench_int8.py`: `gemm(a, b)` (`_gemm`; `csrc/gemm_lab.cu`)
   in bf16 and int8 (the s32 sum cut to int8 by wrap-around, as the TPU's
   astype does; int8 `wgmma` reads b K-major, so the call makes b^T in a
   scratch tensor first, with 64- or 128-row tiles, `gemm_int8_block_m`);
   `mlp_bf16(x, w1, w2)` (`_mlp_bf16_kernel`: K2's body with LN, biases and
   GELU compiled out) and `mlp_int8w(x, w1q, s1, w2q, s2)`
-  (`_mlp_int8w_kernel`: row 12's two-pass int8 body with LN, biases and
-  GELU compiled out and the lab's divide-form quantisation,
-  `csrc/ln_mlp_int8.cu`), with the lab's host weight quantisation
+  (`_mlp_int8w_kernel`: row 12's s8 `wgmma` + TMA body in its lab variant,
+  LN, biases and GELU compiled out, the lab's divide-form quantisation and
+  one pass 2, `csrc/ln_mlp_int8.cu`, in the form
+  `ln_mlp.int8_sm90_form(96)`), with the lab's host weight quantisation
   `quantize_weight_lab`.
 
 Every plain version is written from the TPU body it stands for. The
@@ -40,13 +43,36 @@ import torch
 import torch.nn.functional as F
 
 from mspi_tpu_torch.ops import kernels
-from mspi_tpu_torch.ops.kernels.ln_mlp import _int_products
+from mspi_tpu_torch.ops.kernels.ln_mlp import INT8_HC, _int_products, sm90_form
 
 LAB_VARIANTS = ("matmul", "matmul_gelu", "ln_matmul", "pipe2", "pipe4", "mxu_stats")
 _MLP_BF16_CODE = len(LAB_VARIANTS)  # the K2-body variant code of mlp_bf16 (csrc/lnmlp_lab.cu)
 LAB_C = 96  # the width the lab kernels are compiled for
 EPS = 1e-6  # the lab's LayerNorm eps
 _INT8_CODE = 2  # mspi_gemm_lab's dtype code for int8
+SM90_SMEM = 232448  # a block's shared memory on the H100
+SM90_STATIC = 256  # the sm90 body's static shared memory (its barriers), rounded up
+
+
+def lab_sm90_form(variant: str) -> Tuple[int, int, int, bool, int]:
+    """The launch form of a row-20 body or `mlp_bf16` at C = 96, as
+    `csrc/ln_mlp_sm90.cuh`'s `Form<96, LN>` and the variant choose it (as
+    `ln_mlp.sm90_form` mirrors K2's): (rows per block, W1 ring slots,
+    shared memory bytes, two u register sets, GELU slices). Two 64-row
+    consumer warpgroups; shared memory holds the z tile (two 64-k boxes of
+    128 rows), two W2 slots [96, 64], 1024 bytes of alignment, for
+    `mxu_stats` a [8, 64] box of ones (X 1's B), and W1 slots [64, 64] up
+    to 4. K2's form at C = 96 overlaps a chunk's GELU with the next chunk's
+    fc1 in one slice a W1 box, two (u in two register sets): every body
+    keeps that schedule, `pipe4` slices finer, four a chunk."""
+    if variant not in LAB_VARIANTS + ("mlp_bf16",):
+        raise ValueError(f"unknown lab body {variant!r} (have {LAB_VARIANTS + ('mlp_bf16',)})")
+    rows, cn, _, pipelined = sm90_form(LAB_C)
+    kb = -(-LAB_C // 64)  # 64-k boxes of z and of a W1 chunk
+    fixed = kb * rows * 128 + 2 * cn * 128 + (1024 if variant == "mxu_stats" else 0) + 1024
+    slots = min(4, (SM90_SMEM - SM90_STATIC - fixed) // (64 * 128))
+    slices = (4 if variant == "pipe4" else kb) if pipelined else 0
+    return rows, slots, fixed + slots * 64 * 128, slices > 0, slices
 
 
 def ln_mlp_lab_reference(x, g, b, w1, b1, w2, b2, variant: str, eps: float = EPS):
@@ -179,9 +205,9 @@ def mlp_int8w(x, w1q, s1, w2q, s2) -> torch.Tensor:
                          f"{x.dtype} {tuple(x.shape)}")
     H = w1q.shape[0]
     if (w1q.dtype != torch.int8 or w2q.dtype != torch.int8 or tuple(w1q.shape) != (H, LAB_C)
-            or tuple(w2q.shape) != (LAB_C, H) or H % 64):
-        raise ValueError(f"{name}: int8 codes [H, {LAB_C}] and [{LAB_C}, H] with H % 64 == 0 "
-                         f"needed, got {w1q.dtype} {tuple(w1q.shape)}, {tuple(w2q.shape)}")
+            or tuple(w2q.shape) != (LAB_C, H) or H % INT8_HC):
+        raise ValueError(f"{name}: int8 codes [H, {LAB_C}] and [{LAB_C}, H] with H % {INT8_HC} "
+                         f"== 0 needed, got {w1q.dtype} {tuple(w1q.shape)}, {tuple(w2q.shape)}")
     for t, n in ((s1, H), (s2, LAB_C)):
         if t.dtype != torch.float32 or tuple(t.shape) != (n,):
             raise ValueError(f"{name}: scales must be fp32 [{n}], got {t.dtype} {tuple(t.shape)}")
@@ -189,6 +215,8 @@ def mlp_int8w(x, w1q, s1, w2q, s2) -> torch.Tensor:
         raise ValueError(f"{name}: operands must be contiguous")
     if w1q.data_ptr() % 16 or w2q.data_ptr() % 16:
         raise ValueError(f"{name}: weight codes must be 16-byte aligned")
+    if any(t.data_ptr() % 8 for t in (x, s1, s2)):
+        raise ValueError(f"{name}: x and the scales must be 8-byte aligned")
     y = torch.empty_like(x)
     M = x.numel() // LAB_C
     if M:

@@ -14,7 +14,8 @@ its backward recomputes LN, u and h from them, as the TPU kernel does.
 
 In bf16 every forward here except row 12 runs the wgmma + TMA body of
 `csrc/ln_mlp_sm90.cuh` in the launch form `sm90_form` mirrors; fp32 runs
-`csrc/ln_mlp.cuh`'s FMA-pipe body, and the kernel labs its WMMA body. The
+`csrc/ln_mlp.cuh`'s FMA-pipe body; the kernel labs run the wgmma body in
+variants of their own (`lab.py`). The
 bf16 backwards (K2's and row 14) run `csrc/ln_mlp_bwd_sm90.cuh`'s wgmma +
 TMA kernels in the form `bwd_sm90_form` mirrors; fp32 the FMA passes of
 `csrc/ln_mlp_bwd.cu`.
@@ -58,6 +59,7 @@ SUPPORTED_C = (96, 192, 384, 512, 768)
 SM90_HC = 64  # the bf16 body's hidden units per chunk (H % 64 == 0)
 INT8_C = (256, 384, 512, 768)  # widths the int8 kernel is compiled for
 INT8_HC = 128  # the int8 kernel's W2 box: two 64-unit chunks (H % 128 == 0)
+INT8_LAB_C = 96  # the int8 lab's width (`lab.mlp_int8w`), a form of the same body
 QUANT_MIN_C = 256  # the JAX package's QUANT_MIN_C: narrower blocks stay on K2
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -229,13 +231,19 @@ def int8_sm90_form(C: int) -> Tuple[int, int, int, int, int]:
     [64, 128] tiles of h codes and 1024 bytes of alignment; the ring of W1
     boxes (128 or 64 units by 128 k) takes what is left of the block's
     227 KiB less 1280 bytes of static memory, at most 12 slots. The grid is
-    (ceil(M / rows), parts)."""
-    if C not in INT8_C:
-        raise ValueError(f"C={C} not compiled (have {INT8_C})")
-    shared = C <= 512
-    rows, cn = (64, C // 2) if shared else (128, 256)
+    (ceil(M / rows), parts). The int8 lab's C = 96 takes the parts form
+    with one part and three consumers: each owns 64 of 192 rows and all 96
+    columns (s8 wgmma n96), steps of 64 units, its own h code tile, its z
+    codes and W1 boxes 128 k wide (TMA fills W1 with zeros past k = 96), on
+    a persistent grid of at most one block per SM."""
+    if C not in INT8_C + (INT8_LAB_C,):
+        raise ValueError(f"C={C} not compiled (have {INT8_C + (INT8_LAB_C,)})")
+    shared = INT8_LAB_C < C <= 512
+    consumers = 3 if C == INT8_LAB_C else 2
+    rows, cn = (64, C // 2) if shared else (64 * consumers, min(C, 256))
     box = (128 if shared else 64) * 128
-    fixed = rows * C + 2 * (C if shared else cn) * 128 + 2 * 64 * 128 + 1024
+    fixed = (rows * -(-C // 128) * 128 + 2 * (C if shared else cn) * 128
+             + (2 if shared else consumers) * 64 * 128 + 1024)
     slots = min(12, (232448 - 1280 - fixed) // box)
     return rows, cn, 1 if shared else C // cn, slots, fixed + slots * box
 

@@ -6,8 +6,9 @@ K2's time go?
 Counterpart of the JAX package's `tools/bench_lnmlp.py`, on its geometry
 [B, N, C] with hidden width H (MSPI_LAB_SHAPE=B,N,C,H, default the
 ConvNeXt stage-0 shape 128,5376,96,384; bf16 storage, fp32 accumulation,
-eps 1e-6). Decomposition ladder, the kernel variants being K2's body
-compiled without parts of it (`ops/kernels/lab.py::ln_mlp_lab`):
+eps 1e-6). Decomposition ladder, the kernel variants being K2's bf16
+wgmma + TMA body compiled without parts of it
+(`ops/kernels/lab.py::ln_mlp_lab`):
 
   unfused      the library chain F.layer_norm -> F.linear -> F.gelu ->
                F.linear, each a launch of its own; the JAX lab's `xla`
@@ -16,9 +17,12 @@ compiled without parts of it (`ops/kernels/lab.py::ln_mlp_lab`):
                tensor-core floor
   matmul_gelu  the two matmuls and the erf GELU (no LN)
   ln_matmul    the LN and the two matmuls (no GELU)
-  pipe2/pipe4  the full LN+MLP with the block's row tile in 2 / 4 groups,
-               each group's fc1 products issued before the previous
-               group's GELU so that tensor cores and FP32 pipes overlap
+  pipe2        the full LN+MLP (the labs' one-pass LN) on K2's own
+               schedule: a hidden chunk's GELU in 2 slices, one beside each
+               W1 box of the next chunk's fc1 products, so that tensor
+               cores and FP32 pipes overlap; beside `prod`, the price of
+               the one-pass LN
+  pipe4        the same with the GELU in 4 slices beside 4 commit groups
   mxu_stats    the full LN+MLP with the LN row sums taken on the tensor
                cores (X 1 and the diagonal of X X^T)
 

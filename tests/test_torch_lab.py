@@ -27,6 +27,7 @@ from jax.experimental import pallas as pl
 
 from mspi_tpu_torch.ops import kernels
 from mspi_tpu_torch.ops.kernels import lab
+from mspi_tpu_torch.ops.kernels import ln_mlp as K2
 from mspi_tpu_torch.ops.kernels.dwconv import dwconv2d
 from mspi_tpu_torch.tools import bench_dwconv, bench_int8, bench_lnmlp
 from tests.torch_port_utils import cpu_share
@@ -97,6 +98,24 @@ def test_lnmlp_lab_body_matches_pallas(rng, variant):
     want = jax_lnmlp._call(_BODIES[variant], *map(jnp.asarray, (x, g, be, w1, b1, w2, b2)), 32)
     got = lab.ln_mlp_lab(_t(x), _t(g), _t(be), _t(w1.T), _t(b1), _t(w2.T), _t(b2), variant)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("body", lab.LAB_VARIANTS + ("mlp_bf16",))
+def test_lab_sm90_form(body):
+    """The seven bf16 lab bodies on K2's wgmma body at C = 96: 128 rows a
+    block (two 64-row consumer warpgroups), a W1 ring of at least two
+    slots, shared memory plus the barriers' static 256 bytes within the
+    block's 227 KiB; u in two register sets exactly where the GELU (or the
+    bias-only activation) of a chunk is sliced beside the next chunk's fc1,
+    in one slice a 64-k W1 box (K2's schedule), four for pipe4."""
+    rows, slots, smem, two_u, slices = lab.lab_sm90_form(body)
+    assert rows == 128 and 2 <= slots <= 4
+    assert smem + lab.SM90_STATIC <= lab.SM90_SMEM
+    assert two_u == (slices > 0) == K2.sm90_form(lab.LAB_C)[3]
+    assert slices == (4 if body == "pipe4" else 2)
+    assert smem == lab.lab_sm90_form("matmul")[2] + (1024 if body == "mxu_stats" else 0)
+    with pytest.raises(ValueError):
+        lab.lab_sm90_form("prod")
 
 
 # the square case, and a non-square one whose K spans three 64-deep k tiles

@@ -239,12 +239,20 @@ def test_int8_sm90_form(C):
     128-row blocks with y in column parts; a consumer's s32 accumulator
     (CN / 2 registers) beside u's 32 stays under its 240 with room for the
     rest, shared memory within the block's 227 KiB. C = 96 is the int8
-    lab's width, which keeps its mma.sync body: no form."""
-    if C not in K2.INT8_C:
-        with pytest.raises(ValueError):
-            K2.int8_sm90_form(C)
-        return
+    lab's width (`lab.mlp_int8w`): three consumers, each owning 64 of 192
+    rows and all 96 columns (the parts form, one part) and its own h code
+    tile, its z codes and W1 boxes of 64 units 128 k wide (zero-filled past
+    k = 96), 12 W1 slots, the y accumulator's 48 registers beside u's 32
+    within a consumer's 160. Other widths refuse."""
     rows, cn, parts, slots, smem = K2.int8_sm90_form(C)
+    with pytest.raises(ValueError):
+        K2.int8_sm90_form(C + 32)
+    if C == 96:
+        assert (rows, cn, parts, slots) == (192, 96, 1, 12)
+        fixed = 192 * 128 + 2 * C * 128 + 3 * 64 * 128 + 1024  # z, W2, h codes, alignment
+        assert smem == fixed + slots * 64 * 128 and smem + 1280 <= SMEM_LIMIT
+        assert cn // 2 + 32 <= 160 - 64
+        return
     consumers = 2 if rows == 64 else 1  # consumers per row: the column split
     assert cn * consumers * parts == C and cn % 64 == 0 and 3 <= slots <= 12
     assert (rows, parts) == ((64, 1) if C <= 512 else (128, 3))

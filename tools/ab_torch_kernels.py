@@ -83,6 +83,17 @@ of `--reps` single calls, after warm-up, as `chip_smoke.py` times):
   rowsum(dO O) from the forward's bf16 O; (b) and (c) against (a) too; and
   over the same draws the bf16 K1 backward (row 5, MViTv2-S's 7 block
   shapes) and K4's (the SyncBlock shape) against their plain versions;
+- `lab_lnmlp`: the eight LN+MLP lab bodies (row 20's six, `lab.ln_mlp_lab`;
+  row 21's `mlp_bf16` and `mlp_int8w`) at the labs' default shape
+  (`tools.bench_lnmlp.shape()`, [128 x 5376, 96], H 384, bf16, the labs'
+  scales and seed) beside K2 (`prod`) and the unfused chain on the same
+  operands, by events and device time; each output's SHA-256 into the JSON
+  line (`digests`), and `mlp_int8w`'s flips against its plain version (as
+  `ln_mlp_int8`'s are counted, `int8_flips`);
+- `mlp_digests` (no timing): the SHA-256 of the bf16 outputs of K2 at
+  `chip_smoke.LN_MLP_SHAPES` and of row 13 there, of K3 and row 10 at
+  `PRIOR_SHAPES` (batch 2, one clip of 16 frames), into `digests`: two
+  trees' lines show whether the production bodies are bit-identical;
 - `gelu_floor` (no timing): the issue floor of the bf16 LN+MLP body's
   GELU from SASS. Two probe kernels are compiled with nvcc for sm_90a into
   DIR/build/gelu_floor/, each thread taking 32 fp32 values as the body
@@ -114,6 +125,7 @@ by `chip_smoke.py`, not here.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import math
@@ -128,7 +140,7 @@ SECTIONS = ("attention_rel_packed", "window_attention_bwd", "self_attention", "g
             "attention_rel_bwd", "attention_rel_bwd_r66", "dwconv2d", "dwconv3d", "gemm_int8",
             "self_attention_bwd", "ln_mlp", "ln_mlp_prior", "gelu_floor", "ln_mlp_bwd",
             "attention_bwd_aug", "bwd_seeds", "attention_aug", "attention_aug_wide",
-            "attention_bwd_aug_wide", "ln_mlp_int8")
+            "attention_bwd_aug_wide", "ln_mlp_int8", "lab_lnmlp", "mlp_digests")
 SEEDS = 32  # bwd_seeds: input draws per shape
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core peak, FLOP/s
 SMS, ISSUE_LANES = 132, 128  # H100 SXM: SMs, thread instructions issued per SM per clock
@@ -627,6 +639,58 @@ def main(argv=None) -> dict:
                     f"{kn[:60]} {k_us:.2f} us" for kn, k_us in breakdown(fn, args.reps)),
                     flush=True)
             del x32, x
+    digests = {}
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+    if "lab_lnmlp" in only:  # rows 20-21's LN+MLP bodies at the labs' shape
+        from mspi_tpu_torch.ops.kernels import lab
+        from mspi_tpu_torch.tools import bench_lnmlp
+        Bl, Nl, Cl, Hl = bench_lnmlp.shape()
+        gen = torch.Generator("cuda").manual_seed(0)
+
+        def lab_randn(*shape, scale=1.0, shift=0.0):
+            return (shift + scale * torch.randn(*shape, generator=gen, device="cuda")).bfloat16()
+        x = lab_randn(Bl * Nl, Cl)
+        ops = (lab_randn(Cl, scale=0.1, shift=1.0), lab_randn(Cl, scale=0.1),
+               lab_randn(Hl, Cl, scale=0.1), lab_randn(Hl, scale=0.1),
+               lab_randn(Cl, Hl, scale=0.1), lab_randn(Cl, scale=0.1))
+        (w1q, s1), (w2q, s2) = lab.quantize_weight_lab(ops[2]), lab.quantize_weight_lab(ops[4])
+        bodies = {"unfused": chain(x, *ops, lab.EPS), "prod": lambda: K2.ln_mlp(x, *ops, lab.EPS),
+                  **{v: (lambda v=v: lab.ln_mlp_lab(x, *ops, v)) for v in lab.LAB_VARIANTS},
+                  "mlp_bf16": lambda: lab.mlp_bf16(x, ops[2], ops[4]),
+                  "mlp_int8w": lambda: lab.mlp_int8w(x, w1q, s1, w2q, s2)}
+        with torch.no_grad():
+            for name, fn in bodies.items():
+                key = f"lab_lnmlp:{name}"
+                out = fn()
+                digests[key] = digest(out)
+                if name == "mlp_int8w":
+                    ref = lab.mlp_int8w_reference(x, w1q, s1, w2q, s2).double()
+                    d = out.double() - ref
+                    flips[key] = int((d.abs() > 1e-3 * ref.pow(2).mean().sqrt()).sum())
+                    del ref, d
+                del out
+                sums[key], device[key] = time_ms(fn), device_us(fn, 4 * args.reps)
+                print(f"{key} [{Bl * Nl}, {Cl}] H {Hl}: {sums[key]:.4f} ms (device "
+                      f"{device[key]:.2f} us)" + (f"; flips {flips[key]}" if key in flips
+                                                   else ""), flush=True)
+        del x, ops, w1q, w2q
+    if "mlp_digests" in only:  # K2, row 13, K3 and row 10 outputs, bit for bit
+        randn = cs.randn_on(torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            for label, tokens, C, eps, *_ in cs.LN_MLP_SHAPES:
+                xs = [t.bfloat16() for t in cs.mlp_inputs(randn, cs.TRAIN_BATCH * tokens, C)]
+                digests[f"ln_mlp:{label}"] = digest(K2.ln_mlp(*xs, eps))
+                digests[f"mlp:{label}"] = digest(K2.fused_mlp(xs[0], *xs[3:]))
+            for label, tokens, C, _ in cs.PRIOR_SHAPES:
+                xs = [t.bfloat16() for t in cs.mlp_inputs(randn, 16 * tokens, C)]
+                sc, gm = randn(16 * tokens, C).bfloat16(), (0.2 + randn(C, scale=0.05)).bfloat16()
+                digests[f"ln_mlp_prior:{label}"] = digest(K2.ln_mlp_prior(*xs, 1e-6))
+                digests[f"ln_mlp_prior_res:{label}"] = digest(
+                    K2.ln_mlp_prior_res(xs[0], sc, gm, *xs[1:], 1e-6))
+        print(f"mlp_digests: {len(digests)} outputs hashed", flush=True)
     seeds = bwd_seeds(cs, PA, WA, root) if "bwd_seeds" in only else None
     floor = gelu_floor(cs, root) if "gelu_floor" in only else None
     line = {"tree": str(root), "device": smi, "per_forward_or_step_ms": sums,
@@ -636,6 +700,8 @@ def main(argv=None) -> dict:
         line["gelu_floor"] = floor
     if flips:
         line["int8_flips"] = flips
+    if digests:
+        line["digests"] = digests
     if seeds is not None:
         line["bwd_seeds"] = seeds
     print(json.dumps(line), flush=True)
