@@ -19,7 +19,11 @@ first failure (there is no CPU path):
    blocks per MViTv2-S serving forward (logged per VideoSwin-S int8
    forward too), each bf16 run twice and bit-identical, its flipped codes
    printed, and (checked only) on rows whose hidden pre-activations all lie
-   below zero, where its second pass runs again;
+   below zero, where its second pass runs again; row 11 at the prior's four
+   LayerNorm shapes per serving forward, and (checked only) at each width
+   on M = 1000 and 63 rows and on x at an element's offset into its buffer
+   (not 16-byte aligned: its scalar form), each bf16 run twice,
+   bit-identical;
 4. main path: `predict_video` of the bf16 MViTv2-S AudioVisualSaliencyModel
    at 224x384 (seeded random weights) on 31 synthetic frames and a 16 kHz
    waveform; checks the maps and each kernel's launch count;
@@ -52,8 +56,9 @@ first failure (there is no CPU path):
 16. layout_kernels: the kernels of MViT's layout options against their
    plain versions, fp32 and bf16, at batch 8: the augmented-lane attention
    (row 6) at the 16 blocks' shapes and (batch 2, checked only) at the
-   wide form's Da 148 and 162 of 256x448 and 288x640 (`MVIT_WIDE`,
-   `MVIT_R66`), each bf16 run twice, bit-identical; the packed rel-pos
+   relk0 widths off 224x384 (`AUG_CHECKS`): Da 148 and 162 of 256x448 and
+   288x640, 109 and 114 of 64x96, 180 of 448x768, 184 of 512x768 and the
+   widest form's 256, each bf16 run twice, bit-identical; the packed rel-pos
    attention (row 8,
    with the residual) at blocks 1-15 and at the rel width 52 of 256x448
    (checked only), the depthwise conv3d (row 18) at the 17 stride-1 pools
@@ -61,7 +66,7 @@ first failure (there is no CPU path):
    bf16 tile, a part channel group and C off the 8-channel vector); times
    summed per forward (each shape weighted by its blocks);
 17. layout_backward: at batch 2, row 7's head-major backward of row 6 at
-   the 16 blocks and (checked only) at Da 148 and 162, row 8's backward
+   the 16 blocks and (checked only) at `AUG_CHECKS`, row 8's backward
    (K1's after a layout change, its bf16 run twice, bit-identical) at
    blocks 1-15 and at R = 52 and 66, and row 18's dx beside grouped
    `F.conv3d` on the flipped taps;
@@ -72,6 +77,8 @@ first failure (there is no CPU path):
    against the card's default model;
 20. relk0_training, relk0_train_parity: phases 7 and 8 on MViTv2-S with
    attn_relk=False and dwconv (rows 6, 7 and 18 with its dx);
+   relk0_small_parity: phase 8 so at --resolution 64 96 (rows 6 and 7 at
+   Da 109 and 114);
 21. mlp_kernels: the fused MLP without LayerNorm (row 13) against its plain
    version at K2's nine shapes (batch 8, bf16 twice, bit-identical), its
    backward (row 14) at batch 2,
@@ -92,7 +99,9 @@ first failure (there is no CPU path):
    six and row 21's `mlp_bf16` on K2's wgmma body, `mlp_int8w` on row 12's,
    in their lab variants) at ragged row counts (M = 1000 and 63, C 96, H
    384), each run twice and bit-identical, `mlp_int8w` with an all-zero
-   row.
+   row; then at M = 1000 the six row-20 bodies and `mlp_bf16` at K2's
+   other widths (192, 384, 512, 768), `mlp_int8w` at row 12's widths
+   (H = 4C) and at all five of its widths with H = 320 (H % 128 == 64).
 
 Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22) sets the launch counts to 0
 just before it and reads them just after; the kernels' record sums them.
@@ -217,13 +226,16 @@ PATH_PHASES = {  # phase -> (path kind, PER_FORWARD key: the encoder and its opt
     "layout_parity": ("options_parity", "mvitv2s+layout"),
     "relk0_training": ("training", "mvitv2s+relk0"),
     "relk0_train_parity": ("train_parity", "mvitv2s+relk0"),
+    # the same at --resolution 64 96 (rows 6 and 7 at Da 109 and 114)
+    "relk0_small_parity": ("train_parity", "mvitv2s+relk0", (64, 96)),
 }
 OPTIONS = {"mvitv2s+serving": SERVING, "videoswins+int8": {"quant": "int8"},
            "mvitv2s+layout": LAYOUT, "mvitv2s+relk0": RELK0}
 PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity", "swin_main",
           "swin_parity", "swin_training", "swin_train_parity", "int8_main", "int8_parity",
           "swin_int8_main", "layout_kernels", "layout_backward", "layout_main",
-          "layout_parity", "relk0_training", "relk0_train_parity", "mlp_kernels", "lab")
+          "layout_parity", "relk0_training", "relk0_train_parity", "relk0_small_parity",
+          "mlp_kernels", "lab")
 BATCH = 8
 TRAIN_BATCH = 2
 STEPS = 5
@@ -408,6 +420,27 @@ MVIT_WIDE = (("blk1@256x448", 0, 2, 14336, (8, 16, 28)), ("blk3@256x448", 0, 4, 
 MVIT_R66_RES = (288, 640)
 MVIT_R66 = (("blk1@288x640", 0, 2, 23040, (8, 18, 40)), ("blk3@288x640", 0, 4, 5760, (8, 18, 40)),
             ("blk14@288x640", 0, 8, 1440, (8, 18, 40)))
+# Row 6's and row 7's relk0 widths (Da = 96 + R) off 224x384, in the same
+# form, checked against the plain versions at batch 2 with times out of the
+# sums (0 blocks): every distinct call of `--resolution 64 96` (Da 109 and
+# 114, the 128-lane form below Da 113); the Da 180 calls of 448x768 and the
+# Da 184 call of 512x768 (the 192-lane form, q rows in shared memory, its
+# backward's column splits), blk1 and, at 512x768, blk3 left out to keep
+# the plain versions' fp32 [B, H, Nq, Nk] scores small; and one call at the
+# widest compiled Da, 256 (R = 160), on a key grid of no model, with Nq and
+# Nk off the 64-row tiles
+MVIT_SMALL_RES = (64, 96)
+MVIT_SMALL = (("blk0@64x96", 0, 1, 3072, (8, 2, 3)), ("blk1@64x96", 0, 2, 768, (8, 4, 6)),
+              ("blk2@64x96", 0, 2, 768, (8, 2, 3)), ("blk3@64x96", 0, 4, 192, (8, 4, 6)),
+              ("blk4-13@64x96", 0, 4, 192, (8, 2, 3)), ("blk14@64x96", 0, 8, 48, (8, 4, 6)),
+              ("blk15@64x96", 0, 8, 48, (8, 2, 3)))
+MVIT_R84_RES = (448, 768)
+MVIT_R84 = (("blk3@448x768", 0, 4, 10752, (8, 28, 48)),
+            ("blk14@448x768", 0, 8, 2688, (8, 28, 48)))
+MVIT_R88_RES = (512, 768)
+MVIT_R88 = (("blk14@512x768", 0, 8, 3072, (8, 32, 48)),)
+MVIT_DA256 = (("Da 256", 0, 2, 1000, (4, 15, 141)),)
+AUG_CHECKS = MVIT_WIDE + MVIT_R66 + MVIT_SMALL + MVIT_R84 + MVIT_R88 + MVIT_DA256
 # K2 shapes per clip: label, tokens, C, eps, and the blocks of the shape in
 # one MViTv2-S and one VideoSwin-S forward (the backbone's stages, the 3
 # SyncBlock blocks, the decoder's 4 blocks); VideoSwin-S's backbone blocks
@@ -604,7 +637,8 @@ def serving_kernels(records, randn) -> None:
     import torch.nn.functional as F
 
     from mspi_tpu_torch.ops.kernels import ln_mlp as K2
-    from mspi_tpu_torch.ops.kernels.layernorm import layernorm_tokens, layernorm_tokens_reference
+    from mspi_tpu_torch.ops.kernels.layernorm import (LAYERNORM_C, layernorm_tokens,
+                                                      layernorm_tokens_reference)
 
     swin = {"ms": 0.0, "bound_ms": 0.0}  # the sums per VideoSwin-S int8 forward
     for label, tokens, C, blocks, swin_blocks in INT8_SHAPES:
@@ -672,6 +706,27 @@ def serving_kernels(records, randn) -> None:
             add_bound(records["layernorm_tokens"], dtype, nbytes(*xs, out), 8.0 * M * C,
                       PEAK_FLOPS[torch.float32])
         del inputs, xs, out
+    # row 11 off the serving shapes (checked only): M = 1000 and 63 (off the
+    # warp steps of every width; 63 rows fill no block) and x at an
+    # element's offset into its buffer (2 bytes in bf16: the scalar form),
+    # at each compiled width
+    rnd = added_randn()
+
+    def at_offset(x):
+        buf = torch.empty(x.numel() + 8, device=x.device, dtype=x.dtype)
+        view = buf[1:1 + x.numel()].view(x.shape)
+        view.copy_(x)
+        return view
+    for C in LAYERNORM_C:
+        for label, M, shift in ((f"C {C} M 1000", 1000, False), (f"C {C} M 63", 63, False),
+                                (f"C {C} M 517 at an offset", 517, True)):
+            inputs = [rnd(M, C) + 0.5, 1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]
+            prep = at_offset if shift else (lambda x: x)
+            for dtype in (torch.float32, torch.bfloat16):
+                check_kernel(records, "layernorm_tokens", label,
+                             lambda x, g, b: layernorm_tokens(prep(x), g, b, 1e-6),
+                             lambda x, g, b: layernorm_tokens_reference(x, g, b, 1e-6), inputs,
+                             dtype, weight=0, repeatable=True)
 
 
 def compare_grads(names, got, want, dtype):
@@ -928,10 +983,11 @@ def phase_layout_kernels(records) -> None:
 
     randn = randn_on(torch.Generator().manual_seed(21))
     # row 6 at the 16 blocks (batch 8, in the sums), then at the augmented
-    # widths of 256x448 (Da 148) and 288x640 (Da 162), the wide form (batch
-    # 2, checked only); each bf16 run twice, bit-identical
+    # widths of 256x448 (Da 148), 288x640 (Da 162), 64x96 (Da 109, 114),
+    # 448x768 (Da 180), 512x768 (Da 184) and the widest, 256 (`AUG_CHECKS`;
+    # batch 2, checked only); each bf16 run twice, bit-identical
     shapes = [(BATCH, *shape) for shape in MVIT_BLOCKS]
-    shapes += [(TRAIN_BATCH, *shape) for shape in MVIT_WIDE + MVIT_R66]
+    shapes += [(TRAIN_BATCH, *shape) for shape in AUG_CHECKS]
     for batch, label, blocks, heads, nq, k_shape in shapes:
         nk, r = math.prod(k_shape), sum(k_shape)
         inputs = aug_inputs(randn if blocks else added_randn(), batch, heads, nq, k_shape)
@@ -993,9 +1049,9 @@ def phase_layout_backward(records) -> None:
 
     randn = randn_on(torch.Generator().manual_seed(31))
     B = TRAIN_BATCH
-    # the 16 blocks (in the sums), then the augmented widths of 256x448 (Da
-    # 148) and 288x640 (Da 162), the wide form (checked only)
-    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS + MVIT_WIDE + MVIT_R66:
+    # the 16 blocks (in the sums), then the augmented widths off 224x384
+    # (`AUG_CHECKS`: Da 148, 162, 109, 114, 180, 184 and 256; checked only)
+    for label, blocks, heads, nq, k_shape in MVIT_BLOCKS + AUG_CHECKS:
         nk, r = math.prod(k_shape), sum(k_shape)
         rnd = randn if blocks else added_randn()
         inputs = aug_inputs(rnd, B, heads, nq, k_shape) + [rnd(B, heads, nq, MVIT_D)]
@@ -1173,6 +1229,37 @@ def check_lab_mlp_ragged(records) -> None:
         del xs, x, ops, out
 
 
+def check_lab_widths(records) -> None:
+    """The labs' MLP bodies off C = 96, checked only, at M = 1000: row 20's
+    six and `mlp_bf16` at each of K2's other widths (H = 4C), `mlp_int8w`
+    at row 12's widths with H = 4C, and at every width it is compiled for
+    with H = 320 (H % 128 == 64: the last step's units against a
+    zero-filled W2 box; in the forms whose two consumers share rows, the
+    second consumer's units of that step lie past H); each run twice,
+    bit-identical."""
+    from mspi_tpu_torch.ops.kernels import lab
+
+    randn, M = randn_on(torch.Generator().manual_seed(17)), 1000
+    for C in lab.LAB_WIDTHS[1:]:
+        xs = mlp_inputs(randn, M, C)
+        for v in lab.LAB_VARIANTS:
+            check_kernel(records, f"lab_{v}", f"C={C} M={M}",
+                         lambda *a, v=v: lab.ln_mlp_lab(*a, v),
+                         lambda *a, v=v: lab.ln_mlp_lab_reference(*a, v), xs, torch.bfloat16,
+                         weight=0, repeatable=True)
+        check_kernel(records, "mlp_bf16", f"C={C} M={M}", lab.mlp_bf16, lab.mlp_bf16_reference,
+                     [xs[0], xs[3], xs[5]], torch.bfloat16, weight=0, repeatable=True)
+    for C, H in ([(C, 4 * C) for C in lab.INT8_LAB_WIDTHS[1:]]
+                 + [(C, 320) for C in lab.INT8_LAB_WIDTHS]):
+        x, w1, w2 = randn(M, C), randn(H, C, scale=C ** -0.5), randn(C, H, scale=H ** -0.5)
+        (w1q, s1), (w2q, s2) = lab.quantize_weight_lab(w1), lab.quantize_weight_lab(w2)
+        ops = (w1q, s1, w2q, s2)
+        check_kernel(records, "mlp_int8w", f"C={C} H={H} M={M}",
+                     lambda x: lab.mlp_int8w(x, *ops), lambda x: lab.mlp_int8w_reference(x, *ops),
+                     [x], torch.bfloat16, weight=0, repeatable=True,
+                     compare=lambda out, xs: int8_errors(out, lab.mlp_int8w_reference(xs[0], *ops)))
+
+
 def phase_lab(records) -> dict:
     """The three kernel labs' `main` in this process at their default shapes
     (MSPI_LAB_ITERS repeats, 20 unless set); each kernel variant is held
@@ -1211,6 +1298,7 @@ def phase_lab(records) -> dict:
                          [randn(N, H, W, C), randn(7, 7, C, scale=0.1), randn(C, scale=0.1)],
                          dtype, weight=0)
     check_lab_mlp_ragged(records)
+    check_lab_widths(records)
     os.environ.setdefault("MSPI_LAB_ITERS", "20")
     kernels.reset_launch_counts()
     results = []
@@ -1246,11 +1334,13 @@ def synthetic_video(seed: int):
     return frames, audio
 
 
-def model_config(key: str):
-    """The config of a PER_FORWARD key: a motion encoder, + its options."""
+def model_config(key: str, res=RES):
+    """The config of a PER_FORWARD key: a motion encoder, + its options, at
+    input resolution `res`."""
     from mspi_tpu_torch.config import get_config
 
-    return get_config(key.split("+")[0], {"model": OPTIONS.get(key, {})})
+    return get_config(key.split("+")[0], {"model": OPTIONS.get(key, {}),
+                                          "data": {"resolution": tuple(res)}})
 
 
 def build_model(key: str, device: str, dtype: torch.dtype):
@@ -1456,14 +1546,14 @@ def phase_training(tag: str, encoder: str) -> dict:
     return counts
 
 
-def phase_train_parity(tag: str, encoder: str) -> None:
-    """`encoder`: a motion encoder, + its options."""
+def phase_train_parity(tag: str, encoder: str, res=RES) -> None:
+    """`encoder`: a motion encoder, + its options; at input resolution res."""
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
     from mspi_tpu_torch.train import engine
     from mspi_tpu_torch.train.synthetic import make_batch
 
-    cfg = model_config(encoder)
-    batch = make_batch(np.random.default_rng(6), TRAIN_BATCH, 16, RES, SPECTRO)
+    cfg = model_config(encoder, res)
+    batch = make_batch(np.random.default_rng(6), TRAIN_BATCH, 16, res, SPECTRO)
     results = []
     for device in ("cuda", "cpu"):
         model = AudioVisualSaliencyModel(cfg, device=device, dtype=torch.float32,
@@ -1481,7 +1571,7 @@ def phase_train_parity(tag: str, encoder: str) -> None:
     (m_gpu, g_gpu), (m_cpu, g_cpu) = results
     cos = (g_gpu @ g_cpu / (g_gpu.norm() * g_cpu.norm())).item()
     diffs = {k: abs(m_gpu[k] - m_cpu[k]) for k in m_cpu}
-    log(tag, f"{encoder} {RES[0]}x{RES[1]} card vs CPU: gradient cosine {cos:.8f} "
+    log(tag, f"{encoder} {res[0]}x{res[1]} card vs CPU: gradient cosine {cos:.8f} "
              f"(need >= 0.9999); |diff| " + " ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
     if not cos >= 0.9999:
         raise AssertionError(f"gradient cosine {cos} below 0.9999")
@@ -1492,22 +1582,25 @@ def phase_train_parity(tag: str, encoder: str) -> None:
 
 # Entries the register-resident bodies must hold (mangled-name fragments):
 # row 8's forward (kRelBiasRes = 3) in both rel forms, K4's (kNoBias = 0,
-# D = 128), row 6's (kNoBias, score width 128, 144 or 176, value width 96),
+# D = 128), row 6's (kNoBias, score width 128, 144, 176, 192 or 256, value
+# width 96),
 # the bf16 window backward's three passes, the bf16 K1 backward's two
 # passes in its three rel widths (RS = 2, 3, 4) and its wide form (R > 64),
 # row 19 in both dtypes and tile widths, row 18's bf16 ring kernel in its
 # two tiles (warp outputs OH x OW), row 21's wgmma GEMMs (int8 at 64 and
 # 128 rows per block), the bf16 K4 backward's two passes at D = 96 and 128,
 # the wgmma LN+MLP body at every C as K2 (LN), row 10 (LN, RES) and row 13,
-# row 7 head-major's two bf16 passes at the three score widths (DK = 128,
-# 144 and the wide 176), row 12's s8 wgmma body at its four widths in both
+# row 7 head-major's two bf16 passes at the five score widths (DK = 128,
+# 144 and the wide 176, 192 and 256), the labs' MLP bodies at their widths,
+# row 11's two forms, row 12's s8 wgmma body at its four widths in both
 # x dtypes, and the bf16 K2 backward's row pass at every C as row 9 (LN)
 # and row 14, and its wgmma products (dz = du W1; the weight gradients A^T
 # B)
 SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3ELi96E",
                 "flash_attention_sm90_kernelILi96ELi0ELi3ELi96E",
                 "flash_attention_sm90_kernelILi128ELi0ELi0ELi128E",
-                *(f"flash_attention_sm90_kernelILi{dk}ELi0ELi0ELi96E" for dk in (128, 144, 176)),
+                *(f"flash_attention_sm90_kernelILi{dk}ELi0ELi0ELi96E"
+                  for dk in (128, 144, 176, 192, 256)),
                 "window_bwd_dq_sm90_kernel",
                 "window_bwd_dkv_sm90_kernel", "window_bwd_dbias_sm90_kernel",
                 *(f"rel_bwd_{p}_sm90_kernelILi96ELi{rs}E" for p in ("dq", "dkv")
@@ -1520,15 +1613,23 @@ SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3ELi96E",
                 *(f"self_bwd_{p}_sm90_kernelILi{d}E" for p in ("dq", "dkv") for d in (96, 128)),
                 *(f"ln_mlp_sm90_kernelILi{c}ELi{ln}ELb1ELb1ELb{res}ELi0EE"
                   for c in (96, 192, 384, 512, 768) for ln, res in ((1, 0), (1, 1), (0, 0))),
-                # the labs' bodies at C = 96: <LN, GELU, BIAS, RES, PIPE> of
-                # matmul, ln_matmul, pipe2, pipe4, mxu_stats and mlp_bf16
+                # the labs' bodies at K2's widths: <LN, GELU, BIAS, RES, PIPE>
+                # of matmul, ln_matmul, pipe2, pipe4 (4 and 6 slices at C =
+                # 96 and 192, pipe2's schedule above), mxu_stats and mlp_bf16
                 # (matmul_gelu is row 13's)
-                *(f"ln_mlp_sm90_kernelILi96ELi{ln}ELb{gelu}ELb{bias}ELb0ELi{pipe}EE"
+                *(f"ln_mlp_sm90_kernelILi{c}ELi{ln}ELb{gelu}ELb{bias}ELb0ELi{pipe}EE"
+                  for c in (96, 192, 384, 512, 768)
                   for ln, gelu, bias, pipe in ((0, 0, 1, 0), (2, 0, 1, 0), (2, 1, 1, 0),
-                                               (2, 1, 1, 4), (3, 1, 1, 0), (0, 0, 0, 0))),
-                "ln_mlp_int8_sm90_kernelI13__nv_bfloat16Li96ELb1EE",  # mlp_int8w
+                                               (2, 1, 1, {96: 4, 192: 6}.get(c, 0)),
+                                               (3, 1, 1, 0), (0, 0, 0, 0))),
+                # mlp_int8w
+                *(f"ln_mlp_int8_sm90_kernelI13__nv_bfloat16Li{c}ELb1EE"
+                  for c in (96, 256, 384, 512, 768)),
                 *(f"aug_bwd_{p}_sm90_kernelILi{dk}E" for p in ("dq", "dkv")
-                  for dk in (128, 144, 176)),
+                  for dk in (128, 144, 176, 192, 256)),
+                # row 11 in both storage types, 16-byte and scalar forms
+                *(f"layernorm_sm90_kernelI{t}Li{c}ELb{vec}EE" for t in ("f", "13__nv_bfloat16")
+                  for c in (96, 192, 384, 768) for vec in (1, 0)),
                 *(f"ln_mlp_int8_sm90_kernelI{t}Li{c}E" for t in ("f", "13__nv_bfloat16")
                   for c in (256, 384, 512, 768)),
                 *(f"ln_mlp_bwd_rows_sm90_kernelILi{c}ELb{ln}E" for c in (96, 192, 384, 512, 768)
@@ -1610,8 +1711,8 @@ def main() -> None:
             path_counts = kernel_paths[phase](records)
             counts = {k: counts[k] + path_counts[k] for k in KERNELS}
         else:
-            path_kind, encoder = PATH_PHASES[phase]
-            path_counts = runners[path_kind](phase, encoder)
+            path_kind, encoder, *res = PATH_PHASES[phase]
+            path_counts = runners[path_kind](phase, encoder, *res)
             if path_counts is not None:  # a path: its launches count
                 counts = {k: counts[k] + path_counts[k] for k in KERNELS}
 

@@ -5,19 +5,21 @@
 // [B, H, Nk, Da] = [k | E] (E the 0/1 expansion of the key's t, h, w index),
 // built by the caller, so the rel-pos bias is part of the one contraction;
 // v [B, H, Nk, Dv], out [B, H, Nq, Dv]. On MViTv2-S, Da = 96 + R: 123 or 142
-// at 224x384, up to 148 at --resolution 256 448 and 162 at 288x640; Dv = 96.
+// at 224x384, 109 or 114 at --resolution 64 96, up to 148 at 256x448, 162 at
+// 288x640, 180 at 448x768 and 184 at 512x768; Dv = 96.
 //
 // Replaces: mspi_tpu/ops/pallas/pooled_attention.py::fused_attention (kernel
 // _fwd_kernel), all 16 MViTv2-S blocks when the rel-pos kernel is off.
 //
 // The TPU kernel holds a whole [TQ, Nk] score tile in VMEM, one MXU lane tile
 // wide in the contraction. Here the score width is Da zero-filled to DK =
-// 128, 144 or 176 lanes (aug_width in flash_attention.cuh; exact, the padded
-// lanes add 0 to every score). bf16 runs flash_attention_sm90.cuh's
+// 128, 144, 176, 192 or 256 lanes (aug_width in flash_attention.cuh; exact,
+// the padded lanes add 0 to every score). bf16 runs flash_attention_sm90.cuh's
 // register-resident body with DK != DV: k_aug's unaligned rows are first
 // copied once into zero-filled DK-lane rows in the caller's `pad` scratch, so
 // its cp.async ring copies 16-byte rows; q_aug is read into registers once per
-// block. fp32 runs flash_attention.cuh's FMA body, which loads both one
+// block (at DK = 192 and 256 into shared memory, read by ldmatrix per key
+// tile). fp32 runs flash_attention.cuh's FMA body, which loads both one
 // element at a time into zero-filled rows in shared memory.
 //
 // What bounds it on the card: 2*(Da + Dv) flops per (query, key) pair against
@@ -58,6 +60,8 @@ extern "C" int mspi_attention(const void* q, const void* k, const void* v, void*
     case 128: return mspi::launch_flash_attention_aug_sm90<128>(a, B, p, s);
     case 144: return mspi::launch_flash_attention_aug_sm90<144>(a, B, p, s);
     case 176: return mspi::launch_flash_attention_aug_sm90<176>(a, B, p, s);
+    case 192: return mspi::launch_flash_attention_aug_sm90<192>(a, B, p, s);
+    case 256: return mspi::launch_flash_attention_aug_sm90<256>(a, B, p, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -7,7 +7,7 @@
 // per (batch, head) on head-major operands: q_aug, dq [B, H, Nq, Da]; k_aug,
 // dk [B, H, Nk, Da]; v, dv [B, H, Nk, 96]; out, dout [B, H, Nq, 96]. The
 // score width Da = 96 + R (q * scale, then the rel lanes; k, then the 0/1
-// expansion E of the key grid) is in (112, 176]; dk includes the k_aug lanes
+// expansion E of the key grid) is in [97, 256]; dk includes the k_aug lanes
 // of E, which take a gradient the caller drops. lse is the forward's fp32
 // row log-sum-exp. Numerics are the TPU kernel's: delta = rowsum(P * dP) in
 // fp32, dS rounded to bf16 where it enters dq and dk, P where it enters dv.
@@ -24,14 +24,18 @@
 // other side through a 2-slot cp.async ring with one barrier per tile:
 //   0. pad: Da-lane rows are not 16-byte aligned (Da is odd at 123), so
 //      q_aug and k_aug are first copied once into zero-filled rows of DK =
-//      128, 144 or 176 lanes (aug_width; flash_attention_sm90.cuh's
+//      128, 144, 176, 192 or 256 lanes (aug_width; flash_attention_sm90.cuh's
 //      aug_pad_kernel); the zero lanes add nothing to S.
 //   1. dq + delta: one block per (64-query tile, b x h). q and dO stay in
 //      registers as A fragments; in the wide form (DK = 176, Da 145..176:
 //      MViTv2-S's 148 at --resolution 256 448 and 162 at 288x640) q's 64
 //      rows stay in shared memory instead and each warp reads its A
 //      fragments by ldmatrix per key tile, since q's 44 registers beside
-//      dq's 88 would leave too few. The key tiles (K and V rows) are walked
+//      dq's 88 would leave too few; so do DK = 192 (Da 177..192: 180 at
+//      --resolution 448 768, 184 at 512 768) and 256 (Da 193..256). At DK =
+//      256 a block takes half of dq's columns (grid z), since dq's 128
+//      registers would not fit beside the rest: each half computes S, dP and
+//      delta again. The key tiles (K and V rows) are walked
 //      twice: the first sweep sums delta = rowsum(P * dP) in fp32 and writes
 //      it for pass 2; the second recomputes S and dP, forms dS, rounds it to
 //      bf16 and repacks it into A fragments for dq += dS K (K's B fragments
@@ -39,7 +43,10 @@
 //   2. dk + dv: one block per (64-key tile, b x h, segment of query tiles).
 //      The block's K and V rows are copied once into shared memory and each
 //      warp reads its A fragments by ldmatrix per use (dk and dv, 120
-//      registers, leave no room for them in registers). Per query tile (q,
+//      registers, leave no room for them in registers). Above DK = 176 a
+//      block takes half of dk's columns (grid z = segments x 2; the first
+//      half also dv), since dk's 96 or 128 registers beside dv's 48 would
+//      spill: each half computes S^T and dP^T. Per query tile (q,
 //      dO, lse and delta through the ring) S^T = K q^T and dP^T = V dO^T
 //      land in the layout that repacks into A fragments for dv += P^T dO and
 //      dk += dS^T q. With one segment dk and dv are written in bf16; with
@@ -91,7 +98,10 @@ struct AugBytes {
   static constexpr int kOpK = sizeof(bf16) * kTile * LDK;  // one [64][DK] tile
   static constexpr int kOpV = sizeof(bf16) * kTile * LDV;  // one [64][96] tile
   static constexpr int kStats = 2 * sizeof(float) * kTile;  // 64 rows' lse and delta
-  static constexpr bool kQShared = DK > 144;  // the wide form: q's rows in shared memory
+  static constexpr bool kQShared = DK > 144;  // the wide forms: q's rows in shared memory
+  // blocks that split dq's (dk's) columns: each takes DK / split of them
+  static constexpr int kDqSplit = DK > 192 ? 2 : 1;
+  static constexpr int kDkvSplit = DK > 176 ? 2 : 1;
   // the ring of (K, V) tiles, then (wide form) the block's q rows
   static constexpr int kDq = kRing * (kOpK + kOpV) + (kQShared ? kOpK : 0);
   static constexpr int kDkvSlot = kOpK + kOpV + kStats;     // q, dO, lse and delta
@@ -120,11 +130,15 @@ __device__ __forceinline__ void mma_rows(float (&d)[4], const uint32_t (&af)[KS]
   }
 }
 
-// Pass 1: delta, then dq. Grid (query tiles, B x H).
+// Pass 1: delta, then dq. Grid (query tiles, B x H, dq's column splits).
 template <int DK>
 __global__ void __launch_bounds__(kThreads, 2) aug_bwd_dq_sm90_kernel(AugBwdArgs w) {
   using Z = AugBytes<DK>;
-  constexpr int KSK = DK / 16, KSV = kDv / 16, NDK = DK / 8;
+  constexpr int SPLIT = Z::kDqSplit;
+  constexpr int KSK = DK / 16, KSV = kDv / 16, NDK = DK / 8 / SPLIT;  // dq's column tiles
+  // the block's dq columns [c0, c0 + DK / SPLIT); the first split writes delta
+  const int c0 = SPLIT == 1 ? 0 : static_cast<int>(blockIdx.z) * (DK / SPLIT);
+  const bool writes_delta = SPLIT == 1 || blockIdx.z == 0;
   constexpr int LDK = Z::LDK, LDV = Z::LDV;
   constexpr bool kQShared = Z::kQShared;
   extern __shared__ __align__(128) unsigned char smem_adq[];
@@ -187,7 +201,7 @@ __global__ void __launch_bounds__(kThreads, 2) aug_bwd_dq_sm90_kernel(AugBwdArgs
         dlt[hr] += __shfl_xor_sync(0xffffffffu, dlt[hr], 1);
         dlt[hr] += __shfl_xor_sync(0xffffffffu, dlt[hr], 2);
         const int qi = q0 + row0 + 8 * hr;
-        if (t4 == 0 && qi < w.nq) w.delta[rows + qi] = dlt[hr];
+        if (t4 == 0 && qi < w.nq && writes_delta) w.delta[rows + qi] = dlt[hr];
       }
     }
     const unsigned char* slot = smem_adq + (t % kRing) * (Z::kOpK + Z::kOpV);
@@ -237,7 +251,7 @@ __global__ void __launch_bounds__(kThreads, 2) aug_bwd_dq_sm90_kernel(AugBwdArgs
 #pragma unroll
       for (int dn = 0; dn < NDK; dn += 2) {
         uint32_t kb[4];
-        ldsm_x4_trans(kb, kt + (kk * 16 + (lane & 15)) * LDK + dn * 8 + (lane >> 4) * 8);
+        ldsm_x4_trans(kb, kt + (kk * 16 + (lane & 15)) * LDK + c0 + dn * 8 + (lane >> 4) * 8);
         mma_bf16(dq[dn], da, kb[0], kb[1]);
         mma_bf16(dq[dn + 1], da, kb[2], kb[3]);
       }
@@ -254,24 +268,29 @@ __global__ void __launch_bounds__(kThreads, 2) aug_bwd_dq_sm90_kernel(AugBwdArgs
     if (qi >= w.nq) continue;
 #pragma unroll
     for (int n = 0; n < NDK; ++n) {
-      const int col = n * 8 + 2 * t4;
+      const int col = c0 + n * 8 + 2 * t4;
       if (col < w.da) dqp[qi * w.da + col] = __float2bfloat16(dq[n][2 * hr]);
       if (col + 1 < w.da) dqp[qi * w.da + col + 1] = __float2bfloat16(dq[n][2 * hr + 1]);
     }
   }
 }
 
-// Pass 2: dk and dv. Grid (key tiles, B x H, segments of query tiles).
+// Pass 2: dk and dv. Grid (key tiles, B x H, segments of query tiles x dk's
+// column splits).
 template <int DK>
 __global__ void __launch_bounds__(kThreads, 2) aug_bwd_dkv_sm90_kernel(AugBwdArgs w) {
   using Z = AugBytes<DK>;
-  constexpr int KSK = DK / 16, KSV = kDv / 16, NDK = DK / 8, NDV = kDv / 8;
+  constexpr int SPLIT = Z::kDkvSplit;
+  constexpr int KSK = DK / 16, KSV = kDv / 16, NDK = DK / 8 / SPLIT, NDV = kDv / 8;
   constexpr int LDK = Z::LDK, LDV = Z::LDV;
   extern __shared__ __align__(128) unsigned char smem_adkv[];
   constexpr int dout_at = Z::kOpK, stats_at = Z::kOpK + Z::kOpV;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile, seg = blockIdx.z;
+  const int k0 = blockIdx.x * kTile, seg = blockIdx.z / SPLIT;
+  // the block's dk columns [c0, c0 + DK / SPLIT); the first split takes dv
+  const int c0 = SPLIT == 1 ? 0 : static_cast<int>(blockIdx.z % SPLIT) * (DK / SPLIT);
+  const bool takes_dv = SPLIT == 1 || blockIdx.z % SPLIT == 0;
   const int64_t qrows = static_cast<int64_t>(bh) * w.nq, krows = static_cast<int64_t>(bh) * w.nk;
   const bf16* qp = w.q + qrows * DK;
   const bf16* dop = w.dout + qrows * kDv;
@@ -375,17 +394,20 @@ __global__ void __launch_bounds__(kThreads, 2) aug_bwd_dkv_sm90_kernel(AugBwdArg
         da[2 * j + 1] = pack_bf16(ds[2], ds[3]);
       }
       // dv += P^T dO, dk += dS^T q: dO's and q's B fragments by ldmatrix.trans
+      if (takes_dv) {
 #pragma unroll
-      for (int dn = 0; dn < NDV; dn += 2) {
-        uint32_t ob[4];
-        ldsm_x4_trans(ob, dt + (kk * 16 + (lane & 15)) * LDV + dn * 8 + (lane >> 4) * 8);
-        mma_bf16(dv[dn], pa, ob[0], ob[1]);
-        mma_bf16(dv[dn + 1], pa, ob[2], ob[3]);
+        for (int dn = 0; dn < NDV; dn += 2) {
+          uint32_t ob[4];
+          ldsm_x4_trans(ob, dt + (kk * 16 + (lane & 15)) * LDV + dn * 8 + (lane >> 4) * 8);
+          mma_bf16(dv[dn], pa, ob[0], ob[1]);
+          mma_bf16(dv[dn + 1], pa, ob[2], ob[3]);
+        }
       }
 #pragma unroll
       for (int dn = 0; dn < NDK; dn += 2) {
         uint32_t qb[4];
-        ldsm_x4_trans(qb, qt_s + (kk * 16 + (lane & 15)) * LDK + dn * 8 + (lane >> 4) * 8);
+        ldsm_x4_trans(qb,
+                      qt_s + (kk * 16 + (lane & 15)) * LDK + c0 + dn * 8 + (lane >> 4) * 8);
         mma_bf16(dk[dn], da, qb[0], qb[1]);
         mma_bf16(dk[dn + 1], da, qb[2], qb[3]);
       }
@@ -402,24 +424,28 @@ __global__ void __launch_bounds__(kThreads, 2) aug_bwd_dkv_sm90_kernel(AugBwdArg
     if (w.segments == 1) {  // dk's Da lanes by 2-byte stores; dv's as pairs
 #pragma unroll
       for (int n = 0; n < NDK; ++n) {
-        const int col = n * 8 + 2 * t4;
+        const int col = c0 + n * 8 + 2 * t4;
         if (col < w.da) w.dk[row * w.da + col] = __float2bfloat16(dk[n][2 * hr]);
         if (col + 1 < w.da) w.dk[row * w.da + col + 1] = __float2bfloat16(dk[n][2 * hr + 1]);
       }
+      if (takes_dv) {
 #pragma unroll
-      for (int n = 0; n < NDV; ++n)
-        *reinterpret_cast<uint32_t*>(w.dv + row * kDv + n * 8 + 2 * t4) =
-            pack_bf16(dv[n][2 * hr], dv[n][2 * hr + 1]);
+        for (int n = 0; n < NDV; ++n)
+          *reinterpret_cast<uint32_t*>(w.dv + row * kDv + n * 8 + 2 * t4) =
+              pack_bf16(dv[n][2 * hr], dv[n][2 * hr + 1]);
+      }
     } else {
       const int64_t prow = static_cast<int64_t>(seg) * gridDim.y * w.nk + row;
 #pragma unroll
       for (int n = 0; n < NDK; ++n)
-        *reinterpret_cast<float2*>(w.dk_part + prow * DK + n * 8 + 2 * t4) =
+        *reinterpret_cast<float2*>(w.dk_part + prow * DK + c0 + n * 8 + 2 * t4) =
             make_float2(dk[n][2 * hr], dk[n][2 * hr + 1]);
+      if (takes_dv) {
 #pragma unroll
-      for (int n = 0; n < NDV; ++n)
-        *reinterpret_cast<float2*>(w.dv_part + prow * kDv + n * 8 + 2 * t4) =
-            make_float2(dv[n][2 * hr], dv[n][2 * hr + 1]);
+        for (int n = 0; n < NDV; ++n)
+          *reinterpret_cast<float2*>(w.dv_part + prow * kDv + n * 8 + 2 * t4) =
+              make_float2(dv[n][2 * hr], dv[n][2 * hr + 1]);
+      }
     }
   }
 }
@@ -474,10 +500,11 @@ cudaError_t launch(AugBwdArgs w, const bf16* q, const bf16* k, bf16* pad, int bh
   const int qtiles = (w.nq + kTile - 1) / kTile, ktiles = (w.nk + kTile - 1) / kTile;
   w.qtiles_per_seg = (qtiles + w.segments - 1) / w.segments;
   if ((err = allow_smem(aug_bwd_dq_sm90_kernel<DK>, Z::kDq)) != cudaSuccess) return err;
-  aug_bwd_dq_sm90_kernel<DK><<<dim3(qtiles, bh), kThreads, Z::kDq, stream>>>(w);
+  aug_bwd_dq_sm90_kernel<DK><<<dim3(qtiles, bh, Z::kDqSplit), kThreads, Z::kDq, stream>>>(w);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = allow_smem(aug_bwd_dkv_sm90_kernel<DK>, Z::kDkv)) != cudaSuccess) return err;
-  aug_bwd_dkv_sm90_kernel<DK><<<dim3(ktiles, bh, w.segments), kThreads, Z::kDkv, stream>>>(w);
+  aug_bwd_dkv_sm90_kernel<DK><<<dim3(ktiles, bh, w.segments * Z::kDkvSplit), kThreads, Z::kDkv,
+                                stream>>>(w);
   if ((err = cudaGetLastError()) != cudaSuccess || w.segments == 1) return err;
   const int64_t threads = static_cast<int64_t>(bh) * w.nk * (DK / 8 + kDv / 8);
   aug_bwd_reduce_kernel<DK><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
@@ -525,7 +552,10 @@ cudaError_t attention_aug_bwd_sm90(const void* q, const void* k, const void* v,
   switch (aug_width(da)) {
     case 128: return launch<128>(w, qb, kb, pb, bh, stream);
     case 144: return launch<144>(w, qb, kb, pb, bh, stream);
-    default: return launch<176>(w, qb, kb, pb, bh, stream);
+    case 176: return launch<176>(w, qb, kb, pb, bh, stream);
+    case 192: return launch<192>(w, qb, kb, pb, bh, stream);
+    case 256: return launch<256>(w, qb, kb, pb, bh, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 

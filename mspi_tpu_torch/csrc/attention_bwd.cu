@@ -558,7 +558,8 @@ cudaError_t dispatch_bwd(const BwdArgs& g, int batch, int d, int dtype, cudaStre
 }
 
 // The augmented lanes: q/k rows of g.f.dk lanes (zero-filled to DK =
-// aug_width(g.f.dk): 128, 144 or 176), v and dO of dv = 96 lanes, no bias.
+// aug_width(g.f.dk): 128, 144, 176, 192 or 256; 213 KB of shared memory, one
+// block per SM, at 256), v and dO of dv = 96 lanes, no bias.
 template <typename T>
 cudaError_t dispatch_bwd_aug(const BwdArgs& g, int batch, int dv, cudaStream_t s) {
   if (g.segments <= 0 || dv != 96) return cudaErrorInvalidValue;
@@ -566,6 +567,8 @@ cudaError_t dispatch_bwd_aug(const BwdArgs& g, int batch, int dv, cudaStream_t s
     case 128: return launch_bwd<T, 128, 96, kNoBias>(g, batch, s);
     case 144: return launch_bwd<T, 144, 96, kNoBias>(g, batch, s);
     case 176: return launch_bwd<T, 176, 96, kNoBias>(g, batch, s);
+    case 192: return launch_bwd<T, 192, 96, kNoBias>(g, batch, s);
+    case 256: return launch_bwd<T, 256, 96, kNoBias>(g, batch, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -848,12 +851,12 @@ extern "C" int mspi_window_attention_bwd(const void* qkv, const void* bias, cons
 // Backward of the augmented-lane attention (head-major, scale 1): q, dq
 // [B,H,Nq,Da]; k, dk [B,H,Nk,Da]; v, dv [B,H,Nk,Dv]; out (the forward's O)
 // and dout [B,H,Nq,Dv]; lse (from the forward) and delta (scratch) [B*H, Nq]
-// fp32. Da in (112, 176], Dv = 96. dk includes the k_aug lanes of E, which
+// fp32. Da in [97, 256], Dv = 96. dk includes the k_aug lanes of E, which
 // the caller drops. fp32 (the FMA passes): dk_part [segments, B*H, Nk, Da]
 // and dv_part [segments, B*H, Nk, Dv] fp32 scratch, pad unused. bf16
 // (attention_aug_bwd_sm90.cu): dk_part [segments, B*H, Nk, DK] with DK =
-// aug_width(Da) (128, 144 or 176; unused with one segment), pad [B*H, Nq +
-// Nk, DK] bf16 scratch.
+// aug_width(Da) (128, 144, 176, 192 or 256; unused with one segment), pad
+// [B*H, Nq + Nk, DK] bf16 scratch.
 extern "C" int mspi_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                   float* lse, const void* dout, void* dq, void* dk, void* dv,
                                   float* delta, float* dk_part, float* dv_part, void* pad,

@@ -21,8 +21,8 @@
 // q k^T contraction, and DV, the width of v and out. They are equal except
 // for the augmented-lane attention (q_aug = [q*scale | rel], k_aug = [k | E],
 // Da = 96 + R lanes, DV = 96): its rows of Da elements need not be 16-byte
-// (or, at an odd Da, 4-byte) aligned, and are zero-filled to DK = 128, 144 or
-// 176 lanes (aug_width), which leaves the scores exact.
+// (or, at an odd Da, 4-byte) aligned, and are zero-filled to DK = 128, 144,
+// 176, 192 or 256 lanes (aug_width), which leaves the scores exact.
 //
 // The bias mode (template argument BIAS):
 //   kNoBias:    S = scale * q k^T.
@@ -381,15 +381,25 @@ cudaError_t launch_flash_attention_d(const AttnArgs& a, int batch, int d, cudaSt
 }
 
 // The augmented lanes' score widths: q_aug / k_aug rows of Da = 96 + R lanes
-// zero-filled to DK = 128 (Da <= 128), 144 (Da <= 144) or 176 (the wide
-// form, Da <= 176: R up to 80, MViTv2-S's R = 52 at --resolution 256 448 and
-// 66 at 288 640); 0 outside (112, 176]. Row 6's forward and its backward
-// (row 7 head-major) take the same form in fp32 and bf16;
-// pooled_attention.py's AUG_FORMS mirrors it.
-constexpr int kAugMinDa = 113;
-constexpr int kAugMaxDa = 176;
+// zero-filled to DK = 128 (Da <= 128: every R up to 32, MViTv2-S's Da 109
+// and 114 at --resolution 64 96 among them), 144 (Da <= 144), 176 (Da <=
+// 176), 192 (Da <= 192: MViTv2-S's 180 at --resolution 448 768 and 184 at
+// 512 768) or 256 (Da <= 256: R up to 160, at 16 frames H / 16 + W / 16 <=
+// 152, e.g. --resolution 1024 1408); 0 outside [97, 256]. Row 6's forward
+// and its backward (row 7 head-major) take the same form in fp32 and bf16;
+// pooled_attention.py's AUG_FORMS mirrors it. Nothing but this choice
+// depends on Da: q_aug's fragments, the pad copies and the fp32 loads all
+// zero-fill past Da.
+constexpr int kAugMinDa = 97;
+constexpr int kAugMaxDa = 256;
 __host__ __device__ constexpr int aug_width(int da) {
-  return da < kAugMinDa ? 0 : da <= 128 ? 128 : da <= 144 ? 144 : da <= kAugMaxDa ? 176 : 0;
+  return da < kAugMinDa ? 0
+         : da <= 128    ? 128
+         : da <= 144    ? 144
+         : da <= 176    ? 176
+         : da <= 192    ? 192
+         : da <= kAugMaxDa ? 256
+                           : 0;
 }
 
 // fp32 augmented-lane attention on the FMA pipes: q/k rows of a.dk lanes
@@ -403,6 +413,8 @@ inline cudaError_t launch_flash_attention_aug_f32(const AttnArgs& a, int batch, 
     case 128: return launch_flash_attention<float, 128, 96, kNoBias>(a, batch, s);
     case 144: return launch_flash_attention<float, 144, 96, kNoBias>(a, batch, s);
     case 176: return launch_flash_attention<float, 176, 96, kNoBias>(a, batch, s);
+    case 192: return launch_flash_attention<float, 192, 96, kNoBias>(a, batch, s);
+    case 256: return launch_flash_attention<float, 256, 96, kNoBias>(a, batch, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -500,7 +512,7 @@ cudaError_t self_attention_bwd_sm90(const RelBwdArgs& w, int batch, int d, cudaS
 // head-major q, dq [bh, nq, da]; k, dk [bh, nk, da]; v, dv [bh, nk, 96];
 // dout [bh, nq, 96]; lse and delta [bh, nq] fp32; dk_part and dv_part
 // [segments, bh, nk, DK | 96] fp32 (segments > 1); pad [bh, nq + nk, DK]
-// bf16 scratch, DK = aug_width(da); da in (112, 176].
+// bf16 scratch, DK = aug_width(da); da in [97, 256].
 cudaError_t attention_aug_bwd_sm90(const void* q, const void* k, const void* v,
                                    const float* lse, const void* dout, void* dq, void* dk,
                                    void* dv, float* delta, float* dk_part, float* dv_part,

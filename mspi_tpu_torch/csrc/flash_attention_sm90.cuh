@@ -3,8 +3,8 @@
 //   kNoBias     K4 (self_attention.cu: SyncBlock self-attention on packed
 //               q and kv lanes, D = 128) and row 6 (attention.cu: MViT
 //               attention on augmented q/k lanes, attn_relk=False: score
-//               width D = 128, 144 or 176 zero-filled lanes, value width DV
-//               = 96, no scale);
+//               width D = 128, 144, 176, 192 or 256 zero-filled lanes,
+//               value width DV = 96, no scale);
 //   kRelBias    K1 (attention_rel.cu: MViT pooled attention with the
 //               decomposed rel-pos bias, head-major; and row 8's training
 //               forward on token-major strides);
@@ -51,14 +51,20 @@
 //   tile, after Q K^T (1.1-1.2x slower per forward at R <= 48, PERF.md).
 // - K4 is the rel mode without E and without rel: S = scale * Q K^T.
 // - Row 6 is K4 with unequal widths and scale 1: q_aug and k_aug rows of Da
-//   = 96 + R lanes (123 and 142 at 224x384, 148 at 256x448, 162 at 288x640)
-//   are not 16-byte aligned (nor 4-byte at an odd Da). k_aug is first copied
-//   into zero-filled rows of D = 128, 144 or 176 lanes (aug_pad_kernel, one
-//   pass over the pooled keys), which the ring then copies by cp.async; Q's
-//   A fragments are read from q_aug two bytes at a time, zeros past Da, once
-//   per block. The odd last k-step of D = 144 and 176 takes ldmatrix.x2. At
-//   D = 176 (11 k-steps, 44 registers of Q) the 32-key sub-tiles keep 3
-//   blocks per SM (the 2-slot ring is 72 KB).
+//   = 96 + R lanes (109 and 114 at 64x96, 123 and 142 at 224x384, 148 at
+//   256x448, 162 at 288x640, 180 at 448x768, 184 at 512x768) are not
+//   16-byte aligned (nor 4-byte at an odd Da). k_aug is first copied into
+//   zero-filled rows of D = 128, 144, 176, 192 or 256 lanes (aug_pad_kernel,
+//   one pass over the pooled keys), which the ring then copies by cp.async;
+//   Q's A fragments are read from q_aug two bytes at a time, zeros past Da,
+//   once per block. The odd last k-step of D = 144 and 176 takes
+//   ldmatrix.x2. At D = 176 (11 k-steps, 44 registers of Q) the 32-key
+//   sub-tiles keep 3 blocks per SM (the 2-slot ring is 72 KB). At D = 192
+//   and 256 Q's fragments would take 48 and 64 registers: the block's q
+//   rows are copied once (two bytes at a time, zeros past Da) into shared
+//   memory beside the ring and each warp reads a k-step's fragments by
+//   ldmatrix per key tile (101 KB a block, 2 per SM, at 192; 125 KB, 1 per
+//   SM, at 256).
 // - Row 15's bias [H, N, N] and mask [nW, N, N]: the [64, 64] tiles of the
 //   block's queries and the key tile are copied into the slot beside K and V
 //   (a slot holds a mask tile only when there is a mask). q_s = q * D^-0.5
@@ -290,6 +296,11 @@ template <int D, int RK, int BIAS, int DV = D>
 struct Layout {
   static constexpr bool kRel = rel_mode(BIAS);
   static constexpr bool kRelRows = kRel && RK == 0;  // rel rows in shared memory
+  // row 6's widest forms (D = 192, 256): Q's A fragments (48 or 64
+  // registers) would not fit beside O's 48 and S's 16 under the 168 of 3
+  // blocks per SM, so the block's q rows stay in shared memory [BQ][LD] and
+  // each k-step's fragments are read by ldmatrix per key tile
+  static constexpr bool kQRows = D != DV && D > 176;
   static constexpr int BQ = 16 * kWarps;
   static constexpr int LD = D + 8;                        // bf16 pitch of k rows
   static constexpr int LDV = DV + 8;                      // bf16 pitch of v rows
@@ -310,9 +321,11 @@ struct Layout {
                                        : BIAS == kDenseBias ? (masked ? 2 : 1) * kB
                                                             : 0));
   }
-  // the ring, then (RK = 0) the block's rel rows [BQ][ldr]
+  // the ring, then (RK = 0) the block's rel rows [BQ][ldr] or (kQRows) its
+  // q rows [BQ][LD]
   static size_t bytes(int ldr, bool masked) {
-    return kStages * slot(ldr, masked) + (kRelRows ? sizeof(bf16) * BQ * ldr : 0);
+    return kStages * slot(ldr, masked) + (kRelRows ? sizeof(bf16) * BQ * ldr : 0) +
+           (kQRows ? sizeof(bf16) * BQ * LD : 0);
   }
   static_assert(kK % 16 == 0 && kV % 16 == 0 && kB % 16 == 0, "16-byte regions");
 };
@@ -322,9 +335,10 @@ struct Layout {
 // rel k-steps held in registers (R <= 16 * RK), or 0 for rel rows in shared
 // memory (any R); 0 for kNoBias and kDenseBias. D is the score width (q and
 // k), DV the value width (v and out): equal but for row 6's augmented lanes
-// (kNoBias, D = 128, 144 or 176 zero-filled lanes, DV = 96), whose q rows of
-// a.dk lanes (any alignment) are read into Q's fragments two bytes at a
-// time and whose k rows come padded to D lanes (aug_pad_kernel).
+// (kNoBias, D = 128, 144, 176, 192 or 256 zero-filled lanes, DV = 96), whose
+// q rows of a.dk lanes (any alignment) are read into Q's fragments two bytes
+// at a time (D = 192 and 256: into the block's q rows in shared memory,
+// Layout::kQRows) and whose k rows come padded to D lanes (aug_pad_kernel).
 template <int D, int RK, int BIAS, int DV = D>
 __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS) && RK == 0))
     flash_attention_sm90_kernel(AttnArgs a) {
@@ -341,14 +355,16 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS
   constexpr int SN = BIAS == kNoBias && D > 96 ? 32 : kBK;
   constexpr int NS = SN / 8;   // 8-key column tiles of S
   constexpr int ND = DV / 8;   // 8-wide column tiles of O
-  constexpr bool kRel = L::kRel, kRelRows = L::kRelRows;
+  constexpr bool kRel = L::kRel, kRelRows = L::kRelRows, kQRows = L::kQRows;
   static_assert(NT >= kBK, "one thread per key writes E's row");
+  static_assert(!kQRows || KS % 2 == 0, "q rows in shared memory: whole k-step pairs");
   extern __shared__ __align__(128) unsigned char smem_sm90[];
   unsigned char* ring = smem_sm90;
   const int ldr = kRel ? L::rel_pitch(a.r) : 0;
   const int rpad = ldr - 8;  // rel modes: E's columns, 16 per k-step
   const int slot_bytes = L::slot(ldr, a.mask != nullptr);
   bf16* rels = reinterpret_cast<bf16*>(ring + kStages * slot_bytes);  // RK = 0: [BQ][ldr]
+  bf16* qrows = rels;  // kQRows: the block's q rows [BQ][LD] in the same place
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -403,18 +419,31 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS
       rt[r * ldr + c] = q0 + r < a.nq && c < a.r ? rp[(q0 + r) * a.rs.n + c] : 0;
     }
   }
+  // kQRows: the block's q rows of a.dk lanes (2-byte loads: any alignment),
+  // zeros past Da and Nq; plain stores, seen after the first barrier
+  if constexpr (kQRows) {
+    const unsigned short* qp = reinterpret_cast<const unsigned short*>(operand(a.q, a.qs));
+    unsigned short* qt = reinterpret_cast<unsigned short*>(qrows);
+    for (int e = tid; e < BQ * D; e += NT) {
+      const int r = e / D, c = e % D;
+      qt[r * LD + c] = q0 + r < a.nq && c < a.dk ? qp[(q0 + r) * a.qs.n + c] : 0;
+    }
+  }
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) issue(s, s * kBK);
 
   const bool active = q0 + warp * 16 < a.nq;  // a row of this warp is in range
   const int row0 = warp * 16 + g;             // the thread's rows row0, row0 + 8
-  uint32_t qf[KS][4];
+  uint32_t qf[kQRows ? 1 : KS][4];
   uint32_t rf[RK > 0 ? RK : 1][4];  // rel's A fragments (RK > 0)
   if (active) {
-    if constexpr (kAug)  // q rows of a.dk lanes at any alignment, zeros past them
+    if constexpr (kQRows) {
+      // Q's fragments come from the block's q rows, per key tile
+    } else if constexpr (kAug) {  // q rows of a.dk lanes at any alignment, zeros past them
       load_rel_frags<KS>(qf, operand(a.q, a.qs), a.qs.n, q0 + warp * 16, a.nq, a.dk);
-    else
+    } else {
       load_a_frags(qf, operand(a.q, a.qs), a.qs.n, q0 + warp * 16, a.nq);
+    }
     if constexpr (kRel && RK > 0)
       load_rel_frags<RK>(rf, operand(a.rel, a.rs), a.rs.n, q0 + warp * 16, a.nq, a.r);
     if constexpr (BIAS == kDenseBias) {
@@ -450,38 +479,63 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks(D, BIAS, rel_mode(BIAS
       // S = Q K^T (rel modes: scale * Q K^T + rel E^T), column tiles wholly
       // past Nk skipped
       float s[NS][4];
+      if constexpr (kQRows) {
+        // Q's A fragments of the warp's 16 rows one k-step at a time, each
+        // against the sub-tile's column tiles
+        const bf16* qa_row = qrows + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-        if (n * 8 < valid) {
+        for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-          for (int kk = 0; kk + 1 < KS; kk += 2) {
-            uint32_t kb[4];
-            ldsm_x4(kb, kc + (n * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
-            mma_bf16(s[n], qf[kk], kb[0], kb[1]);
-            mma_bf16(s[n], qf[kk + 1], kb[2], kb[3]);
-          }
-          if constexpr (KS % 2 == 1) {  // row 6 at D = 144, 176: the odd last k-step
-            uint32_t kb[2];
-            ldsm_x2(kb, kc + (n * 8 + (lane & 7)) * LD + (KS - 1) * 16 + ((lane >> 3) & 1) * 8);
-            mma_bf16(s[n], qf[KS - 1], kb[0], kb[1]);
-          }
-          if constexpr (kRel && RK > 0) {
-            // + rel E^T, rel's fragments in registers, on a chain of its own
-            float rb[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int kk = 0; kk < KS; kk += 2) {
+          uint32_t qa[4], qb[4];
+          ldsm_x4(qa, qa_row + kk * 16);
+          ldsm_x4(qb, qa_row + kk * 16 + 16);
 #pragma unroll
-            for (int ks = 0; ks < RK; ++ks) {
-              if (ks * 16 < a.r) {
-                uint32_t eb[2];
-                ldsm_x2(eb, ec + (n * 8 + (lane & 7)) * ldr + ks * 16 + ((lane >> 3) & 1) * 8);
-                mma_bf16(rb, rf[ks], eb[0], eb[1]);
-              }
+          for (int n = 0; n < NS; ++n) {
+            if (n * 8 < valid) {
+              uint32_t kb[4];
+              ldsm_x4(kb, kc + (n * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
+              mma_bf16(s[n], qa, kb[0], kb[1]);
+              mma_bf16(s[n], qb, kb[2], kb[3]);
             }
+          }
+        }
+      } else {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * a.scale + rb[e];
-          } else if constexpr (BIAS != kDenseBias) {
+        for (int n = 0; n < NS; ++n) {
+          s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+          if (n * 8 < valid) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[n][e] *= a.scale;
+            for (int kk = 0; kk + 1 < KS; kk += 2) {
+              uint32_t kb[4];
+              ldsm_x4(kb, kc + (n * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
+              mma_bf16(s[n], qf[kk], kb[0], kb[1]);
+              mma_bf16(s[n], qf[kk + 1], kb[2], kb[3]);
+            }
+            if constexpr (KS % 2 == 1) {  // row 6 at D = 144, 176: the odd last k-step
+              uint32_t kb[2];
+              ldsm_x2(kb,
+                      kc + (n * 8 + (lane & 7)) * LD + (KS - 1) * 16 + ((lane >> 3) & 1) * 8);
+              mma_bf16(s[n], qf[KS - 1], kb[0], kb[1]);
+            }
+            if constexpr (kRel && RK > 0) {
+              // + rel E^T, rel's fragments in registers, on a chain of its own
+              float rb[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int ks = 0; ks < RK; ++ks) {
+                if (ks * 16 < a.r) {
+                  uint32_t eb[2];
+                  ldsm_x2(eb,
+                          ec + (n * 8 + (lane & 7)) * ldr + ks * 16 + ((lane >> 3) & 1) * 8);
+                  mma_bf16(rb, rf[ks], eb[0], eb[1]);
+                }
+              }
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * a.scale + rb[e];
+            } else if constexpr (BIAS != kDenseBias) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[n][e] *= a.scale;
+            }
           }
         }
       }

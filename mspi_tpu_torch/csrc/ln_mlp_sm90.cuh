@@ -2,8 +2,8 @@
 // fc2(gelu(fc1(LN(x)))) on token-major rows x [M, C], the 4C hidden never in
 // device memory: K2, the call site of K3, row 10's folded residual and row
 // 13's MLP without the LayerNorm (ln_mlp.cu routes their bf16 calls here; fp32
-// keeps ln_mlp.cuh's FMA body), and the kernel labs' bf16 bodies at C = 96
-// (lnmlp_lab.cu: row 20's six and row 21's mlp_bf16).
+// keeps ln_mlp.cuh's FMA body), and the kernel labs' bf16 bodies at K2's
+// widths (lnmlp_lab.cuh: row 20's six and row 21's mlp_bf16).
 //
 // Replaces, in bf16: mspi_tpu/ops/pallas/mlp.py::fused_ln_mlp (_ln_fwd_kernel),
 // ::fused_ln_mlp_t (_ln_fwd_kernel_t), ::fused_ln_mlp_t_res
@@ -229,27 +229,47 @@ __device__ __forceinline__ void z_rows(const bf16* __restrict__ x, const bf16* _
 // 1/C column): sum x^2 on the diagonal of X X^T (m64n64k16 with the tile as
 // A and, K-major as a W1 box is read, as B) and sum x in X 1 (m64n8k16
 // against the ones box). Then var = E[x^2] - mu^2, and each thread
-// normalises in place the chunks z_rows gave it: 4 lanes a row, rows 16 warp
-// + g and + 8, its accumulator rows. bar: the warpgroup's named barrier.
+// normalises in place chunks t, t + 4, ... of its accumulator rows 16 warp +
+// g and + 8 (4 lanes a row, as z_rows gives them up to C = 384; above, z_rows
+// gives each row 8 lanes, and its stores are complete at the barrier before
+// this). bar: the warpgroup's named barrier.
 template <int C>
 __device__ __forceinline__ void tensor_stats_ln(const bf16* __restrict__ gamma,
                                                 const bf16* __restrict__ beta, unsigned char* zs,
                                                 uint32_t zbox, const unsigned char* ones, int r0,
                                                 int64_t m0, int M, float eps, int bar) {
   constexpr int KSTEPS = C / 16, CH = C / 32;  // k-steps; 16-byte chunks a lane
-  static_assert(C <= 384 && C % 32 == 0, "z_rows' 4 lanes a row are the accumulator's quad");
+  static_assert(C % 32 == 0, "whole 16-byte chunks on the accumulator's quad");
+  // the normalisation's chunks: all in flight up to C = 192; above, two at a
+  // time (every chunk's x, gamma and beta loads at once spilled at C = 384)
+  constexpr int UNROLL = C <= 192 ? CH : 2;
+  constexpr int KG = C <= 384 ? KSTEPS : 8;  // whole 64-k boxes a group
+  static_assert(KSTEPS % KG == 0, "whole commit groups");
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, g = lane / 4, t = lane % 4;
   const unsigned char* za = zs + r0 * 128;
   float q[32], s[4];
-  wg::wgmma_fence();
+  // the k-steps in commit groups of KG, each waited for: up to C = 384 one
+  // group; above, ptxas computed every k-step's descriptor ahead of the
+  // products and spilled, so each group's tile address passes through an
+  // opaque move after the previous group's wait
 #pragma unroll
-  for (int k = 0; k < KSTEPS; ++k) {
-    const uint64_t a = wg::desc_sw128(za + (k / 4) * zbox + (k % 4) * 32, 16, 1024);
-    wg::wgmma_m64n64k16_bf16_ss(q, a, a, k > 0);
-    wg::wgmma_m64n8k16_bf16_ss(s, a, wg::desc_sw128(ones + (k % 4) * 32, 16, 1024), k > 0);
+  for (int k0 = 0; k0 < KSTEPS; k0 += KG) {
+    const unsigned char* zg = za + (k0 / 4) * zbox;
+    if constexpr (KG < KSTEPS) {
+      uint64_t v = reinterpret_cast<uint64_t>(zg);
+      asm volatile("mov.b64 %0, %0;\n" : "+l"(v));
+      zg = reinterpret_cast<const unsigned char*>(v);
+    }
+    wg::wgmma_fence();
+#pragma unroll
+    for (int k = k0; k < k0 + KG; ++k) {
+      const uint64_t a = wg::desc_sw128(zg + ((k - k0) / 4) * zbox + (k % 4) * 32, 16, 1024);
+      wg::wgmma_m64n64k16_bf16_ss(q, a, a, k > 0);
+      wg::wgmma_m64n8k16_bf16_ss(s, a, wg::desc_sw128(ones + (k % 4) * 32, 16, 1024), k > 0);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
   }
-  wg::wgmma_commit();
-  wg::wgmma_wait<0>();
   wg::fence_regs(q);
   wg::fence_regs(s);
   wg::named_barrier(bar, 128);  // every warp's products read the tile: rewrite it
@@ -271,7 +291,7 @@ __device__ __forceinline__ void tensor_stats_ln(const bf16* __restrict__ gamma,
     const float mu = sx[hr] * (1.f / C);
     const float rstd = rsqrtf(sq[hr] * (1.f / C) - mu * mu + eps);
     const bool live = m0 + r < M;
-#pragma unroll
+#pragma unroll UNROLL
     for (int i = 0; i < CH; ++i) {
       const int c = t + 4 * i;
       uint4* p =

@@ -8,12 +8,13 @@ them is on a model's path: `ln_mlp.py` stays the production module.
 - `ln_mlp_lab(x, g, b, w1, b1, w2, b2, variant)`: row 20,
   `tools/bench_lnmlp.py::_call` with one of its five bodies, as K2's bf16
   `wgmma` + TMA body (`csrc/ln_mlp_sm90.cuh`) compiled in a variant
-  (`csrc/lnmlp_lab.cu`; bf16, C = 96 only, in the form `lab_sm90_form`
-  mirrors): `matmul` (`_k_matmul`: no LN, no GELU), `matmul_gelu`
-  (`_k_matmul_gelu`), `ln_matmul` (`_k_ln_matmul`: no GELU), `pipe2`
-  (`_k_pipe`, k = 2: K2's own schedule, a hidden chunk's GELU in two
-  slices beside the next chunk's fc1 products), `pipe4` (k = 4: the GELU
-  in four slices) and `mxu_stats` (`_k_mxu_stats`: the LN row sums as
+  (`csrc/lnmlp_lab.cuh`; bf16, at K2's widths `LAB_WIDTHS`, in the form
+  `lab_sm90_form` mirrors, any H % 64 == 0): `matmul` (`_k_matmul`: no LN,
+  no GELU), `matmul_gelu` (`_k_matmul_gelu`), `ln_matmul` (`_k_ln_matmul`:
+  no GELU), `pipe2` (`_k_pipe`, k = 2: K2's own schedule at the width, up
+  to C = 192 a hidden chunk's GELU in slices beside the next chunk's fc1
+  products), `pipe4` (k = 4: the GELU in twice as many slices, where the
+  form slices it) and `mxu_stats` (`_k_mxu_stats`: the LN row sums as
   `wgmma` products). The LN is the labs' `_ln_f32` (var = E[x^2] - mu^2);
   the GELU is K2's exact erf (the TPU bodies' degree-16 fit is within 2e-7
   of it).
@@ -22,12 +23,12 @@ them is on a model's path: `ln_mlp.py` stays the production module.
   astype does; int8 `wgmma` reads b K-major, so the call makes b^T in a
   scratch tensor first, with 64- or 128-row tiles, `gemm_int8_block_m`);
   `mlp_bf16(x, w1, w2)` (`_mlp_bf16_kernel`: K2's body with LN, biases and
-  GELU compiled out) and `mlp_int8w(x, w1q, s1, w2q, s2)`
+  GELU compiled out, at `LAB_WIDTHS`) and `mlp_int8w(x, w1q, s1, w2q, s2)`
   (`_mlp_int8w_kernel`: row 12's s8 `wgmma` + TMA body in its lab variant,
   LN, biases and GELU compiled out, the lab's divide-form quantisation and
-  one pass 2, `csrc/ln_mlp_int8.cu`, in the form
-  `ln_mlp.int8_sm90_form(96)`), with the lab's host weight quantisation
-  `quantize_weight_lab`.
+  one pass 2, `csrc/mlp_int8_lab.cu`, at `INT8_LAB_WIDTHS` in the form
+  `mlp_int8w_form` names, any H % 64 == 0), with the lab's host weight
+  quantisation `quantize_weight_lab`.
 
 Every plain version is written from the TPU body it stands for. The
 dispatch rule is the port's: CUDA tensors launch the kernel or raise, CPU
@@ -43,36 +44,57 @@ import torch
 import torch.nn.functional as F
 
 from mspi_tpu_torch.ops import kernels
-from mspi_tpu_torch.ops.kernels.ln_mlp import INT8_HC, _int_products, sm90_form
+from mspi_tpu_torch.ops.kernels.ln_mlp import (INT8_C, INT8_LAB_C, SUPPORTED_C, _int_products,
+                                               int8_sm90_form, sm90_form)
 
 LAB_VARIANTS = ("matmul", "matmul_gelu", "ln_matmul", "pipe2", "pipe4", "mxu_stats")
-_MLP_BF16_CODE = len(LAB_VARIANTS)  # the K2-body variant code of mlp_bf16 (csrc/lnmlp_lab.cu)
-LAB_C = 96  # the width the lab kernels are compiled for
+_MLP_BF16_CODE = len(LAB_VARIANTS)  # the K2-body variant code of mlp_bf16 (csrc/lnmlp_lab.cuh)
+LAB_C = 96  # the labs' default width (ConvNeXt stage 0)
+LAB_WIDTHS = SUPPORTED_C  # row 20's bodies and mlp_bf16: K2's widths
+INT8_LAB_WIDTHS = (INT8_LAB_C,) + INT8_C  # mlp_int8w: its own 96 and row 12's widths
+LAB_HC = 64  # every lab body takes H % 64 == 0
 EPS = 1e-6  # the lab's LayerNorm eps
 _INT8_CODE = 2  # mspi_gemm_lab's dtype code for int8
 SM90_SMEM = 232448  # a block's shared memory on the H100
 SM90_STATIC = 256  # the sm90 body's static shared memory (its barriers), rounded up
 
 
-def lab_sm90_form(variant: str) -> Tuple[int, int, int, bool, int]:
-    """The launch form of a row-20 body or `mlp_bf16` at C = 96, as
-    `csrc/ln_mlp_sm90.cuh`'s `Form<96, LN>` and the variant choose it (as
-    `ln_mlp.sm90_form` mirrors K2's): (rows per block, W1 ring slots,
-    shared memory bytes, two u register sets, GELU slices). Two 64-row
-    consumer warpgroups; shared memory holds the z tile (two 64-k boxes of
-    128 rows), two W2 slots [96, 64], 1024 bytes of alignment, for
-    `mxu_stats` a [8, 64] box of ones (X 1's B), and W1 slots [64, 64] up
-    to 4. K2's form at C = 96 overlaps a chunk's GELU with the next chunk's
-    fc1 in one slice a W1 box, two (u in two register sets): every body
-    keeps that schedule, `pipe4` slices finer, four a chunk."""
+def lab_sm90_form(variant: str, C: int = LAB_C) -> Tuple[int, int, int, bool, int]:
+    """The launch form of a row-20 body or `mlp_bf16` at width C, as
+    `csrc/ln_mlp_sm90.cuh`'s `Form<C, LN>` and the variant choose it (as
+    `ln_mlp.sm90_form` mirrors K2's, whose rows, y columns and parts it
+    takes): (rows per block, W1 ring slots, shared memory bytes, two u
+    register sets, GELU slices). Shared memory holds the z tile (C / 64
+    boxes of 64 k, the block's rows), two W2 slots [y columns, 64], 1024
+    bytes of alignment, for `mxu_stats` a [8, 64] box of ones (X 1's B),
+    and W1 slots [64, 64] up to 4. Up to C = 192 K2's form overlaps a
+    chunk's GELU with the next chunk's fc1 in one slice a W1 box (u in two
+    register sets): every body keeps that schedule, `pipe4` slices twice
+    as finely (4 at C = 96, 6 at 192); above, one u and no slices. Widths
+    outside `LAB_WIDTHS` are refused."""
     if variant not in LAB_VARIANTS + ("mlp_bf16",):
         raise ValueError(f"unknown lab body {variant!r} (have {LAB_VARIANTS + ('mlp_bf16',)})")
-    rows, cn, _, pipelined = sm90_form(LAB_C)
-    kb = -(-LAB_C // 64)  # 64-k boxes of z and of a W1 chunk
+    if C not in LAB_WIDTHS:
+        raise ValueError(f"C={C}: the lab bodies are compiled for C in {LAB_WIDTHS}")
+    rows, cn, _, pipelined = sm90_form(C)
+    kb = -(-C // 64)  # 64-k boxes of z and of a W1 chunk
     fixed = kb * rows * 128 + 2 * cn * 128 + (1024 if variant == "mxu_stats" else 0) + 1024
     slots = min(4, (SM90_SMEM - SM90_STATIC - fixed) // (64 * 128))
-    slices = (4 if variant == "pipe4" else kb) if pipelined else 0
+    slices = (2 * kb if variant == "pipe4" else kb) if pipelined else 0
     return rows, slots, fixed + slots * 64 * 128, slices > 0, slices
+
+
+def mlp_int8w_form(C: int, H: int) -> Tuple[int, int, int, int, int]:
+    """`mlp_int8w`'s launch form at width C and hidden width H: row 12's
+    form at C (`ln_mlp.int8_sm90_form`; C = 96 its three-consumer lab form)
+    on a persistent grid. H % 64 == 0: where H % 128 == 64 the last step's
+    64 units take a W2 box that TMA fills with zeros past H. Other widths
+    and H are refused."""
+    if C not in INT8_LAB_WIDTHS:
+        raise ValueError(f"C={C}: mlp_int8w is compiled for C in {INT8_LAB_WIDTHS}")
+    if H <= 0 or H % LAB_HC:
+        raise ValueError(f"H={H}: mlp_int8w needs H % {LAB_HC} == 0")
+    return int8_sm90_form(C)
 
 
 def ln_mlp_lab_reference(x, g, b, w1, b1, w2, b2, variant: str, eps: float = EPS):
@@ -150,24 +172,24 @@ def _check_lab_mlp(name, x, *tensors):
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the lab kernel is compiled for bf16, got {x.dtype}")
     C = x.shape[-1]
-    if C != LAB_C:
-        raise ValueError(f"{name}: C={C}; the lab kernel is compiled for C={LAB_C}")
+    if C not in LAB_WIDTHS:
+        raise ValueError(f"{name}: C={C}; the lab kernel is compiled for C in {LAB_WIDTHS}")
     if any(t.data_ptr() % 32 for t in (x, *tensors)):
         raise ValueError(f"{name}: bf16 operands must be 32-byte aligned")
     return x.numel() // C
 
 
 def _launch_lab(name, code, x, g, b, w1, b1, w2, b2, eps):
-    H = w1.shape[0]
-    if tuple(w1.shape) != (H, LAB_C) or tuple(w2.shape) != (LAB_C, H) or H % 64:
+    H, C = w1.shape[0], x.shape[-1]
+    if tuple(w1.shape) != (H, C) or tuple(w2.shape) != (C, H) or H % LAB_HC:
         raise ValueError(f"{name}: weights {tuple(w1.shape)}, {tuple(w2.shape)}; need "
-                         f"[H, {LAB_C}] and [{LAB_C}, H] with H % 64 == 0")
+                         f"[H, {C}] and [{C}, H] with H % {LAB_HC} == 0")
     M = _check_lab_mlp(name, x, *(t for t in (g, b, w1, b1, w2, b2) if t is not None))
     y = torch.empty_like(x)
     if M:
         err = kernels.lib().mspi_ln_mlp_lab(
             x.data_ptr(), kernels.ptr(g), kernels.ptr(b), w1.data_ptr(), kernels.ptr(b1),
-            w2.data_ptr(), kernels.ptr(b2), y.data_ptr(), M, LAB_C, H, float(eps), code,
+            w2.data_ptr(), kernels.ptr(b2), y.data_ptr(), M, C, H, float(eps), code,
             kernels.stream_handle(x))
         kernels.check(err, name)
         kernels.launches[name] += 1
@@ -175,8 +197,9 @@ def _launch_lab(name, code, x, g, b, w1, b1, w2, b2, eps):
 
 
 def ln_mlp_lab(x, g, b, w1, b1, w2, b2, variant: str, eps: float = EPS) -> torch.Tensor:
-    """Row 20: one body of the LN+MLP lab on x [..., 96] bf16 with K2's
-    operands (w1 [H, 96], w2 [96, H] in nn.Linear layout); forward only."""
+    """Row 20: one body of the LN+MLP lab on x [..., C] bf16 (C in
+    LAB_WIDTHS) with K2's operands (w1 [H, C], w2 [C, H] in nn.Linear
+    layout); forward only."""
     if not kernels.dispatch_device(x, g, b, w1, b1, w2, b2):
         return ln_mlp_lab_reference(x, g, b, w1, b1, w2, b2, variant, eps)
     if variant not in LAB_VARIANTS:
@@ -187,28 +210,32 @@ def ln_mlp_lab(x, g, b, w1, b1, w2, b2, variant: str, eps: float = EPS) -> torch
 
 def mlp_bf16(x, w1, w2) -> torch.Tensor:
     """Row 21's `_mlp_bf16_kernel`: (x W1^T -> bf16) W2^T -> bf16 on x
-    [..., 96] bf16; no biases, no GELU."""
+    [..., C] bf16 (C in LAB_WIDTHS); no biases, no GELU."""
     if not kernels.dispatch_device(x, w1, w2):
         return mlp_bf16_reference(x, w1, w2)
     return _launch_lab("mlp_bf16", _MLP_BF16_CODE, x, None, None, w1, None, w2, None, 0.0)
 
 
 def mlp_int8w(x, w1q, s1, w2q, s2) -> torch.Tensor:
-    """Row 21's `_mlp_int8w_kernel` on x [..., 96] bf16 with the int8 codes
-    w1q [H, 96], w2q [96, H] and their fp32 per-channel scales s1 [H], s2
-    [96] (`quantize_weight_lab`); the output in x's dtype."""
+    """Row 21's `_mlp_int8w_kernel` on x [..., C] bf16 (C in
+    INT8_LAB_WIDTHS) with the int8 codes w1q [H, C], w2q [C, H] (H % 64 ==
+    0) and their fp32 per-channel scales s1 [H], s2 [C]
+    (`quantize_weight_lab`); the output in x's dtype."""
     if not kernels.dispatch_device(x, w1q, s1, w2q, s2):
         return mlp_int8w_reference(x, w1q, s1, w2q, s2)
     name = "mlp_int8w"
-    if x.dtype != torch.bfloat16 or x.shape[-1] != LAB_C:
-        raise ValueError(f"{name}: the lab kernel is compiled for bf16 [..., {LAB_C}], got "
-                         f"{x.dtype} {tuple(x.shape)}")
-    H = w1q.shape[0]
-    if (w1q.dtype != torch.int8 or w2q.dtype != torch.int8 or tuple(w1q.shape) != (H, LAB_C)
-            or tuple(w2q.shape) != (LAB_C, H) or H % INT8_HC):
-        raise ValueError(f"{name}: int8 codes [H, {LAB_C}] and [{LAB_C}, H] with H % {INT8_HC} "
-                         f"== 0 needed, got {w1q.dtype} {tuple(w1q.shape)}, {tuple(w2q.shape)}")
-    for t, n in ((s1, H), (s2, LAB_C)):
+    C, H = x.shape[-1], w1q.shape[0]
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the lab kernel is compiled for bf16, got {x.dtype}")
+    try:
+        mlp_int8w_form(C, H)
+    except ValueError as err:
+        raise ValueError(f"{name}: {err}") from None
+    if (w1q.dtype != torch.int8 or w2q.dtype != torch.int8 or tuple(w1q.shape) != (H, C)
+            or tuple(w2q.shape) != (C, H)):
+        raise ValueError(f"{name}: int8 codes [H, {C}] and [{C}, H] needed, got {w1q.dtype} "
+                         f"{tuple(w1q.shape)}, {tuple(w2q.shape)}")
+    for t, n in ((s1, H), (s2, C)):
         if t.dtype != torch.float32 or tuple(t.shape) != (n,):
             raise ValueError(f"{name}: scales must be fp32 [{n}], got {t.dtype} {tuple(t.shape)}")
     if not all(t.is_contiguous() for t in (x, w1q, s1, w2q, s2)):
@@ -218,11 +245,11 @@ def mlp_int8w(x, w1q, s1, w2q, s2) -> torch.Tensor:
     if any(t.data_ptr() % 8 for t in (x, s1, s2)):
         raise ValueError(f"{name}: x and the scales must be 8-byte aligned")
     y = torch.empty_like(x)
-    M = x.numel() // LAB_C
+    M = x.numel() // C
     if M:
         err = kernels.lib().mspi_mlp_int8_lab(x.data_ptr(), w1q.data_ptr(), s1.data_ptr(),
                                               w2q.data_ptr(), s2.data_ptr(), y.data_ptr(), M,
-                                              LAB_C, H, kernels.stream_handle(x))
+                                              C, H, kernels.stream_handle(x))
         kernels.check(err, name)
         kernels.launches[name] += 1
     return y

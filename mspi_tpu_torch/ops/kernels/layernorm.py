@@ -5,16 +5,35 @@ Counterpart of `mspi_tpu/ops/pallas/mlp.py::fused_ln_t` (kernel
 stem and downsample LayerNorms with MSPI_PRIOR_LN_T=1. That kernel's
 [N, C, B*T] layout served only the TPU's batch-minor lanes; here the same
 function runs over the last axis of x [..., C]. Kernel source:
-`mspi_tpu_torch/csrc/layernorm.cu`. Forward only: the prior is frozen.
+`mspi_tpu_torch/csrc/layernorm.cu` (`layernorm_sm90_kernel`, in the form
+`layernorm_form` mirrors). Forward only: the prior is frozen.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from mspi_tpu_torch.ops import kernels
 
 LAYERNORM_C = (96, 192, 384, 768)  # the prior's widths, compiled in the kernel
+LN_LANE_CHANNELS = 24  # channels a lane owns
+
+
+def layernorm_form(C: int, dtype: torch.dtype, aligned: bool) -> Tuple[int, int, int]:
+    """The kernel's form, as `csrc/layernorm.cu`'s `LnForm<T, C>` and the
+    launch choose it: (lanes per row, loads per lane per row, rows per warp
+    step). A row belongs to C / 24 lanes, each owning 24 channels: as
+    16-byte chunks (3 of bf16, 6 of fp32) when x and y start 16 bytes
+    aligned, else one element a load (24)."""
+    if C not in LAYERNORM_C:
+        raise ValueError(f"C={C} not compiled (have {LAYERNORM_C})")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype {dtype} not supported (fp32 or bf16)")
+    lanes = C // LN_LANE_CHANNELS
+    per_load = 16 // torch.empty((), dtype=dtype).element_size() if aligned else 1
+    return lanes, LN_LANE_CHANNELS // per_load, 32 // lanes
 
 
 def layernorm_tokens_reference(x, g, b, eps: float) -> torch.Tensor:
@@ -39,6 +58,7 @@ def layernorm_tokens(x, g, b, eps: float) -> torch.Tensor:
     C = x.shape[-1]
     if C not in LAYERNORM_C:
         raise ValueError(f"{name}: C={C} not compiled (have {LAYERNORM_C})")
+    # x at any element offset: the kernel picks its scalar form (layernorm_form)
     if tuple(g.shape) != (C,) or tuple(b.shape) != (C,):
         raise ValueError(f"{name}: weight shapes {tuple(g.shape)}, {tuple(b.shape)} "
                          f"for C={C}")

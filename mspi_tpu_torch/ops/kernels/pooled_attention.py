@@ -37,12 +37,16 @@ from mspi_tpu_torch.ops import kernels
 SUPPORTED_D = (96, 128)  # MViT heads, SyncBlock heads
 PACKED_D = 96  # row 8's head dim (MViT)
 # row 6's q_aug/k_aug widths Da = 96 + R, zero-filled to the score width of
-# the first form that holds them (`csrc/flash_attention.cuh::aug_width`); the
-# widest, 176, takes R <= 80 (MViTv2-S: R = 52 at --resolution 256 448, 66 at
-# 288 640)
-AUG_DA = (113, 176)
-AUG_FORMS = (128, 144, 176)
+# the first form that holds them (`csrc/flash_attention.cuh::aug_width`):
+# MViTv2-S at 16 frames has R = kt + kh + kw = 8 + H / 16 + W / 16 at its
+# widest calls (Da 114 at --resolution 64 96, 142 at 224x384, 162 at 288x640,
+# 184 at 512x768); the widest form, 256, takes R <= 160
+AUG_DA = (97, 256)
+AUG_FORMS = (128, 144, 176, 192, 256)
 AUG_DV = 96  # row 6's value width (MViT heads)
+# the widest --resolution H W (16 frames) whose relk0 widths the forms hold:
+# H / 16 + W / 16 <= 152
+AUG_MAX_RES = (1024, 1408)
 BWD_TILE = 64  # query and key tile of the backward kernels
 REL_BWD_D = 96  # the bf16 K1 backward's head dim (every K1 call of MViTv2-S)
 REL_BWD_SM90_MAX_R = 64  # the widest rel width of its passes compiled per RS
@@ -265,38 +269,51 @@ def attention_backward_reference(q, k, v, dout):
 def aug_form(Da: int) -> int:
     """Row 6's and row 7 head-major's score width DK at augmented width Da,
     as `csrc/flash_attention.cuh::aug_width` chooses it: q_aug and k_aug rows
-    zero-filled to the narrowest of AUG_FORMS that holds them. Past the
-    widest form (Da > 176) no kernel is compiled: ValueError."""
+    zero-filled to the narrowest of AUG_FORMS that holds them. Outside
+    AUG_DA (past the widest form, Da > 256) no kernel is compiled:
+    ValueError naming the widest Da and resolution."""
     if not AUG_DA[0] <= Da <= AUG_DA[1]:
-        raise ValueError(f"Da {Da} outside {AUG_DA[0]}..{AUG_DA[1]}: the widest compiled "
-                         f"form zero-fills {AUG_FORMS[-1]} lanes (R <= {AUG_FORMS[-1] - AUG_DV})")
+        raise ValueError(
+            f"Da {Da} outside {AUG_DA[0]}..{AUG_DA[1]}: the widest compiled form zero-fills "
+            f"{AUG_FORMS[-1]} lanes (R = kt + kh + kw <= {AUG_FORMS[-1] - AUG_DV}; MViTv2-S at "
+            f"16 frames up to --resolution {AUG_MAX_RES[0]} {AUG_MAX_RES[1]}, H / 16 + W / 16 "
+            f"<= {sum(AUG_MAX_RES) // 16})")
     return next(dk for dk in AUG_FORMS if Da <= dk)
 
 
-def aug_fwd_form(Da: int) -> Tuple[int, int]:
+def aug_fwd_form(Da: int) -> Tuple[int, int, bool]:
     """The bf16 row 6 forward's form at Da, as `csrc/flash_attention_sm90.cuh`
-    (`Layout<DK, 0, kNoBias, 96>`) lays it out: (DK, shared memory bytes).
-    k_aug is copied into zero-filled rows of DK lanes (the `pad` scratch of
-    `_attention_fwd`) and its 2-slot ring holds 64-key tiles of K [64][DK + 8]
-    and V [64][96 + 8]; 3 blocks of 4 warps per SM at every DK."""
+    (`Layout<DK, 0, kNoBias, 96>`) lays it out: (DK, shared memory bytes,
+    q rows in shared memory). k_aug is copied into zero-filled rows of DK
+    lanes (the `pad` scratch of `_attention_fwd`) and its 2-slot ring holds
+    64-key tiles of K [64][DK + 8] and V [64][96 + 8]. Up to DK = 176 each
+    warp holds its q rows' A fragments in registers; at 192 and 256
+    (`Layout::kQRows`) the block's 64 q rows [64][DK + 8] sit beside the
+    ring and are read by ldmatrix per key tile."""
     dk = aug_form(Da)
-    return dk, 2 * 2 * BWD_TILE * ((dk + 8) + (AUG_DV + 8))
+    q_rows = dk > 176
+    return (dk, 2 * 2 * BWD_TILE * ((dk + 8) + (AUG_DV + 8)) + (2 * BWD_TILE * (dk + 8)
+                                                                 if q_rows else 0), q_rows)
 
 
-def aug_bwd_form(Da: int) -> Tuple[int, int, int]:
+def aug_bwd_form(Da: int) -> Tuple[int, int, int, int, int]:
     """The bf16 row 7 head-major backward's form at Da, as
     `csrc/attention_aug_bwd_sm90.cu` (`AugBytes<DK>`) lays it out: (DK, dq
-    pass and dk/dv pass shared memory bytes). q_aug and k_aug are copied into
+    pass and dk/dv pass shared memory bytes, the blocks that split dq's
+    columns, the blocks that split dk's). q_aug and k_aug are copied into
     zero-filled rows of DK = `aug_form(Da)` lanes, whose 16-byte rows its
     `cp.async` ring copies; the dq pass rings (K, V) tiles of 64 rows
-    through 2 slots (and in the wide form, DK = 176, holds its 64 q rows,
+    through 2 slots (and in the wide forms, DK > 144, holds its 64 q rows,
     whose A fragments leave the registers), the dk/dv pass (q, dO, lse,
     delta) and holds its K and V rows; operand rows at a pitch of 8 lanes
-    more."""
+    more. At DK = 256 two blocks split dq's columns, above 176 two split
+    dk's (the first also takes dv), so that the accumulators fit the
+    registers; each recomputes the scores."""
     dk = aug_form(Da)
     op_k, op_v = 2 * BWD_TILE * (dk + 8), 2 * BWD_TILE * (AUG_DV + 8)
     dq = 2 * (op_k + op_v) + (op_k if dk > 144 else 0)
-    return dk, dq, 2 * (op_k + op_v + 8 * BWD_TILE) + op_k + op_v
+    return (dk, dq, 2 * (op_k + op_v + 8 * BWD_TILE) + op_k + op_v, 2 if dk > 192 else 1,
+            2 if dk > 176 else 1)
 
 
 def _aug_geometry(name, q, k, v):
@@ -305,10 +322,12 @@ def _aug_geometry(name, q, k, v):
     if tuple(k.shape) != (B, H, Nk, Da) or tuple(v.shape) != (B, H, Nk, Dv):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if Dv != AUG_DV or not AUG_DA[0] <= Da <= AUG_DA[1]:
-        raise ValueError(f"{name}: widths Da {Da} / Dv {Dv} not compiled (Da in "
-                         f"{AUG_DA[0]}..{AUG_DA[1]}, the widest form zero-filling "
-                         f"{AUG_FORMS[-1]} lanes; Dv {AUG_DV})")
+    if Dv != AUG_DV:
+        raise ValueError(f"{name}: value width Dv {Dv} not compiled (Dv {AUG_DV})")
+    try:
+        aug_form(Da)
+    except ValueError as err:
+        raise ValueError(f"{name}: {err}") from None
     return B, H, Nq, Nk, Da, Dv
 
 

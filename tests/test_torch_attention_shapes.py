@@ -107,15 +107,30 @@ def test_mvit_r66_rel_shapes(meta_plain, monkeypatch):
     assert all(sum(k_shape) == 66 for *_, k_shape in chip_smoke.MVIT_R66)
 
 
-@pytest.mark.parametrize("res", [chip_smoke.RES, chip_smoke.MVIT_WIDE_RES,
-                                 chip_smoke.MVIT_R66_RES], ids=lambda r: f"{r[0]}x{r[1]}")
+# the relk0 widths' tables of `chip_smoke.py` by resolution: (table, the Da
+# of its calls, what it lists: "wide" the calls past Da 144 with their
+# counts, "every" each distinct call, "some" calls past Da 176)
+RELK0_TABLES = {chip_smoke.MVIT_WIDE_RES: (chip_smoke.MVIT_WIDE, {148}, "wide"),
+                chip_smoke.MVIT_R66_RES: (chip_smoke.MVIT_R66, {162}, "wide"),
+                chip_smoke.MVIT_SMALL_RES: (chip_smoke.MVIT_SMALL, {109, 114}, "every"),
+                chip_smoke.MVIT_R84_RES: (chip_smoke.MVIT_R84, {180}, "some"),
+                chip_smoke.MVIT_R88_RES: (chip_smoke.MVIT_R88, {184}, "some")}
+
+
+@pytest.mark.parametrize("res", [chip_smoke.RES, chip_smoke.MVIT_WIDE_RES, chip_smoke.MVIT_R66_RES,
+                                 chip_smoke.MVIT_SMALL_RES, (96, 160), chip_smoke.MVIT_R84_RES,
+                                 chip_smoke.MVIT_R88_RES], ids=lambda r: f"{r[0]}x{r[1]}")
 def test_mvit_relk0_aug_widths(meta_plain, monkeypatch, res):
     """Row 6's calls under attn_relk=False (the augmented lanes, Da = 96 +
     R): every block's Da has a compiled form (`aug_form`, the forward's and
-    the backward's) at 224x384 and at the training CLI's 256x448 and
-    288x640. At 224x384 they are MVIT_BLOCKS (Da 123 or 142); the calls past
-    Da 144, the wide form, are MVIT_WIDE's (Da 148) and MVIT_R66's (Da 162),
-    the tables `chip_smoke.py` checks rows 6 and 7 at."""
+    the backward's) at 224x384, at the training CLI's 256x448 and 288x640,
+    at the README's 64x96 and at 96x160 (Da 112 and 120), 448x768 and
+    512x768. At 224x384 they are MVIT_BLOCKS (Da 123 or 142); the wide
+    calls, past Da 144, are MVIT_WIDE's (Da 148) and MVIT_R66's (Da 162);
+    MVIT_SMALL lists every distinct call of 64x96 (Da 109 and 114); the
+    calls past Da 176 take 180 at 448x768 and 184 at 512x768 and include
+    MVIT_R84's and MVIT_R88's: the tables `chip_smoke.py` checks rows 6
+    and 7 at."""
     calls = Counter()
     kernel = mvit.attention
 
@@ -133,13 +148,45 @@ def test_mvit_relk0_aug_widths(meta_plain, monkeypatch, res):
     def table(shapes):
         return Counter({(heads, nq, math.prod(ks), chip_smoke.MVIT_D + sum(ks)): blocks or 1
                         for _, blocks, heads, nq, ks in shapes})
-    wide = Counter({key: n for key, n in calls.items() if key[3] > 144})
+    das = {da for *_, da in calls}
     if tuple(res) == chip_smoke.RES:
-        assert calls == table(chip_smoke.MVIT_BLOCKS) and not wide
+        assert calls == table(chip_smoke.MVIT_BLOCKS) and das == {123, 142}
+    elif tuple(res) == (96, 160):
+        assert das == {112, 120}
     else:
-        wide_res = tuple(res) == chip_smoke.MVIT_WIDE_RES
-        assert wide == table(chip_smoke.MVIT_WIDE if wide_res else chip_smoke.MVIT_R66)
-        assert {da for *_, da in wide} == {148 if wide_res else 162}
+        shapes, want, lists = RELK0_TABLES[tuple(res)]
+        listed = table(shapes)
+        if lists == "every":
+            assert set(calls) == set(listed) and das == want
+        elif lists == "wide":
+            assert Counter({key: n for key, n in calls.items() if key[3] > 144}) == listed
+            assert {da for da in das if da > 144} == want
+        else:
+            assert {da for da in das if da > 176} == want
+            assert all(key in calls for key in listed) and {k[3] for k in listed} == want
+
+
+@pytest.mark.parametrize("res", [pooled_attention.AUG_MAX_RES, (1024, 1440)],
+                         ids=lambda r: f"{r[0]}x{r[1]}")
+def test_mvit_relk0_widest_resolution(meta_plain, monkeypatch, res):
+    """The widest relk0 form holds MViTv2-S up to AUG_MAX_RES (Da 256 at
+    1024x1408); two key columns more (1024x1440, Da 258) are refused with a
+    ValueError that names the widest Da and that resolution."""
+    das = set()
+    kernel = mvit.attention
+
+    def spy(q_aug, k_aug, v):
+        das.add(q_aug.shape[-1])
+        return kernel(q_aug, k_aug, v)
+    monkeypatch.setattr(mvit, "attention", spy)
+    _forward("mvitv2s", res, {"attn_relk": False})
+    if tuple(res) == pooled_attention.AUG_MAX_RES:
+        assert max(das) == pooled_attention.AUG_DA[1] == 256
+        assert all(pooled_attention.aug_form(da) for da in das)
+    else:
+        assert max(das) == 258
+        with pytest.raises(ValueError, match="256 lanes.*--resolution 1024 1408"):
+            pooled_attention.aug_form(max(das))
 
 
 @pytest.mark.parametrize("res", [chip_smoke.RES, chip_smoke.MVIT_WIDE_RES,

@@ -94,6 +94,8 @@ template <typename T> T __shfl_xor_sync(unsigned, T, int, int = 32);
 template <typename T> T __shfl_sync(unsigned, T, int, int = 32);
 template <typename T> T __shfl_down_sync(unsigned, T, unsigned, int = 32);
 template <typename T> T __ldg(const T*);
+template <typename T> T __ldcs(const T*);
+template <typename T> void __stcs(T*, T);
 template <typename T> T atomicAdd(T*, T);
 size_t __cvta_generic_to_shared(const void*);
 float __fmul_rn(float, float);

@@ -102,8 +102,8 @@ def test_lnmlp_lab_body_matches_pallas(rng, variant):
 
 @pytest.mark.parametrize("body", lab.LAB_VARIANTS + ("mlp_bf16",))
 def test_lab_sm90_form(body):
-    """The seven bf16 lab bodies on K2's wgmma body at C = 96: 128 rows a
-    block (two 64-row consumer warpgroups), a W1 ring of at least two
+    """The seven bf16 lab bodies on K2's wgmma body at the labs' C = 96: 128
+    rows a block (two 64-row consumer warpgroups), a W1 ring of at least two
     slots, shared memory plus the barriers' static 256 bytes within the
     block's 227 KiB; u in two register sets exactly where the GELU (or the
     bias-only activation) of a chunk is sliced beside the next chunk's fc1,
@@ -116,6 +116,42 @@ def test_lab_sm90_form(body):
     assert smem == lab.lab_sm90_form("matmul")[2] + (1024 if body == "mxu_stats" else 0)
     with pytest.raises(ValueError):
         lab.lab_sm90_form("prod")
+
+
+@pytest.mark.parametrize("C", lab.LAB_WIDTHS[1:])
+@pytest.mark.parametrize("body", lab.LAB_VARIANTS + ("mlp_bf16",))
+def test_lab_sm90_form_widths(body, C):
+    """The same bodies at K2's other widths: K2's rows a block (128 up to C
+    = 512, 64 at 768), a W1 ring of at least two slots, shared memory within
+    the block's 227 KiB; u in two register sets only up to C = 192, where
+    the GELU is sliced beside the next chunk's fc1, one slice a W1 box,
+    twice as many for pipe4. Another width is refused, naming the compiled
+    set."""
+    rows, slots, smem, two_u, slices = lab.lab_sm90_form(body, C)
+    assert rows == K2.sm90_form(C)[0] == (128 if C <= 512 else 64) and 2 <= slots <= 4
+    assert smem + lab.SM90_STATIC <= lab.SM90_SMEM
+    assert two_u == (slices > 0) == K2.sm90_form(C)[3] == (C <= 192)
+    kb = -(-C // 64)
+    assert slices == ((2 * kb if body == "pipe4" else kb) if C <= 192 else 0)
+    assert smem == lab.lab_sm90_form("matmul", C)[2] + (1024 if body == "mxu_stats" else 0)
+    with pytest.raises(ValueError):
+        lab.lab_sm90_form("prod", C)
+    with pytest.raises(ValueError, match=r"\(96, 192, 384, 512, 768\)"):
+        lab.lab_sm90_form(body, C + 32)
+
+
+@pytest.mark.parametrize("C", lab.INT8_LAB_WIDTHS)
+def test_mlp_int8w_form(C):
+    """mlp_int8w at its own 96 and at row 12's widths takes row 12's form
+    there, at any H % 64 == 0 (H = 320: the last step's 64 units against a
+    zero-filled W2 box); H off 64 and other widths are refused, the width
+    naming the compiled set."""
+    for H in (320, 384, 4 * C):
+        assert lab.mlp_int8w_form(C, H) == K2.int8_sm90_form(C)
+    with pytest.raises(ValueError, match="H % 64"):
+        lab.mlp_int8w_form(C, 352)
+    with pytest.raises(ValueError, match=r"\(96, 256, 384, 512, 768\)"):
+        lab.mlp_int8w_form(192, 320)
 
 
 # the square case, and a non-square one whose K spans three 64-deep k tiles
@@ -181,6 +217,20 @@ def test_mlp_int8w_body_matches_pallas(rng):
     assert np.abs(got - want).max() <= 0.02 * np.abs(want).max()
 
 
+def test_mlp_int8w_body_matches_pallas_at_h320(rng):
+    """mlp_int8w at H = 320 (H % 128 == 64, which the kernel takes again)
+    against the JAX lab's body."""
+    x, w1, w2 = _mlp_operands(rng, C=96, H=320)
+    (w1q, s1), (w2q, s2) = lab.quantize_weight_lab(_t(w1.T)), lab.quantize_weight_lab(_t(w2.T))
+    jax_w = [jnp.asarray(w1q.numpy().T), jnp.asarray(s1.numpy()[None]),
+             jnp.asarray(w2q.numpy().T), jnp.asarray(s2.numpy()[None])]
+    want = np.asarray(jax_int8._mlp_call(jax_int8._mlp_int8w_kernel, jnp.asarray(x), jax_w, 32),
+                      np.float64)
+    got = lab.mlp_int8w(_t(x), w1q, s1, w2q, s2).double().numpy()
+    assert np.sqrt(np.mean((got - want) ** 2)) <= 1e-3 * np.sqrt(np.mean(want ** 2))
+    assert np.abs(got - want).max() <= 0.02 * np.abs(want).max()
+
+
 def _jax_variant_names(mod):
     """The variant names of a JAX lab, read from its `main`."""
     src = inspect.getsource(mod.main)
@@ -193,7 +243,9 @@ def _jax_variant_names(mod):
     (bench_dwconv, jax_dwconv, ["s3", "--batch", "1"], {}),
     (bench_lnmlp, jax_lnmlp, [], {"MSPI_LAB_SHAPE": "1,16,96,128"}),
     (bench_int8, jax_int8, [], {"MSPI_LAB_SHAPE": "1,16,96,128", "MSPI_LAB_GEMM": "128"}),
-], ids=["dwconv", "lnmlp", "int8"])
+    (bench_lnmlp, jax_lnmlp, [], {"MSPI_LAB_SHAPE": "2,64,192,320"}),
+    (bench_int8, jax_int8, [], {"MSPI_LAB_SHAPE": "2,64,192,320", "MSPI_LAB_GEMM": "128"}),
+], ids=["dwconv", "lnmlp", "int8", "lnmlp-c192-h320", "int8-c192-h320"])
 def test_lab_cli_on_cpu(port, jax_mod, argv, env, monkeypatch, capsys):
     for key, value in env.items():
         monkeypatch.setenv(key, value)

@@ -7,8 +7,9 @@ On CPU tensors the port's kernel functions run their plain versions, so the
 kernel-level tests pin those to the TPU kernels (the CUDA kernels are held
 against the same plain versions on the card by chip_smoke.py):
 - row 6 `attention` against `fused_attention` at the model's augmented
-  widths Da = 123 and 142, forward and gradients; row 7's plain backward
-  against autograd;
+  widths Da = 123 and 142 (224x384), 148, 162, 109 and 184 (256x448,
+  288x640, 64x96, 512x768) and the widest form's 256, forward and
+  gradients; row 7's plain backward against autograd;
 - row 8 `attention_rel_packed` against `fused_attention_rel_packed`, with
   and without the residual, forward and gradients (autograd and the plain
   packed backward);
@@ -126,6 +127,9 @@ def _counting(fns, counts, monkeypatch):
     (2, 1, 70, (2, 4, 6), 46),   # Da = 96 + 46 = 142, ragged against the tiles
     (1, 1, 36, (1, 2, 49), 52),  # Da = 148: 256x448's width, the wide form
     (1, 2, 20, (1, 1, 64), 66),  # Da = 162: 288x640's width
+    (1, 2, 24, (2, 2, 9), 13),   # Da = 109: 64x96's width, below the 128-lane form's 113
+    (1, 1, 20, (1, 3, 84), 88),  # Da = 184: 512x768's width, the 192-lane form
+    (1, 1, 18, (1, 2, 157), 160),  # Da = 256: the widest form
 ])
 def test_attention_matches_pallas(rng, B, H, Nq, k_shape, R):
     """Row 6 on q_aug/k_aug at the model's widths (the expansion lanes of

@@ -1,4 +1,5 @@
-"""Launch forms of the bf16 wgmma LN+MLP body and the bf16 K4 backward, and
+"""Launch forms of the bf16 wgmma LN+MLP body, the bf16 K4 backward, row 6
+and row 7 head-major at every augmented width, row 12 and row 11, and
 `chip_smoke.py`'s K2/K3 shape tables against the port's own models.
 
 `ln_mlp.sm90_form` and `pooled_attention.self_bwd_form` mirror the choices
@@ -24,6 +25,7 @@ import chip_smoke
 from mspi_tpu_torch.models import convnext, fusion
 from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
 from mspi_tpu_torch.ops import kernels
+from mspi_tpu_torch.ops.kernels import layernorm as LN
 from mspi_tpu_torch.ops.kernels import ln_mlp as K2
 from mspi_tpu_torch.ops.kernels import pooled_attention as PA
 from tests.torch_port_utils import cpu_share
@@ -201,34 +203,58 @@ def test_ln_mlp_bwd_segments(label, tokens, C):
     assert K2.bwd_segments(kernels.DTYPE_CODES[torch.float32], M, C, H, sms) <= -(-M // 256)
 
 
-@pytest.mark.parametrize("Da", [113, 123, 128, 129, 142, 144, 145, 148, 162, 176])
+# every form's edges, MViTv2-S's relk0 widths (109 and 114 at 64x96, 123 and
+# 142 at 224x384, 148 at 256x448, 162 at 288x640, 180 at 448x768, 184 at
+# 512x768) and the widest
+AUG_WIDTHS = [97, 109, 112, 113, 114, 123, 128, 129, 142, 144, 145, 148, 162, 176, 177, 180,
+              184, 192, 193, 256]
+
+
+def _aug_dk(Da):
+    return next(dk for dk in (128, 144, 176, 192, 256) if Da <= dk)
+
+
+def _blocks_per_sm(smem):
+    return 228 * 1024 // (smem + 1024)
+
+
+@pytest.mark.parametrize("Da", AUG_WIDTHS)
 def test_aug_bwd_form(Da):
     """The bf16 row 7 head-major backward at the augmented widths: Da lanes
-    zero-filled to 128, 144 or, past 144, the wide form's 176 (whole 16-lane
-    k-steps, an odd count's last one alone), and both passes' shared memory
-    fits two blocks per SM (the wide dq pass holds its q rows too). Past the
-    widest form, Da 177, it refuses."""
-    dk, dq_smem, dkv_smem = PA.aug_bwd_form(Da)
-    assert dk == (128 if Da <= 128 else 144 if Da <= 144 else 176) and dk >= Da
-    assert dk % 16 == 0 and dk == PA.aug_form(Da)
-    assert 2 * (max(dq_smem, dkv_smem) + 1024) <= 228 * 1024
+    zero-filled to 128 (from Da 97), 144, the wide forms' 176, 192 or 256
+    (whole 16-lane k-steps, an odd count's last one alone). Both passes'
+    shared memory fits two blocks per SM up to 176 (the wide dq pass holds
+    its q rows too); at 192 the dk/dv pass and at 256 both passes take one.
+    Above 176 two blocks split dk's columns, at 256 also dq's, so that
+    each accumulator stays within the registers of its 176-lane form. Past
+    the widest form, Da 257, and below 97 it refuses, naming the widest
+    Da and resolution."""
+    dk, dq_smem, dkv_smem, dq_split, dkv_split = PA.aug_bwd_form(Da)
+    assert dk == _aug_dk(Da) == PA.aug_form(Da) and dk >= Da and dk % 16 == 0
     assert dkv_smem > dq_smem
-    for bad in (112, PA.AUG_DA[1] + 1):
-        with pytest.raises(ValueError):
+    assert (_blocks_per_sm(dq_smem) >= 2) == (dk <= 192) and _blocks_per_sm(dq_smem) >= 1
+    assert (_blocks_per_sm(dkv_smem) >= 2) == (dk <= 176) and _blocks_per_sm(dkv_smem) >= 1
+    assert (dq_split, dkv_split) == ((2 if dk > 192 else 1), (2 if dk > 176 else 1))
+    assert dk // dq_split <= 192 and dk // dkv_split <= 176  # the accumulators' columns
+    for bad in (PA.AUG_DA[0] - 1, PA.AUG_DA[1] + 1):
+        with pytest.raises(ValueError, match="256.*--resolution 1024 1408"):
             PA.aug_bwd_form(bad)
 
 
-@pytest.mark.parametrize("Da", [113, 123, 142, 144, 148, 162, 176])
+@pytest.mark.parametrize("Da", AUG_WIDTHS)
 def test_aug_fwd_form(Da):
     """The bf16 row 6 forward's form: the backward's score width, and its
     2-slot ring of K [64][DK + 8] and V [64][104] tiles fits 3 blocks of 4
-    warps per SM at every form (the register cap of 168 that its
-    `__launch_bounds__` asks for); refused past the widest form."""
-    dk, smem = PA.aug_fwd_form(Da)
+    warps per SM up to DK = 176 (the register cap of 168 that its
+    `__launch_bounds__` asks for, with Q's fragments in registers); at 192
+    and 256 the block's q rows [64][DK + 8] join the ring in shared memory,
+    2 and 1 blocks per SM; refused past the widest form."""
+    dk, smem, q_rows = PA.aug_fwd_form(Da)
     assert dk == PA.aug_form(Da) == PA.aug_bwd_form(Da)[0]
-    assert smem == 2 * 2 * 64 * (dk + 8 + 96 + 8)
-    assert 3 * (smem + 1024) <= 228 * 1024
-    with pytest.raises(ValueError, match="176"):
+    assert q_rows == (dk > 176)
+    assert smem == 2 * 2 * 64 * (dk + 8 + 96 + 8) + (2 * 64 * (dk + 8) if q_rows else 0)
+    assert min(3, _blocks_per_sm(smem)) == {192: 2, 256: 1}.get(dk, 3)
+    with pytest.raises(ValueError, match="256"):
         PA.aug_fwd_form(PA.AUG_DA[1] + 1)
 
 
@@ -259,3 +285,28 @@ def test_int8_sm90_form(C):
     assert cn // 2 + 32 <= CONSUMER_REGS[2] - 64
     assert smem + 1280 <= SMEM_LIMIT
     assert 4 * C % K2.INT8_HC == 0  # H = 4C: whole W2 slots of 128 hidden units
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("C", LN.LAYERNORM_C)
+def test_layernorm_form(C, dtype):
+    """Row 11's form at every compiled width: a row on a power-of-two group
+    of C / 24 lanes (4, 8, 16, 32), 24 channels a lane in whole 16-byte
+    loads (3 in bf16, 6 in fp32), 32 / lanes rows a warp step; the bytes in
+    flight at the blocks per SM its `__launch_bounds__` asks for (2 of 256
+    threads), the loads of 2 steps ahead in bf16 and 1 in fp32, reach 32
+    KB. An input at a 2-byte offset
+    (a view into a larger tensor) is not 16-byte aligned and takes the
+    scalar form, one element a load."""
+    lanes, loads, rows = LN.layernorm_form(C, dtype, aligned=True)
+    size = torch.empty((), dtype=dtype).element_size()
+    assert lanes * 24 == C and lanes & (lanes - 1) == 0 and lanes <= 32
+    assert rows * lanes == 32 and loads * 16 == 24 * size
+    depth = 2 if dtype == torch.bfloat16 else 1
+    assert 2 * 256 * depth * loads * 16 >= 32 * 1024
+    base = torch.zeros(4 * C + 8, dtype=dtype)
+    x = base[1:1 + 4 * C].view(4, C)  # one element into the buffer
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert LN.layernorm_form(C, dtype, aligned=x.data_ptr() % 16 == 0) == (lanes, 24, rows)
+    with pytest.raises(ValueError):
+        LN.layernorm_form(C + 32, dtype, aligned=True)

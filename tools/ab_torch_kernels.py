@@ -92,8 +92,17 @@ of `--reps` single calls, after warm-up, as `chip_smoke.py` times):
   `ln_mlp_int8`'s are counted, `int8_flips`);
 - `mlp_digests` (no timing): the SHA-256 of the bf16 outputs of K2 at
   `chip_smoke.LN_MLP_SHAPES` and of row 13 there, of K3 and row 10 at
-  `PRIOR_SHAPES` (batch 2, one clip of 16 frames), into `digests`: two
-  trees' lines show whether the production bodies are bit-identical;
+  `PRIOR_SHAPES` (batch 2, one clip of 16 frames), and of row 12 at
+  `INT8_SHAPES` (batch 2, fp32 and bf16 x), into `digests`: two trees'
+  lines show whether the production bodies are bit-identical;
+- `aug_digests` (no timing): the same for row 6's output and row 7
+  head-major's three gradients in bf16 at `chip_smoke.MVIT_BLOCKS` (Da 123
+  and 142), `MVIT_WIDE` (148) and `MVIT_R66` (162), batch 2;
+- `layernorm_tokens`: row 11 at `chip_smoke.LN_SHAPES` (the ConvNeXt
+  prior's stem and downsample LayerNorms of a serving forward, batch 8 x 16
+  frames), summed per forward, beside `F.layer_norm` on the same operands,
+  by events and device time, with the sum's share of its bound (each input
+  read once and the output written once at 3.35 TB/s);
 - `gelu_floor` (no timing): the issue floor of the bf16 LN+MLP body's
   GELU from SASS. Two probe kernels are compiled with nvcc for sm_90a into
   DIR/build/gelu_floor/, each thread taking 32 fp32 values as the body
@@ -140,7 +149,8 @@ SECTIONS = ("attention_rel_packed", "window_attention_bwd", "self_attention", "g
             "attention_rel_bwd", "attention_rel_bwd_r66", "dwconv2d", "dwconv3d", "gemm_int8",
             "self_attention_bwd", "ln_mlp", "ln_mlp_prior", "gelu_floor", "ln_mlp_bwd",
             "attention_bwd_aug", "bwd_seeds", "attention_aug", "attention_aug_wide",
-            "attention_bwd_aug_wide", "ln_mlp_int8", "lab_lnmlp", "mlp_digests")
+            "attention_bwd_aug_wide", "ln_mlp_int8", "lab_lnmlp", "mlp_digests",
+            "layernorm_tokens", "aug_digests")
 SEEDS = 32  # bwd_seeds: input draws per shape
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core peak, FLOP/s
 SMS, ISSUE_LANES = 132, 128  # H100 SXM: SMs, thread instructions issued per SM per clock
@@ -677,7 +687,40 @@ def main(argv=None) -> dict:
                       f"{device[key]:.2f} us)" + (f"; flips {flips[key]}" if key in flips
                                                    else ""), flush=True)
         del x, ops, w1q, w2q
-    if "mlp_digests" in only:  # K2, row 13, K3 and row 10 outputs, bit for bit
+    if "layernorm_tokens" in only:  # row 11 per serving forward
+        import torch.nn.functional as F
+
+        from mspi_tpu_torch.ops.kernels.layernorm import layernorm_tokens
+        randn = cs.randn_on(torch.Generator().manual_seed(3))
+        n_bytes = 0
+        for label, tokens, C in cs.LN_SHAPES:
+            M = cs.BATCH * 16 * tokens
+            x = (randn(M, C) + 0.5).bfloat16()
+            g, b = (1 + randn(C, scale=0.1)).bfloat16(), randn(C, scale=0.1).bfloat16()
+            n_bytes += cs.nbytes(x, g, b, x)
+            with torch.no_grad():
+                summed("layernorm_tokens", f"{label} [{M}, {C}]", 1,
+                       lambda: layernorm_tokens(x, g, b, 1e-6),
+                       lambda: F.layer_norm(x, (C,), g, b, 1e-6), 4 * args.reps)
+            del x
+        bound_us = n_bytes / cs.HBM_BYTES_PER_S * 1e6
+        print(f"layernorm_tokens per serving forward: device {device['layernorm_tokens']:.2f} us "
+              f"against a bound of {bound_us:.2f} us ({bound_us / device['layernorm_tokens']:.1%}"
+              f"); F.layer_norm {device['layernorm_tokens:library']:.2f} us", flush=True)
+    if "aug_digests" in only:  # rows 6 and 7 at the widths of the earlier forms, bit for bit
+        randn, B = cs.randn_on(torch.Generator().manual_seed(41)), cs.TRAIN_BATCH
+        for label, _, heads, nq, k_shape in cs.MVIT_BLOCKS + cs.MVIT_WIDE + cs.MVIT_R66:
+            q, k, v = (t.bfloat16() for t in cs.aug_inputs(randn, B, heads, nq, k_shape))
+            dout = randn(B, heads, nq, cs.MVIT_D).bfloat16()
+            out, lse = PA._attention_fwd(q, k, v, with_lse=True)
+            key = f"{label} Da {q.shape[-1]}"
+            digests[f"attention:{key}"] = digest(out)
+            for name, grad in zip(("dq", "dk", "dv"),
+                                  PA.attention_backward(q, k, v, out, lse, dout)):
+                digests[f"attention_bwd:{key}:{name}"] = digest(grad)
+            del q, k, v, dout, out, lse
+        print(f"aug_digests: {len(digests)} outputs hashed", flush=True)
+    if "mlp_digests" in only:  # K2, row 13, K3, row 10 and row 12 outputs, bit for bit
         randn = cs.randn_on(torch.Generator().manual_seed(1))
         with torch.no_grad():
             for label, tokens, C, eps, *_ in cs.LN_MLP_SHAPES:
@@ -690,6 +733,13 @@ def main(argv=None) -> dict:
                 digests[f"ln_mlp_prior:{label}"] = digest(K2.ln_mlp_prior(*xs, 1e-6))
                 digests[f"ln_mlp_prior_res:{label}"] = digest(
                     K2.ln_mlp_prior_res(xs[0], sc, gm, *xs[1:], 1e-6))
+            for label, tokens, C, *_ in cs.INT8_SHAPES:
+                g, b, w1, b1, w2, b2 = (t.float() for t in cs.mlp_inputs(randn, 1, C)[1:])
+                (w1q, s1), (w2q, s2) = K2.quantize_weight(w1), K2.quantize_weight(w2)
+                x32 = randn(cs.TRAIN_BATCH * tokens, C)
+                for x in (x32, x32.bfloat16()):
+                    digests[f"ln_mlp_int8:{label}:{str(x.dtype)[6:]}"] = digest(
+                        K2.ln_mlp_int8(x, g, b, w1q, s1, b1, w2q, s2, b2, 1e-6))
         print(f"mlp_digests: {len(digests)} outputs hashed", flush=True)
     seeds = bwd_seeds(cs, PA, WA, root) if "bwd_seeds" in only else None
     floor = gelu_floor(cs, root) if "gelu_floor" in only else None

@@ -74,7 +74,7 @@ PORT_FAMILIES = (
     ("row 12 ln_mlp_int8", ("ln_mlp_int8",)),
     ("row 10 ln_mlp_prior_res (folded K2)", ("ln_mlp", "true>(")),
     ("K2/K3 ln_mlp", ("ln_mlp",)),
-    ("row 11 layernorm_tokens", ("layernorm_kernel",)),
+    ("row 11 layernorm_tokens", ("layernorm_sm90_kernel",)),
 )
 # Everything else: a name matches when it holds any key.
 FAMILIES = (
