@@ -103,8 +103,20 @@ first failure (there is no CPU path):
    other widths (192, 384, 512, 768), `mlp_int8w` at row 12's widths
    (H = 4C) and at all five of its widths with H = 320 (H % 128 == 64).
 
-Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22) sets the launch counts to 0
-just before it and reads them just after; the kernels' record sums them.
+23. uni_main, uni_parity, uni_training: phases 4, 5 and 7 on the
+   UniFormer-B model (K4 at head dim 64 in its 27 stage 3-4 blocks, K2 at C
+   = 320 and 512, and their backwards); uni_train_parity: phase 8 so at
+   --resolution 64 96; s3d_main, s3d_parity: phases 4 and 5 on the S3D
+   model (its backbone plain; K4 and K2 in the SyncBlock and decoder).
+   Their kernels are checked in phases 3, 6, 16 and 17: K4 and its backward
+   at UniFormer-B's two shapes (head dim 64), K2 and row 9 at its C = 320
+   (and 512) shapes, each with the model's per-forward or per-step sums
+   logged; rows 6 and 7 at Da 258, 320 and 400, the wide form, on short
+   token counts (`MVIT_DA_WIDE`, in `AUG_CHECKS`).
+
+Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22, 23) sets the launch counts
+to 0 just before it and reads them just after; the kernels' record sums
+them.
 The last two lines are the kernels' JSON record and the device JSON record.
 `--phases` runs a subset (2 always runs; the records then cover only what
 ran and no device record is printed).
@@ -188,6 +200,10 @@ RELK0 = {"attn_relk": False, "dwconv": True}
 # layernorm_tokens.
 PER_FORWARD = {
     "mvitv2s": {"attention_rel": 16, "ln_mlp": 23, "ln_mlp_prior": 18, "self_attention": 3},
+    # UniFormer-B: K4 and K2 in its 27 stage 3-4 blocks + the SyncBlock's
+    # (and the decoder's K2); S3D: its backbone has no kernel
+    "uniformerb": {"self_attention": 27 + 3, "ln_mlp": 27 + 3 + 4, "ln_mlp_prior": 18},
+    "s3d": {"self_attention": 3, "ln_mlp": 3 + 4, "ln_mlp_prior": 18},
     "videoswins": {"window_attention": 24, "ln_mlp": 31, "ln_mlp_prior": 18,
                    "self_attention": 3},
     "mvitv2s+serving": {"attention_rel": 16, "ln_mlp": 7, "ln_mlp_int8": 16,
@@ -209,6 +225,8 @@ PER_STEP = {
                 "attention_bwd": 3},
     "videoswins": {**PER_FORWARD["videoswins"], "window_attention_bwd": 24, "ln_mlp_bwd": 31,
                    "attention_bwd": 3},
+    "uniformerb": {**PER_FORWARD["uniformerb"], "attention_bwd": 27 + 3,
+                   "ln_mlp_bwd": 27 + 3 + 4},
     # row 7 head-major for the 16 blocks + K4's 3; row 18's dx per pool
     "mvitv2s+relk0": {**PER_FORWARD["mvitv2s+relk0"], "attention_bwd": 16 + 3,
                       "dwconv3d": 17 + 17, "ln_mlp_bwd": 23},
@@ -228,6 +246,10 @@ PATH_PHASES = {  # phase -> (path kind, PER_FORWARD key: the encoder and its opt
     "relk0_train_parity": ("train_parity", "mvitv2s+relk0"),
     # the same at --resolution 64 96 (rows 6 and 7 at Da 109 and 114)
     "relk0_small_parity": ("train_parity", "mvitv2s+relk0", (64, 96)),
+    "uni_main": ("main", "uniformerb"), "uni_parity": ("parity", "uniformerb"),
+    "uni_training": ("training", "uniformerb"),
+    "uni_train_parity": ("train_parity", "uniformerb", (64, 96)),
+    "s3d_main": ("main", "s3d"), "s3d_parity": ("parity", "s3d"),
 }
 OPTIONS = {"mvitv2s+serving": SERVING, "videoswins+int8": {"quant": "int8"},
            "mvitv2s+layout": LAYOUT, "mvitv2s+relk0": RELK0}
@@ -235,7 +257,8 @@ PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity", "
           "swin_parity", "swin_training", "swin_train_parity", "int8_main", "int8_parity",
           "swin_int8_main", "layout_kernels", "layout_backward", "layout_main",
           "layout_parity", "relk0_training", "relk0_train_parity", "relk0_small_parity",
-          "mlp_kernels", "lab")
+          "mlp_kernels", "lab", "uni_main", "uni_parity", "uni_training", "uni_train_parity",
+          "s3d_main", "s3d_parity")
 BATCH = 8
 TRAIN_BATCH = 2
 STEPS = 5
@@ -321,6 +344,7 @@ def record(records, name, label, dtype, errs_tols, ms, plain_ms, library_ms=None
                    f"{'ok' if ok else 'FAIL'}")
     rec = records[name]
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    rec["_last"] = (ms, plain_ms, library_ms)  # for sums of another model (`ModelSums`)
     if dtype == torch.bfloat16 and weight:
         rec["ms"] += weight * ms
         rec["plain_ms"] += weight * plain_ms
@@ -357,6 +381,30 @@ def check_kernel(records, name, label, kernel_fn, plain_fn, inputs, dtype, libra
     return xs, out
 
 
+class ModelSums:
+    """bf16 times of one kernel at another model's shapes (UniFormer-B's),
+    summed per forward or step outside the record, whose sums are MViTv2-S's:
+    kernel, plain, library and bound, each shape weighted by its blocks."""
+
+    def __init__(self, what: str):
+        self.what, self.t = what, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                   "bound_ms": 0.0}
+
+    def add(self, rec, weight: float, n_bytes: float, flops: float) -> None:
+        ms, plain_ms, lib_ms = rec["_last"]
+        self.t["ms"] += weight * ms
+        self.t["plain_ms"] += weight * plain_ms
+        self.t["library_ms"] += weight * (lib_ms or 0.0)
+        self.t["bound_ms"] += weight * max(n_bytes / HBM_BYTES_PER_S,
+                                           flops / PEAK_FLOPS[torch.bfloat16]) * 1e3
+
+    def log(self, name: str) -> None:
+        t = self.t
+        log("kernels", f"{name} per {self.what}: kernel {t['ms']:.3f} ms, plain "
+                       f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
+                       f"{t['bound_ms']:.3f} ms ({t['bound_ms'] / t['ms']:.1%} of it)")
+
+
 def randn_on(gen):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).cuda()
@@ -372,6 +420,20 @@ def mlp_inputs(randn, M, C):
     return [randn(M, C), 1 + randn(C, scale=0.1), randn(C, scale=0.1),
             randn(H, C, scale=C ** -0.5), randn(H, scale=0.1),
             randn(C, H, scale=H ** -0.5), randn(C, scale=0.1)]
+
+
+def compare_with_lse(heads, dtype):
+    """K4's (out, lse) against its plain version and the scores' row
+    log-sum-exp, each to its own tolerance: a `check_kernel` compare."""
+    from mspi_tpu_torch.ops.kernels.pooled_attention import self_attention_reference
+
+    def compare(out_lse, xs):
+        out, lse = out_lse
+        q, kv = (t.float() for t in xs)
+        ref, ref_lse = self_attention_reference(q, kv, heads), self_attention_lse(q, kv, heads)
+        return [((out.float() - ref).abs().max().item(), tolerance(dtype, ref)),
+                ((lse - ref_lse).abs().max().item(), tolerance(dtype, ref_lse))]
+    return compare
 
 
 def self_attention_lse(q, kv, heads):
@@ -440,7 +502,16 @@ MVIT_R84 = (("blk3@448x768", 0, 4, 10752, (8, 28, 48)),
 MVIT_R88_RES = (512, 768)
 MVIT_R88 = (("blk14@512x768", 0, 8, 3072, (8, 32, 48)),)
 MVIT_DA256 = (("Da 256", 0, 2, 1000, (4, 15, 141)),)
-AUG_CHECKS = MVIT_WIDE + MVIT_R66 + MVIT_SMALL + MVIT_R84 + MVIT_R88 + MVIT_DA256
+# Past Da 256 the wide form (score lanes in chunks of 64): the widths of
+# MViTv2-S's widest calls at --resolution 1024 1440 (Da 258), 1536 1920 (320)
+# and 2048 2688 (400), on key grids of no model with their R and short
+# token counts (those resolutions' own calls have 10^4-10^5 queries and keys,
+# whose fp32 plain versions would take minutes); Nq and Nk off the 64-row
+# tiles
+MVIT_DA_WIDE = (("wide R 162", 0, 2, 1000, (1, 1, 160)), ("wide R 224", 0, 2, 700, (2, 2, 220)),
+                ("wide R 304", 0, 2, 500, (3, 1, 300)))
+AUG_CHECKS = (MVIT_WIDE + MVIT_R66 + MVIT_SMALL + MVIT_R84 + MVIT_R88 + MVIT_DA256
+              + MVIT_DA_WIDE)
 # K2 shapes per clip: label, tokens, C, eps, and the blocks of the shape in
 # one MViTv2-S and one VideoSwin-S forward (the backbone's stages, the 3
 # SyncBlock blocks, the decoder's 4 blocks); VideoSwin-S's backbone blocks
@@ -450,6 +521,14 @@ LN_MLP_SHAPES = (("mvit-s1", 43008, 96, 1e-6, 1, 2), ("mvit-s2", 10752, 192, 1e-
                  ("sync", 708, 512, 1e-5, 3, 3), ("decoder0", 21504, 192, 1e-5, 1, 1),
                  ("decoder1", 5376, 192, 1e-5, 1, 1), ("decoder2", 1344, 192, 1e-5, 1, 1),
                  ("decoder3", 336, 192, 1e-5, 1, 1))
+
+
+# UniFormer-B per clip at 16x224x384: K4 (label, blocks, N, C, heads; head
+# dim 64) in stages 3 and 4, and K2 (label, tokens, C, eps, blocks) in the
+# same blocks; its SyncBlock and decoder calls are LN_MLP_SHAPES' and K4's
+# sync shape
+UNI_SELF_SHAPES = (("uni-s3", 20, 2688, 320, 5), ("uni-s4", 7, 672, 512, 8))
+UNI_LN_MLP_SHAPES = (("uni-s3", 2688, 320, 1e-6, 20), ("uni-s4", 672, 512, 1e-6, 7))
 
 
 # VideoSwin-S window attention per clip (N = 8*7*7 = 392, D = 32) at the
@@ -538,6 +617,21 @@ def phase_kernels(records) -> None:
         del inputs, xs, out
     log("kernels", f"ln_mlp per VideoSwin-S forward (its blocks' weights): kernel "
                    f"{swin['ms']:.3f} ms, bound {swin['bound_ms']:.3f} ms")
+    # K2 at UniFormer-B's 27 blocks (C = 320: two column parts of 160), bf16
+    # twice and bit-identical, summed per UniFormer-B forward
+    uni = ModelSums("UniFormer-B forward (batch 8, its 27 blocks)")
+    uni_randn = randn_on(torch.Generator().manual_seed(52))
+    for label, tokens, C, eps, blocks in UNI_LN_MLP_SHAPES:
+        inputs = mlp_inputs(uni_randn, BATCH * tokens, C)
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, out = check_kernel(records, "ln_mlp", label, lambda *a, e=eps: ln_mlp(*a, e),
+                                   lambda *a, e=eps: ln_mlp_reference(*a, e), inputs, dtype,
+                                   weight=0, repeatable=True)
+            if dtype == torch.bfloat16:
+                uni.add(records["ln_mlp"], blocks, nbytes(*xs, out),
+                        4.0 * BATCH * tokens * C * 4 * C)
+        del inputs, xs, out
+    uni.log("ln_mlp")
     # K3's call site: the prior's four stages, 16 frames per clip, per forward
     for label, tokens, C, blocks in PRIOR_SHAPES:
         inputs = mlp_inputs(randn, BATCH * 16 * tokens, C)
@@ -565,17 +659,37 @@ def phase_kernels(records) -> None:
     # backward reads; the times stay out of the sums
     inputs = [randn(TRAIN_BATCH, 708, 512), randn(TRAIN_BATCH, 708, 1024)]
     for dtype in (torch.float32, torch.bfloat16):
-        def with_lse(out_lse, xs):
-            out, lse = out_lse
-            q, kv = (t.float() for t in xs)
-            ref = self_attention_reference(q, kv, 4)
-            ref_lse = self_attention_lse(q, kv, 4)
-            return [((out.float() - ref).abs().max().item(), tolerance(dtype, ref)),
-                    ((lse - ref_lse).abs().max().item(), tolerance(dtype, ref_lse))]
         check_kernel(records, "self_attention", "sync-train-lse",
                      lambda q, kv: _self_attention_fwd(q, kv, 4, with_lse=True),
                      lambda q, kv: self_attention_reference(q, kv, 4), inputs, dtype,
-                     compare=with_lse, weight=0)
+                     compare=compare_with_lse(4, dtype), weight=0)
+    # K4 at head dim 64: UniFormer-B's stages 3 and 4 at batch 8 (summed per
+    # UniFormer-B forward, out of the record's sums), and stage 3 at the
+    # training batch with the lse (checked only)
+    uni = ModelSums("UniFormer-B forward (batch 8, its 27 blocks)")
+    uni_randn = randn_on(torch.Generator().manual_seed(51))
+    for label, blocks, N, C, heads in UNI_SELF_SHAPES:
+        inputs = [uni_randn(BATCH, N, C), uni_randn(BATCH, N, 2 * C)]
+        for dtype in (torch.float32, torch.bfloat16):
+            def library(q, kv, h=heads, c=C):
+                qh, kh, vh = (heads_major(t, h) for t in (q, kv[..., :c], kv[..., c:]))
+                return lambda: sdpa(qh, kh, vh)
+            xs, out = check_kernel(records, "self_attention", label,
+                                   lambda q, kv, h=heads: self_attention(q, kv, h),
+                                   lambda q, kv, h=heads: self_attention_reference(q, kv, h),
+                                   inputs, dtype, library, weight=0)
+            if dtype == torch.bfloat16:
+                uni.add(records["self_attention"], blocks, nbytes(*xs, out),
+                        4.0 * BATCH * heads * N * N * (C // heads))
+        del inputs, xs, out
+    uni.log("self_attention")
+    inputs = [uni_randn(TRAIN_BATCH, 2688, 320), uni_randn(TRAIN_BATCH, 2688, 640)]
+    for dtype in (torch.float32, torch.bfloat16):
+        check_kernel(records, "self_attention", "uni-s3-train-lse",
+                     lambda q, kv: _self_attention_fwd(q, kv, 5, with_lse=True),
+                     lambda q, kv: self_attention_reference(q, kv, 5), inputs, dtype,
+                     compare=compare_with_lse(5, dtype), weight=0)
+    del inputs
     # row 15: the eight VideoSwin variants, shifted blocks with their mask
     from mspi_tpu_torch.ops.kernels.window_attention import (window_attention,
                                                              window_attention_reference)
@@ -838,6 +952,67 @@ def phase_backward(records) -> None:
             add_bound(records["attention_bwd"], dtype, nbytes(q, kv, out, lse, dout, *got),
                       10.0 * B * heads * N * N * (C // heads), weight=weight)
             del got, want, out, lse
+    # the K4 backward at head dim 64: UniFormer-B's stages 3 and 4 at batch 2,
+    # summed per UniFormer-B step (out of the record's sums); the library
+    # time is SDPA's forward + backward
+    uni = ModelSums("UniFormer-B step (batch 2, its 27 blocks)")
+    uni_randn = randn_on(torch.Generator().manual_seed(53))
+    for label, blocks, N, C, heads in UNI_SELF_SHAPES:
+        inputs = [uni_randn(B, N, C), uni_randn(B, N, 2 * C), uni_randn(B, N, C)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kv, dout = (t.to(dtype) for t in inputs)
+            out, lse = PA._self_attention_fwd(q, kv, heads, with_lse=True)
+            bwd = lambda: PA.self_attention_backward(q, kv, out, lse, heads, dout)
+            got = bwd()
+            torch.cuda.synchronize()
+            want = PA.self_attention_backward_reference(q.float(), kv.float(), heads,
+                                                        dout.float())
+            errs = compare_grads(("dq", "dk", "dv"), split_kv(got, C), split_kv(want, C), dtype)
+            del want
+            if dtype == torch.bfloat16:
+                check_repeatable("attention_bwd", label, bwd, got)
+            ms = time_ms(bwd)
+            plain_ms = time_ms(lambda: PA.self_attention_backward_reference(q, kv, heads, dout))
+            lib_ms = None
+            if dtype == torch.bfloat16:
+                qh, kh, vh, doh = (heads_major(t, heads) for t in
+                                   (q, kv[..., :C], kv[..., C:], dout))
+                lib_ms = time_ms(library_grad(sdpa, (qh, kh, vh), doh))
+                del qh, kh, vh, doh
+            record(records, "attention_bwd", label, dtype, errs, ms, plain_ms, lib_ms, weight=0)
+            if dtype == torch.bfloat16:
+                uni.add(records["attention_bwd"], blocks, nbytes(q, kv, out, lse, dout, *got),
+                        10.0 * B * heads * N * N * (C // heads))
+            del got, out, lse
+    uni.log("attention_bwd (K4's part)")
+    # row 9 at UniFormer-B's 27 blocks (C = 320 and 512), per UniFormer-B step
+    uni = ModelSums("UniFormer-B step (batch 2, its 27 blocks)")
+    for label, tokens, C, eps, blocks in UNI_LN_MLP_SHAPES:
+        M = B * tokens
+        inputs = mlp_inputs(uni_randn, M, C) + [uni_randn(M, C)]
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = [t.to(dtype) for t in inputs]
+            bwd = lambda: K2.ln_mlp_backward(*xs[:7], eps, xs[7])
+            got = bwd()
+            torch.cuda.synchronize()
+            want = K2.ln_mlp_backward_reference(*(t.float() for t in xs[:7]), eps,
+                                                xs[7].float())
+            errs = compare_grads(("dx", "dg", "db", "dw1", "db1", "dw2", "db2"), got, want,
+                                 dtype)
+            if dtype == torch.bfloat16:
+                check_repeatable("ln_mlp_bwd", label, bwd, got)
+            ms = time_ms(bwd)
+            plain_ms = time_ms(lambda: K2.ln_mlp_backward_reference(*xs[:7], eps, xs[7]))
+            lib_ms = None
+            if dtype == torch.bfloat16:  # the unfused chain, fwd + bwd (no single call)
+                lib_ms = time_ms(library_grad(
+                    lambda x, g, b, w1, b1, w2, b2: F.linear(F.gelu(F.linear(
+                        F.layer_norm(x, (C,), g, b, eps), w1, b1)), w2, b2), xs[:7], xs[7]))
+            record(records, "ln_mlp_bwd", label, dtype, errs, ms, plain_ms, lib_ms, weight=0)
+            if dtype == torch.bfloat16:
+                uni.add(records["ln_mlp_bwd"], blocks, nbytes(*xs, *got), 10.0 * M * C * 4 * C)
+            del got, want
+    uni.log("ln_mlp_bwd (the unfused chain as library)")
     # row 9 at K2's nine shapes, each weighted by its MViTv2-S blocks (per
     # training step at batch 2); VideoSwin-S's weighting logged beside it, and
     # the unfused chain F.layer_norm -> F.linear -> F.gelu -> F.linear
@@ -1599,6 +1774,12 @@ def phase_train_parity(tag: str, encoder: str, res=RES) -> None:
 SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3ELi96E",
                 "flash_attention_sm90_kernelILi96ELi0ELi3ELi96E",
                 "flash_attention_sm90_kernelILi128ELi0ELi0ELi128E",
+                # K4 at head dim 64 (UniFormer-B) and its backward's passes;
+                # rows 6 and 7's wide form (Da > 256)
+                "flash_attention_sm90_kernelILi64ELi0ELi0ELi64E",
+                *(f"self_bwd_{p}_sm90_kernelILi64E" for p in ("dq", "dkv")),
+                "flash_attention_aug_wide_sm90_kernelILi96E",
+                "aug_bwd_dq_wide_sm90_kernel", "aug_bwd_dkv_wide_sm90_kernel",
                 *(f"flash_attention_sm90_kernelILi{dk}ELi0ELi0ELi96E"
                   for dk in (128, 144, 176, 192, 256)),
                 "window_bwd_dq_sm90_kernel",
@@ -1612,7 +1793,8 @@ SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3ELi96E",
                 "gemm_bf16_sm90_kernel", "gemm_s8_sm90_kernelILi1E", "gemm_s8_sm90_kernelILi2E",
                 *(f"self_bwd_{p}_sm90_kernelILi{d}E" for p in ("dq", "dkv") for d in (96, 128)),
                 *(f"ln_mlp_sm90_kernelILi{c}ELi{ln}ELb1ELb1ELb{res}ELi0EE"
-                  for c in (96, 192, 384, 512, 768) for ln, res in ((1, 0), (1, 1), (0, 0))),
+                  for c in (96, 192, 320, 384, 512, 768)
+                  for ln, res in ((1, 0), (1, 1), (0, 0))),
                 # the labs' bodies at K2's widths: <LN, GELU, BIAS, RES, PIPE>
                 # of matmul, ln_matmul, pipe2, pipe4 (4 and 6 slices at C =
                 # 96 and 192, pipe2's schedule above), mxu_stats and mlp_bf16
@@ -1632,8 +1814,8 @@ SM90_ENTRIES = ("flash_attention_sm90_kernelILi96ELi3ELi3ELi96E",
                   for c in (96, 192, 384, 768) for vec in (1, 0)),
                 *(f"ln_mlp_int8_sm90_kernelI{t}Li{c}E" for t in ("f", "13__nv_bfloat16")
                   for c in (256, 384, 512, 768)),
-                *(f"ln_mlp_bwd_rows_sm90_kernelILi{c}ELb{ln}E" for c in (96, 192, 384, 512, 768)
-                  for ln in (1, 0)),
+                *(f"ln_mlp_bwd_rows_sm90_kernelILi{c}ELb{ln}E"
+                  for c in (96, 192, 320, 384, 512, 768) for ln in (1, 0)),
                 "wgemm_f32_sm90_kernelILb0E", "wgemm_f32_sm90_kernelILb1E")
 
 

@@ -1,11 +1,13 @@
-"""Configuration for the ported slices: the dataclass fields the MViTv2-S
-and VideoSwin-S audio-visual inference and training paths read, and the
-serving options of `ModelConfig`.
+"""Configuration for the ported slices: the dataclass fields the MViTv2-S,
+VideoSwin-S, UniFormer-B and S3D audio-visual inference and training paths
+read, and the serving options of `ModelConfig`.
 
 Counterpart of `mspi_tpu/config.py` (same field names and defaults, so a
 dict of overrides means the same thing to both packages). `mvitv2s`
 encodes configs/MVITv2_S_16x4.yaml, `videoswins` the mmaction
-swin_small_patch244_window877_kinetics400_1k backbone.
+swin_small_patch244_window877_kinetics400_1k backbone, `uniformerb`
+configs/uniformer_b16x4_k400.yaml and `s3d` the S3D_features_only backbone
+(kylemin/S3D as TASED-Net uses it).
 """
 
 from __future__ import annotations
@@ -14,14 +16,21 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
-MOTION_ENCODERS = ("mvitv2s", "videoswins")
+MOTION_ENCODERS = ("mvitv2s", "s3d", "uniformerb", "videoswins")
 
 # Channel dims and temporal lengths of the [v1..v4] feature pyramid for a
 # 16-frame clip, and whether each lateral decoder layer applies a
 # temporal-stride conv.
-MOTION_ENCODER_EMBEDS = {"mvitv2s": (96, 192, 384, 768), "videoswins": (96, 192, 384, 768)}
-MOTION_ENCODER_TDIMS = {"mvitv2s": (8, 8, 8, 8), "videoswins": (8, 8, 8, 8)}
-LATERAL_BOOL = {"mvitv2s": (True, True, True, True), "videoswins": (True, True, True, True)}
+MOTION_ENCODER_EMBEDS = {"mvitv2s": (96, 192, 384, 768), "s3d": (192, 480, 832, 1024),
+                         "uniformerb": (64, 128, 320, 512), "videoswins": (96, 192, 384, 768)}
+MOTION_ENCODER_TDIMS = {"mvitv2s": (8, 8, 8, 8), "s3d": (8, 8, 4, 4),
+                        "uniformerb": (8, 8, 8, 8), "videoswins": (8, 8, 8, 8)}
+LATERAL_BOOL = {"mvitv2s": (True, True, True, True), "s3d": (True, True, False, False),
+                "uniformerb": (True, True, True, True), "videoswins": (True, True, True, True)}
+# The widths of each backbone's LN+MLP blocks, which quant="int8" sends to
+# row 12 where C >= 256 (S3D has none: only its SyncBlock's 512 goes there)
+LN_MLP_WIDTHS = {"mvitv2s": (96, 192, 384, 768), "s3d": (),
+                 "uniformerb": (320, 512), "videoswins": (96, 192, 384, 768)}
 
 
 @dataclass
@@ -75,6 +84,24 @@ class MViTConfig:
 
 
 @dataclass
+class S3DConfig:
+    pool_stride: int = 1  # cfg.MODEL.S3D.POOL_STRIDE
+
+
+@dataclass
+class UniFormerConfig:
+    """UniFormer-B 16x4 (configs/uniformer_b16x4_k400.yaml): CBlocks in
+    stages 1-2, joint space-time SABlocks in stages 3-4 (SplitSABlocks,
+    divided attention, with split=True)."""
+
+    embed_dim: Tuple[int, int, int, int] = (64, 128, 320, 512)
+    depth: Tuple[int, int, int, int] = (5, 8, 20, 7)
+    head_dim: int = 64
+    mlp_ratio: float = 4.0
+    split: bool = False
+
+
+@dataclass
 class VideoSwinConfig:
     """VideoSwin-S (swin_small_patch244_window877_kinetics400_1k). The
     patch embed has no norm, as the JAX backbone builds it."""
@@ -102,6 +129,8 @@ class ModelConfig:
     image_saliency_encoder_weight: str = ""
     mvit: MViTConfig = field(default_factory=MViTConfig)
     videoswin: VideoSwinConfig = field(default_factory=VideoSwinConfig)
+    uniformer: UniFormerConfig = field(default_factory=UniFormerConfig)
+    s3d: S3DConfig = field(default_factory=S3DConfig)
     # Serving options, off by default (the JAX package reads them from the
     # environment; the port reads nothing there).
     # "int8": the LN+MLP of every backbone and SyncBlock block with C >= 256
@@ -136,6 +165,17 @@ class ModelConfig:
     def __post_init__(self):
         if self.quant not in ("", "int8"):
             raise ValueError(f"quant {self.quant!r}: expected '' or 'int8'")
+        if self.quant == "int8":
+            from mspi_tpu_torch.ops.kernels.ln_mlp import INT8_C, QUANT_MIN_C
+
+            missing = [c for c in LN_MLP_WIDTHS.get(self.motion_encoder, ())
+                       if c >= QUANT_MIN_C and c not in INT8_C]
+            if missing:
+                raise ValueError(
+                    f"quant 'int8' with {self.motion_encoder}: row 12 (ln_mlp_int8) has no "
+                    f"C = {missing[0]} form (compiled for INT8_C = {INT8_C}, "
+                    f"mspi_tpu_torch/ops/kernels/ln_mlp.py), and the backbone's LN+MLP blocks "
+                    f"at C = {missing[0]} would run it")
         for name in ("attn_relk", "attn_packed", "dwconv"):
             value = getattr(self, name)
             if value not in (True, False):  # a string such as "0" would read as on
@@ -167,8 +207,9 @@ class MSPIConfig:
     solver: SolverConfig = field(default_factory=SolverConfig)
 
     def num_vis_tokens(self) -> int:
-        """Tokens entering SyncBlock: T4 * H/32 * W/32 (672 for MViTv2-S and
-        VideoSwin-S at 16x224x384)."""
+        """Tokens entering SyncBlock: T4 * H/32 * W/32 (672 for MViTv2-S,
+        VideoSwin-S and UniFormer-B at 16x224x384; 336 for S3D, which halves
+        T twice, stride-2 stem conv_t and stage-3 pool, to 4)."""
         h, w = self.data.resolution
         t4 = max(1, self.model.pyramid_tdims[3] * self.data.num_frames // 16)
         return t4 * (h // 32) * (w // 32)

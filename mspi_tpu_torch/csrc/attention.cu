@@ -14,7 +14,10 @@
 // The TPU kernel holds a whole [TQ, Nk] score tile in VMEM, one MXU lane tile
 // wide in the contraction. Here the score width is Da zero-filled to DK =
 // 128, 144, 176, 192 or 256 lanes (aug_width in flash_attention.cuh; exact,
-// the padded lanes add 0 to every score). bf16 runs flash_attention_sm90.cuh's
+// the padded lanes add 0 to every score), or past Da 256 to a multiple of 64
+// lanes that the wide form streams in 64-lane chunks, S summed over them
+// (launch_flash_attention_aug_wide_sm90; fp32 flash_attention.cuh's
+// flash_attention_aug_wide_f32_kernel). bf16 runs flash_attention_sm90.cuh's
 // register-resident body with DK != DV: k_aug's unaligned rows are first
 // copied once into zero-filled DK-lane rows in the caller's `pad` scratch, so
 // its cp.async ring copies 16-byte rows; q_aug is read into registers once per
@@ -30,8 +33,9 @@
 
 // lse: [B*H, Nq] fp32 row log-sum-exp, written when not null (the training
 // forward keeps it for mspi_attention_bwd in attention_bwd.cu). pad: bf16
-// only, [B*H*Nk, aug_width(Da)] scratch (16-byte aligned) for k_aug's padded
-// rows; unused in fp32.
+// only, 16-byte aligned scratch for the padded rows of DK = aug_width(Da)
+// lanes: [B*H*Nk, DK] for k_aug's up to Da 256, [B*H*(Nq + Nk), DK] for
+// q_aug's and k_aug's in the wide form; unused in fp32.
 extern "C" int mspi_attention(const void* q, const void* k, const void* v, void* out,
                               float* lse, void* pad, int B, int H, int Nq, int Nk, int Da,
                               int Dv, int dtype, void* stream) {
@@ -62,6 +66,7 @@ extern "C" int mspi_attention(const void* q, const void* k, const void* v, void*
     case 176: return mspi::launch_flash_attention_aug_sm90<176>(a, B, p, s);
     case 192: return mspi::launch_flash_attention_aug_sm90<192>(a, B, p, s);
     case 256: return mspi::launch_flash_attention_aug_sm90<256>(a, B, p, s);
-    default: return cudaErrorInvalidValue;
+    case 0: return cudaErrorInvalidValue;
+    default: return mspi::launch_flash_attention_aug_wide_sm90(a, B, p, s);
   }
 }

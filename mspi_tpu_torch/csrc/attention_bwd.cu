@@ -548,6 +548,9 @@ cudaError_t dispatch_bwd(const BwdArgs& g, int batch, int d, int dtype, cudaStre
   if (g.segments <= 0) return cudaErrorInvalidValue;
   if (dtype == kFloat32) {
     switch (d) {
+      case 64:  // K4 only (UniFormer-B)
+        if constexpr (BIAS == kNoBias) return launch_bwd<float, 64, 64, BIAS>(g, batch, s);
+        return cudaErrorInvalidValue;
       case 96: return launch_bwd<float, 96, 96, BIAS>(g, batch, s);
       case 128: return launch_bwd<float, 128, 128, BIAS>(g, batch, s);
       default: return cudaErrorInvalidValue;
@@ -557,19 +560,184 @@ cudaError_t dispatch_bwd(const BwdArgs& g, int batch, int d, int dtype, cudaStre
   return cudaErrorInvalidValue;
 }
 
+// ---- the augmented lanes' wide form (Da > 256), fp32 ----------------------
+//
+// q/k rows of Da lanes do not fit a [64][Da] shared-memory tile past Da 256,
+// so S = q k^T is summed over 64-lane chunks (q and k chunks loaded one
+// element at a time into [64][65] tiles, the thread's 4x4 scores kept in
+// registers across the chunks, in the narrow passes' order d = 0 .. Da - 1),
+// and dq's and dk's columns split over blocks of 64 (grid z), each block
+// recomputing S and dP for its chunk of columns; dk's first split also
+// takes dv. The delta and reduce passes are the narrow form's.
+constexpr int kWideCols = 64;  // the chunk of score lanes and of dq's / dk's columns
+
+// s[4][4] += A[64][kWideCols] B[64][kWideCols]^T (rows of A against rows of B),
+// the thread's 4x4 of `scores`.
+__device__ __forceinline__ void scores_acc(const float* A, const float* B, float (&s)[4][4]) {
+  constexpr int LD = Path<float, kWideCols>::LD;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll 4
+  for (int d = 0; d < kWideCols; ++d) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = A[(ty * 4 + i) * LD + d];
+      bv[i] = B[(tx * 4 + i) * LD + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+  }
+}
+
+// S [64][LDS] = q rows [q0, q0 + 64) against k rows [k0, k0 + 64) over all
+// Da lanes in chunks, through the t.q and t.k chunk tiles; ends with S in
+// t.s, seen by every thread, and t.q / t.k free.
+__device__ __forceinline__ void wide_scores(const float* qp, int64_t qn, int q0, int nq,
+                                            const float* kp, int64_t kn, int k0, int nk, int da,
+                                            Tiles<float, kWideCols, 96>& t) {
+  constexpr int LD = Path<float, kWideCols>::LD;
+  float s[4][4] = {};
+  for (int c0 = 0; c0 < da; c0 += kWideCols) {
+    __syncthreads();  // the previous chunk's (or step's) reads of t.q and t.k are done
+    const int cols = min(kWideCols, da - c0);
+    load_rows_narrow<kWideCols, THREADS>(qp + c0, qn, q0, nq, cols, t.q, LD);
+    load_rows_narrow<kWideCols, THREADS>(kp + c0, kn, k0, nk, cols, t.k, LD);
+    __syncthreads();
+    scores_acc(t.q, t.k, s);
+  }
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t.s[(ty * 4 + i) * LDS + tx * 4 + j] = s[i][j];
+  __syncthreads();
+}
+
+// dq's columns [c0, c0 + 64). Grid (query tiles, B*H, column chunks).
+__global__ void __launch_bounds__(THREADS) attn_bwd_aug_wide_dq_kernel(BwdArgs g) {
+  constexpr int LD = Path<float, kWideCols>::LD;
+  extern __shared__ __align__(128) unsigned char smem_bwd[];
+  const AttnArgs& a = g.f;
+  Tiles<float, kWideCols, 96> t(smem_bwd, 0);
+  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int q0 = blockIdx.x * BM, c0 = blockIdx.z * kWideCols, da = a.dk;
+  const float* qp = static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const float* kp = static_cast<const float*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const float* vp = static_cast<const float*>(a.v) + b * a.vs.b + h * a.vs.h;
+  const float* dop = static_cast<const float*>(g.dout) + b * g.dos.b + h * g.dos.h;
+  load_op<float, 96>(dop, g.dos.n, q0, a.nq, t.dout);
+  load_row_stats(g, bh, q0, t.lse, t.delta);
+  Acc<float, kWideCols> dq;
+  dq.zero();
+  for (int k0 = 0; k0 < a.nk; k0 += BM) {
+    wide_scores(qp, a.qs.n, q0, a.nq, kp, a.ks.n, k0, a.nk, da, t);
+    load_op<float, 96>(vp, a.vs.n, k0, a.nk, t.v);
+    load_rows_narrow<kWideCols, THREADS>(kp + c0, a.ks.n, k0, a.nk, min(kWideCols, da - c0),
+                                         t.k, LD);
+    __syncthreads();
+    scores<float, 96>(t.dout, t.v, t.dp);
+    __syncthreads();
+    probs_and_ds<float, kWideCols, kNoBias>(a, b, h, q0, k0, nullptr, nullptr, t.lse, t.delta,
+                                           t.s, t.dp);
+    __syncthreads();
+    dq.add<false>(t.ds, LDS, t.k);  // dq += dS k[:, c0 ..]
+  }
+  float* dqp = static_cast<float*>(g.dq) + b * g.dqs.b + h * g.dqs.h;
+  const int nq = a.nq;
+  const int64_t dq_n = g.dqs.n;
+  dq.emit([&](int r, int c, float v) {
+    if (q0 + r < nq && c0 + c < da) dqp[(q0 + r) * dq_n + c0 + c] = v * g.dq_scale;
+  });
+}
+
+// dk's columns [c0, c0 + 64) and, in the first chunk, dv, as fp32 partials
+// per segment. Grid (key tiles, B*H, segments x column chunks).
+__global__ void __launch_bounds__(THREADS) attn_bwd_aug_wide_dkv_kernel(BwdArgs g) {
+  constexpr int LD = Path<float, kWideCols>::LD;
+  extern __shared__ __align__(128) unsigned char smem_bwd[];
+  const AttnArgs& a = g.f;
+  Tiles<float, kWideCols, 96> t(smem_bwd, 0);
+  const int da = a.dk, chunks = (da + kWideCols - 1) / kWideCols;
+  const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
+  const int k0 = blockIdx.x * BM, seg = blockIdx.z / chunks;
+  const int c0 = static_cast<int>(blockIdx.z % chunks) * kWideCols;
+  const bool takes_dv = c0 == 0;
+  const float* qp = static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const float* kp = static_cast<const float*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const float* vp = static_cast<const float*>(a.v) + b * a.vs.b + h * a.vs.h;
+  const float* dop = static_cast<const float*>(g.dout) + b * g.dos.b + h * g.dos.h;
+  load_op<float, 96>(vp, a.vs.n, k0, a.nk, t.v);
+  const int qtiles = (a.nq + BM - 1) / BM;
+  const int qt0 = seg * g.qtiles_per_seg, qt1 = min(qtiles, qt0 + g.qtiles_per_seg);
+  Acc<float, kWideCols> dk;
+  Acc<float, 96> dv;
+  dk.zero();
+  dv.zero();
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int q0 = qt * BM;
+    wide_scores(qp, a.qs.n, q0, a.nq, kp, a.ks.n, k0, a.nk, da, t);
+    load_op<float, 96>(dop, g.dos.n, q0, a.nq, t.dout);
+    load_row_stats(g, bh, q0, t.lse, t.delta);
+    load_rows_narrow<kWideCols, THREADS>(qp + c0, a.qs.n, q0, a.nq, min(kWideCols, da - c0),
+                                         t.q, LD);
+    __syncthreads();
+    scores<float, 96>(t.dout, t.v, t.dp);
+    __syncthreads();
+    probs_and_ds<float, kWideCols, kNoBias>(a, b, h, q0, k0, nullptr, nullptr, t.lse, t.delta,
+                                           t.s, t.dp);
+    __syncthreads();
+    if (takes_dv) dv.add<true>(t.p, LDS, t.dout);  // dv += P^T dO
+    dk.add<true>(t.ds, LDS, t.q);                  // dk += dS^T q[:, c0 ..]
+  }
+  const int64_t row0 = (static_cast<int64_t>(seg) * gridDim.y + bh) * a.nk + k0;
+  float* dkp = g.dk_part + row0 * da;
+  float* dvp = g.dv_part + row0 * 96;
+  const int nk = a.nk;
+  dk.emit([&](int r, int c, float v) {
+    if (k0 + r < nk && c0 + c < da) dkp[r * da + c0 + c] = v;
+  });
+  if (takes_dv)
+    dv.emit([&](int r, int c, float v) {
+      if (k0 + r < nk) dvp[r * 96 + c] = v;
+    });
+}
+
+cudaError_t launch_bwd_aug_wide(BwdArgs g, int batch, cudaStream_t stream) {
+  const AttnArgs& a = g.f;
+  const int bh = batch * a.heads, chunks = (a.dk + kWideCols - 1) / kWideCols;
+  const int qtiles = (a.nq + BM - 1) / BM, ktiles = (a.nk + BM - 1) / BM;
+  g.qtiles_per_seg = (qtiles + g.segments - 1) / g.segments;
+  attn_bwd_delta_kernel<float><<<dim3((a.nq + 7) / 8, bh), THREADS, 0, stream>>>(g, 96);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = layout<float, kWideCols, 96>(0).total;
+  if ((err = allow_smem(attn_bwd_aug_wide_dq_kernel, smem)) != cudaSuccess) return err;
+  attn_bwd_aug_wide_dq_kernel<<<dim3(qtiles, bh, chunks), THREADS, smem, stream>>>(g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(attn_bwd_aug_wide_dkv_kernel, smem)) != cudaSuccess) return err;
+  attn_bwd_aug_wide_dkv_kernel<<<dim3(ktiles, bh, g.segments * chunks), THREADS, smem,
+                                  stream>>>(g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_reduce<float>(g, a.dk, 96, bh, stream);
+}
+
 // The augmented lanes: q/k rows of g.f.dk lanes (zero-filled to DK =
 // aug_width(g.f.dk): 128, 144, 176, 192 or 256; 213 KB of shared memory, one
-// block per SM, at 256), v and dO of dv = 96 lanes, no bias.
+// block per SM, at 256; past 256 the wide form above), v and dO of dv = 96
+// lanes, no bias.
 template <typename T>
 cudaError_t dispatch_bwd_aug(const BwdArgs& g, int batch, int dv, cudaStream_t s) {
   if (g.segments <= 0 || dv != 96) return cudaErrorInvalidValue;
   switch (aug_width(g.f.dk)) {
+    case 0: return cudaErrorInvalidValue;
     case 128: return launch_bwd<T, 128, 96, kNoBias>(g, batch, s);
     case 144: return launch_bwd<T, 144, 96, kNoBias>(g, batch, s);
     case 176: return launch_bwd<T, 176, 96, kNoBias>(g, batch, s);
     case 192: return launch_bwd<T, 192, 96, kNoBias>(g, batch, s);
     case 256: return launch_bwd<T, 256, 96, kNoBias>(g, batch, s);
-    default: return cudaErrorInvalidValue;
+    default: return launch_bwd_aug_wide(g, batch, s);
   }
 }
 
@@ -851,12 +1019,12 @@ extern "C" int mspi_window_attention_bwd(const void* qkv, const void* bias, cons
 // Backward of the augmented-lane attention (head-major, scale 1): q, dq
 // [B,H,Nq,Da]; k, dk [B,H,Nk,Da]; v, dv [B,H,Nk,Dv]; out (the forward's O)
 // and dout [B,H,Nq,Dv]; lse (from the forward) and delta (scratch) [B*H, Nq]
-// fp32. Da in [97, 256], Dv = 96. dk includes the k_aug lanes of E, which
+// fp32. Da any width, Dv = 96. dk includes the k_aug lanes of E, which
 // the caller drops. fp32 (the FMA passes): dk_part [segments, B*H, Nk, Da]
 // and dv_part [segments, B*H, Nk, Dv] fp32 scratch, pad unused. bf16
 // (attention_aug_bwd_sm90.cu): dk_part [segments, B*H, Nk, DK] with DK =
-// aug_width(Da) (128, 144, 176, 192 or 256; unused with one segment), pad
-// [B*H, Nq + Nk, DK] bf16 scratch.
+// aug_width(Da) (128, 144, 176, 192 or 256, past that a multiple of 64;
+// unused with one segment), pad [B*H, Nq + Nk, DK] bf16 scratch.
 extern "C" int mspi_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                   float* lse, const void* dout, void* dq, void* dk, void* dv,
                                   float* delta, float* dk_part, float* dv_part, void* pad,

@@ -22,7 +22,8 @@
 // for the augmented-lane attention (q_aug = [q*scale | rel], k_aug = [k | E],
 // Da = 96 + R lanes, DV = 96): its rows of Da elements need not be 16-byte
 // (or, at an odd Da, 4-byte) aligned, and are zero-filled to DK = 128, 144,
-// 176, 192 or 256 lanes (aug_width), which leaves the scores exact.
+// 176, 192 or 256 lanes (aug_width), which leaves the scores exact; past
+// 256, to a multiple of 64 lanes taken in chunks (the wide form).
 //
 // The bias mode (template argument BIAS):
 //   kNoBias:    S = scale * q k^T.
@@ -366,7 +367,8 @@ cudaError_t launch_flash_attention(const AttnArgs& a, int batch, cudaStream_t st
 }
 
 // Head dims by bias mode: 96 and 128 (MViT, SyncBlock) without a dense bias,
-// 96 (MViT) with the residual epilogue, 32 (VideoSwin) with a dense bias.
+// and 64 (UniFormer-B's stages 3-4, K4 only); 96 (MViT) with the residual
+// epilogue, 32 (VideoSwin) with a dense bias.
 template <typename T, int BIAS>
 cudaError_t launch_flash_attention_d(const AttnArgs& a, int batch, int d, cudaStream_t s) {
   if constexpr (BIAS == kDenseBias) {
@@ -374,6 +376,9 @@ cudaError_t launch_flash_attention_d(const AttnArgs& a, int batch, int d, cudaSt
   } else if constexpr (BIAS == kRelBiasRes) {
     if (d == 96) return launch_flash_attention<T, 96, 96, BIAS>(a, batch, s);
   } else {
+    if constexpr (BIAS == kNoBias) {
+      if (d == 64) return launch_flash_attention<T, 64, 64, BIAS>(a, batch, s);
+    }
     if (d == 96) return launch_flash_attention<T, 96, 96, BIAS>(a, batch, s);
     if (d == 128) return launch_flash_attention<T, 128, 128, BIAS>(a, batch, s);
   }
@@ -385,37 +390,148 @@ cudaError_t launch_flash_attention_d(const AttnArgs& a, int batch, int d, cudaSt
 // and 114 at --resolution 64 96 among them), 144 (Da <= 144), 176 (Da <=
 // 176), 192 (Da <= 192: MViTv2-S's 180 at --resolution 448 768 and 184 at
 // 512 768) or 256 (Da <= 256: R up to 160, at 16 frames H / 16 + W / 16 <=
-// 152, e.g. --resolution 1024 1408); 0 outside [97, 256]. Row 6's forward
-// and its backward (row 7 head-major) take the same form in fp32 and bf16;
-// pooled_attention.py's AUG_FORMS mirrors it. Nothing but this choice
-// depends on Da: q_aug's fragments, the pad copies and the fp32 loads all
-// zero-fill past Da.
-constexpr int kAugMinDa = 97;
-constexpr int kAugMaxDa = 256;
+// 152, e.g. --resolution 1024 1408), each a compile-time form; past 256 the
+// wide form, Da rounded up to a multiple of kAugChunk = 64 (Da 258 at
+// --resolution 1024 1440, 320 at 1536 1920, 400 at 2048 2688), whose score
+// width is a run-time value: q and k stream through shared memory in
+// 64-lane chunks and S accumulates over them (attention.cu, the FMA body
+// below, attention_aug_bwd_sm90.cu, attention_bwd.cu). 0 only for da <= 0.
+// Row 6's forward and its backward (row 7 head-major) take the same form in
+// fp32 and bf16; pooled_attention.py's aug_form mirrors it. Nothing but this
+// choice depends on Da: q_aug's fragments, the pad copies and the fp32 loads
+// all zero-fill past Da.
+constexpr int kAugChunk = 64;
+constexpr int kAugMaxFixed = 256;  // the widest compile-time form
 __host__ __device__ constexpr int aug_width(int da) {
-  return da < kAugMinDa ? 0
-         : da <= 128    ? 128
-         : da <= 144    ? 144
-         : da <= 176    ? 176
-         : da <= 192    ? 192
-         : da <= kAugMaxDa ? 256
-                           : 0;
+  return da <= 0     ? 0
+         : da <= 128 ? 128
+         : da <= 144 ? 144
+         : da <= 176 ? 176
+         : da <= 192 ? 192
+         : da <= kAugMaxFixed ? 256
+                              : (da + kAugChunk - 1) / kAugChunk * kAugChunk;
+}
+
+// fp32 row 6 in the wide form (Da > 256): flash_attention_kernel's
+// threads and tiles with the score contraction in chunks of kAugChunk
+// lanes: per key tile, each chunk of q and k (one element at a time, zeros
+// past Da and past Nq / Nk) goes into transposed [64][kPitch] tiles and the
+// thread's 4x4 scores accumulate over the chunks in registers, in the order
+// the narrow body sums d = 0 .. Da - 1. q is read again per key tile (from
+// L2), so shared memory does not grow with Da.
+constexpr size_t attn_wide_f32_smem_bytes() {
+  return (static_cast<size_t>(kAugChunk) * kPitch * 2  // qs, ks chunks (transposed)
+          + static_cast<size_t>(kBK) * 96               // vs
+          + static_cast<size_t>(kBQ) * kPitch)          // ps
+         * sizeof(float);
+}
+
+template <int DV>
+__global__ void __launch_bounds__(kAttnThreads) flash_attention_aug_wide_f32_kernel(AttnArgs a) {
+  constexpr int DPT = DV / 16;
+  extern __shared__ __align__(16) float smem_wide_f32[];
+  float* qs = smem_wide_f32;          // [kAugChunk][kPitch]: qs[d][row]
+  float* ks = qs + kAugChunk * kPitch;  // [kAugChunk][kPitch]: ks[d][key]
+  float* vs = ks + kAugChunk * kPitch;  // [kBK][DV]
+  float* ps = vs + kBK * DV;            // [kBQ][kPitch]
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
+  const int q0 = blockIdx.x * kBQ;
+  const float* qp = static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const float* kp = static_cast<const float*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const float* vp = static_cast<const float*>(a.v) + b * a.vs.b + h * a.vs.h;
+
+  float m_run[4], l_run[4], o[4][DPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd) o[i][dd] = 0.f;
+  }
+  for (int k0 = 0; k0 < a.nk; k0 += kBK) {
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+    for (int c0 = 0; c0 < a.dk; c0 += kAugChunk) {
+      __syncthreads();  // the previous chunk's (and tile's) reads are done
+      for (int e = tid; e < kBQ * kAugChunk; e += kAttnThreads) {
+        const int r = e / kAugChunk, d = e % kAugChunk;
+        const int i = q0 + r, kj = k0 + r;
+        const bool in_d = c0 + d < a.dk;
+        qs[d * kPitch + r] = i < a.nq && in_d ? qp[i * a.qs.n + c0 + d] : 0.f;
+        ks[d * kPitch + r] = kj < a.nk && in_d ? kp[kj * a.ks.n + c0 + d] : 0.f;
+      }
+      if (c0 == 0) {
+        for (int e = tid; e < kBK * DV; e += kAttnThreads) {
+          const int j = e / DV, d = e % DV;
+          vs[j * DV + d] = k0 + j < a.nk ? vp[(k0 + j) * a.vs.n + d] : 0.f;
+        }
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kAugChunk; ++d) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + d * kPitch + ty * 4);
+        const float4 kv = *reinterpret_cast<const float4*>(ks + d * kPitch + tx * 4);
+        const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+        const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(qa[i], ka[jj], s[i][jj]);
+      }
+    }
+    float alpha[4];
+    softmax_update<float, kNoBias>(a, nullptr, b, h, q0, k0, tx, ty, s, m_run, l_run, alpha);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int dd = 0; dd < DPT; ++dd) o[i][dd] *= alpha[i];
+      *reinterpret_cast<float4*>(ps + (ty * 4 + i) * kPitch + tx * 4) =
+          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < kBK; ++j) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = ps[(ty * 4 + i) * kPitch + j];
+#pragma unroll
+      for (int dd = 0; dd < DPT; ++dd) {
+        const float vv = vs[j * DV + tx + 16 * dd];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[i][dd] = fmaf(p[i], vv, o[i][dd]);
+      }
+    }
+  }
+  store_rows<float, DV, kNoBias>(a, b, h, q0, tx, ty, o, m_run, l_run);
 }
 
 // fp32 augmented-lane attention on the FMA pipes: q/k rows of a.dk lanes
-// (zero-filled to aug_width(a.dk) in shared memory), v and out of dv = 96
-// lanes, no bias and no scale. bf16 runs flash_attention_sm90.cuh's body
-// (attention.cu).
+// (zero-filled to aug_width(a.dk) in shared memory, or in the wide form
+// streamed in 64-lane chunks), v and out of dv = 96 lanes, no bias and no
+// scale. bf16 runs flash_attention_sm90.cuh's body (attention.cu).
 inline cudaError_t launch_flash_attention_aug_f32(const AttnArgs& a, int batch, int dv,
                                                   cudaStream_t s) {
   if (dv != 96) return cudaErrorInvalidValue;
   switch (aug_width(a.dk)) {
+    case 0: return cudaErrorInvalidValue;
     case 128: return launch_flash_attention<float, 128, 96, kNoBias>(a, batch, s);
     case 144: return launch_flash_attention<float, 144, 96, kNoBias>(a, batch, s);
     case 176: return launch_flash_attention<float, 176, 96, kNoBias>(a, batch, s);
     case 192: return launch_flash_attention<float, 192, 96, kNoBias>(a, batch, s);
     case 256: return launch_flash_attention<float, 256, 96, kNoBias>(a, batch, s);
-    default: return cudaErrorInvalidValue;
+    default: {
+      const dim3 grid((a.nq + kBQ - 1) / kBQ, batch * a.heads);
+      const size_t smem = attn_wide_f32_smem_bytes();
+      cudaError_t err = allow_smem(flash_attention_aug_wide_f32_kernel<96>, smem);
+      if (err != cudaSuccess) return err;
+      flash_attention_aug_wide_f32_kernel<96><<<grid, kAttnThreads, smem, s>>>(a);
+      return cudaGetLastError();
+    }
   }
 }
 
@@ -506,13 +622,14 @@ struct RelBwdArgs {
 cudaError_t attention_rel_bwd_sm90(const RelBwdArgs& w, int batch, int d, cudaStream_t stream);
 // The bf16 K4 backward (self_attention_bwd_sm90.cu; the same two passes
 // without the rel chain, then its own reduce of the segments) on the same
-// arguments: rel, drel and rel_pad unused, Nq = Nk; head dim 96 or 128.
+// arguments: rel, drel and rel_pad unused, Nq = Nk; head dim 64, 96 or 128.
 cudaError_t self_attention_bwd_sm90(const RelBwdArgs& w, int batch, int d, cudaStream_t stream);
 // The bf16 backward of row 6's augmented lanes (attention_aug_bwd_sm90.cu):
 // head-major q, dq [bh, nq, da]; k, dk [bh, nk, da]; v, dv [bh, nk, 96];
 // dout [bh, nq, 96]; lse and delta [bh, nq] fp32; dk_part and dv_part
 // [segments, bh, nk, DK | 96] fp32 (segments > 1); pad [bh, nq + nk, DK]
-// bf16 scratch, DK = aug_width(da); da in [97, 256].
+// bf16 scratch, DK = aug_width(da) (past 256: the wide form, DK a multiple
+// of 64 at run time).
 cudaError_t attention_aug_bwd_sm90(const void* q, const void* k, const void* v,
                                    const float* lse, const void* dout, void* dq, void* dk,
                                    void* dv, float* delta, float* dk_part, float* dv_part,

@@ -697,6 +697,210 @@ cudaError_t launch_aug_pad(const bf16* src, bf16* dst, int64_t rows, int da,
   return cudaGetLastError();
 }
 
+// The wide form's pad (Da > 256): rows of da lanes (any alignment) into
+// zero-filled rows of dk lanes, dk = aug_width(da) a multiple of 64 chosen at
+// run time, 8 lanes a thread.
+template <typename T>
+__global__ void __launch_bounds__(256) aug_pad_wide_kernel(const T* __restrict__ src,
+                                                           T* __restrict__ dst, int64_t rows,
+                                                           int da, int dk) {
+  const int vec = dk / 8;
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= rows * vec) return;
+  const int64_t r = i / vec;
+  const int c = static_cast<int>(i % vec) * 8;
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src) + r * da;
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t lo = c + 2 * e < da ? s[c + 2 * e] : 0u;
+    const uint32_t hi = c + 2 * e + 1 < da ? s[c + 2 * e + 1] : 0u;
+    w[e] = lo | hi << 16;
+  }
+  *reinterpret_cast<uint4*>(dst + r * dk + c) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+inline cudaError_t launch_aug_pad_wide(const bf16* src, bf16* dst, int64_t rows, int da,
+                                       int dk, cudaStream_t stream) {
+  const int64_t threads = rows * (dk / 8);
+  if (threads > 0)
+    aug_pad_wide_kernel<bf16><<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
+                                stream>>>(src, dst, rows, da, dk);
+  return cudaGetLastError();
+}
+
+// Row 6's wide form in bf16 (Da > 256): the score width is a run-time
+// multiple of kAugChunk = 64, so q and k cannot sit in registers or whole in
+// shared memory. One block of 4 warps takes BQ = 64 query rows and walks the
+// steps (key tile t, chunk c): each step's ring slot holds the block's q
+// chunk c [64][72] and key tile t's k chunk c [64][72] (the padded rows,
+// 16-byte cp.async copies), and on a tile's last chunk its V rows [64][104].
+// S [16 rows x 64 keys] a warp accumulates over the chunks in registers
+// (32), Q's A fragments by ldmatrix per step; after the last chunk the
+// online softmax and O += P V run as in flash_attention_sm90_kernel with
+// 64-key tiles. Registers do not grow with Da; q is read again per key
+// tile, from L2. 62 KB of shared memory, 3 blocks per SM.
+struct WideLayout {
+  static constexpr int LDC = kAugChunk + 8;  // bf16 pitch of q and k chunk rows
+  static constexpr int LDV = 96 + 8;         // bf16 pitch of v rows
+  static constexpr int kQ = sizeof(bf16) * 16 * kWarps * LDC;
+  static constexpr int kK = sizeof(bf16) * kBK * LDC;
+  static constexpr int kV = sizeof(bf16) * kBK * LDV;
+  static constexpr int kSlot = kQ + kK + kV;
+  static constexpr int kBytes = kStages * kSlot;
+  static_assert(kQ % 16 == 0 && kK % 16 == 0 && kV % 16 == 0, "16-byte regions");
+};
+
+template <int DV>
+__global__ void __launch_bounds__(kWarps * 32, 3)
+    flash_attention_aug_wide_sm90_kernel(AttnArgs a, int dk) {
+  using L = WideLayout;
+  constexpr int NT = kWarps * 32, BQ = 16 * kWarps, NS = kBK / 8, ND = DV / 8;
+  constexpr int LDC = L::LDC, LDV = L::LDV;
+  static_assert(DV + 8 == LDV, "v rows at the layout's pitch");
+  extern __shared__ __align__(128) unsigned char smem_wide[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.y % a.heads, b = blockIdx.y / a.heads;
+  const int q0 = blockIdx.x * BQ;
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
+  const int nc = dk / kAugChunk, n_t = (a.nk + kBK - 1) / kBK, steps = n_t * nc;
+  // step (t, c) into ring slot si as one commit group; past the last step
+  // an empty group keeps the count
+  auto issue = [&](int si, int step) {
+    if (step < steps) {
+      const int t = step / nc, c = step % nc;
+      unsigned char* slot = smem_wide + si * L::kSlot;
+      copy_rows<BQ, kAugChunk, NT>(reinterpret_cast<bf16*>(slot), qp + c * kAugChunk, a.qs.n,
+                                   q0, a.nq);
+      copy_rows<kBK, kAugChunk, NT>(reinterpret_cast<bf16*>(slot + L::kQ), kp + c * kAugChunk,
+                                    a.ks.n, t * kBK, a.nk);
+      if (c == nc - 1)
+        copy_rows<kBK, DV, NT>(reinterpret_cast<bf16*>(slot + L::kQ + L::kK), vp, a.vs.n,
+                               t * kBK, a.nk);
+    }
+    cp_async_commit();
+  };
+  issue(0, 0);
+
+  const bool active = q0 + warp * 16 < a.nq;  // a row of this warp is in range
+  const int row0 = warp * 16 + g;             // the thread's rows row0, row0 + 8
+  float o[ND][4], s[NS][4], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();  // this step's slot is full; every warp is done with the last one's
+    issue((step + 1) % kStages, step + 1);
+    if (!active) continue;
+    const int t = step / nc, c = step % nc;
+    const int valid = a.nk - t * kBK;  // keys of this tile in range (may exceed kBK)
+    const unsigned char* slot = smem_wide + (step % kStages) * L::kSlot;
+    const bf16* qc = reinterpret_cast<const bf16*>(slot);
+    const bf16* kc = reinterpret_cast<const bf16*>(slot + L::kQ);
+    const bf16* vt = reinterpret_cast<const bf16*>(slot + L::kQ + L::kK);
+    // S += q_c K_c^T, column tiles wholly past Nk skipped
+    const bf16* qa_row = qc + (warp * 16 + (lane & 15)) * LDC + (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < kAugChunk / 16; kk += 2) {
+      uint32_t qa[4], qb[4];
+      ldsm_x4(qa, qa_row + kk * 16);
+      ldsm_x4(qb, qa_row + kk * 16 + 16);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        if (n * 8 < valid) {
+          uint32_t kb[4];
+          ldsm_x4(kb, kc + (n * 8 + (lane & 7)) * LDC + kk * 16 + (lane >> 3) * 8);
+          mma_bf16(s[n], qa, kb[0], kb[1]);
+          mma_bf16(s[n], qb, kb[2], kb[3]);
+        }
+      }
+    }
+    if (c != nc - 1) continue;
+
+    if (valid < kBK) {  // the ragged last tile: -inf past Nk
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n * 8 + 2 * t4 + (e & 1) >= valid) s[n][e] = -INFINITY;
+    }
+    float alpha[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * hr], s[n][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[hr], mx);  // finite: key t * kBK is in range
+      const float m2 = m_new * kLog2e;
+      alpha[hr] = m_new == m_run[hr] ? 1.f : exp2_ftz(m_run[hr] * kLog2e - m2);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        s[n][2 * hr] = exp2_ftz(s[n][2 * hr] * kLog2e - m2);
+        s[n][2 * hr + 1] = exp2_ftz(s[n][2 * hr + 1] * kLog2e - m2);
+        sum += s[n][2 * hr] + s[n][2 * hr + 1];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[hr] = l_run[hr] * alpha[hr] + sum;
+      m_run[hr] = m_new;
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+    }
+    // O += P V: P (bf16) from the S fragments of keys 16kk .. 16kk + 15
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      if (kk * 16 < valid) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dn = 0; dn < ND; dn += 2) {
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, vt + (kk * 16 + (lane & 15)) * LDV + dn * 8 + (lane >> 4) * 8);
+          mma_bf16(o[dn], pa, vb[0], vb[1]);
+          mma_bf16(o[dn + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+
+  // out rows = O / l in bf16, and the rows' lse
+  bf16* op = static_cast<bf16*>(a.out) + b * a.os.b + h * a.os.h;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = q0 + row0 + 8 * hr;
+    if (qi >= a.nq) continue;
+    const float inv = 1.f / l_run[hr];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(op + qi * a.os.n + n * 8 + 2 * t4) =
+          pack_bf16(o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
+    if (a.lse != nullptr && t4 == 0)
+      a.lse[(static_cast<int64_t>(b) * a.heads + h) * a.nq + qi] = m_run[hr] + logf(l_run[hr]);
+  }
+}
+
 }  // namespace sm90
 
 namespace sm90 {
@@ -757,6 +961,39 @@ cudaError_t launch_flash_attention_aug_sm90(AttnArgs a, int batch, bf16* pad,
   a.k = pad;
   a.ks = {a.heads * per_head, per_head, DK};
   return sm90::launch<DK, 0, kNoBias, 96>(a, batch, stream);
+}
+
+// Row 6's wide form in bf16 (Da > 256, sm90::flash_attention_aug_wide_sm90_kernel):
+// q_aug [B, H, Nq, a.dk] and k_aug [B, H, Nk, a.dk] are first copied into
+// `pad` [B*H*(Nq + Nk), dk] (zero-filled rows of dk = aug_width(a.dk) lanes,
+// q's rows, then k's), v [B, H, Nk, 96] 16-byte aligned rows.
+inline cudaError_t launch_flash_attention_aug_wide_sm90(AttnArgs a, int batch, bf16* pad,
+                                                        cudaStream_t stream) {
+  if (!sm90::aligned16(a.v) || !sm90::aligned16(pad) || a.vs.n % 8 != 0 ||
+      a.vs.h % 8 != 0 || a.vs.b % 8 != 0)
+    return cudaErrorMisalignedAddress;
+  const int dk = aug_width(a.dk);
+  if (dk <= kAugMaxFixed) return cudaErrorInvalidValue;
+  const int64_t bh = static_cast<int64_t>(batch) * a.heads;
+  bf16* qpad = pad;
+  bf16* kpad = pad + bh * a.nq * dk;
+  cudaError_t err = sm90::launch_aug_pad_wide(static_cast<const bf16*>(a.q), qpad, bh * a.nq,
+                                              a.dk, dk, stream);
+  if (err == cudaSuccess)
+    err = sm90::launch_aug_pad_wide(static_cast<const bf16*>(a.k), kpad, bh * a.nk, a.dk, dk,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  const int64_t hq = static_cast<int64_t>(a.nq) * dk, hk = static_cast<int64_t>(a.nk) * dk;
+  a.q = qpad;
+  a.qs = {a.heads * hq, hq, dk};
+  a.k = kpad;
+  a.ks = {a.heads * hk, hk, dk};
+  constexpr int smem = sm90::WideLayout::kBytes;
+  auto kernel = sm90::flash_attention_aug_wide_sm90_kernel<96>;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  kernel<<<dim3((a.nq + 63) / 64, static_cast<unsigned>(bh)), sm90::kWarps * 32, smem, stream>>>(
+      a, dk);
+  return cudaGetLastError();
 }
 
 }  // namespace mspi

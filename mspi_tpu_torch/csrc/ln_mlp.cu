@@ -3,7 +3,8 @@
 // The bodies are in ln_mlp_sm90.cuh (bf16) and ln_mlp.cuh (fp32).
 //
 // Replaces: mspi_tpu/ops/pallas/mlp.py::fused_ln_mlp (kernel _ln_fwd_kernel),
-// used by the MViT, SyncBlock and decoder ConvNextBlock3d MLPs. It also
+// used by the MViT, UniFormer-B (C = 320 at stage 3), SyncBlock and decoder
+// ConvNextBlock3d MLPs. It also
 // serves the call site of mspi_tpu/ops/pallas/mlp.py::fused_ln_mlp_t
 // (_ln_fwd_kernel_t), the ConvNeXt prior's LN+MLP: that kernel's [N, C, B*T]
 // layout exists only for the TPU's batch-minor lane tiling, and what it
@@ -45,6 +46,7 @@ cudaError_t dispatch_c(const MlpArgs& a, int C, cudaStream_t s) {
   switch (C) {
     case 96: return launch_ln_mlp<T, 96, V>(a, s);
     case 192: return launch_ln_mlp<T, 192, V>(a, s);
+    case 320: return launch_ln_mlp<T, 320, V>(a, s);
     case 384: return launch_ln_mlp<T, 384, V>(a, s);
     case 512: return launch_ln_mlp<T, 512, V>(a, s);
     case 768: return launch_ln_mlp<T, 768, V>(a, s);
@@ -57,6 +59,7 @@ cudaError_t dispatch_sm90(const MlpArgs& a, int C, cudaStream_t s) {
   switch (C) {
     case 96: return launch_ln_mlp_sm90<96, V>(a, s);
     case 192: return launch_ln_mlp_sm90<192, V>(a, s);
+    case 320: return launch_ln_mlp_sm90<320, V>(a, s);
     case 384: return launch_ln_mlp_sm90<384, V>(a, s);
     case 512: return launch_ln_mlp_sm90<512, V>(a, s);
     case 768: return launch_ln_mlp_sm90<768, V>(a, s);

@@ -497,6 +497,7 @@ cudaError_t dispatch_bwd(const BwdArgs& a, int C, int dtype, cudaStream_t s) {
     switch (C) {
       case 96: return launch_bwd_f32<96, LN>(a, s);
       case 192: return launch_bwd_f32<192, LN>(a, s);
+      case 320: return launch_bwd_f32<320, LN>(a, s);
       case 384: return launch_bwd_f32<384, LN>(a, s);
       case 512: return launch_bwd_f32<512, LN>(a, s);
       case 768: return launch_bwd_f32<768, LN>(a, s);
@@ -507,6 +508,7 @@ cudaError_t dispatch_bwd(const BwdArgs& a, int C, int dtype, cudaStream_t s) {
   switch (C) {
     case 96: return launch_bwd_sm90<96, LN>(a, s);
     case 192: return launch_bwd_sm90<192, LN>(a, s);
+    case 320: return launch_bwd_sm90<320, LN>(a, s);
     case 384: return launch_bwd_sm90<384, LN>(a, s);
     case 512: return launch_bwd_sm90<512, LN>(a, s);
     case 768: return launch_bwd_sm90<768, LN>(a, s);

@@ -81,7 +81,7 @@ struct Form {
   static constexpr int kStatic = 2 * NC * 4 * kHC * 4 + 128;
   static constexpr int kFixed = 2 * KB * kTileBox + 1024;  // z, dy + alignment slack
   // weight box slots: what shared memory leaves, at most 16 (C = 96: 16, 192:
-  // 15, 384: 3, 512: 11, 768: 3). Two chunks' boxes (4 KB of them) let the
+  // 15, 320: 7, 384: 3, 512: 11, 768: 3). Two chunks' boxes (4 KB of them) let the
   // two consumers drift a chunk apart, one's GELU beside the other's
   // products; a ring of one chunk held them in step.
   static constexpr int kFit = (kSmemLimit - kFixed - kStatic) / static_cast<int>(kBox);

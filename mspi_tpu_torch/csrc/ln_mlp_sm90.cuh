@@ -35,9 +35,10 @@
 // - A block owns BM = 64 NC rows (NC consumer warpgroups of 64 rows each:
 //   2 up to C = 512, 1 at C = 768, where one 128-row z tile would not fit in
 //   shared memory) and CN columns of y: all C up to 192, else C / CN column
-//   parts of 192 or 256 (a 64-row fp32 y of C = 384 columns would take 192
-//   of a thread's registers beside u and h). Each part recomputes fc1: 1.5x
-//   the products at C = 384 and 512, 2x at C = 768.
+//   parts of 160 (C = 320, UniFormer-B's stage 3: 256 does not divide it),
+//   192 or 256 (a 64-row fp32 y of C = 384 columns would take 192 of a
+//   thread's registers beside u and h). Each part recomputes fc1: 1.5x the
+//   products at C = 320, 384 and 512, 2x at C = 768.
 // - The consumers normalise their own 64 rows straight into the z tile in
 //   shared memory, written in the 128-byte swizzle that wgmma reads as its
 //   K-major A operand (sm90_wgmma.cuh), 4 or 8 lanes a row with 16-byte
@@ -95,7 +96,7 @@ constexpr uint32_t kOnesBox = 8 * 128;  // kLnTensorStats: [8, 64] bf16 ones, X 
 // (lab.py::lab_sm90_form for the labs' variants).
 template <int C, int LN = kLnTwoPass>
 struct Form {
-  static constexpr int CN = C <= 192 ? C : C == 384 ? 192 : 256;  // y columns per block
+  static constexpr int CN = C <= 192 ? C : C == 320 ? 160 : C == 384 ? 192 : 256;  // y columns
   static constexpr int PARTS = C / CN;                             // column parts
   static constexpr int NC = C <= 512 ? 2 : 1;  // consumer warpgroups, 64 rows each
   static constexpr int BM = 64 * NC;           // rows per block
@@ -135,6 +136,7 @@ template <int CN>
 __device__ __forceinline__ void fc2_wgmma(float (&y)[CN / 2], const uint32_t (&a)[4],
                                           uint64_t db) {
   if constexpr (CN == 96) wg::wgmma_m64n96k16_bf16_rs(y, a, db);
+  else if constexpr (CN == 160) wg::wgmma_m64n160k16_bf16_rs(y, a, db);
   else if constexpr (CN == 192) wg::wgmma_m64n192k16_bf16_rs(y, a, db);
   else wg::wgmma_m64n256k16_bf16_rs(y, a, db);
 }

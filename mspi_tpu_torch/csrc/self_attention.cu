@@ -5,7 +5,10 @@
 //
 // Replaces: mspi_tpu/ops/pallas/pooled_attention.py::fused_self_attention
 // (kernel _self_fwd_kernel), used by the 3 SyncBlock blocks (N = 672 + 36 =
-// 708 tokens, C 512, 4 heads, D 128 on the flagship).
+// 708 tokens, C 512, 4 heads, D 128 on the flagship) and by UniFormer-B's 27
+// stage 3-4 blocks at D = 64 (N = 8 * 14 * 24 = 2688, C 320, 5 heads and N =
+// 672, C 512, 8 heads at 224x384; the JAX package takes its kernel there
+// only up to N = 4096, a VMEM gate that the card does not have).
 //
 // The TPU kernel runs all heads of a query tile in one grid step on static
 // lane slices. Here each (batch, head) is its own grid row and the flash

@@ -46,8 +46,9 @@
 // copies and P is 0 past N.
 //
 // Registers set the form (pooled_attention.self_bwd_form mirrors it):
-//   D = 96: the dk/dv pass keeps its keys' K and V A fragments in registers
-//     (48) beside dk and dv (96), as row 5's passes do.
+//   D = 64 (UniFormer-B's stages 3-4: N = 2688 and 672 at 224x384) and 96:
+//     the dk/dv pass keeps its keys' K and V A fragments in registers (32 or
+//     48) beside dk and dv (64 or 96), as row 5's passes do.
 //   D = 128: K and V (64 registers) beside dk and dv (128) would pass the
 //     255-register cap, so the block's 64 K and V rows are copied once into
 //     shared memory and each warp reads its A fragments by ldmatrix per use,
@@ -477,6 +478,7 @@ cudaError_t self_attention_bwd_sm90(const RelBwdArgs& w, int batch, int d,
       !aligned(w.dout, 16) || !aligned(w.dq, 4) || !aligned(w.dk, 4) || !aligned(w.dv, 4) ||
       !aligned(a.lse, 4) || !aligned(w.delta, 4))
     return cudaErrorMisalignedAddress;
+  if (d == 64) return launch<64>(w, batch, stream);
   if (d == 96) return launch<96>(w, batch, stream);
   if (d == 128) return launch<128>(w, batch, stream);
   return cudaErrorInvalidValue;

@@ -11,14 +11,15 @@ clip and flipped audio, then an 11x11 Gaussian blur -> exp -> resize to
 it with file I/O:
 
     python -m mspi_tpu_torch.inference --path_data ./AuViDataset --dataset AVAD \
-        --split 2 --save_path ./output [--motion_encoder videoswins] \
+        --split 2 --save_path ./output [--motion_encoder videoswins|uniformerb|s3d] \
         [--weight port_state_dict.pt] [--bf16] \
         [--quant int8] [--prior_fold_res] [--prior_ln_t] \
         [--no_attn_relk] [--attn_packed] [--dwconv]
 
 `--quant`, `--prior_fold_res` and `--prior_ln_t` are the serving options of
 `ModelConfig` (the JAX package's MSPI_QUANT=int8, MSPI_PRIOR_FOLD_RES=1 and
-MSPI_PRIOR_LN_T=1): int8 LN+MLP for the blocks with C >= 256, and the
+MSPI_PRIOR_LN_T=1): int8 LN+MLP for the blocks with C >= 256 (refused
+for uniformerb, whose C = 320 blocks row 12 has no form for), and the
 ConvNeXt prior's residual-folded MLP and LayerNorm kernels. The last three
 are MViT's layout options (MSPI_ATTN_RELK=0, MSPI_POOL_FAT=1 with
 MSPI_ATTN_PACKED=1, MSPI_DWCONV=1): attention on augmented q/k lanes,
@@ -127,7 +128,7 @@ def predict_video(model, frames_u8: np.ndarray, audio_16k: Optional[np.ndarray],
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--motion_encoder", default="mvitv2s", type=str,
-                   help="backbone of the model (mvitv2s or videoswins)")
+                   help="backbone of the model (mvitv2s, videoswins, uniformerb or s3d)")
     p.add_argument("--weight", default="", type=str,
                    help="torch state_dict of the port (e.g. via "
                         "mspi_tpu_torch.convert); random seeded weights if empty")

@@ -303,8 +303,8 @@ def _init_weights(model: nn.Module, gen: torch.Generator) -> None:
     """Draw every parameter from `gen` with the JAX package's initialisers:
     torch's default for convs and linears, xavier for the fusion
     transformer, truncated normal(0.02) for ConvNeXt, the rel-pos tables and
-    the window-attention bias tables,
-    zero biases where the JAX module asks for them."""
+    the window-attention bias tables, zero biases where the JAX module asks
+    for them, and UniFormer's temporal attention at qkv 0 and proj 1."""
     layers.init_default(model, gen)
     for m in model.modules():
         if isinstance(m, (Mlp, Attention)):
@@ -332,6 +332,12 @@ def _init_weights(model: nn.Module, gen: torch.Generator) -> None:
                 layers.trunc_normal_(t, 0.02, gen)
         elif isinstance(m, WindowAttention3D):
             layers.trunc_normal_(m.relative_position_bias_table, 0.02, gen)
+        elif getattr(m, "temporal_init", False):  # UniFormer's SplitSABlock t_attn
+            nn.init.zeros_(m.qkv.weight)
+            if m.qkv.bias is not None:
+                nn.init.zeros_(m.qkv.bias)
+            nn.init.ones_(m.proj.weight)
+            nn.init.zeros_(m.proj.bias)
         elif isinstance(m, Readout):
             layers.trunc_normal_(m[12].weight, 1.0 / math.sqrt(m[12].weight[0].numel()), gen)
             nn.init.zeros_(m[12].bias)

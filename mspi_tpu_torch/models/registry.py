@@ -1,7 +1,8 @@
 """Backbone factory: counterpart of `mspi_tpu/models/registry.py`.
 
 Each backbone maps a clip [B,16,H,W,3] to the pyramid [v1, v2, v3, v4],
-channels-last at strides 4/8/16/32. MViTv2-S and VideoSwin-S are ported.
+channels-last at strides 4/8/16/32. MViTv2-S, VideoSwin-S, UniFormer-B and
+S3D are ported.
 """
 
 from __future__ import annotations
@@ -18,6 +19,14 @@ def build_backbone(cfg: MSPIConfig) -> nn.Module:
 
         mc = cfg.model
         return MViTFeatures(mc.mvit, mc.quant, mc.attn_relk, mc.attn_packed, mc.dwconv)
+    if name == "uniformerb":
+        from mspi_tpu_torch.models.uniformer import UniFormerFeatures
+
+        return UniFormerFeatures(cfg.model.uniformer)
+    if name == "s3d":
+        from mspi_tpu_torch.models.s3d import S3DFeatures
+
+        return S3DFeatures(pool=cfg.model.s3d.pool_stride)
     if name == "videoswins":
         from mspi_tpu_torch.models.videoswin import VideoSwinFeatures
 

@@ -8,7 +8,7 @@ them is on a model's path: `ln_mlp.py` stays the production module.
 - `ln_mlp_lab(x, g, b, w1, b1, w2, b2, variant)`: row 20,
   `tools/bench_lnmlp.py::_call` with one of its five bodies, as K2's bf16
   `wgmma` + TMA body (`csrc/ln_mlp_sm90.cuh`) compiled in a variant
-  (`csrc/lnmlp_lab.cuh`; bf16, at K2's widths `LAB_WIDTHS`, in the form
+  (`csrc/lnmlp_lab.cuh`; bf16, at K2's widths but 320, `LAB_WIDTHS`, in the form
   `lab_sm90_form` mirrors, any H % 64 == 0): `matmul` (`_k_matmul`: no LN,
   no GELU), `matmul_gelu` (`_k_matmul_gelu`), `ln_matmul` (`_k_ln_matmul`:
   no GELU), `pipe2` (`_k_pipe`, k = 2: K2's own schedule at the width, up
@@ -44,13 +44,15 @@ import torch
 import torch.nn.functional as F
 
 from mspi_tpu_torch.ops import kernels
-from mspi_tpu_torch.ops.kernels.ln_mlp import (INT8_C, INT8_LAB_C, SUPPORTED_C, _int_products,
+from mspi_tpu_torch.ops.kernels.ln_mlp import (INT8_C, INT8_LAB_C, _int_products,
                                                int8_sm90_form, sm90_form)
 
 LAB_VARIANTS = ("matmul", "matmul_gelu", "ln_matmul", "pipe2", "pipe4", "mxu_stats")
 _MLP_BF16_CODE = len(LAB_VARIANTS)  # the K2-body variant code of mlp_bf16 (csrc/lnmlp_lab.cuh)
 LAB_C = 96  # the labs' default width (ConvNeXt stage 0)
-LAB_WIDTHS = SUPPORTED_C  # row 20's bodies and mlp_bf16: K2's widths
+# row 20's bodies and mlp_bf16: K2's widths up to PR 16, a translation unit
+# each (`csrc/lnmlp_lab_c<C>.cu`); K2's C = 320 (UniFormer-B) has no lab body
+LAB_WIDTHS = (96, 192, 384, 512, 768)
 INT8_LAB_WIDTHS = (INT8_LAB_C,) + INT8_C  # mlp_int8w: its own 96 and row 12's widths
 LAB_HC = 64  # every lab body takes H % 64 == 0
 EPS = 1e-6  # the lab's LayerNorm eps

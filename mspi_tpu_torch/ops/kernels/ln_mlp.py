@@ -55,7 +55,7 @@ from torch import nn
 
 from mspi_tpu_torch.ops import kernels
 
-SUPPORTED_C = (96, 192, 384, 512, 768)
+SUPPORTED_C = (96, 192, 320, 384, 512, 768)  # MViT / Swin stages, UniFormer-B's stage 3
 SM90_HC = 64  # the bf16 body's hidden units per chunk (H % 64 == 0)
 INT8_C = (256, 384, 512, 768)  # widths the int8 kernel is compiled for
 INT8_HC = 128  # the int8 kernel's W2 box: two 64-unit chunks (H % 128 == 0)
@@ -206,14 +206,15 @@ def sm90_form(C: int) -> Tuple[int, int, int, bool]:
     `Form<C>` chooses it: (rows per block, y columns per block, column
     parts, pipelined). Two consumer warpgroups of 64 rows up to C = 512, one
     at C = 768 (a 128-row z tile would not fit in shared memory); y's
-    columns whole up to C = 192, else in parts of 192 (C = 384) or 256, each
-    part recomputing fc1 (a 64-row fp32 y wider than 256 columns does not
-    fit beside u and h in a thread's registers); pipelined (chunk j's GELU
+    columns whole up to C = 192, else in parts of 160 (C = 320: wgmma's
+    n160, as 256 does not divide it), 192 (C = 384) or 256, each part
+    recomputing fc1 (a 64-row fp32 y wider than 256 columns does not fit
+    beside u and h in a thread's registers); pipelined (chunk j's GELU
     beside chunk j + 1's fc1, u in two register sets) up to C = 192. The
     grid is (ceil(M / rows), parts)."""
     if C not in SUPPORTED_C:
         raise ValueError(f"C={C} not compiled (have {SUPPORTED_C})")
-    cn = C if C <= 192 else 192 if C == 384 else 256
+    cn = C if C <= 192 else {320: 160, 384: 192}.get(C, 256)
     return (128 if C <= 512 else 64), cn, C // cn, C <= 192
 
 

@@ -34,19 +34,20 @@ import torch
 
 from mspi_tpu_torch.ops import kernels
 
-SUPPORTED_D = (96, 128)  # MViT heads, SyncBlock heads
+SUPPORTED_D = (64, 96, 128)  # UniFormer-B heads, MViT heads, SyncBlock heads
 PACKED_D = 96  # row 8's head dim (MViT)
 # row 6's q_aug/k_aug widths Da = 96 + R, zero-filled to the score width of
 # the first form that holds them (`csrc/flash_attention.cuh::aug_width`):
 # MViTv2-S at 16 frames has R = kt + kh + kw = 8 + H / 16 + W / 16 at its
 # widest calls (Da 114 at --resolution 64 96, 142 at 224x384, 162 at 288x640,
-# 184 at 512x768); the widest form, 256, takes R <= 160
-AUG_DA = (97, 256)
+# 184 at 512x768, 256 at 1024x1408); past the widest compile-time form, 256,
+# the wide form takes Da rounded up to a multiple of AUG_CHUNK (Da 258 at
+# 1024x1440, 320 at 1536x1920, 400 at 2048x2688), streaming q and k in
+# chunks of that many lanes
 AUG_FORMS = (128, 144, 176, 192, 256)
+AUG_CHUNK = 64
+AUG_SPLIT = 128  # the bf16 wide backward's dq / dk columns a block
 AUG_DV = 96  # row 6's value width (MViT heads)
-# the widest --resolution H W (16 frames) whose relk0 widths the forms hold:
-# H / 16 + W / 16 <= 152
-AUG_MAX_RES = (1024, 1408)
 BWD_TILE = 64  # query and key tile of the backward kernels
 REL_BWD_D = 96  # the bf16 K1 backward's head dim (every K1 call of MViTv2-S)
 REL_BWD_SM90_MAX_R = 64  # the widest rel width of its passes compiled per RS
@@ -94,10 +95,11 @@ def rel_bwd_form(R: int) -> Tuple[str, int]:
 
 def self_bwd_form(D: int) -> str:
     """The bf16 K4 backward's form at head dim D, as
-    `csrc/self_attention_bwd_sm90.cu` chooses it: "kv_registers" (D = 96:
-    the dk/dv pass holds its keys' K and V A fragments in registers) or
-    "kv_shared" (D = 128: K and V rows resident in shared memory, their
-    fragments read by ldmatrix per use, so that dk and dv fit the registers)."""
+    `csrc/self_attention_bwd_sm90.cu` chooses it: "kv_registers" (D = 64
+    and 96: the dk/dv pass holds its keys' K and V A fragments in
+    registers) or "kv_shared" (D = 128: K and V rows resident in shared
+    memory, their fragments read by ldmatrix per use, so that dk and dv fit
+    the registers)."""
     if D not in SUPPORTED_D:
         raise ValueError(f"head dim {D} not compiled (have {SUPPORTED_D})")
     return "kv_registers" if D <= 96 else "kv_shared"
@@ -269,28 +271,36 @@ def attention_backward_reference(q, k, v, dout):
 def aug_form(Da: int) -> int:
     """Row 6's and row 7 head-major's score width DK at augmented width Da,
     as `csrc/flash_attention.cuh::aug_width` chooses it: q_aug and k_aug rows
-    zero-filled to the narrowest of AUG_FORMS that holds them. Outside
-    AUG_DA (past the widest form, Da > 256) no kernel is compiled:
-    ValueError naming the widest Da and resolution."""
-    if not AUG_DA[0] <= Da <= AUG_DA[1]:
-        raise ValueError(
-            f"Da {Da} outside {AUG_DA[0]}..{AUG_DA[1]}: the widest compiled form zero-fills "
-            f"{AUG_FORMS[-1]} lanes (R = kt + kh + kw <= {AUG_FORMS[-1] - AUG_DV}; MViTv2-S at "
-            f"16 frames up to --resolution {AUG_MAX_RES[0]} {AUG_MAX_RES[1]}, H / 16 + W / 16 "
-            f"<= {sum(AUG_MAX_RES) // 16})")
+    zero-filled to the narrowest of AUG_FORMS that holds them, or past 256
+    (the wide form) to Da rounded up to a multiple of AUG_CHUNK. Every Da >= 1
+    has a form."""
+    if Da < 1:
+        raise ValueError(f"Da {Da}: the augmented lanes need at least one")
+    if Da > AUG_FORMS[-1]:
+        return -(-Da // AUG_CHUNK) * AUG_CHUNK
     return next(dk for dk in AUG_FORMS if Da <= dk)
+
+
+def aug_is_wide(Da: int) -> bool:
+    """Whether Da takes the wide form (a run-time score width, in chunks)."""
+    return aug_form(Da) > AUG_FORMS[-1]
 
 
 def aug_fwd_form(Da: int) -> Tuple[int, int, bool]:
     """The bf16 row 6 forward's form at Da, as `csrc/flash_attention_sm90.cuh`
-    (`Layout<DK, 0, kNoBias, 96>`) lays it out: (DK, shared memory bytes,
-    q rows in shared memory). k_aug is copied into zero-filled rows of DK
-    lanes (the `pad` scratch of `_attention_fwd`) and its 2-slot ring holds
-    64-key tiles of K [64][DK + 8] and V [64][96 + 8]. Up to DK = 176 each
-    warp holds its q rows' A fragments in registers; at 192 and 256
+    lays it out: (DK, shared memory bytes, q rows in shared memory). Up to Da
+    256 (`Layout<DK, 0, kNoBias, 96>`): k_aug is copied into zero-filled rows
+    of DK lanes (the `pad` scratch of `_attention_fwd`) and its 2-slot ring
+    holds 64-key tiles of K [64][DK + 8] and V [64][96 + 8]; up to DK = 176
+    each warp holds its q rows' A fragments in registers, at 192 and 256
     (`Layout::kQRows`) the block's 64 q rows [64][DK + 8] sit beside the
-    ring and are read by ldmatrix per key tile."""
+    ring and are read by ldmatrix per key tile. Past 256 (`WideLayout`):
+    q_aug and k_aug both go into padded rows, and each ring slot holds a
+    step's q and k chunks [64][AUG_CHUNK + 8] and, on a key tile's last
+    chunk, V [64][104]."""
     dk = aug_form(Da)
+    if aug_is_wide(Da):
+        return dk, 2 * 2 * BWD_TILE * (2 * (AUG_CHUNK + 8) + AUG_DV + 8), True
     q_rows = dk > 176
     return (dk, 2 * 2 * BWD_TILE * ((dk + 8) + (AUG_DV + 8)) + (2 * BWD_TILE * (dk + 8)
                                                                  if q_rows else 0), q_rows)
@@ -298,18 +308,27 @@ def aug_fwd_form(Da: int) -> Tuple[int, int, bool]:
 
 def aug_bwd_form(Da: int) -> Tuple[int, int, int, int, int]:
     """The bf16 row 7 head-major backward's form at Da, as
-    `csrc/attention_aug_bwd_sm90.cu` (`AugBytes<DK>`) lays it out: (DK, dq
-    pass and dk/dv pass shared memory bytes, the blocks that split dq's
-    columns, the blocks that split dk's). q_aug and k_aug are copied into
-    zero-filled rows of DK = `aug_form(Da)` lanes, whose 16-byte rows its
-    `cp.async` ring copies; the dq pass rings (K, V) tiles of 64 rows
+    `csrc/attention_aug_bwd_sm90.cu` (`AugBytes<DK>`, `WideBytes`) lays it
+    out: (DK, dq pass and dk/dv pass shared memory bytes, the blocks that
+    split dq's columns, the blocks that split dk's). q_aug and k_aug are
+    copied into zero-filled rows of DK = `aug_form(Da)` lanes, whose 16-byte
+    rows its `cp.async` ring copies; the dq pass rings (K, V) tiles of 64 rows
     through 2 slots (and in the wide forms, DK > 144, holds its 64 q rows,
     whose A fragments leave the registers), the dk/dv pass (q, dO, lse,
     delta) and holds its K and V rows; operand rows at a pitch of 8 lanes
     more. At DK = 256 two blocks split dq's columns, above 176 two split
     dk's (the first also takes dv), so that the accumulators fit the
-    registers; each recomputes the scores."""
+    registers; each recomputes the scores. Past Da 256 both passes walk
+    (tile, AUG_CHUNK-lane chunk) steps, a slot holding both sides' chunks
+    [64][AUG_CHUNK + 8], V or dO [64][104] and the split's AUG_SPLIT columns
+    of k or q (the dk/dv pass also lse and delta), and dq's and dk's
+    columns split over ceil(DK / AUG_SPLIT) blocks each."""
     dk = aug_form(Da)
+    if aug_is_wide(Da):
+        chunk = 2 * BWD_TILE * (AUG_CHUNK + 8)
+        slot = 2 * chunk + 2 * BWD_TILE * (AUG_DV + 8) + 2 * chunk
+        splits = -(-dk // AUG_SPLIT)
+        return dk, 2 * slot, 2 * (slot + 8 * BWD_TILE), splits, splits
     op_k, op_v = 2 * BWD_TILE * (dk + 8), 2 * BWD_TILE * (AUG_DV + 8)
     dq = 2 * (op_k + op_v) + (op_k if dk > 144 else 0)
     return (dk, dq, 2 * (op_k + op_v + 8 * BWD_TILE) + op_k + op_v, 2 if dk > 192 else 1,
@@ -324,10 +343,8 @@ def _aug_geometry(name, q, k, v):
                          f"v {tuple(v.shape)}")
     if Dv != AUG_DV:
         raise ValueError(f"{name}: value width Dv {Dv} not compiled (Dv {AUG_DV})")
-    try:
-        aug_form(Da)
-    except ValueError as err:
-        raise ValueError(f"{name}: {err}") from None
+    if Da < 1:
+        raise ValueError(f"{name}: Da {Da}: the augmented lanes need at least one")
     return B, H, Nq, Nk, Da, Dv
 
 
@@ -343,8 +360,11 @@ def _attention_fwd(q, k, v, with_lse: bool = False
     _check_aligned(name, v)  # q_aug / k_aug rows need no alignment
     out = q.new_empty((B, H, Nq, Dv))
     lse = q.new_empty((B * H, Nq), dtype=torch.float32) if with_lse else None
-    # bf16: k_aug's rows zero-filled to the form's DK lanes, for the ring's copies
-    pad = (q.new_empty((B * H * Nk, aug_form(Da))) if q.dtype == torch.bfloat16 else None)
+    # bf16: k_aug's rows (and in the wide form q_aug's first) zero-filled to
+    # the form's DK lanes, for the ring's copies
+    pad = None
+    if q.dtype == torch.bfloat16:
+        pad = q.new_empty((B * H * (Nk + (Nq if aug_is_wide(Da) else 0)), aug_form(Da)))
     err = kernels.lib().mspi_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kernels.ptr(lse),
         kernels.ptr(pad), B, H, Nq, Nk, Da, Dv, dtype, kernels.stream_handle(q))

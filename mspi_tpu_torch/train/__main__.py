@@ -1,6 +1,7 @@
 """Training CLI of the port: counterpart of the repository's `train.py`.
 
     python -m mspi_tpu_torch.train --data_root ./AuViDataset --split 1 [--bf16] \
+        [--motion_encoder mvitv2s|videoswins|uniformerb|s3d] \
         [--no_attn_relk] [--dwconv] [--attn_packed]
 
 The same arguments, seed (2023), 6-dataset mixture, frozen encoders,
@@ -41,7 +42,8 @@ def parse_args(argv=None):
     p.add_argument("--save_ckpt", default=True, type=bool)
     p.add_argument("--save_ckpt_freq", default=10, type=int)
     p.add_argument("--gamma", default=1.0, type=float)
-    p.add_argument("--motion_encoder", default="mvitv2s", type=str)
+    p.add_argument("--motion_encoder", default="mvitv2s", type=str,
+                   help="backbone of the model (mvitv2s, videoswins, uniformerb or s3d)")
     p.add_argument("--data_root", default="./AuViDataset", type=str)
     p.add_argument("--batch_size", default=None, type=int)
     p.add_argument("--epochs", default=None, type=int)

@@ -10,10 +10,13 @@ heads, C, mask or not) with the mask's window count, and the shift masks'
 (padded grid, window, shift); `MVIT_WIDE` and `MVIT_R66`, the K1 calls
 whose rel width passes 48 at 256x448 and 64 at 288x640; row 6's
 augmented widths under attn_relk=False at those three resolutions, each
-with a compiled form, the wide ones those two tables; and row 18's
-`DWCONV_SHAPES` with the bf16 kernel's tile at every pool shape of
-224x384, 256x448 and 288x640. The forwards run on the meta device (shapes
-only), where the kernel functions are routed to their plain versions.
+with a compiled form, the wide ones those two tables, and the widest
+calls past Da 256, which take the wide form; row 18's `DWCONV_SHAPES` with
+the bf16 kernel's tile at every pool shape of 224x384, 256x448 and
+288x640; and UniFormer-B's K4 and K2 calls (`UNI_SELF_SHAPES`,
+`UNI_LN_MLP_SHAPES`), each with a compiled form. The forwards run on the
+meta device (shapes only), where the kernel functions are routed to their
+plain versions.
 """
 
 from __future__ import annotations
@@ -166,12 +169,19 @@ def test_mvit_relk0_aug_widths(meta_plain, monkeypatch, res):
             assert all(key in calls for key in listed) and {k[3] for k in listed} == want
 
 
-@pytest.mark.parametrize("res", [pooled_attention.AUG_MAX_RES, (1024, 1440)],
-                         ids=lambda r: f"{r[0]}x{r[1]}")
+# the widest relk0 calls of MViTv2-S by resolution: Da = 96 + 8 + H/16 + W/16
+# and the form it takes (256 the widest compile-time one; past it the wide
+# form, Da rounded up to a multiple of 64)
+WIDEST_RELK0 = {(1024, 1408): (256, 256), (1024, 1440): (258, 320), (1536, 1920): (320, 320)}
+
+
+@pytest.mark.parametrize("res", list(WIDEST_RELK0), ids=lambda r: f"{r[0]}x{r[1]}")
 def test_mvit_relk0_widest_resolution(meta_plain, monkeypatch, res):
-    """The widest relk0 form holds MViTv2-S up to AUG_MAX_RES (Da 256 at
-    1024x1408); two key columns more (1024x1440, Da 258) are refused with a
-    ValueError that names the widest Da and that resolution."""
+    """Every relk0 call has a form at any resolution: up to 1024x1408 (Da
+    256) a compile-time one, past it (1024x1440: Da 258; 1536x1920: Da 320)
+    the wide form, whose score width, a multiple of 64, the forward and the
+    backward share, and whose backward splits dq's and dk's columns over
+    blocks of 128."""
     das = set()
     kernel = mvit.attention
 
@@ -180,13 +190,53 @@ def test_mvit_relk0_widest_resolution(meta_plain, monkeypatch, res):
         return kernel(q_aug, k_aug, v)
     monkeypatch.setattr(mvit, "attention", spy)
     _forward("mvitv2s", res, {"attn_relk": False})
-    if tuple(res) == pooled_attention.AUG_MAX_RES:
-        assert max(das) == pooled_attention.AUG_DA[1] == 256
-        assert all(pooled_attention.aug_form(da) for da in das)
-    else:
-        assert max(das) == 258
-        with pytest.raises(ValueError, match="256 lanes.*--resolution 1024 1408"):
-            pooled_attention.aug_form(max(das))
+    widest, form = WIDEST_RELK0[tuple(res)]
+    assert max(das) == widest and pooled_attention.aug_form(widest) == form
+    for da in das:
+        dk = pooled_attention.aug_form(da)
+        assert dk >= da and pooled_attention.aug_fwd_form(da)[0] == dk
+        assert pooled_attention.aug_bwd_form(da)[0] == dk
+        assert pooled_attention.aug_is_wide(da) == (da > pooled_attention.AUG_FORMS[-1])
+        if pooled_attention.aug_is_wide(da):
+            assert dk % pooled_attention.AUG_CHUNK == 0 and dk - da < pooled_attention.AUG_CHUNK
+            assert pooled_attention.aug_bwd_form(da)[3:] == (-(-dk // 128),) * 2
+
+
+def test_uniformer_kernel_shapes(meta_plain, monkeypatch):
+    """UniFormer-B's K4 and K2 calls in one forward at 16x224x384 are
+    `chip_smoke.py`'s UNI_SELF_SHAPES and UNI_LN_MLP_SHAPES with their
+    multiplicities (stage 3: 20 blocks, N 2688, C 320, 5 heads of 64; stage
+    4: 7 blocks, N 672, C 512, 8 heads), and each has a compiled form: K4 and
+    its backward at head dim 64, K2 and row 9 at C = 320 and 512."""
+    from mspi_tpu_torch.models import uniformer
+    from mspi_tpu_torch.ops.kernels import ln_mlp as K2
+
+    k4, k2 = Counter(), Counter()
+    attn, mlp = uniformer.self_attention, K2.ln_mlp
+
+    def attn_spy(q, kv, num_heads):
+        k4[(q.shape[1], q.shape[2], num_heads)] += 1
+        return attn(q, kv, num_heads)
+
+    def mlp_spy(x, g, b, w1, b1, w2, b2, eps):
+        k2[(x.numel() // x.shape[-1], x.shape[-1], eps)] += 1
+        return mlp(x, g, b, w1, b1, w2, b2, eps)
+    monkeypatch.setattr(uniformer, "self_attention", attn_spy)
+    monkeypatch.setattr(K2, "ln_mlp", mlp_spy)
+    _forward("uniformerb")
+    assert k4 == Counter({(n, c, heads): blocks
+                          for _, blocks, n, c, heads in chip_smoke.UNI_SELF_SHAPES})
+    assert k2 == Counter({(n, c, eps): blocks
+                          for _, n, c, eps, blocks in chip_smoke.UNI_LN_MLP_SHAPES})
+    assert sum(k4.values()) + 3 == chip_smoke.PER_FORWARD["uniformerb"]["self_attention"]
+    assert sum(k2.values()) + 3 + 4 == chip_smoke.PER_FORWARD["uniformerb"]["ln_mlp"]
+    for _, c, heads in k4:
+        assert c // heads in pooled_attention.SUPPORTED_D
+        assert pooled_attention.self_bwd_form(c // heads) == "kv_registers"
+    for _, c, _ in k2:
+        rows, cn, parts, _ = K2.sm90_form(c)
+        assert cn * parts == c and K2.bwd_sm90_form(c)[1] >= 3
+    assert K2.sm90_form(320)[1:3] == (160, 2)
 
 
 @pytest.mark.parametrize("res", [chip_smoke.RES, chip_smoke.MVIT_WIDE_RES,

@@ -53,8 +53,8 @@ from mspi_tpu_torch.train import engine
 from mspi_tpu_torch.train.synthetic import make_batch
 from tests.test_torch_train import (_assert_leaves_close, _FixedDropPathJax,
                                     _fixed_drop_path_port)
-from tests.torch_port_utils import (SHALLOW_MVIT, cpu_share, jax_module_variables, load_port,
-                                    seeded_variables, to_np)
+from tests.torch_port_utils import (SHALLOW_MVIT, count_calls, cpu_share, jax_module_variables,
+                                    load_port, seeded_variables, to_np)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
@@ -110,16 +110,6 @@ def _close_to_scale(got, want, rel=1e-4, floor=1.0):
     want = np.asarray(want)
     scale = max(floor, float(np.abs(want).max()))
     np.testing.assert_allclose(np.asarray(got), want, atol=rel * scale, rtol=0)
-
-
-def _counting(fns, counts, monkeypatch):
-    for module, name in fns:
-        fn = getattr(module, name)
-
-        def wrapper(*args, _fn=fn, _name=name, **kwargs):
-            counts[_name] = counts.get(_name, 0) + 1
-            return _fn(*args, **kwargs)
-        monkeypatch.setattr(module, name, wrapper)
 
 
 @pytest.mark.parametrize("B,H,Nq,k_shape,R", [
@@ -239,8 +229,8 @@ def test_multiscale_block_option_matches_flax(rng, monkeypatch, option):
     for key, value in ENV[option].items():
         monkeypatch.setenv(key, value)
     port_calls, jax_calls = {}, {}
-    _counting(PORT_FNS, port_calls, monkeypatch)
-    _counting(JAX_FNS, jax_calls, monkeypatch)
+    count_calls(PORT_FNS, port_calls, monkeypatch)
+    count_calls(JAX_FNS, jax_calls, monkeypatch)
     kernel = (3, 3, 3)
     jax_block = jax_mvit.MultiScaleBlock(
         dim=dim, dim_out=dim_out, num_heads=heads, input_size=input_size, mlp_ratio=4.0,
@@ -322,8 +312,8 @@ def test_av_model_with_all_layout_options_matches_jax(rng, monkeypatch):
         monkeypatch.setenv(key, value)
     options = {"attn_relk": False, "attn_packed": True, "dwconv": True}
     port_calls, jax_calls = {}, {}
-    _counting(PORT_FNS, port_calls, monkeypatch)
-    _counting(JAX_FNS, jax_calls, monkeypatch)
+    count_calls(PORT_FNS, port_calls, monkeypatch)
+    count_calls(JAX_FNS, jax_calls, monkeypatch)
     cfg, port_cfg = _small_cfg(options)
     port = AudioVisualSaliencyModel(port_cfg, device="cpu")
     variables = seeded_variables(convert_state_dict(port.state_dict()), rng)
@@ -358,8 +348,8 @@ def test_relk0_train_step_grads_match_jax(rng, monkeypatch):
     monkeypatch.setattr(jax_mvit, "DropPath", _FixedDropPathJax)
     monkeypatch.setattr(layers.DropPath, "forward", _fixed_drop_path_port)
     port_calls, jax_calls = {}, {}
-    _counting(PORT_FNS, port_calls, monkeypatch)
-    _counting(JAX_FNS, jax_calls, monkeypatch)
+    count_calls(PORT_FNS, port_calls, monkeypatch)
+    count_calls(JAX_FNS, jax_calls, monkeypatch)
     cfg, port_cfg = _small_cfg({"attn_relk": False, "dwconv": True})
     port = AudioVisualSaliencyModel(port_cfg, device="cpu")
     variables = seeded_variables(convert_state_dict(port.state_dict()), rng)

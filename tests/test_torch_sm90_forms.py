@@ -60,15 +60,17 @@ def test_ln_mlp_sm90_form(C):
 
 @pytest.mark.parametrize("D", PA.SUPPORTED_D)
 def test_self_bwd_form(D):
-    """The bf16 K4 backward's dk/dv pass at both head dims: K and V A
+    """The bf16 K4 backward's dk/dv pass at its three head dims: K and V A
     fragments (D / 2 registers each) stay beside dk and dv (D each) only
-    while the four stay well under the 255-register cap (D = 96); at D = 128
-    they come from shared memory."""
+    while the four stay well under the 255-register cap (D = 64 and 96); at
+    D = 128 they come from shared memory. An uncompiled head dim is
+    refused."""
     form = PA.self_bwd_form(D)
     assert form == ("kv_registers" if 2 * D + D <= 300 else "kv_shared")
     assert PA.self_bwd_form(128) == "kv_shared"
+    assert PA.self_bwd_form(64) == "kv_registers"  # UniFormer-B's heads
     with pytest.raises(ValueError):
-        PA.self_bwd_form(64)
+        PA.self_bwd_form(80)
 
 
 @pytest.mark.parametrize("batch", [1, 2, 8])
@@ -205,9 +207,12 @@ def test_ln_mlp_bwd_segments(label, tokens, C):
 
 # every form's edges, MViTv2-S's relk0 widths (109 and 114 at 64x96, 123 and
 # 142 at 224x384, 148 at 256x448, 162 at 288x640, 180 at 448x768, 184 at
-# 512x768) and the widest
-AUG_WIDTHS = [97, 109, 112, 113, 114, 123, 128, 129, 142, 144, 145, 148, 162, 176, 177, 180,
-              184, 192, 193, 256]
+# 512x768), the widest compile-time one and the wide form's (Da 258 at
+# 1024x1440, 320 at 1536x1920, 400 at 2048x2688, and 1000); below 97 (no
+# MViT call) the 128-lane form
+AUG_WIDTHS = [1, 96, 97, 109, 112, 113, 114, 123, 128, 129, 142, 144, 145, 148, 162, 176, 177,
+              180, 184, 192, 193, 256]
+AUG_WIDE = [257, 258, 320, 321, 400, 1000]
 
 
 def _aug_dk(Da):
@@ -226,19 +231,39 @@ def test_aug_bwd_form(Da):
     shared memory fits two blocks per SM up to 176 (the wide dq pass holds
     its q rows too); at 192 the dk/dv pass and at 256 both passes take one.
     Above 176 two blocks split dk's columns, at 256 also dq's, so that
-    each accumulator stays within the registers of its 176-lane form. Past
-    the widest form, Da 257, and below 97 it refuses, naming the widest
-    Da and resolution."""
+    each accumulator stays within the registers of its 176-lane form. No
+    width is refused but Da < 1."""
     dk, dq_smem, dkv_smem, dq_split, dkv_split = PA.aug_bwd_form(Da)
     assert dk == _aug_dk(Da) == PA.aug_form(Da) and dk >= Da and dk % 16 == 0
+    assert not PA.aug_is_wide(Da)
     assert dkv_smem > dq_smem
     assert (_blocks_per_sm(dq_smem) >= 2) == (dk <= 192) and _blocks_per_sm(dq_smem) >= 1
     assert (_blocks_per_sm(dkv_smem) >= 2) == (dk <= 176) and _blocks_per_sm(dkv_smem) >= 1
     assert (dq_split, dkv_split) == ((2 if dk > 192 else 1), (2 if dk > 176 else 1))
     assert dk // dq_split <= 192 and dk // dkv_split <= 176  # the accumulators' columns
-    for bad in (PA.AUG_DA[0] - 1, PA.AUG_DA[1] + 1):
-        with pytest.raises(ValueError, match="256.*--resolution 1024 1408"):
-            PA.aug_bwd_form(bad)
+    with pytest.raises(ValueError, match="at least one"):
+        PA.aug_bwd_form(0)
+
+
+@pytest.mark.parametrize("Da", AUG_WIDE)
+def test_aug_wide_form(Da):
+    """Past Da 256, rows 6 and 7 take the wide form: the score width Da
+    rounded up to a multiple of 64 (257 and 258 -> 320, 321 -> 384, 400 -> 448,
+    1000 -> 1024), shared by the forward and the backward; shared memory
+    does not grow with Da (the forward's ring of q and k chunks and V tiles
+    fits 3 blocks per SM, each backward pass's 2), and dq's and dk's
+    columns split over ceil(DK / 128) blocks, so that no accumulator
+    passes the 128 columns of a split."""
+    dk = PA.aug_form(Da)
+    assert PA.aug_is_wide(Da) and dk % PA.AUG_CHUNK == 0 and 0 <= dk - Da < PA.AUG_CHUNK
+    assert dk == {257: 320, 258: 320, 320: 320, 321: 384, 400: 448, 1000: 1024}[Da]
+    fdk, fwd_smem, q_rows = PA.aug_fwd_form(Da)
+    assert fdk == dk and q_rows and fwd_smem == PA.aug_fwd_form(257)[1]
+    assert _blocks_per_sm(fwd_smem) >= 3
+    bdk, dq_smem, dkv_smem, dq_split, dkv_split = PA.aug_bwd_form(Da)
+    assert bdk == dk and (dq_smem, dkv_smem) == PA.aug_bwd_form(257)[1:3]
+    assert min(_blocks_per_sm(dq_smem), _blocks_per_sm(dkv_smem)) >= 2
+    assert dq_split == dkv_split == -(-dk // PA.AUG_SPLIT) and dk / dq_split <= PA.AUG_SPLIT
 
 
 @pytest.mark.parametrize("Da", AUG_WIDTHS)
@@ -248,14 +273,14 @@ def test_aug_fwd_form(Da):
     warps per SM up to DK = 176 (the register cap of 168 that its
     `__launch_bounds__` asks for, with Q's fragments in registers); at 192
     and 256 the block's q rows [64][DK + 8] join the ring in shared memory,
-    2 and 1 blocks per SM; refused past the widest form."""
+    2 and 1 blocks per SM; past the widest form the wide one
+    (`test_aug_wide_form`)."""
     dk, smem, q_rows = PA.aug_fwd_form(Da)
     assert dk == PA.aug_form(Da) == PA.aug_bwd_form(Da)[0]
     assert q_rows == (dk > 176)
     assert smem == 2 * 2 * 64 * (dk + 8 + 96 + 8) + (2 * 64 * (dk + 8) if q_rows else 0)
     assert min(3, _blocks_per_sm(smem)) == {192: 2, 256: 1}.get(dk, 3)
-    with pytest.raises(ValueError, match="256"):
-        PA.aug_fwd_form(PA.AUG_DA[1] + 1)
+    assert PA.aug_fwd_form(257)[0] == 320
 
 
 @pytest.mark.parametrize("C", [96, *K2.INT8_C])

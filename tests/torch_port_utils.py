@@ -80,6 +80,19 @@ def cpu_share():
         torch.set_num_threads(old)
 
 
+def count_calls(fns, counts, monkeypatch):
+    """Wrap each (module, name) function so that its calls add up in
+    counts[name]: the kernel functions of both packages in the routing
+    tests."""
+    for module, name in fns:
+        fn = getattr(module, name)
+
+        def wrapper(*args, _fn=fn, _name=name, **kwargs):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, wrapper)
+
+
 # A four-block MViT config with the flagship's four widths (96, 192, 384, 768):
 # each block is a stage and a tap, blocks 1-3 draw drop-path in training.
 # For the tests whose subject is not the backbone's depth.

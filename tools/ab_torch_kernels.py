@@ -97,7 +97,25 @@ of `--reps` single calls, after warm-up, as `chip_smoke.py` times):
   lines show whether the production bodies are bit-identical;
 - `aug_digests` (no timing): the same for row 6's output and row 7
   head-major's three gradients in bf16 at `chip_smoke.MVIT_BLOCKS` (Da 123
-  and 142), `MVIT_WIDE` (148) and `MVIT_R66` (162), batch 2;
+  and 142) and every `AUG_CHECKS` shape up to Da 256 (the compile-time
+  forms: 148, 162, 109, 114, 180, 184, 256), batch 2;
+- `form_digests` (no timing): the same for K4's output and its backward's
+  gradients (row 7's K4 part) at the SyncBlock shape (D = 128) and at C =
+  384 (D = 96), and row 9's seven gradients at `LN_MLP_SHAPES`, batch 2,
+  bf16;
+- `aug_pairs`: rows 6 and 7 head-major in bf16 at Da 256 (the widest
+  compile-time form), 320 and 400 (the wide form) on one geometry, batch 2,
+  2 heads, Nq 4096 and Nk 8064-11520 (`AUG_PAIRS`), by device time, each as
+  ps per (query, key) pair beside SDPA (forward, or forward + backward);
+  a tree without the wide form refuses Da 320 and 400 (printed);
+- `self_attention_uni`: K4 and its backward (row 7's K4 part) in bf16 at
+  UniFormer-B's two shapes (`chip_smoke.UNI_SELF_SHAPES`, head dim 64),
+  forward at batch 8 and backward at batch 2, each summed per UniFormer-B
+  forward or step (weighted by its blocks) beside SDPA (forward, or forward
+  + backward), by events and device time;
+- `ptxas` (no timing): every kernel's registers as the tree's build
+  reported them (`-Xptxas=-v`), into the JSON line (`ptxas`), so that two
+  trees' lines show which kernels' register counts moved;
 - `layernorm_tokens`: row 11 at `chip_smoke.LN_SHAPES` (the ConvNeXt
   prior's stem and downsample LayerNorms of a serving forward, batch 8 x 16
   frames), summed per forward, beside `F.layer_norm` on the same operands,
@@ -150,8 +168,12 @@ SECTIONS = ("attention_rel_packed", "window_attention_bwd", "self_attention", "g
             "self_attention_bwd", "ln_mlp", "ln_mlp_prior", "gelu_floor", "ln_mlp_bwd",
             "attention_bwd_aug", "bwd_seeds", "attention_aug", "attention_aug_wide",
             "attention_bwd_aug_wide", "ln_mlp_int8", "lab_lnmlp", "mlp_digests",
-            "layernorm_tokens", "aug_digests")
+            "layernorm_tokens", "aug_digests", "form_digests", "ptxas", "aug_pairs",
+            "self_attention_uni")
 SEEDS = 32  # bwd_seeds: input draws per shape
+# aug_pairs: label, Nq, key grid (R = kt + kh + kw, Da = 96 + R); 2 heads, batch 2
+AUG_PAIRS = (("Da 256", 4096, (4, 16, 140)), ("Da 320", 4096, (2, 30, 192)),
+             ("Da 400", 4096, (2, 14, 288)))
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core peak, FLOP/s
 SMS, ISSUE_LANES = 132, 128  # H100 SXM: SMs, thread instructions issued per SM per clock
 GELU_PROBE = r"""
@@ -617,6 +639,48 @@ def main(argv=None) -> dict:
             lib = cs.library_grad(lambda *a: cs.sdpa(*a, scale=1.0), (q, k, v), dout)
             summed("attention_bwd_aug_wide", f"{label} Da {q.shape[-1]}", 1, fn, lib, args.reps)
             del q, k, v, dout, out, lse
+    if "aug_pairs" in only:  # rows 6 and 7 per (query, key) pair, Da 256 against the wide form
+        randn, B, H = cs.randn_on(torch.Generator().manual_seed(33)), cs.TRAIN_BATCH, 2
+        for label, nq, k_shape in AUG_PAIRS:
+            q, k, v = (t.bfloat16() for t in cs.aug_inputs(randn, B, H, nq, k_shape))
+            dout = randn(B, H, nq, cs.MVIT_D).bfloat16()
+            pairs = B * H * nq * math.prod(k_shape)
+            try:
+                out, lse = PA._attention_fwd(q, k, v, with_lse=True)
+            except (RuntimeError, ValueError) as err:  # a tree without the wide form
+                print(f"aug_pairs {label}: refused ({err})", flush=True)
+                continue
+            for name, fn, lib in (
+                    ("attention", lambda: PA.attention(q, k, v),
+                     lambda: cs.sdpa(q, k, v, scale=1.0)),
+                    ("attention_bwd", lambda: PA.attention_backward(q, k, v, out, lse, dout),
+                     cs.library_grad(lambda *a: cs.sdpa(*a, scale=1.0), (q, k, v), dout))):
+                with torch.set_grad_enabled(name == "attention_bwd"):  # the library's backward
+                    us, lib_us = device_us(fn, 2 * args.reps), device_us(lib, 2 * args.reps)
+                key = f"aug_pairs:{name}:{label}"
+                device[key], device[key + ":library"] = us, lib_us
+                print(f"{key} [{B}, {H}, {nq}, Nk {math.prod(k_shape)}]: device {us:.1f} us = "
+                      f"{us * 1e6 / pairs:.2f} ps a pair; SDPA {lib_us:.1f} us = "
+                      f"{lib_us * 1e6 / pairs:.2f} ps", flush=True)
+            del q, k, v, dout, out, lse
+    if "self_attention_uni" in only:  # K4 and its backward per UniFormer-B forward / step
+        randn = cs.randn_on(torch.Generator().manual_seed(51))
+        for label, blocks, N, C, heads in cs.UNI_SELF_SHAPES:
+            q, kv = randn(cs.BATCH, N, C).bfloat16(), randn(cs.BATCH, N, 2 * C).bfloat16()
+            qh, kh, vh = (cs.heads_major(t, heads) for t in (q, kv[..., :C], kv[..., C:]))
+            with torch.no_grad():
+                summed("self_attention_uni", label, blocks,
+                       lambda: PA.self_attention(q, kv, heads), lambda: cs.sdpa(qh, kh, vh),
+                       4 * args.reps)
+            B = cs.TRAIN_BATCH
+            q, kv, dout = (randn(B, N, c).bfloat16() for c in (C, 2 * C, C))
+            out, lse = PA._self_attention_fwd(q, kv, heads, with_lse=True)
+            qh, kh, vh, doh = (cs.heads_major(t, heads) for t in (q, kv[..., :C], kv[..., C:],
+                                                                   dout))
+            summed("self_attention_bwd_uni", label, blocks,
+                   lambda: PA.self_attention_backward(q, kv, out, lse, heads, dout),
+                   cs.library_grad(cs.sdpa, (qh, kh, vh), doh), 4 * args.reps)
+            del q, kv, dout, out, lse, qh, kh, vh, doh
     flips = {}
     if "ln_mlp_int8" in only:  # row 12 per serving forward, and its flipped codes
         from mspi_tpu_torch.ops.kernels import ln_mlp as K2
@@ -707,9 +771,10 @@ def main(argv=None) -> dict:
         print(f"layernorm_tokens per serving forward: device {device['layernorm_tokens']:.2f} us "
               f"against a bound of {bound_us:.2f} us ({bound_us / device['layernorm_tokens']:.1%}"
               f"); F.layer_norm {device['layernorm_tokens:library']:.2f} us", flush=True)
-    if "aug_digests" in only:  # rows 6 and 7 at the widths of the earlier forms, bit for bit
+    if "aug_digests" in only:  # rows 6 and 7 at the compile-time forms' widths, bit for bit
         randn, B = cs.randn_on(torch.Generator().manual_seed(41)), cs.TRAIN_BATCH
-        for label, _, heads, nq, k_shape in cs.MVIT_BLOCKS + cs.MVIT_WIDE + cs.MVIT_R66:
+        for label, _, heads, nq, k_shape in cs.MVIT_BLOCKS + tuple(
+                shape for shape in cs.AUG_CHECKS if cs.MVIT_D + sum(shape[4]) <= 256):
             q, k, v = (t.bfloat16() for t in cs.aug_inputs(randn, B, heads, nq, k_shape))
             dout = randn(B, heads, nq, cs.MVIT_D).bfloat16()
             out, lse = PA._attention_fwd(q, k, v, with_lse=True)
@@ -741,6 +806,24 @@ def main(argv=None) -> dict:
                     digests[f"ln_mlp_int8:{label}:{str(x.dtype)[6:]}"] = digest(
                         K2.ln_mlp_int8(x, g, b, w1q, s1, b1, w2q, s2, b2, 1e-6))
         print(f"mlp_digests: {len(digests)} outputs hashed", flush=True)
+    if "form_digests" in only:  # K4 and its backward at D 128 and 96, row 9, bit for bit
+        randn, B = cs.randn_on(torch.Generator().manual_seed(43)), cs.TRAIN_BATCH
+        for label, C in (("sync", 512), ("sync-d96", 384)):
+            q, kv, dout = (randn(B, 708, c).bfloat16() for c in (C, 2 * C, C))
+            out, lse = PA._self_attention_fwd(q, kv, 4, with_lse=True)
+            digests[f"self_attention:{label}"] = digest(out)
+            for name, grad in zip(("dq", "dkv"),
+                                  PA.self_attention_backward(q, kv, out, lse, 4, dout)):
+                digests[f"attention_bwd:{label}:{name}"] = digest(grad)
+            del q, kv, dout, out, lse
+        for label, tokens, C, eps, *_ in cs.LN_MLP_SHAPES:
+            M = B * tokens
+            xs = [t.bfloat16() for t in cs.mlp_inputs(randn, M, C) + [randn(M, C)]]
+            for name, grad in zip(("dx", "dg", "db", "dw1", "db1", "dw2", "db2"),
+                                  K2.ln_mlp_backward(*xs[:7], eps, xs[7])):
+                digests[f"ln_mlp_bwd:{label}:{name}"] = digest(grad)
+            del xs
+        print(f"form_digests: {len(digests)} outputs hashed", flush=True)
     seeds = bwd_seeds(cs, PA, WA, root) if "bwd_seeds" in only else None
     floor = gelu_floor(cs, root) if "gelu_floor" in only else None
     line = {"tree": str(root), "device": smi, "per_forward_or_step_ms": sums,
@@ -748,6 +831,8 @@ def main(argv=None) -> dict:
             "launches": {k: v for k, v in kernels.launches.items() if v}}
     if floor is not None:
         line["gelu_floor"] = floor
+    if "ptxas" in only:
+        line["ptxas"] = {entry: regs for entry, (regs, _, _) in kernels.ptxas_report("").items()}
     if flips:
         line["int8_flips"] = flips
     if digests:

@@ -1,13 +1,14 @@
 """Device-time breakdown of one forward, or one training step, of the
 PyTorch/CUDA port on a GPU.
 
-    python tools/profile_torch_port.py [--motion_encoder mvitv2s|videoswins] \
+    python tools/profile_torch_port.py [--motion_encoder mvitv2s|videoswins|uniformerb|s3d] \
         [--batch 8] [--dtype bf16] [--steps 2] [--train] [--table PATH] \
         [--quant int8] [--prior_fold_res] [--prior_ln_t] \
         [--no_attn_relk] [--attn_packed] [--dwconv]
 
-Builds the AudioVisualSaliencyModel (MViTv2-S by default, or VideoSwin-S;
-16x224x384, seeded random weights) on cuda, warms up, then traces `--steps`
+Builds the AudioVisualSaliencyModel (MViTv2-S by default, or VideoSwin-S,
+UniFormer-B or S3D; 16x224x384, seeded random weights) on cuda, warms up,
+then traces `--steps`
 forwards with
 torch.profiler. With `--train` it traces `make_train_step` instead (fp32
 weights, bf16 autocast compute with `--dtype bf16`) on a synthetic batch.
@@ -65,6 +66,7 @@ PORT_FAMILIES = (
     ("K1/K4/row 6 attention backward", ("self_bwd_",)),
     ("K1/K4/row 6 attention backward", ("aug_bwd_",)),
     ("row 6/7 pad copy of q_aug, k_aug", ("aug_pad_",)),
+    (FLASH_ROW6, ("flash_attention_aug_wide",)),  # the wide form (Da > 256)
     ("K2 ln_mlp backward", ("ln_mlp_bwd",)),
     ("K2 ln_mlp backward", ("lnbwd::",)),
     ("K2 ln_mlp backward", ("atb_kernel",)),
@@ -144,7 +146,8 @@ def host_split(prof, steps: int) -> None:
 
 def main() -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("--motion_encoder", default="mvitv2s", choices=("mvitv2s", "videoswins"))
+    p.add_argument("--motion_encoder", default="mvitv2s",
+                   choices=("mvitv2s", "videoswins", "uniformerb", "s3d"))
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     p.add_argument("--steps", type=int, default=2)
