@@ -113,10 +113,25 @@ first failure (there is no CPU path):
    (and 512) shapes, each with the model's per-forward or per-step sums
    logged; rows 6 and 7 at Da 258, 320 and 400, the wide form, on short
    token counts (`MVIT_DA_WIDE`, in `AUG_CHECKS`).
+24. spectrogram: `data.audio.spectrogram_torch` (`torch.stft` on the card)
+   against the host `stft_power` on the synthetic waveform's 31 windows;
+25. vis_main: phase 4 on the MViTv2-S `VisualSaliencyModel` (clips alone:
+   K1, K2 and K3, no K4 and no spectrogram);
+26. remat_training: phase 7 on MViTv2-S with `remat` (each block's forward
+   kernels again in its recompute), its peak memory beside phase 7's (it
+   must be lower; phase 7 must have run); then one bf16 step's gradients
+   with remat against the same step without it, within
+   `REMAT_SPREAD_FACTOR` times the spread of three runs of that step
+   without remat (cuDNN's conv backward is not bit-deterministic), and a
+   control, the step through a checkpoint that does not restore the
+   drop-path generators, outside that limit;
+27. x3d_main, x3d_parity, x3d_training: phases 4, 5 and 7 on the X3D-L
+   model (its backbone plain, the channelwise convs grouped `F.conv3d`; K4
+   and K2 in the SyncBlock's 1380 tokens, K2 in the decoder).
 
-Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22, 23) sets the launch counts
-to 0 just before it and reads them just after; the kernels' record sums
-them.
+Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22, 23, 25, 26, 27) sets the
+launch counts to 0 just before it and reads them just after; the kernels'
+record sums them.
 The last two lines are the kernels' JSON record and the device JSON record.
 `--phases` runs a subset (2 always runs; the records then cover only what
 ran and no device record is printed).
@@ -204,6 +219,9 @@ PER_FORWARD = {
     # (and the decoder's K2); S3D: its backbone has no kernel
     "uniformerb": {"self_attention": 27 + 3, "ln_mlp": 27 + 3 + 4, "ln_mlp_prior": 18},
     "s3d": {"self_attention": 3, "ln_mlp": 3 + 4, "ln_mlp_prior": 18},
+    "x3dl": {"self_attention": 3, "ln_mlp": 3 + 4, "ln_mlp_prior": 18},
+    # the visual-only model: no SyncBlock (K4 and its 3 K2 blocks)
+    "mvitv2s+visual": {"attention_rel": 16, "ln_mlp": 16 + 4, "ln_mlp_prior": 18},
     "videoswins": {"window_attention": 24, "ln_mlp": 31, "ln_mlp_prior": 18,
                    "self_attention": 3},
     "mvitv2s+serving": {"attention_rel": 16, "ln_mlp": 7, "ln_mlp_int8": 16,
@@ -227,6 +245,11 @@ PER_STEP = {
                    "attention_bwd": 3},
     "uniformerb": {**PER_FORWARD["uniformerb"], "attention_bwd": 27 + 3,
                    "ln_mlp_bwd": 27 + 3 + 4},
+    "x3dl": {**PER_FORWARD["x3dl"], "attention_bwd": 3, "ln_mlp_bwd": 3 + 4},
+    # remat: each of the 16 blocks' K1 and K2 again in its recompute
+    "mvitv2s+remat": {"attention_rel": 16 + 16, "ln_mlp": 23 + 16, "ln_mlp_prior": 18,
+                      "self_attention": 3, "attention_rel_bwd": 16, "ln_mlp_bwd": 23,
+                      "attention_bwd": 3},
     # row 7 head-major for the 16 blocks + K4's 3; row 18's dx per pool
     "mvitv2s+relk0": {**PER_FORWARD["mvitv2s+relk0"], "attention_bwd": 16 + 3,
                       "dwconv3d": 17 + 17, "ln_mlp_bwd": 23},
@@ -250,15 +273,22 @@ PATH_PHASES = {  # phase -> (path kind, PER_FORWARD key: the encoder and its opt
     "uni_training": ("training", "uniformerb"),
     "uni_train_parity": ("train_parity", "uniformerb", (64, 96)),
     "s3d_main": ("main", "s3d"), "s3d_parity": ("parity", "s3d"),
+    "spectrogram": ("spectrogram", None),
+    "vis_main": ("main", "mvitv2s+visual"),
+    "remat_training": ("remat_training", "mvitv2s+remat"),
+    "x3d_main": ("main", "x3dl"), "x3d_parity": ("parity", "x3dl"),
+    "x3d_training": ("training", "x3dl"),
 }
 OPTIONS = {"mvitv2s+serving": SERVING, "videoswins+int8": {"quant": "int8"},
-           "mvitv2s+layout": LAYOUT, "mvitv2s+relk0": RELK0}
+           "mvitv2s+layout": LAYOUT, "mvitv2s+relk0": RELK0,
+           "mvitv2s+remat": {"remat": True}}
 PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity", "swin_main",
           "swin_parity", "swin_training", "swin_train_parity", "int8_main", "int8_parity",
           "swin_int8_main", "layout_kernels", "layout_backward", "layout_main",
           "layout_parity", "relk0_training", "relk0_train_parity", "relk0_small_parity",
           "mlp_kernels", "lab", "uni_main", "uni_parity", "uni_training", "uni_train_parity",
-          "s3d_main", "s3d_parity")
+          "s3d_main", "s3d_parity", "spectrogram", "vis_main", "remat_training", "x3d_main",
+          "x3d_parity", "x3d_training")
 BATCH = 8
 TRAIN_BATCH = 2
 STEPS = 5
@@ -269,6 +299,13 @@ N_FRAMES, FPS, SAMPLE_RATE = 31, 30.0, 16000
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_INT8_OPS = 1979e12  # int8 tensor cores
 HBM_BYTES_PER_S = 3.35e12
+# remat's bf16 gradients may sit this many times the plain runs' spread off
+# them: in 72 M values the run-to-run distances concentrate, so the remat
+# step's distance to a plain run lands at the spread itself, a little under
+# or over it (0.91-1.02 x in five readings on an H100 80GB HBM3 at 700 W,
+# PERF.md); a recompute with fresh drop-path masks, the phase's control,
+# lands 136 x the spread off there (0.502 relative L2)
+REMAT_SPREAD_FACTOR = 1.5
 
 
 def log(phase: str, msg: str) -> None:
@@ -1519,10 +1556,13 @@ def model_config(key: str, res=RES):
 
 
 def build_model(key: str, device: str, dtype: torch.dtype):
-    from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
+    """The AV model of a PER_FORWARD key, or the visual-only one for
+    '+visual'."""
+    from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel, VisualSaliencyModel
 
-    return AudioVisualSaliencyModel(model_config(key), device=device, dtype=dtype,
-                                    generator=torch.Generator().manual_seed(0))
+    cls = VisualSaliencyModel if key.endswith("+visual") else AudioVisualSaliencyModel
+    return cls(model_config(key), device=device, dtype=dtype,
+               generator=torch.Generator().manual_seed(0))
 
 
 def phase_main_path(tag: str, key: str) -> dict:
@@ -1557,11 +1597,12 @@ def phase_main_path(tag: str, key: str) -> dict:
 
     clips = torch.from_numpy(np.stack([frames[i:i + 16] for i in range(BATCH)])).cuda()
     auds = torch.randn(BATCH, 257, 111, 1, generator=torch.Generator().manual_seed(2)).cuda()
+    inputs = (clips,) if key.endswith("+visual") else (clips, auds)
     with torch.no_grad():
-        out, loss = model(clips, auds)
-        if not (torch.isfinite(out).all() and torch.isfinite(loss)):
+        out, loss = model(*inputs)
+        if not (torch.isfinite(out).all() and torch.isfinite(torch.as_tensor(loss))):
             raise AssertionError("non-finite model output")
-        ms = time_ms(lambda: model(clips, auds), warmup=1, reps=3)
+        ms = time_ms(lambda: model(*inputs), warmup=1, reps=3)
     log(tag, f"{key} forward bf16 batch {BATCH}: {ms:.1f} ms = "
              f"{BATCH * 1000 / ms:.2f} clips/s (CUDA events, median of 3); "
              f"map {N_FRAMES} x 480 x 640 uint8 ok")
@@ -1666,6 +1707,9 @@ def _frozen_snapshot(model):
             if k.split(".", 1)[0] in FROZEN_TOPLEVEL}
 
 
+PEAK_GIB = {}  # PER_STEP key -> peak device memory of its training phase
+
+
 def phase_training(tag: str, encoder: str) -> dict:
     """`encoder`: a PER_STEP key, a motion encoder and its options."""
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
@@ -1694,6 +1738,7 @@ def phase_training(tag: str, encoder: str) -> dict:
         walls.append(time.perf_counter() - t0)
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    PEAK_GIB[encoder] = peak
     steady = statistics.median(walls[1:])
     log(tag, f"{encoder} {STEPS} steps bf16 batch {TRAIN_BATCH} {RES[0]}x{RES[1]}: first "
              f"{walls[0]:.2f} s, then median {steady * 1e3:.1f} ms = "
@@ -1753,6 +1798,107 @@ def phase_train_parity(tag: str, encoder: str, res=RES) -> None:
     for k in ("loss", "kl", "cc", "sim", "loss_va"):
         if not diffs[k] <= 1e-3 * max(1.0, abs(m_cpu[k])):
             raise AssertionError(f"{k}: card {m_gpu[k]} vs CPU {m_cpu[k]}")
+
+
+def phase_spectrogram(tag: str, _) -> None:
+    """spectrogram_torch on the card against the host stft_power, on the
+    windows predict_video cuts from the synthetic waveform (len_snippet
+    32): max error over each window's largest power, need <= 1e-4."""
+    from mspi_tpu_torch.data.audio import spectrogram_torch, stft_power
+    from mspi_tpu_torch.inference import sliding_window_jobs
+
+    _, audio = synthetic_video(0)
+    worst, shapes = 0.0, set()
+    for s, _, _ in sliding_window_jobs(N_FRAMES, 16):
+        start = int(np.round(s / FPS * SAMPLE_RATE))
+        clip = audio[start:int(np.round((s + 33) / FPS * SAMPLE_RATE))]
+        got = spectrogram_torch(torch.from_numpy(clip).cuda()).cpu().numpy()
+        want = stft_power(clip)
+        if got.shape != want.shape:
+            raise AssertionError(f"spectrogram {got.shape}, host {want.shape}")
+        shapes.add(got.shape)
+        worst = max(worst, float(np.abs(got - want).max() / np.abs(want).max()))
+    log(tag, f"spectrogram_torch (torch.stft on the card) vs host stft_power, "
+             f"{len(sliding_window_jobs(N_FRAMES, 16))} windows {sorted(shapes)}: "
+             f"max err / max power {worst:.3e} (need <= 1e-4)")
+    if not worst <= 1e-4:
+        raise AssertionError(f"spectrogram_torch off the host stft_power: {worst}")
+
+
+def _step_grads(cfg, model, snapshot, batch, compute_dtype):
+    """One step of `model` from the weights `snapshot`, the TrainState's
+    seed 9: its gradients as one fp32 vector on the card."""
+    from mspi_tpu_torch.train import engine
+
+    model.load_state_dict(snapshot)
+    state = engine.create_train_state(cfg, model, seed=9)
+    engine.make_train_step(cfg.train.gamma, compute_dtype=compute_dtype)(state, batch,
+                                                                         cfg.solver.lr)
+    return torch.cat([p.grad.detach().float().flatten()
+                      for p in engine.trainable_parameters(state)])
+
+
+def phase_remat_training(tag: str, key: str) -> dict:
+    """Phase 7 with remat; its peak memory against phase 7's, which must
+    have run before it. Then one bf16 step's gradients with remat against
+    three runs of the same step without it: within REMAT_SPREAD_FACTOR
+    times the spread of those runs. A control holds the limit to its
+    purpose: the same step through a checkpoint that does not restore the
+    DropPath generators (its recompute draws fresh masks) must fall
+    outside it."""
+    from mspi_tpu_torch.models import mvit
+    from mspi_tpu_torch.train import engine
+    from mspi_tpu_torch.train.synthetic import make_batch
+
+    counts = phase_training(tag, key)
+    plain_key = key.split("+")[0]
+    if plain_key not in PEAK_GIB:
+        raise AssertionError("remat_training compares its peak memory with phase "
+                             "training's: run training before it")
+    log(tag, f"peak memory with remat {PEAK_GIB[key]:.2f} GiB, without "
+             f"{PEAK_GIB[plain_key]:.2f} GiB (phase training, same batch and steps)")
+    if not PEAK_GIB[key] < PEAK_GIB[plain_key]:
+        raise AssertionError("remat did not lower the training step's peak memory")
+
+    batch = engine.to_device(make_batch(np.random.default_rng(6), TRAIN_BATCH, 16, RES,
+                                        SPECTRO), "cuda")
+    plain = build_model(plain_key, "cuda", torch.float32)
+    snapshot = {k: v.clone() for k, v in plain.state_dict().items()}
+    runs = [_step_grads(model_config(plain_key), plain, snapshot, batch, torch.bfloat16)
+            for _ in range(3)]
+    del plain
+    remat = build_model(key, "cuda", torch.float32)
+    got = _step_grads(model_config(key), remat, snapshot, batch, torch.bfloat16)
+
+    def bare_checkpoint(block, *args):
+        return torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
+
+    restoring, mvit.checkpoint_block = mvit.checkpoint_block, bare_checkpoint
+    try:
+        bare = _step_grads(model_config(key), remat, snapshot, batch, torch.bfloat16)
+    finally:
+        mvit.checkpoint_block = restoring
+    del remat
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    spread = max(rel(runs[i], runs[j]) for i, j in ((0, 1), (0, 2), (1, 2)))
+    err = max(rel(got, r) for r in runs)
+    control = min(rel(bare, r) for r in runs)
+    limit = REMAT_SPREAD_FACTOR * spread + 1e-7
+    log(tag, f"{key} bf16 step gradients ({got.numel()} values) vs without remat: "
+             f"max relative L2 {err:.3e} over the 3 runs; their spread {spread:.3e}; "
+             f"need <= {REMAT_SPREAD_FACTOR} x spread + 1e-7 = {limit:.3e}; control "
+             f"(checkpoint without the generators' restore) min {control:.3e}, "
+             f"need > {limit:.3e}")
+    if not err <= limit:
+        raise AssertionError(f"remat gradients off by {err}, spread {spread}")
+    if not control > limit:
+        raise AssertionError(f"the control without the generators' restore is {control} "
+                             f"off, inside the limit {limit}: the check cannot see the fault")
+    torch.cuda.empty_cache()
+    return counts
 
 
 # Entries the register-resident bodies must hold (mangled-name fragments):
@@ -1879,7 +2025,8 @@ def main() -> None:
     records = {name: new_record() for name in KERNELS}
     counts = {name: 0 for name in KERNELS}
     runners = {"main": phase_main_path, "parity": phase_parity, "training": phase_training,
-               "train_parity": phase_train_parity, "options_parity": phase_options_parity}
+               "train_parity": phase_train_parity, "options_parity": phase_options_parity,
+               "spectrogram": phase_spectrogram, "remat_training": phase_remat_training}
     kernel_phases = {"kernels": phase_kernels, "backward": phase_backward,
                      "layout_kernels": phase_layout_kernels,
                      "layout_backward": phase_layout_backward}

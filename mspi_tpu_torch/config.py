@@ -6,8 +6,8 @@ Counterpart of `mspi_tpu/config.py` (same field names and defaults, so a
 dict of overrides means the same thing to both packages). `mvitv2s`
 encodes configs/MVITv2_S_16x4.yaml, `videoswins` the mmaction
 swin_small_patch244_window877_kinetics400_1k backbone, `uniformerb`
-configs/uniformer_b16x4_k400.yaml and `s3d` the S3D_features_only backbone
-(kylemin/S3D as TASED-Net uses it).
+configs/uniformer_b16x4_k400.yaml, `s3d` the S3D_features_only backbone
+(kylemin/S3D as TASED-Net uses it) and `x3dl` configs/X3D_L.yaml.
 """
 
 from __future__ import annotations
@@ -16,21 +16,25 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
-MOTION_ENCODERS = ("mvitv2s", "s3d", "uniformerb", "videoswins")
+MOTION_ENCODERS = ("mvitv2s", "s3d", "uniformerb", "videoswins", "x3dl")
 
 # Channel dims and temporal lengths of the [v1..v4] feature pyramid for a
 # 16-frame clip, and whether each lateral decoder layer applies a
 # temporal-stride conv.
 MOTION_ENCODER_EMBEDS = {"mvitv2s": (96, 192, 384, 768), "s3d": (192, 480, 832, 1024),
-                         "uniformerb": (64, 128, 320, 512), "videoswins": (96, 192, 384, 768)}
+                         "uniformerb": (64, 128, 320, 512), "videoswins": (96, 192, 384, 768),
+                         "x3dl": (24, 48, 96, 192)}
 MOTION_ENCODER_TDIMS = {"mvitv2s": (8, 8, 8, 8), "s3d": (8, 8, 4, 4),
-                        "uniformerb": (8, 8, 8, 8), "videoswins": (8, 8, 8, 8)}
+                        "uniformerb": (8, 8, 8, 8), "videoswins": (8, 8, 8, 8),
+                        "x3dl": (16, 16, 16, 16)}
 LATERAL_BOOL = {"mvitv2s": (True, True, True, True), "s3d": (True, True, False, False),
-                "uniformerb": (True, True, True, True), "videoswins": (True, True, True, True)}
+                "uniformerb": (True, True, True, True), "videoswins": (True, True, True, True),
+                "x3dl": (True, True, True, True)}
 # The widths of each backbone's LN+MLP blocks, which quant="int8" sends to
-# row 12 where C >= 256 (S3D has none: only its SyncBlock's 512 goes there)
+# row 12 where C >= 256 (S3D and X3D have none: only their SyncBlock's 512
+# goes there)
 LN_MLP_WIDTHS = {"mvitv2s": (96, 192, 384, 768), "s3d": (),
-                 "uniformerb": (320, 512), "videoswins": (96, 192, 384, 768)}
+                 "uniformerb": (320, 512), "videoswins": (96, 192, 384, 768), "x3dl": ()}
 
 
 @dataclass
@@ -89,6 +93,17 @@ class S3DConfig:
 
 
 @dataclass
+class X3DConfig:
+    """X3D-L (configs/X3D_L.yaml)."""
+
+    width_factor: float = 2.0
+    depth_factor: float = 5.0
+    bottleneck_factor: float = 2.25
+    dim_c1: int = 12
+    dim_c5: int = 2048
+
+
+@dataclass
 class UniFormerConfig:
     """UniFormer-B 16x4 (configs/uniformer_b16x4_k400.yaml): CBlocks in
     stages 1-2, joint space-time SABlocks in stages 3-4 (SplitSABlocks,
@@ -131,6 +146,7 @@ class ModelConfig:
     videoswin: VideoSwinConfig = field(default_factory=VideoSwinConfig)
     uniformer: UniFormerConfig = field(default_factory=UniFormerConfig)
     s3d: S3DConfig = field(default_factory=S3DConfig)
+    x3d: X3DConfig = field(default_factory=X3DConfig)
     # Serving options, off by default (the JAX package reads them from the
     # environment; the port reads nothing there).
     # "int8": the LN+MLP of every backbone and SyncBlock block with C >= 256
@@ -161,6 +177,11 @@ class ModelConfig:
     # stride, pool_k/pool_v of blocks 14-15) through the depthwise conv3d
     # kernel on channels-last tokens, as MSPI_DWCONV=1 does.
     dwconv: bool = False
+    # remat=True recomputes each MViT MultiScaleBlock and VideoSwin block's
+    # forward in the backward pass (torch.utils.checkpoint) in training, as
+    # the JAX package's ModelConfig.remat runs nn.remat per block; the other
+    # backbones accept it and ignore it.
+    remat: bool = False
 
     def __post_init__(self):
         if self.quant not in ("", "int8"):
@@ -176,7 +197,7 @@ class ModelConfig:
                     f"C = {missing[0]} form (compiled for INT8_C = {INT8_C}, "
                     f"mspi_tpu_torch/ops/kernels/ln_mlp.py), and the backbone's LN+MLP blocks "
                     f"at C = {missing[0]} would run it")
-        for name in ("attn_relk", "attn_packed", "dwconv"):
+        for name in ("attn_relk", "attn_packed", "dwconv", "remat"):
             value = getattr(self, name)
             if value not in (True, False):  # a string such as "0" would read as on
                 raise ValueError(f"{name} {value!r}: expected a bool")
@@ -192,7 +213,7 @@ class ModelConfig:
 
     @property
     def lateral_stride(self) -> Tuple[int, int, int, int]:
-        return (2, 2, 2, 2)
+        return (4, 4, 4, 4) if self.motion_encoder == "x3dl" else (2, 2, 2, 2)
 
     @property
     def pyramid_tdims(self) -> Tuple[int, int, int, int]:
@@ -209,7 +230,8 @@ class MSPIConfig:
     def num_vis_tokens(self) -> int:
         """Tokens entering SyncBlock: T4 * H/32 * W/32 (672 for MViTv2-S,
         VideoSwin-S and UniFormer-B at 16x224x384; 336 for S3D, which halves
-        T twice, stride-2 stem conv_t and stage-3 pool, to 4)."""
+        T twice, stride-2 stem conv_t and stage-3 pool, to 4; 1344 for
+        X3D-L, which keeps T = 16)."""
         h, w = self.data.resolution
         t4 = max(1, self.model.pyramid_tdims[3] * self.data.num_frames // 16)
         return t4 * (h // 32) * (w // 32)

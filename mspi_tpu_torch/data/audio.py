@@ -6,6 +6,9 @@ window [start/fps, (start+len+1)/fps] -> |STFT|^2 (n_fft 512, hop 160,
 centred reflect padding, periodic Hann) -> log(. + 1e-6) -> standardise
 each time column over frequency (unbiased std) -> pad/crop to (257, 111)
 with fill 0.02; missing audio gives the constant 0.02.
+
+`spectrogram_torch` is the device twin of `stft_power` (the JAX package's
+`spectrogram_jax`): |STFT|^2 by `torch.stft` on the waveform's device.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import wave
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def hann_window(n: int) -> np.ndarray:
@@ -31,6 +35,16 @@ def stft_power(audio: np.ndarray, n_fft: int = 512, hop_length: int = 160) -> np
     frames = x[idx] * hann_window(n_fft)[None, :]
     spec = np.fft.rfft(frames, axis=1)
     return (np.abs(spec) ** 2).T.astype(np.float32)
+
+
+def spectrogram_torch(audio: torch.Tensor, n_fft: int = 512,
+                      hop_length: int = 160) -> torch.Tensor:
+    """|STFT|^2 of audio [T] on its device, [n_fft // 2 + 1, frames] as
+    `stft_power`: periodic Hann window, centred reflect padding."""
+    window = torch.hann_window(n_fft, periodic=True, dtype=audio.dtype, device=audio.device)
+    spec = torch.stft(audio, n_fft, hop_length=hop_length, window=window, center=True,
+                      pad_mode="reflect", return_complex=True)
+    return spec.abs().square()
 
 
 def _standardise_pad(power: np.ndarray, spectro_shape=(257, 111), fill=0.02) -> np.ndarray:

@@ -12,7 +12,8 @@ Layout:
 train: a random 16-frame window per video, redrawn until the GT map of the
 last frame is non-empty. test/val: windows with stride 2*len from 0 whose
 GT is non-empty. A sample is (clip uint8 [T,H,W,3], audio float32
-[F,Tw,1], gt float32 [H,W]); clips stay uint8 until the device.
+[F,Tw,1], gt float32 [H,W]); clips stay uint8 until the device. native=True
+decodes the frames with the C++ loader (`mspi_tpu_torch.data.native`).
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ class AudioVisualDataset:
     def __init__(self, data_root: str, dataset_name: str = "DIEM", split: int = 1,
                  len_clip: int = 16, mode: str = "train", use_sound: bool = True,
                  size: Tuple[int, int] = (224, 384), load_fixations: bool = False,
-                 seed: int = 2023):
+                 seed: int = 2023, native: bool = False):
         self.path_data = data_root
         self.dataset_name = dataset_name
         self.mode = mode
@@ -71,6 +72,7 @@ class AudioVisualDataset:
         self.use_sound = use_sound
         self.size = size
         self.load_fixations = load_fixations
+        self.native = native
         self.rng = np.random.default_rng(seed)
         self.list_indata, self.videos_fps, _ = read_fold_list(data_root, dataset_name, mode,
                                                               split)
@@ -112,7 +114,8 @@ class AudioVisualDataset:
         end = start + self.len_snippet
         frames_dir = os.path.join(self.path_data, "video_frames", self.dataset_name, video)
         clip = np.stack([load_frame(os.path.join(frames_dir, "img_%05d.jpg" % (start + i + 1)),
-                                    self.size) for i in range(self.len_snippet)])
+                                    self.size, native=self.native)
+                         for i in range(self.len_snippet)])
         gt = load_gt_map(self._gt_path(video, end), self.size)
         if gt.max() == 0:
             raise ValueError(f"empty ground truth at {video} frame {end}")
@@ -149,16 +152,17 @@ class ConcatDataset:
 
 def build_training_datasets(data_root: str, split: int, len_clip: int, use_sound: bool,
                             size: Tuple[int, int], datasets: Sequence[str] = DATASETS,
-                            seed: int = 2023):
+                            seed: int = 2023, native: bool = False):
     """The 6-dataset train/val mixture; a dataset whose fold list is missing
     is skipped with a message, so partial local copies still train."""
     train_sets, val_sets = [], []
     for i, name in enumerate(datasets):
         try:
             train_sets.append(AudioVisualDataset(data_root, name, split, len_clip, "train",
-                                                 use_sound, size, seed=seed + i))
+                                                 use_sound, size, seed=seed + i, native=native))
             val_sets.append(AudioVisualDataset(data_root, name, split, len_clip, "test",
-                                               use_sound, size, seed=seed + 100 + i))
+                                               use_sound, size, seed=seed + 100 + i,
+                                               native=native))
         except FileNotFoundError as e:
             print(f"[data] skipping {name}: {e}")
     return ConcatDataset(train_sets), ConcatDataset(val_sets)

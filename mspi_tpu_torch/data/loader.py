@@ -5,7 +5,8 @@ A thread pool decodes samples ahead of the training step (JPEG decode and
 the FFT release the GIL), so no worker processes are spawned. Batches are
 numpy dicts; the trainer moves them to the card with pinned, non-blocking
 copies (`mspi_tpu_torch.train.engine.to_device`), and uint8 clips are
-normalised there. The native C++ loader of the JAX package is not ported.
+normalised there. The datasets decode frames with PIL, or with the C++
+loader (`mspi_tpu_torch.data.native`) when built with native=True.
 """
 
 from __future__ import annotations

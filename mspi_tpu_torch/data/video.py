@@ -17,9 +17,15 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
 
-def load_frame(path: str, size: Tuple[int, int]) -> np.ndarray:
+def load_frame(path: str, size: Tuple[int, int], native: bool = False) -> np.ndarray:
     """JPEG -> [H, W, 3] uint8 resized to `size` (h, w) with PIL bilinear
-    (antialiased, as torchvision Resize)."""
+    (antialiased, as torchvision Resize). native=True decodes and resizes
+    with the C++ loader (`mspi_tpu_torch.data.native`, the JAX package's
+    MSPI_NATIVE_LOADER=1), which raises on a file it cannot decode."""
+    if native:
+        from mspi_tpu_torch.data.native import load_frame_native
+
+        return load_frame_native(path, size)
     from PIL import Image
 
     with Image.open(path) as img:

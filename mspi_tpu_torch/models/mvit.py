@@ -51,7 +51,7 @@ from mspi_tpu_torch.ops.kernels.dwconv import supported as dwconv_supported
 from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp_block
 from mspi_tpu_torch.ops.kernels.pooled_attention import (attention, attention_rel,
                                                          attention_rel_packed, key_expansion)
-from mspi_tpu_torch.ops.layers import Conv3d, DropPath, max_pool
+from mspi_tpu_torch.ops.layers import Conv3d, DropPath, checkpoint_block, max_pool
 
 PACKED_MAX_KEYS = 4096  # the JAX package's bound on the packed path's pooled keys
 
@@ -304,12 +304,14 @@ class PatchEmbedMViT(nn.Module):
 
 class MViTFeatures(nn.Module):
     """[B,16,H,W,3] normalised clip -> pyramid (96,192,384,768) at strides
-    4/8/16/32, T=8, tapped at blocks {0,2,13,15}. `quant` and the layout
-    options are `ModelConfig`'s."""
+    4/8/16/32, T=8, tapped at blocks {0,2,13,15}. `quant`, the layout
+    options and `remat` (each block recomputed in the backward pass when
+    training) are `ModelConfig`'s."""
 
     def __init__(self, cfg: MViTConfig, quant: str = "", attn_relk: bool = True,
-                 attn_packed: bool = False, dwconv: bool = False):
+                 attn_packed: bool = False, dwconv: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         c = cfg
         depth = c.depth
         dim_mul = np.ones(depth + 1)
@@ -350,8 +352,9 @@ class MViTFeatures(nn.Module):
     def forward(self, x) -> List[torch.Tensor]:
         x, thw = self.patch_embed(x)
         feas = []
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x, thw = blk(x, thw)
+            x, thw = checkpoint_block(blk, x, thw) if remat else blk(x, thw)
             if i in self.taps:
                 feas.append(x.reshape(x.shape[0], *thw, -1))
         return feas

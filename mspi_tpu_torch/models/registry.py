@@ -1,8 +1,9 @@
 """Backbone factory: counterpart of `mspi_tpu/models/registry.py`.
 
 Each backbone maps a clip [B,16,H,W,3] to the pyramid [v1, v2, v3, v4],
-channels-last at strides 4/8/16/32. MViTv2-S, VideoSwin-S, UniFormer-B and
-S3D are ported.
+channels-last at strides 4/8/16/32. MViTv2-S, VideoSwin-S, UniFormer-B,
+S3D and X3D-L are ported. `ModelConfig.remat` reaches MViT and VideoSwin;
+the other backbones ignore it, as in the JAX registry.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ def build_backbone(cfg: MSPIConfig) -> nn.Module:
         from mspi_tpu_torch.models.mvit import MViTFeatures
 
         mc = cfg.model
-        return MViTFeatures(mc.mvit, mc.quant, mc.attn_relk, mc.attn_packed, mc.dwconv)
+        return MViTFeatures(mc.mvit, mc.quant, mc.attn_relk, mc.attn_packed, mc.dwconv,
+                            mc.remat)
     if name == "uniformerb":
         from mspi_tpu_torch.models.uniformer import UniFormerFeatures
 
@@ -27,8 +29,12 @@ def build_backbone(cfg: MSPIConfig) -> nn.Module:
         from mspi_tpu_torch.models.s3d import S3DFeatures
 
         return S3DFeatures(pool=cfg.model.s3d.pool_stride)
+    if name == "x3dl":
+        from mspi_tpu_torch.models.x3d import X3DFeatures
+
+        return X3DFeatures(cfg.model.x3d)
     if name == "videoswins":
         from mspi_tpu_torch.models.videoswin import VideoSwinFeatures
 
-        return VideoSwinFeatures(cfg.model.videoswin, cfg.model.quant)
+        return VideoSwinFeatures(cfg.model.videoswin, cfg.model.quant, cfg.model.remat)
     raise NotImplementedError(f"motion encoder {name!r} not yet ported")

@@ -33,7 +33,7 @@ from torch import nn
 from mspi_tpu_torch.config import VideoSwinConfig
 from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp_block
 from mspi_tpu_torch.ops.kernels.window_attention import window_attention
-from mspi_tpu_torch.ops.layers import Conv3d
+from mspi_tpu_torch.ops.layers import Conv3d, checkpoint_block
 
 Triple = Tuple[int, int, int]
 
@@ -218,8 +218,9 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: Triple,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, has_downsample: bool = True,
-                 quant: str = ""):
+                 quant: str = "", remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.window_size = tuple(window_size)
         self.shift = tuple(w // 2 for w in self.window_size)
         self.blocks = nn.ModuleList([
@@ -244,8 +245,9 @@ class BasicLayer(nn.Module):
 
     def forward(self, x):
         mask = self._mask(x)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, mask)
+            x = checkpoint_block(blk, x, mask) if remat else blk(x, mask)
         if hasattr(self, "downsample"):
             return self.downsample(x), x
         return x, x
@@ -268,9 +270,10 @@ class PatchEmbed3D(nn.Module):
 
 class VideoSwinFeatures(nn.Module):
     """[B,16,H,W,3] normalised clip -> pre-downsample pyramid
-    (96,192,384,768), T = 8."""
+    (96,192,384,768), T = 8. remat: each block recomputed in the backward
+    pass when training."""
 
-    def __init__(self, cfg: VideoSwinConfig, quant: str = ""):
+    def __init__(self, cfg: VideoSwinConfig, quant: str = "", remat: bool = False):
         super().__init__()
         c = cfg
         self.patch_embed = PatchEmbed3D(c.patch_size, c.embed_dim)
@@ -278,7 +281,7 @@ class VideoSwinFeatures(nn.Module):
             BasicLayer(dim=int(c.embed_dim * 2 ** i), depth=c.depths[i],
                        num_heads=c.num_heads[i], window_size=c.window_size,
                        mlp_ratio=c.mlp_ratio, qkv_bias=c.qkv_bias,
-                       has_downsample=i < len(c.depths) - 1, quant=quant)
+                       has_downsample=i < len(c.depths) - 1, quant=quant, remat=remat)
             for i in range(len(c.depths))])
 
     def forward(self, x) -> List[torch.Tensor]:

@@ -12,7 +12,8 @@ unless a module says 1e-6; BatchNorm with running statistics in eval mode and
 flax's batch statistics in train mode (see `BatchNorm`); max pooling pads
 with -inf; linear resizes are half-pixel (`align_corners=False`) without
 antialias. `DropPath` draws its per-sample masks from an explicit
-`torch.Generator`.
+`torch.Generator`, and `checkpoint_block` recomputes a block in the
+backward pass with the masks of its forward.
 
 Initialisers take an explicit `torch.Generator` and mirror the JAX
 package's: torch's kaiming-uniform default for convs and linears,
@@ -21,11 +22,13 @@ truncated normal where the JAX module asks for it.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from mspi_tpu_torch.data.video import IMAGENET_MEAN, IMAGENET_STD
@@ -111,6 +114,44 @@ class DropPath(nn.Module):
         mask = torch.rand((x.shape[0],), generator=self.generator) < keep
         mask = mask.to(x.device, non_blocking=True).view(-1, *([1] * (x.dim() - 1)))
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def checkpoint_block(block: nn.Module, *args):
+    """block(*args) with its forward recomputed in the backward pass
+    (`torch.utils.checkpoint`, non-reentrant, as the JAX package's nn.remat
+    per block). The recompute runs the whole block (no early stop), so each
+    of its kernels launches exactly twice a step. The checkpoint restores
+    only the default generators, so the block's DropPath generators are
+    restored here: the recompute draws the forward's masks from the states
+    they had at the forward, and leaves each generator where the forward
+    had left it."""
+    gens = []
+    for m in block.modules():
+        if isinstance(m, DropPath) and m.generator is not None and \
+                not any(g is m.generator for g in gens):
+            gens.append(m.generator)
+    at_forward = []
+
+    @contextlib.contextmanager
+    def forward_context():
+        at_forward[:] = [g.get_state() for g in gens]
+        yield
+
+    @contextlib.contextmanager
+    def recompute_context():
+        after = [g.get_state() for g in gens]
+        for g, state in zip(gens, at_forward):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(gens, after):
+                g.set_state(state)
+
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        return torch.utils.checkpoint.checkpoint(
+            block, *args, use_reentrant=False,
+            context_fn=lambda: (forward_context(), recompute_context()))
 
 
 def max_pool(x: torch.Tensor, kernel_size: IntOrTuple, stride: IntOrTuple = None,

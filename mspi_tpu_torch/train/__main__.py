@@ -1,15 +1,19 @@
 """Training CLI of the port: counterpart of the repository's `train.py`.
 
     python -m mspi_tpu_torch.train --data_root ./AuViDataset --split 1 [--bf16] \
-        [--motion_encoder mvitv2s|videoswins|uniformerb|s3d] \
-        [--no_attn_relk] [--dwconv] [--attn_packed]
+        [--motion_encoder mvitv2s|videoswins|uniformerb|s3d|x3dl] [--remat] \
+        [--native_loader] [--no_attn_relk] [--dwconv] [--attn_packed]
 
 The same arguments, seed (2023), 6-dataset mixture, frozen encoders,
 AdamW (lr 1e-4, weight decay 0), step LR schedule, validation at the
 monitored epochs, JSONL logs, periodic `ckpt_{epoch}` checkpoints and
 auto-resume; a non-finite loss stops the run with "Loss is NaN.". It runs
 on one CUDA device unless `--device cpu` is given. The JAX CLI's mesh
-options (`--dp`, `--tp`) and `--remat` have no counterpart yet. The MViT
+options (`--dp`, `--tp`) have no counterpart yet. `--remat` recomputes each
+MViT and VideoSwin block's forward in the backward pass
+(`ModelConfig.remat`; the other backbones ignore it), `--native_loader`
+decodes frames with the C++ loader (the JAX package's
+MSPI_NATIVE_LOADER=1). The MViT
 layout options of `ModelConfig` (`--no_attn_relk`, `--dwconv`, and
 `--attn_packed`, which changes only inference, the validation passes) are
 the JAX package's MSPI_ATTN_RELK=0, MSPI_DWCONV=1 and MSPI_POOL_FAT=1 with
@@ -43,7 +47,7 @@ def parse_args(argv=None):
     p.add_argument("--save_ckpt_freq", default=10, type=int)
     p.add_argument("--gamma", default=1.0, type=float)
     p.add_argument("--motion_encoder", default="mvitv2s", type=str,
-                   help="backbone of the model (mvitv2s, videoswins, uniformerb or s3d)")
+                   help="backbone of the model (mvitv2s, videoswins, uniformerb, s3d or x3dl)")
     p.add_argument("--data_root", default="./AuViDataset", type=str)
     p.add_argument("--batch_size", default=None, type=int)
     p.add_argument("--epochs", default=None, type=int)
@@ -53,6 +57,11 @@ def parse_args(argv=None):
     p.add_argument("--monitored_epochs", default=None, nargs="+", type=int)
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (parameters and optimizer stay fp32)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute MViT / VideoSwin blocks in the backward pass "
+                        "(activation memory)")
+    p.add_argument("--native_loader", action="store_true",
+                   help="decode and resize frames with the C++ loader (native/mspi_loader.cc)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--no_attn_relk", action="store_true",
                    help="MViT attention on augmented q/k lanes instead of the rel-pos kernel")
@@ -72,7 +81,7 @@ def config_from_args(args):
         "data": {"root": args.data_root,
                  **({"resolution": tuple(args.resolution)} if args.resolution else {})},
         "model": {"attn_relk": not args.no_attn_relk, "attn_packed": args.attn_packed,
-        "dwconv": args.dwconv},
+                  "dwconv": args.dwconv, "remat": args.remat},
         "train": {"gamma": args.gamma,
                   **({"batch_size": args.batch_size} if args.batch_size else {})},
         "solver": {**({"max_epoch": args.epochs} if args.epochs else {}),
@@ -116,7 +125,7 @@ def main(argv=None) -> None:
 
     dataset_train, dataset_val = build_training_datasets(
         cfg.data.root, args.split, cfg.data.num_frames, use_sound, cfg.data.resolution,
-        seed=seed)
+        seed=seed, native=args.native_loader)
     loader_train = DataLoader(dataset_train, cfg.train.batch_size, shuffle=True, drop_last=True,
                               num_workers=args.num_workers, seed=seed)
     loader_val = DataLoader(dataset_val, 1, num_workers=args.num_workers)

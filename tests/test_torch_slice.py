@@ -137,7 +137,9 @@ def test_port_imports_no_jax():
             "mspi_tpu_torch.data.datasets, mspi_tpu_torch.data.loader, "
             "mspi_tpu_torch.train.engine, mspi_tpu_torch.train.loss, "
             "mspi_tpu_torch.train.metrics, mspi_tpu_torch.train.checkpoints, "
-            "mspi_tpu_torch.train.synthetic, mspi_tpu_torch.train.__main__; "
+            "mspi_tpu_torch.train.synthetic, mspi_tpu_torch.train.__main__, "
+            "mspi_tpu_torch.evaluate, mspi_tpu_torch.data.native, mspi_tpu_torch.models.x3d, "
+            "mspi_tpu_torch.models.resnet3d; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'flax', 'mspi_tpu')); "
             "assert not bad, bad")

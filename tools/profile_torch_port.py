@@ -1,13 +1,14 @@
 """Device-time breakdown of one forward, or one training step, of the
 PyTorch/CUDA port on a GPU.
 
-    python tools/profile_torch_port.py [--motion_encoder mvitv2s|videoswins|uniformerb|s3d] \
-        [--batch 8] [--dtype bf16] [--steps 2] [--train] [--table PATH] \
+    python tools/profile_torch_port.py \
+        [--motion_encoder mvitv2s|videoswins|uniformerb|s3d|x3dl] \
+        [--batch 8] [--dtype bf16] [--steps 2] [--train [--remat]] [--table PATH] \
         [--quant int8] [--prior_fold_res] [--prior_ln_t] \
         [--no_attn_relk] [--attn_packed] [--dwconv]
 
 Builds the AudioVisualSaliencyModel (MViTv2-S by default, or VideoSwin-S,
-UniFormer-B or S3D; 16x224x384, seeded random weights) on cuda, warms up,
+UniFormer-B, S3D or X3D-L; 16x224x384, seeded random weights) on cuda, warms up,
 then traces `--steps`
 forwards with
 torch.profiler. With `--train` it traces `make_train_step` instead (fp32
@@ -28,7 +29,10 @@ and `--prior_ln_t` build the model with the serving options (inference
 only); their kernels (rows 12, 10 and 11) are families of their own.
 `--no_attn_relk`, `--attn_packed` (inference only) and `--dwconv` build
 MViTv2-S with the layout options; their kernels (rows 6, 8 and 18) are
-families of their own too.
+families of their own too. `--remat` recomputes each MViT / VideoSwin block
+in the backward pass (`ModelConfig.remat`). PyTorch's own depthwise conv3d
+(`conv_depthwise3d`, which the channelwise and depthwise 3-D convs of
+UniFormer-B and X3D-L reach) is a family of its own.
 """
 
 from __future__ import annotations
@@ -80,6 +84,7 @@ PORT_FAMILIES = (
 )
 # Everything else: a name matches when it holds any key.
 FAMILIES = (
+    ("depthwise conv3d (PyTorch)", ("conv_depthwise3d",)),
     ("conv (cuDNN)", ("conv", "cudnn", "implicit", "xmma", "sm90_xmma", "dgrad", "fprop")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "nvjet")),
     ("layer/batch norm", ("norm",)),
@@ -147,7 +152,7 @@ def host_split(prof, steps: int) -> None:
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--motion_encoder", default="mvitv2s",
-                   choices=("mvitv2s", "videoswins", "uniformerb", "s3d"))
+                   choices=("mvitv2s", "videoswins", "uniformerb", "s3d", "x3dl"))
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     p.add_argument("--steps", type=int, default=2)
@@ -159,6 +164,7 @@ def main() -> None:
     p.add_argument("--no_attn_relk", action="store_true")
     p.add_argument("--attn_packed", action="store_true")
     p.add_argument("--dwconv", action="store_true")
+    p.add_argument("--remat", action="store_true")
     args = p.parse_args()
     if args.train and (args.quant or args.prior_fold_res or args.prior_ln_t
                        or args.attn_packed):
@@ -175,7 +181,7 @@ def main() -> None:
     cfg = get_config(args.motion_encoder, {"model": {
         "quant": args.quant, "prior_fold_res": args.prior_fold_res,
         "prior_ln_t": args.prior_ln_t, "attn_relk": not args.no_attn_relk,
-        "attn_packed": args.attn_packed, "dwconv": args.dwconv}})
+        "attn_packed": args.attn_packed, "dwconv": args.dwconv, "remat": args.remat}})
     model = AudioVisualSaliencyModel(cfg, device="cuda",
                                      dtype=torch.float32 if args.train else dtype,
                                      generator=torch.Generator().manual_seed(0))
