@@ -128,8 +128,16 @@ first failure (there is no CPU path):
 27. x3d_main, x3d_parity, x3d_training: phases 4, 5 and 7 on the X3D-L
    model (its backbone plain, the channelwise convs grouped `F.conv3d`; K4
    and K2 in the SyncBlock's 1380 tokens, K2 in the decoder).
+28. sf_main, sf_parity, sf_training: phases 4, 5 and 7 on the SlowFast
+   4x16 R50 model (its backbone plain; K4 and K2 in the SyncBlock's 372
+   tokens, K2 in the decoder); in training stage s5's fast pathway, which
+   feeds nothing, gets zero gradients, so exactly its parameters stay
+   unchanged (`UNCHANGED`) and every other trainable tensor moves;
+   morph_main, morph_parity, morph_training: phases 4, 5 and 7 on the
+   MorphMLP-S model at 224x224 (the resolution at which its segments
+   divide; its backbone plain, K4 and K2 in the SyncBlock's 428 tokens).
 
-Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22, 23, 25, 26, 27) sets the
+Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22, 23, 25, 26, 27, 28) sets the
 launch counts to 0 just before it and reads them just after; the kernels'
 record sums them.
 The last two lines are the kernels' JSON record and the device JSON record.
@@ -220,6 +228,8 @@ PER_FORWARD = {
     "uniformerb": {"self_attention": 27 + 3, "ln_mlp": 27 + 3 + 4, "ln_mlp_prior": 18},
     "s3d": {"self_attention": 3, "ln_mlp": 3 + 4, "ln_mlp_prior": 18},
     "x3dl": {"self_attention": 3, "ln_mlp": 3 + 4, "ln_mlp_prior": 18},
+    "slowfast4x16": {"self_attention": 3, "ln_mlp": 3 + 4, "ln_mlp_prior": 18},
+    "morphmlps": {"self_attention": 3, "ln_mlp": 3 + 4, "ln_mlp_prior": 18},
     # the visual-only model: no SyncBlock (K4 and its 3 K2 blocks)
     "mvitv2s+visual": {"attention_rel": 16, "ln_mlp": 16 + 4, "ln_mlp_prior": 18},
     "videoswins": {"window_attention": 24, "ln_mlp": 31, "ln_mlp_prior": 18,
@@ -246,6 +256,8 @@ PER_STEP = {
     "uniformerb": {**PER_FORWARD["uniformerb"], "attention_bwd": 27 + 3,
                    "ln_mlp_bwd": 27 + 3 + 4},
     "x3dl": {**PER_FORWARD["x3dl"], "attention_bwd": 3, "ln_mlp_bwd": 3 + 4},
+    "slowfast4x16": {**PER_FORWARD["slowfast4x16"], "attention_bwd": 3, "ln_mlp_bwd": 3 + 4},
+    "morphmlps": {**PER_FORWARD["morphmlps"], "attention_bwd": 3, "ln_mlp_bwd": 3 + 4},
     # remat: each of the 16 blocks' K1 and K2 again in its recompute
     "mvitv2s+remat": {"attention_rel": 16 + 16, "ln_mlp": 23 + 16, "ln_mlp_prior": 18,
                       "self_attention": 3, "attention_rel_bwd": 16, "ln_mlp_bwd": 23,
@@ -254,7 +266,10 @@ PER_STEP = {
     "mvitv2s+relk0": {**PER_FORWARD["mvitv2s+relk0"], "attention_bwd": 16 + 3,
                       "dwconv3d": 17 + 17, "ln_mlp_bwd": 23},
 }
-PATH_PHASES = {  # phase -> (path kind, PER_FORWARD key: the encoder and its options)
+MORPH_RES = (224, 224)  # MorphMLP-S runs where (H/32)(W/32) is a multiple of 49
+# phase -> (path kind, PER_FORWARD key: the encoder and its options[, input
+# resolution, RES unless given])
+PATH_PHASES = {
     "main": ("main", "mvitv2s"), "parity": ("parity", "mvitv2s"),
     "training": ("training", "mvitv2s"), "train_parity": ("train_parity", "mvitv2s"),
     "swin_main": ("main", "videoswins"), "swin_parity": ("parity", "videoswins"),
@@ -278,7 +293,17 @@ PATH_PHASES = {  # phase -> (path kind, PER_FORWARD key: the encoder and its opt
     "remat_training": ("remat_training", "mvitv2s+remat"),
     "x3d_main": ("main", "x3dl"), "x3d_parity": ("parity", "x3dl"),
     "x3d_training": ("training", "x3dl"),
+    "sf_main": ("main", "slowfast4x16"), "sf_parity": ("parity", "slowfast4x16"),
+    "sf_training": ("training", "slowfast4x16"),
+    "morph_main": ("main", "morphmlps", MORPH_RES),
+    "morph_parity": ("parity", "morphmlps", MORPH_RES),
+    "morph_training": ("training", "morphmlps", MORPH_RES),
 }
+# the trainable tensors a training step leaves as they were: SlowFast's
+# stage s5 fast pathway feeds nothing (only the slow pathway is a pyramid
+# level), so its parameters get zero gradients, which AdamW at weight decay
+# 0 turns into no update, as optax does
+UNCHANGED = {"slowfast4x16": "visnet.s5.pathway1_"}
 OPTIONS = {"mvitv2s+serving": SERVING, "videoswins+int8": {"quant": "int8"},
            "mvitv2s+layout": LAYOUT, "mvitv2s+relk0": RELK0,
            "mvitv2s+remat": {"remat": True}}
@@ -288,7 +313,8 @@ PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity", "
           "layout_parity", "relk0_training", "relk0_train_parity", "relk0_small_parity",
           "mlp_kernels", "lab", "uni_main", "uni_parity", "uni_training", "uni_train_parity",
           "s3d_main", "s3d_parity", "spectrogram", "vis_main", "remat_training", "x3d_main",
-          "x3d_parity", "x3d_training")
+          "x3d_parity", "x3d_training", "sf_main", "sf_parity", "sf_training", "morph_main",
+          "morph_parity", "morph_training")
 BATCH = 8
 TRAIN_BATCH = 2
 STEPS = 5
@@ -1537,9 +1563,9 @@ def phase_lab(records) -> dict:
     return counts
 
 
-def synthetic_video(seed: int):
+def synthetic_video(seed: int, res=RES):
     rng = np.random.default_rng(seed)
-    frames = rng.integers(0, 256, (N_FRAMES, *RES, 3), dtype=np.uint8)
+    frames = rng.integers(0, 256, (N_FRAMES, *res, 3), dtype=np.uint8)
     t = np.arange(int(2.5 * SAMPLE_RATE)) / SAMPLE_RATE
     audio = (0.3 * np.sin(2 * np.pi * 440 * t) * np.sin(2 * np.pi * 0.7 * t)
              + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
@@ -1555,22 +1581,22 @@ def model_config(key: str, res=RES):
                                           "data": {"resolution": tuple(res)}})
 
 
-def build_model(key: str, device: str, dtype: torch.dtype):
+def build_model(key: str, device: str, dtype: torch.dtype, res=RES):
     """The AV model of a PER_FORWARD key, or the visual-only one for
-    '+visual'."""
+    '+visual', at input resolution res."""
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel, VisualSaliencyModel
 
     cls = VisualSaliencyModel if key.endswith("+visual") else AudioVisualSaliencyModel
-    return cls(model_config(key), device=device, dtype=dtype,
+    return cls(model_config(key, res), device=device, dtype=dtype,
                generator=torch.Generator().manual_seed(0))
 
 
-def phase_main_path(tag: str, key: str) -> dict:
+def phase_main_path(tag: str, key: str, res=RES) -> dict:
     from mspi_tpu_torch.inference import predict_video, sliding_window_jobs
     from mspi_tpu_torch.ops import kernels
 
-    model = build_model(key, "cuda", torch.bfloat16)
-    frames, audio = synthetic_video(0)
+    model = build_model(key, "cuda", torch.bfloat16, res)
+    frames, audio = synthetic_video(0, res)
     n_windows = len(sliding_window_jobs(N_FRAMES, 16))
     forwards = -(-n_windows // BATCH)
 
@@ -1603,7 +1629,7 @@ def phase_main_path(tag: str, key: str) -> dict:
         if not (torch.isfinite(out).all() and torch.isfinite(torch.as_tensor(loss))):
             raise AssertionError("non-finite model output")
         ms = time_ms(lambda: model(*inputs), warmup=1, reps=3)
-    log(tag, f"{key} forward bf16 batch {BATCH}: {ms:.1f} ms = "
+    log(tag, f"{key} forward bf16 batch {BATCH} {res[0]}x{res[1]}: {ms:.1f} ms = "
              f"{BATCH * 1000 / ms:.2f} clips/s (CUDA events, median of 3); "
              f"map {N_FRAMES} x 480 x 640 uint8 ok")
     if key in OPTIONS:
@@ -1673,12 +1699,11 @@ def phase_options_parity(tag: str, key: str) -> None:
             raise AssertionError(f"card vs {other}: CC {cc} below {need}")
 
 
-def phase_parity(tag: str, encoder: str) -> None:
-    from mspi_tpu_torch.config import get_config
+def phase_parity(tag: str, encoder: str, res=RES) -> None:
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
 
-    cfg = get_config(encoder)
-    frames, _ = synthetic_video(3)
+    cfg = model_config(encoder, res)
+    frames, _ = synthetic_video(3, res)
     clip = torch.from_numpy(frames[None, :16].copy())
     aud = torch.randn(1, 257, 111, 1, generator=torch.Generator().manual_seed(4))
     outs = []
@@ -1694,7 +1719,7 @@ def phase_parity(tag: str, encoder: str) -> None:
     a, b = (o.flatten() for o in outs)
     cc = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
     diff = (a - b).abs().max().item()
-    log(tag, f"{encoder} log-density {RES[0]}x{RES[1]} card vs CPU: CC {cc:.8f} "
+    log(tag, f"{encoder} log-density {res[0]}x{res[1]} card vs CPU: CC {cc:.8f} "
              f"(need >= 0.9999), max abs diff {diff:.3e}")
     if not cc >= 0.9999:
         raise AssertionError(f"end-to-end CC {cc} below 0.9999")
@@ -1710,20 +1735,22 @@ def _frozen_snapshot(model):
 PEAK_GIB = {}  # PER_STEP key -> peak device memory of its training phase
 
 
-def phase_training(tag: str, encoder: str) -> dict:
-    """`encoder`: a PER_STEP key, a motion encoder and its options."""
+def phase_training(tag: str, encoder: str, res=RES) -> dict:
+    """`encoder`: a PER_STEP key, a motion encoder and its options; at input
+    resolution res. Every trainable tensor must move, but those whose names
+    start with UNCHANGED[encoder], which must all stay as they were."""
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
     from mspi_tpu_torch.ops import kernels
     from mspi_tpu_torch.train import engine
     from mspi_tpu_torch.train.synthetic import make_batch
 
-    cfg = model_config(encoder)
+    cfg = model_config(encoder, res)
     model = AudioVisualSaliencyModel(cfg, device="cuda", dtype=torch.float32,
                                      generator=torch.Generator().manual_seed(0))
     state = engine.create_train_state(cfg, model)
     step = engine.make_train_step(cfg.train.gamma, compute_dtype=torch.bfloat16)
     rng = np.random.default_rng(5)
-    batches = [engine.to_device(make_batch(rng, TRAIN_BATCH, 16, RES, SPECTRO), "cuda")
+    batches = [engine.to_device(make_batch(rng, TRAIN_BATCH, 16, res, SPECTRO), "cuda")
                for _ in range(STEPS)]
     frozen = _frozen_snapshot(model)
     before = [p.detach().clone() for p in engine.trainable_parameters(state)]
@@ -1740,7 +1767,7 @@ def phase_training(tag: str, encoder: str) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     PEAK_GIB[encoder] = peak
     steady = statistics.median(walls[1:])
-    log(tag, f"{encoder} {STEPS} steps bf16 batch {TRAIN_BATCH} {RES[0]}x{RES[1]}: first "
+    log(tag, f"{encoder} {STEPS} steps bf16 batch {TRAIN_BATCH} {res[0]}x{res[1]}: first "
              f"{walls[0]:.2f} s, then median {steady * 1e3:.1f} ms = "
              f"{1 / steady:.3f} steps/s = {TRAIN_BATCH / steady:.2f} clips/s (host clock "
              f"around synced steps); peak memory {peak:.2f} GiB")
@@ -1752,10 +1779,16 @@ def phase_training(tag: str, encoder: str) -> dict:
         want = STEPS * PER_STEP[encoder].get(name, 0)
         if counts[name] != want:
             raise AssertionError(f"{name}: {counts[name]} launches in training, expected {want}")
-    moved = sum(not torch.equal(a, p) for a, p in zip(before, engine.trainable_parameters(state)))
-    log(tag, f"launches {counts}; {moved} of {len(before)} trainable tensors moved")
-    if moved < len(before):
-        raise AssertionError(f"only {moved} of {len(before)} trainable tensors changed")
+    still = [n for n, a, p in zip(state.param_names, before, engine.trainable_parameters(state))
+             if torch.equal(a, p)]
+    prefix = UNCHANGED.get(encoder)
+    expected = [n for n in state.param_names if prefix and n.startswith(prefix)]
+    log(tag, f"launches {counts}; {len(before) - len(still)} of {len(before)} trainable "
+             f"tensors moved; unchanged {len(still)}: {still} (expected {len(expected)}"
+             f"{f', every one under {prefix}' if prefix else ''})")
+    if still != expected:
+        raise AssertionError(f"unchanged trainable tensors {still[:5]}, expected {expected[:5]} "
+                             f"({len(still)} against {len(expected)})")
     after = _frozen_snapshot(model)
     changed = [k for k in frozen if not torch.equal(frozen[k], after[k])]
     if changed:

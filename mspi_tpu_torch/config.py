@@ -1,13 +1,17 @@
-"""Configuration for the ported slices: the dataclass fields the MViTv2-S,
-VideoSwin-S, UniFormer-B and S3D audio-visual inference and training paths
-read, and the serving options of `ModelConfig`.
+"""Configuration for the ported slices: the dataclass fields the audio-visual
+inference and training paths of the seven motion encoders read (MViTv2-S,
+VideoSwin-S, UniFormer-B, S3D, X3D-L, SlowFast 4x16 R50 and MorphMLP-S),
+and the serving options of `ModelConfig`.
 
 Counterpart of `mspi_tpu/config.py` (same field names and defaults, so a
 dict of overrides means the same thing to both packages). `mvitv2s`
 encodes configs/MVITv2_S_16x4.yaml, `videoswins` the mmaction
 swin_small_patch244_window877_kinetics400_1k backbone, `uniformerb`
 configs/uniformer_b16x4_k400.yaml, `s3d` the S3D_features_only backbone
-(kylemin/S3D as TASED-Net uses it) and `x3dl` configs/X3D_L.yaml.
+(kylemin/S3D as TASED-Net uses it), `x3dl` configs/X3D_L.yaml,
+`slowfast4x16` configs/SLOWFAST_4x16_R50.yaml and `morphmlps`
+configs/K400_MLP_S16x4.yaml (which runs only where (H/32)(W/32) is a
+multiple of 49, e.g. at 224x224, not at the default 224x384).
 """
 
 from __future__ import annotations
@@ -16,25 +20,29 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
-MOTION_ENCODERS = ("mvitv2s", "s3d", "uniformerb", "videoswins", "x3dl")
+MOTION_ENCODERS = ("morphmlps", "mvitv2s", "s3d", "slowfast4x16", "uniformerb", "videoswins",
+                   "x3dl")
 
 # Channel dims and temporal lengths of the [v1..v4] feature pyramid for a
 # 16-frame clip, and whether each lateral decoder layer applies a
 # temporal-stride conv.
-MOTION_ENCODER_EMBEDS = {"mvitv2s": (96, 192, 384, 768), "s3d": (192, 480, 832, 1024),
+MOTION_ENCODER_EMBEDS = {"morphmlps": (112, 224, 392, 784), "mvitv2s": (96, 192, 384, 768),
+                         "s3d": (192, 480, 832, 1024), "slowfast4x16": (320, 640, 1280, 2048),
                          "uniformerb": (64, 128, 320, 512), "videoswins": (96, 192, 384, 768),
                          "x3dl": (24, 48, 96, 192)}
-MOTION_ENCODER_TDIMS = {"mvitv2s": (8, 8, 8, 8), "s3d": (8, 8, 4, 4),
-                        "uniformerb": (8, 8, 8, 8), "videoswins": (8, 8, 8, 8),
-                        "x3dl": (16, 16, 16, 16)}
-LATERAL_BOOL = {"mvitv2s": (True, True, True, True), "s3d": (True, True, False, False),
+MOTION_ENCODER_TDIMS = {"morphmlps": (8, 8, 8, 8), "mvitv2s": (8, 8, 8, 8), "s3d": (8, 8, 4, 4),
+                        "slowfast4x16": (4, 4, 4, 4), "uniformerb": (8, 8, 8, 8),
+                        "videoswins": (8, 8, 8, 8), "x3dl": (16, 16, 16, 16)}
+LATERAL_BOOL = {"morphmlps": (True, True, True, True), "mvitv2s": (True, True, True, True),
+                "s3d": (True, True, False, False), "slowfast4x16": (False, False, False, False),
                 "uniformerb": (True, True, True, True), "videoswins": (True, True, True, True),
                 "x3dl": (True, True, True, True)}
 # The widths of each backbone's LN+MLP blocks, which quant="int8" sends to
-# row 12 where C >= 256 (S3D and X3D have none: only their SyncBlock's 512
-# goes there)
-LN_MLP_WIDTHS = {"mvitv2s": (96, 192, 384, 768), "s3d": (),
-                 "uniformerb": (320, 512), "videoswins": (96, 192, 384, 768), "x3dl": ()}
+# row 12 where C >= 256 (S3D, X3D, SlowFast and MorphMLP have none: only
+# their SyncBlock's 512 goes there; MorphMLP's block MLPs are plain)
+LN_MLP_WIDTHS = {"morphmlps": (), "mvitv2s": (96, 192, 384, 768), "s3d": (),
+                 "slowfast4x16": (), "uniformerb": (320, 512),
+                 "videoswins": (96, 192, 384, 768), "x3dl": ()}
 
 
 @dataclass
@@ -104,6 +112,33 @@ class X3DConfig:
 
 
 @dataclass
+class SlowFastConfig:
+    """SlowFast 4x16 R50 (configs/SLOWFAST_4x16_R50.yaml)."""
+
+    alpha: int = 4
+    beta_inv: int = 8
+    fusion_conv_channel_ratio: int = 2
+    fusion_kernel_sz: int = 5
+    depth: int = 50
+    width_per_group: int = 64
+    num_groups: int = 1
+    num_block_temp_kernel: Tuple[Tuple[int, int], ...] = ((3, 3), (4, 4), (6, 6), (3, 3))
+    spatial_strides: Tuple[Tuple[int, int], ...] = ((1, 1), (2, 2), (2, 2), (2, 2))
+
+
+@dataclass
+class MorphMLPConfig:
+    """MorphMLP-S 16x4 (configs/K400_MLP_S16x4.yaml)."""
+
+    layers: Tuple[int, int, int, int] = (3, 4, 9, 3)
+    segment_dim: Tuple[int, int, int, int] = (14, 28, 28, 49)
+    mlp_ratios: Tuple[int, int, int, int] = (3, 3, 3, 3)
+    embed_dims: Tuple[int, int, int, int] = (112, 224, 392, 784)
+    t_stride: int = 4
+    qkv_bias: bool = True
+
+
+@dataclass
 class UniFormerConfig:
     """UniFormer-B 16x4 (configs/uniformer_b16x4_k400.yaml): CBlocks in
     stages 1-2, joint space-time SABlocks in stages 3-4 (SplitSABlocks,
@@ -147,6 +182,8 @@ class ModelConfig:
     uniformer: UniFormerConfig = field(default_factory=UniFormerConfig)
     s3d: S3DConfig = field(default_factory=S3DConfig)
     x3d: X3DConfig = field(default_factory=X3DConfig)
+    slowfast: SlowFastConfig = field(default_factory=SlowFastConfig)
+    morph: MorphMLPConfig = field(default_factory=MorphMLPConfig)
     # Serving options, off by default (the JAX package reads them from the
     # environment; the port reads nothing there).
     # "int8": the LN+MLP of every backbone and SyncBlock block with C >= 256
@@ -230,8 +267,9 @@ class MSPIConfig:
     def num_vis_tokens(self) -> int:
         """Tokens entering SyncBlock: T4 * H/32 * W/32 (672 for MViTv2-S,
         VideoSwin-S and UniFormer-B at 16x224x384; 336 for S3D, which halves
-        T twice, stride-2 stem conv_t and stage-3 pool, to 4; 1344 for
-        X3D-L, which keeps T = 16)."""
+        T twice, stride-2 stem conv_t and stage-3 pool, to 4, and for
+        SlowFast, whose slow pathway keeps T = 4; 1344 for X3D-L, which
+        keeps T = 16; 392 for MorphMLP-S at 16x224x224)."""
         h, w = self.data.resolution
         t4 = max(1, self.model.pyramid_tdims[3] * self.data.num_frames // 16)
         return t4 * (h // 32) * (w // 32)

@@ -12,11 +12,16 @@ it with file I/O:
 
     python -m mspi_tpu_torch.inference --path_data ./AuViDataset --dataset AVAD \
         --split 2 --save_path ./output \
-        [--motion_encoder videoswins|uniformerb|s3d|x3dl] \
+        [--motion_encoder videoswins|uniformerb|s3d|x3dl|slowfast4x16] \
         [--weight port_state_dict.pt] [--bf16] [--use_sound ''] [--no-device_post] \
         [--native_loader] [--device cpu] \
         [--quant int8] [--prior_fold_res] [--prior_ln_t] \
         [--no_attn_relk] [--attn_packed] [--dwconv]
+
+The CLI serves 224x384, as the JAX CLI does (neither has `--resolution`):
+`--motion_encoder morphmlps` is taken, and its forward raises a ValueError
+there, since MorphMLP-S needs (H/32)(W/32) to be a multiple of 49 (224x224);
+`predict_video` serves it on frames at such a resolution.
 
 `main` writes each map under its frame's own name (`<save_path>/<video>/
 img_00001.jpg`) through `cv2.imwrite`, which encodes it by that name's
@@ -176,7 +181,8 @@ def write_maps(out_dir: str, frame_paths: List[str], maps: np.ndarray) -> None:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--motion_encoder", default="mvitv2s", type=str,
-                   help="backbone of the model (mvitv2s, videoswins, uniformerb, s3d or x3dl)")
+                   help="backbone of the model (mvitv2s, videoswins, uniformerb, s3d, x3dl, "
+                        "slowfast4x16 or morphmlps)")
     p.add_argument("--weight", default="", type=str,
                    help="torch state_dict of the port (e.g. via "
                         "mspi_tpu_torch.convert); random seeded weights if empty")

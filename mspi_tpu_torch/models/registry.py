@@ -1,9 +1,10 @@
 """Backbone factory: counterpart of `mspi_tpu/models/registry.py`.
 
 Each backbone maps a clip [B,16,H,W,3] to the pyramid [v1, v2, v3, v4],
-channels-last at strides 4/8/16/32. MViTv2-S, VideoSwin-S, UniFormer-B,
-S3D and X3D-L are ported. `ModelConfig.remat` reaches MViT and VideoSwin;
-the other backbones ignore it, as in the JAX registry.
+channels-last at strides 4/8/16/32. All seven of the JAX registry's are
+ported: MViTv2-S, VideoSwin-S, UniFormer-B, S3D, X3D-L, SlowFast 4x16 R50
+and MorphMLP-S. `ModelConfig.remat` reaches MViT and VideoSwin; the other
+backbones ignore it, as in the JAX registry.
 """
 
 from __future__ import annotations
@@ -33,6 +34,14 @@ def build_backbone(cfg: MSPIConfig) -> nn.Module:
         from mspi_tpu_torch.models.x3d import X3DFeatures
 
         return X3DFeatures(cfg.model.x3d)
+    if name == "slowfast4x16":
+        from mspi_tpu_torch.models.slowfast import SlowFastFeatures
+
+        return SlowFastFeatures(cfg.model.slowfast)
+    if name == "morphmlps":
+        from mspi_tpu_torch.models.morphmlp import MorphMLPFeatures
+
+        return MorphMLPFeatures(cfg.model.morph)
     if name == "videoswins":
         from mspi_tpu_torch.models.videoswin import VideoSwinFeatures
 

@@ -35,7 +35,8 @@ class X3DFeatures(nn.Module):
         dim_res5 = round_width(dim_res4, 2.0, divisor=8)
         block_basis = ((1, dim_res2, 2), (2, dim_res3, 2), (5, dim_res4, 2), (3, dim_res5, 2))
         dim_res1 = round_width(c.dim_c1, c.width_factor)
-        self.s1 = VideoModelStem([3], [dim_res1], [(5, 3, 3)], [(1, 2, 2)], [(2, 1, 1)])
+        self.s1 = VideoModelStem([3], [dim_res1], [(5, 3, 3)], [(1, 2, 2)], [(2, 1, 1)],
+                                 stem_func_name="x3d_stem")
         dim_in = dim_res1
         for s, (blocks, dim, stride) in enumerate(block_basis, start=2):
             dim_out = round_width(dim, c.width_factor)
@@ -43,7 +44,8 @@ class X3DFeatures(nn.Module):
             n_rep = int(math.ceil(c.depth_factor * blocks))
             self.add_module(f"s{s}", ResStage(
                 [dim_in], [dim_out], [stride], [[3]], [n_rep], [dim_inner],
-                num_groups=[dim_inner], num_block_temp_kernel=[n_rep]))
+                num_groups=[dim_inner], num_block_temp_kernel=[n_rep],
+                trans_func_name="x3d_transform"))
             dim_in = dim_out
 
     def forward(self, x) -> List[torch.Tensor]:

@@ -1,7 +1,8 @@
 """Training CLI of the port: counterpart of the repository's `train.py`.
 
     python -m mspi_tpu_torch.train --data_root ./AuViDataset --split 1 [--bf16] \
-        [--motion_encoder mvitv2s|videoswins|uniformerb|s3d|x3dl] [--remat] \
+        [--motion_encoder mvitv2s|videoswins|uniformerb|s3d|x3dl|slowfast4x16|morphmlps] \
+        [--remat] [--resolution H W] \
         [--native_loader] [--no_attn_relk] [--dwconv] [--attn_packed]
 
 The same arguments, seed (2023), 6-dataset mixture, frozen encoders,
@@ -11,7 +12,9 @@ auto-resume; a non-finite loss stops the run with "Loss is NaN.". It runs
 on one CUDA device unless `--device cpu` is given. The JAX CLI's mesh
 options (`--dp`, `--tp`) have no counterpart yet. `--remat` recomputes each
 MViT and VideoSwin block's forward in the backward pass
-(`ModelConfig.remat`; the other backbones ignore it), `--native_loader`
+(`ModelConfig.remat`; the other backbones ignore it). MorphMLP-S trains
+only where (H/32)(W/32) is a multiple of 49: `--motion_encoder morphmlps
+--resolution 224 224`. `--native_loader`
 decodes frames with the C++ loader (the JAX package's
 MSPI_NATIVE_LOADER=1). The MViT
 layout options of `ModelConfig` (`--no_attn_relk`, `--dwconv`, and
@@ -47,7 +50,8 @@ def parse_args(argv=None):
     p.add_argument("--save_ckpt_freq", default=10, type=int)
     p.add_argument("--gamma", default=1.0, type=float)
     p.add_argument("--motion_encoder", default="mvitv2s", type=str,
-                   help="backbone of the model (mvitv2s, videoswins, uniformerb, s3d or x3dl)")
+                   help="backbone of the model (mvitv2s, videoswins, uniformerb, s3d, x3dl, "
+                        "slowfast4x16 or morphmlps)")
     p.add_argument("--data_root", default="./AuViDataset", type=str)
     p.add_argument("--batch_size", default=None, type=int)
     p.add_argument("--epochs", default=None, type=int)

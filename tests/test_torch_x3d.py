@@ -105,8 +105,8 @@ def test_resblock_matches_flax(rng, train, block_idx, stride, dims):
                                       dim_inner, block_idx=block_idx)
     x = rng.standard_normal((2, 4, 8, 10, dim_in)).astype(np.float32)
     variables = jax_module_variables(jax_block, rng, jnp.asarray(x))
-    port = resnet3d.ResBlock(dim_in, dim_out, 3, stride, dim_inner, dim_inner,
-                             block_idx=block_idx)
+    port = resnet3d.ResBlock(dim_in, dim_out, 3, stride, "x3d_transform", dim_inner,
+                             dim_inner, block_idx=block_idx)
     assert hasattr(port, "branch1") == (stride != 1)
     assert hasattr(port.branch2, "se") == (block_idx % 2 == 0)
     got, want = _check(jax_block, load_port(port, variables), variables, x, train, TOL)

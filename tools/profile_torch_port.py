@@ -2,13 +2,15 @@
 PyTorch/CUDA port on a GPU.
 
     python tools/profile_torch_port.py \
-        [--motion_encoder mvitv2s|videoswins|uniformerb|s3d|x3dl] \
+        [--motion_encoder mvitv2s|videoswins|uniformerb|s3d|x3dl|slowfast4x16|morphmlps] \
         [--batch 8] [--dtype bf16] [--steps 2] [--train [--remat]] [--table PATH] \
         [--quant int8] [--prior_fold_res] [--prior_ln_t] \
         [--no_attn_relk] [--attn_packed] [--dwconv]
 
 Builds the AudioVisualSaliencyModel (MViTv2-S by default, or VideoSwin-S,
-UniFormer-B, S3D or X3D-L; 16x224x384, seeded random weights) on cuda, warms up,
+UniFormer-B, S3D, X3D-L, SlowFast 4x16 R50 or MorphMLP-S; 16x224x384, and
+224x224 for MorphMLP-S, the resolution at which it runs; seeded random
+weights) on cuda, warms up,
 then traces `--steps`
 forwards with
 torch.profiler. With `--train` it traces `make_train_step` instead (fp32
@@ -152,7 +154,8 @@ def host_split(prof, steps: int) -> None:
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--motion_encoder", default="mvitv2s",
-                   choices=("mvitv2s", "videoswins", "uniformerb", "s3d", "x3dl"))
+                   choices=("mvitv2s", "videoswins", "uniformerb", "s3d", "x3dl",
+                            "slowfast4x16", "morphmlps"))
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     p.add_argument("--steps", type=int, default=2)
@@ -181,7 +184,8 @@ def main() -> None:
     cfg = get_config(args.motion_encoder, {"model": {
         "quant": args.quant, "prior_fold_res": args.prior_fold_res,
         "prior_ln_t": args.prior_ln_t, "attn_relk": not args.no_attn_relk,
-        "attn_packed": args.attn_packed, "dwconv": args.dwconv, "remat": args.remat}})
+        "attn_packed": args.attn_packed, "dwconv": args.dwconv, "remat": args.remat},
+        **({"data": {"resolution": (224, 224)}} if args.motion_encoder == "morphmlps" else {})})
     model = AudioVisualSaliencyModel(cfg, device="cuda",
                                      dtype=torch.float32 if args.train else dtype,
                                      generator=torch.Generator().manual_seed(0))
