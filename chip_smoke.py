@@ -136,8 +136,29 @@ first failure (there is no CPU path):
    morph_main, morph_parity, morph_training: phases 4, 5 and 7 on the
    MorphMLP-S model at 224x224 (the resolution at which its segments
    divide; its backbone plain, K4 and K2 in the SyncBlock's 428 tokens).
+29. uni_int8_main, uni_int8_parity: phases 13 and 14 on the UniFormer-B
+   model with quant="int8" (row 12 in its 27 stage 3-4 SABlocks, C = 320
+   and 512, and the SyncBlock's 3; K2 in the decoder). Phase 3 checks row 12
+   at UniFormer-B's three shapes (C = 320 its own form) and on rows with
+   every u < 0 at C = 320, with the sums per UniFormer-B int8 forward.
+30. ddp_training: `make_ddp_train_step` on an NCCL group of world size 1:
+   one fp32 flagship step (drop-path off) against three runs of
+   `make_train_step`, all under torch's deterministic algorithms (the
+   gradients and the parameter updates by relative L2, and each metric,
+   within `DDP_SPREAD_FACTOR` times the plain runs' spread: bit-equal
+   where they are, the grad norm within 1e-6 relative besides; exactly one
+   all-reduce), then 6 bf16 steps of each in
+   turns, their steps/s;
+31. cls_training: the video-classification path: for the mvitv2s
+   classifier `run_classification_training` (2 steps and 2 eval batches on
+   a synthetic Kinetics frame tree in a temporary directory, 16x224x224,
+   batch 4, bf16; K1 and K2 forward, rows 5 and 9), then 4 steps of
+   `make_cls_train_step`, steps/s and peak memory; cls_parity: one fp32
+   classifier step card against CPU (logits, loss, gradient cosine);
+   cls_uni_training: 4 steps of the uniformerb classifier (K4 and row 7,
+   K2 and row 9 in its 27 SABlocks).
 
-Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22, 23, 25, 26, 27, 28) sets the
+Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22, 23, 25-31) sets the
 launch counts to 0 just before it and reads them just after; the kernels'
 record sums them.
 The last two lines are the kernels' JSON record and the device JSON record.
@@ -150,6 +171,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -238,6 +260,10 @@ PER_FORWARD = {
                         "ln_mlp_prior_res": 18, "layernorm_tokens": 4, "self_attention": 3},
     "videoswins+int8": {"window_attention": 24, "ln_mlp": 8, "ln_mlp_int8": 23,
                         "ln_mlp_prior": 18, "self_attention": 3},
+    # UniFormer-B int8: its 27 stage 3-4 SABlocks (C 320 and 512) and the 3
+    # SyncBlock blocks on row 12, the decoder's 4 on K2
+    "uniformerb+int8": {"self_attention": 27 + 3, "ln_mlp_int8": 27 + 3, "ln_mlp": 4,
+                        "ln_mlp_prior": 18},
     # attn_packed: blocks 1-15 (more than one head) run row 8, block 0 K1;
     # dwconv: the 17 stride-1 pools (pool_q of the 13 blocks without a q
     # stride, pool_k / pool_v of blocks 14-15) run row 18
@@ -288,6 +314,11 @@ PATH_PHASES = {
     "uni_training": ("training", "uniformerb"),
     "uni_train_parity": ("train_parity", "uniformerb", (64, 96)),
     "s3d_main": ("main", "s3d"), "s3d_parity": ("parity", "s3d"),
+    "uni_int8_main": ("main", "uniformerb+int8"),
+    "uni_int8_parity": ("options_parity", "uniformerb+int8"),
+    "ddp_training": ("ddp_training", "mvitv2s"),
+    "cls_training": ("cls_training", "mvitv2s"), "cls_parity": ("cls_parity", "mvitv2s"),
+    "cls_uni_training": ("cls_training", "uniformerb"),
     "spectrogram": ("spectrogram", None),
     "vis_main": ("main", "mvitv2s+visual"),
     "remat_training": ("remat_training", "mvitv2s+remat"),
@@ -305,6 +336,7 @@ PATH_PHASES = {
 # 0 turns into no update, as optax does
 UNCHANGED = {"slowfast4x16": "visnet.s5.pathway1_"}
 OPTIONS = {"mvitv2s+serving": SERVING, "videoswins+int8": {"quant": "int8"},
+           "uniformerb+int8": {"quant": "int8"},
            "mvitv2s+layout": LAYOUT, "mvitv2s+relk0": RELK0,
            "mvitv2s+remat": {"remat": True}}
 PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity", "swin_main",
@@ -314,7 +346,8 @@ PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity", "
           "mlp_kernels", "lab", "uni_main", "uni_parity", "uni_training", "uni_train_parity",
           "s3d_main", "s3d_parity", "spectrogram", "vis_main", "remat_training", "x3d_main",
           "x3d_parity", "x3d_training", "sf_main", "sf_parity", "sf_training", "morph_main",
-          "morph_parity", "morph_training")
+          "morph_parity", "morph_training", "uni_int8_main", "uni_int8_parity", "ddp_training",
+          "cls_training", "cls_parity", "cls_uni_training")
 BATCH = 8
 TRAIN_BATCH = 2
 STEPS = 5
@@ -332,6 +365,15 @@ HBM_BYTES_PER_S = 3.35e12
 # PERF.md); a recompute with fresh drop-path masks, the phase's control,
 # lands 136 x the spread off there (0.502 relative L2)
 REMAT_SPREAD_FACTOR = 1.5
+# ddp_training's limit: the DDP step's fp32 gradients, parameter updates and
+# metrics may lie from a plain step's by this times the three plain runs'
+# largest pairwise distance (so exactly where those agree). torch has no
+# deterministic backward for max_pool3d and linear upsampling, so the
+# plain runs differ: the DDP step sat 1.014 x (gradients, relative L2
+# 2.58e-7) and 1.051 x (updates, 2.31e-4) their spread in one reading
+# (H100 80GB HBM3, 700 W, PERF.md) and 1.010 x / 0.948 x against three
+# plain runs in a second; its forward metrics bit-equal in both
+DDP_SPREAD_FACTOR = 1.5
 
 
 def log(phase: str, msg: str) -> None:
@@ -453,13 +495,13 @@ class ModelSums:
         self.what, self.t = what, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                                    "bound_ms": 0.0}
 
-    def add(self, rec, weight: float, n_bytes: float, flops: float) -> None:
+    def add(self, rec, weight: float, n_bytes: float, flops: float,
+            peak: float = PEAK_FLOPS[torch.bfloat16]) -> None:
         ms, plain_ms, lib_ms = rec["_last"]
         self.t["ms"] += weight * ms
         self.t["plain_ms"] += weight * plain_ms
         self.t["library_ms"] += weight * (lib_ms or 0.0)
-        self.t["bound_ms"] += weight * max(n_bytes / HBM_BYTES_PER_S,
-                                           flops / PEAK_FLOPS[torch.bfloat16]) * 1e3
+        self.t["bound_ms"] += weight * max(n_bytes / HBM_BYTES_PER_S, flops / peak) * 1e3
 
     def log(self, name: str) -> None:
         t = self.t
@@ -783,6 +825,9 @@ def phase_kernels(records) -> None:
 # MViTv2-S serving forward (stage 3's 11 blocks, stage 4's 2, the 3 SyncBlock
 # blocks) and one VideoSwin-S int8 forward (stage 3's 18 at the same grid)
 INT8_SHAPES = (("s3", 2688, 384, 11, 18), ("s4", 672, 768, 2, 2), ("sync", 708, 512, 3, 3))
+# row 12 per UniFormer-B int8 forward at batch 8: label, tokens, C, blocks
+# (stage 3's C = 320 form, stage 4 and the SyncBlock at C = 512)
+UNI_INT8_SHAPES = (("uni-s3", 2688, 320, 20), ("uni-s4", 672, 512, 7), ("uni-sync", 708, 512, 3))
 # Checks added after a phase's shapes were first timed draw their inputs
 # from a generator of their own (`added_randn`), so that every check before
 # them in the phase keeps the inputs it had
@@ -843,11 +888,40 @@ def serving_kernels(records, randn) -> None:
     log("kernels", f"ln_mlp_int8 per VideoSwin-S int8 forward (18 s3, 2 s4, 3 sync; bf16): "
                    f"kernel {swin['ms']:.3f} ms bound {swin['bound_ms']:.4f} ms; per MViTv2-S "
                    f"serving forward (11, 2, 3): the record's sums")
+    # row 12 at UniFormer-B's shapes (C = 320 its own form), fp32 and bf16,
+    # bf16 twice and bit-identical, summed per UniFormer-B int8 forward
+    # outside the record (whose sums are MViTv2-S's)
+    uni = ModelSums("UniFormer-B int8 forward (batch 8: 20 s3 at C 320, 7 s4, 3 sync)")
+    uni_randn = randn_on(torch.Generator().manual_seed(53))
+    for label, tokens, C, blocks in UNI_INT8_SHAPES:
+        M, H = BATCH * tokens, 4 * C
+        g, b, w1, b1, w2, b2 = (t.float() for t in mlp_inputs(uni_randn, 1, C)[1:])
+        w1q, s1 = K2.quantize_weight(w1)
+        w2q, s2 = K2.quantize_weight(w2)
+        ops = (g, b, w1q, s1, b1, w2q, s2, b2)
+        x32 = uni_randn(M, C)
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, out = check_kernel(
+                records, "ln_mlp_int8", label, lambda x: K2.ln_mlp_int8(x, *ops, 1e-6),
+                lambda x: K2.ln_mlp_int8_reference(x, *ops, 1e-6), [x32], dtype,
+                compare=lambda out, xs: int8_errors(
+                    out, K2.ln_mlp_int8_reference(xs[0], *ops, 1e-6)),
+                weight=0, repeatable=True)
+            if dtype == torch.bfloat16:
+                n_bytes, n_ops = nbytes(*xs, out, *ops), 4.0 * M * C * H
+                uni.add(records["ln_mlp_int8"], blocks, n_bytes, n_ops, PEAK_INT8_OPS)
+                ms = records["ln_mlp_int8"]["_last"][0]
+                bound = max(n_bytes / HBM_BYTES_PER_S, n_ops / PEAK_INT8_OPS) * 1e3
+                by = "bytes" if n_bytes / HBM_BYTES_PER_S > n_ops / PEAK_INT8_OPS else "operations"
+                log("kernels", f"ln_mlp_int8 {label} bf16 M {M} C {C}: bound {bound:.4f} ms "
+                               f"({by}), {bound / ms:.1%} of the kernel's time")
+        del x32, xs, out
+    uni.log("ln_mlp_int8")
     # rows whose hidden pre-activations all lie below zero, where a row's
     # largest u does not give its max |h|: the kernel's second pass 2 (at
     # each form; checked only)
     rnd = added_randn()
-    for C in (384, 768):
+    for C in (384, 768, 320):
         g, b, w1, b1, w2, b2 = (t.float() for t in mlp_inputs(rnd, 1, C)[1:])
         w1q, s1 = K2.quantize_weight(0.25 * w1)
         w2q, s2 = K2.quantize_weight(w2)
@@ -1833,6 +1907,319 @@ def phase_train_parity(tag: str, encoder: str, res=RES) -> None:
             raise AssertionError(f"{k}: card {m_gpu[k]} vs CPU {m_cpu[k]}")
 
 
+def _named_grads(model) -> dict:
+    return {n: p.grad.detach().double().flatten().cpu() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _cosine(a: dict, b: dict) -> float:
+    x, y = torch.cat([a[n] for n in a]), torch.cat([b[n] for n in a])
+    return (x @ y / (x.norm() * y.norm())).item()
+
+
+def _flat(tensors: dict) -> torch.Tensor:
+    return torch.cat([t.detach().flatten().double().cpu() for t in tensors.values()])
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _times(err: float, spread: float) -> str:
+    return f"{err / spread:.3f}" if spread else ("0" if err == 0 else "inf")
+
+
+def phase_ddp_training(tag: str, key: str) -> dict:
+    """`make_ddp_train_step` on an NCCL group of world size 1 (one card),
+    the flagship at 224x384, batch 2: one fp32 step (TF32 off, drop-path
+    off in both models) against three runs of `make_train_step` from the
+    same weights and batch, all under torch's deterministic algorithms
+    (cuDNN's deterministic convolutions among them). The DDP step's
+    gradients and parameter updates after AdamW (each by relative L2, so a
+    gradient off by a constant factor shows though Adam's update hides it)
+    and each metric may lie from every plain run's by DDP_SPREAD_FACTOR
+    times the plain runs' largest pairwise distance: bit-equal wherever
+    the plain runs agree bit for bit (their forward metrics do), but the
+    grad norm, which the DDP step sums from the squares of the per-tensor
+    norms and the plain step takes as the norm of those norms, within
+    1e-6 of itself besides (one fp32 ulp is 6e-8-1.2e-7 of it). Its one
+    all-reduce counted. Then bf16 steps of both in turns
+    (plain, DDP, DDP, plain; with drop-path), their steps/s; the path's
+    launches are those bf16 steps'."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
+    from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.ops.layers import DropPath
+    from mspi_tpu_torch.parallel import create_mesh, free_port
+    from mspi_tpu_torch.train import engine
+    from mspi_tpu_torch.train.synthetic import make_batch
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = create_mesh((1, 1), "cuda")
+        cfg = model_config(key)
+        lr = cfg.solver.lr
+        batch = engine.to_device(make_batch(np.random.default_rng(8), TRAIN_BATCH, 16, RES,
+                                            SPECTRO), "cuda")
+        calls = []
+        all_reduce = dist.all_reduce
+
+        def counting(*args, **kwargs):
+            calls.append(1)
+            return all_reduce(*args, **kwargs)
+
+        def build(drop_path: bool):
+            model = AudioVisualSaliencyModel(cfg, device="cuda", dtype=torch.float32,
+                                             generator=torch.Generator().manual_seed(0))
+            if not drop_path:
+                for m in model.modules():
+                    if isinstance(m, DropPath):
+                        m.rate = 0.0
+            return model, engine.create_train_state(cfg, model, seed=9)
+
+        runs = {}
+        cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for kind in ("plain", "ddp", "plain2", "plain3"):
+                    model, state = build(False)
+                    before = _flat({n: p.clone() for n, p in model.named_parameters()})
+                    step = (engine.make_ddp_train_step(cfg.train.gamma, mesh) if kind == "ddp"
+                            else engine.make_train_step(cfg.train.gamma))
+                    dist.all_reduce = counting
+                    metrics = step(state, batch, lr)
+                    dist.all_reduce = all_reduce
+                    runs[kind] = (metrics, _flat(_named_grads(model)),
+                                  _flat(dict(model.named_parameters())) - before)
+                    del model, state
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+        nondeterministic = sorted({str(w.message).split(" does not")[0] for w in caught
+                                   if "deterministic" in str(w.message)})
+        ddp = runs.pop("ddp")
+        plain = list(runs.values())
+        pairs = [(a, b) for i, a in enumerate(plain) for b in plain[i + 1:]]
+        g_spread = max(_rel(a[1], b[1]) for a, b in pairs)
+        u_spread = max(_rel(a[2], b[2]) for a, b in pairs)
+        g_err = max(_rel(ddp[1], p[1]) for p in plain)
+        u_err = max(_rel(ddp[2], p[2]) for p in plain)
+        m_spread = {k: max(abs(a[0][k] - b[0][k]) for a, b in pairs) for k in ddp[0]}
+        m_err = {k: max(abs(ddp[0][k] - p[0][k]) for p in plain) for k in ddp[0]}
+        differ = int((ddp[1] != plain[0][1]).sum()), int((ddp[2] != plain[0][2]).sum())
+        f = DDP_SPREAD_FACTOR
+        log(tag, f"{key} fp32 step under deterministic algorithms, DDP (NCCL, world 1) vs 3 "
+                 f"plain runs: all_reduce calls {len(calls)} (need 1); gradients relative L2 "
+                 f"{g_err:.3e} (the plain runs' spread {g_spread:.3e}, "
+                 f"{_times(g_err, g_spread)} x; "
+                 f"{differ[0]} of {ddp[1].numel()} values differ from the first run), "
+                 f"parameter updates {u_err:.3e} (spread {u_spread:.3e}, "
+                 f"{_times(u_err, u_spread)} x; {differ[1]} values differ); "
+                 f"need <= {f} x spread; "
+                 f"metrics |diff| (spread) "
+                 + " ".join(f"{k} {m_err[k]:.2e} ({m_spread[k]:.2e})" for k in m_err)
+                 + f"; ops without a deterministic backward: {nondeterministic or 'none'}")
+        if len(calls) != 1:
+            raise AssertionError(f"the DDP step issued {len(calls)} all-reduces")
+        if not (g_err <= f * g_spread and u_err <= f * u_spread):
+            raise AssertionError(f"the DDP step differs from the plain step (gradients "
+                                 f"{g_err}, updates {u_err}) beyond {f} x the plain runs' "
+                                 f"spread ({g_spread}, {u_spread})")
+        for k in m_err:  # the grad norm: the DDP step's sum of squares rounds otherwise
+            slack = 1e-6 * abs(plain[0][0][k]) if k == "grad_norm" else 0.0
+            if not m_err[k] <= f * m_spread[k] + slack:
+                raise AssertionError(f"{k}: DDP {ddp[0][k]} vs plain {plain[0][0][k]}, "
+                                     f"beyond {f} x the plain runs' spread {m_spread[k]}")
+
+        steppers = {"plain": engine.make_train_step(cfg.train.gamma,
+                                                     compute_dtype=torch.bfloat16),
+                    "ddp": engine.make_ddp_train_step(cfg.train.gamma, mesh,
+                                                      compute_dtype=torch.bfloat16)}
+        states = {k: build(True)[1] for k in steppers}
+        for k in steppers:  # first steps: the kernels' and allocator's warm-up
+            steppers[k](states[k], batch, lr)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        walls = {k: [] for k in steppers}
+        for k in ("plain", "ddp", "ddp", "plain"):
+            for _ in range(3):
+                t0 = time.perf_counter()
+                steppers[k](states[k], batch, lr)  # ends in a sync
+                walls[k].append(time.perf_counter() - t0)
+        counts = dict(kernels.launches)
+        rate = {k: 1.0 / statistics.median(v) for k, v in walls.items()}
+        log(tag, f"{key} bf16 batch {TRAIN_BATCH} {RES[0]}x{RES[1]}, in turns (plain, DDP, "
+                 f"DDP, plain; 6 steps each): plain {rate['plain']:.3f} steps/s, DDP "
+                 f"{rate['ddp']:.3f} steps/s (DDP's step time "
+                 f"{rate['plain'] / rate['ddp'] - 1:+.1%} against plain's; host clock around "
+                 f"synced steps)")
+        for name in KERNELS:
+            want = 12 * PER_STEP[key].get(name, 0)
+            if counts[name] != want:
+                raise AssertionError(f"{name}: {counts[name]} launches, expected {want}")
+        del states
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        dist.destroy_process_group()
+
+
+# the classifiers' launches per forward and per backward (no SyncBlock, no
+# decoder): MViTv2-S's 16 blocks, UniFormer-B's 27 SABlocks
+CLS_FWD = {"mvitv2s": {"attention_rel": 16, "ln_mlp": 16},
+           "uniformerb": {"self_attention": 27, "ln_mlp": 27}}
+CLS_BWD = {"mvitv2s": {"attention_rel_bwd": 16, "ln_mlp_bwd": 16},
+           "uniformerb": {"attention_bwd": 27, "ln_mlp_bwd": 27}}
+CLS_CLIP = (16, 224, 224)
+CLS_BATCH = 4
+CLS_VIDEOS, CLS_FRAMES = 8, 40  # the synthetic Kinetics tree: 2 steps, 2 eval batches
+
+
+def _cls_counts(name: str, steps: int, evals: int) -> dict:
+    return {k: steps * (CLS_FWD[name].get(k, 0) + CLS_BWD[name].get(k, 0))
+            + evals * CLS_FWD[name].get(k, 0) for k in KERNELS}
+
+
+def _cls_model(name: str, device: str):
+    from mspi_tpu_torch.models.video_zoo import build_classifier
+
+    torch.manual_seed(0)
+    return build_classifier(name, 400).to(device)
+
+
+def _cls_batch(seed: int, batch: int, device: str):
+    g = torch.Generator().manual_seed(seed)
+    return {"clips": torch.randn(batch, *CLS_CLIP, 3, generator=g).to(device),
+            "labels": torch.randint(400, (batch,), generator=g).to(device)}
+
+
+def _sgd(params):
+    from mspi_tpu_torch.train.optim import construct_optimizer
+
+    return construct_optimizer(params, "sgd", base_lr=0.1, weight_decay=1e-4,
+                               zero_wd_1d_param=False)
+
+
+def phase_cls_training(tag: str, name: str) -> dict:
+    """The video-classification path on the card: for mvitv2s,
+    `run_classification_training` (the trainer of `python -m
+    mspi_tpu_torch.run_net`) for one epoch of 2 steps and one evaluation of
+    2 batches on a synthetic Kinetics frame tree written to a temporary
+    directory (16x224x224 clips, batch 4, bf16, SGD with nesterov); then
+    (both classifiers) 4 bf16 steps of `make_cls_train_step` on device
+    batches of 4, their steps/s and peak memory. The launches: the
+    classifier's kernels per step and per evaluation forward."""
+    import functools
+    import tempfile
+
+    from PIL import Image
+
+    from mspi_tpu_torch import run_net
+    from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.train.classification import (create_cls_state, make_cls_train_step,
+                                                     run_classification_training)
+    from mspi_tpu_torch.train.optim import lr_cosine
+
+    kernels.reset_launch_counts()
+    steps, evals = 0, 0
+    if name == "mvitv2s":
+        with tempfile.TemporaryDirectory() as root:
+            rng = np.random.default_rng(7)
+            lines = []
+            for i in range(CLS_VIDEOS):
+                d = f"{root}/vid{i}"
+                os.makedirs(d)
+                for f in range(CLS_FRAMES):
+                    Image.fromarray(rng.integers(0, 256, (256, 320, 3), dtype=np.uint8)).save(
+                        f"{d}/{f:05d}.jpg")
+                lines.append(f"{d} {i % 4}")
+            for split in ("train", "val"):
+                with open(f"{root}/{split}.csv", "w") as fh:
+                    fh.write("\n".join(lines) + "\n")
+            messages = []
+            t0 = time.perf_counter()
+            _, history = run_classification_training(
+                _cls_model(name, "cuda"), _sgd,
+                functools.partial(run_net.make_dataset, root, 2), epochs=1,
+                batch_size=CLS_BATCH, lr_policy=lr_cosine(0.1, 1e-6, 1), base_t=CLS_CLIP[0],
+                base_crop=CLS_CLIP[1], label_smoothing=0.1, num_classes=400,
+                log=messages.append, device="cuda", compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        steps, evals = CLS_VIDEOS // CLS_BATCH, CLS_VIDEOS // CLS_BATCH
+        (h,) = history
+        log(tag, f"{name} run_classification_training, 1 epoch on {CLS_VIDEOS} videos "
+                 f"({steps} steps of {CLS_BATCH} at {CLS_CLIP}, bf16) and {evals} eval "
+                 f"batches: {wall:.1f} s wall with the JPEG decode; {h}")
+        if not (math.isfinite(h["loss"]) and "val_top1_err" in h):
+            raise AssertionError(f"classification history {h}")
+    model = _cls_model(name, "cuda")
+    state = create_cls_state(model, _sgd)
+    step = make_cls_train_step(label_smoothing=0.1, compute_dtype=torch.bfloat16)
+    batch = _cls_batch(1, CLS_BATCH, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        loss, logits = step(state, batch, 0.01)  # the loss's read syncs
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+    steps += 4
+    counts = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(walls[1:])
+    log(tag, f"{name} classifier 4 steps bf16 batch {CLS_BATCH} {CLS_CLIP}: first "
+             f"{walls[0]:.2f} s, then median {steady * 1e3:.1f} ms = {1 / steady:.3f} steps/s "
+             f"= {CLS_BATCH / steady:.2f} clips/s (host clock around synced steps); peak "
+             f"memory {peak:.2f} GiB; losses {[round(v, 4) for v in losses]}; launches {counts}")
+    if not (all(math.isfinite(v) for v in losses) and logits.shape == (CLS_BATCH, 400)):
+        raise AssertionError("non-finite classifier loss or wrong logits")
+    want = _cls_counts(name, steps, evals)
+    for k in KERNELS:
+        if counts[k] != want[k]:
+            raise AssertionError(f"{k}: {counts[k]} launches, expected {want[k]}")
+    del model, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_cls_parity(tag: str, name: str) -> None:
+    """One fp32 classification step (label smoothing 0.1, SGD with nesterov,
+    batch 1, 16x224x224; the same generator seed, so the same drop-path and
+    dropout masks) on the card against the CPU: the logits (max |diff| over
+    max |logit| <= 1e-3), the loss (1e-3) and the gradients' cosine (need
+    >= 0.9999)."""
+    from mspi_tpu_torch.train.classification import create_cls_state, make_cls_train_step
+
+    batch = _cls_batch(2, 1, "cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = _cls_model(name, device)
+        state = create_cls_state(model, _sgd, seed=3)
+        t0 = time.perf_counter()
+        loss, logits = make_cls_train_step(label_smoothing=0.1)(
+            state, {k: v.to(device) for k, v in batch.items()}, 0.1)
+        out[device] = (loss, logits.cpu().double(), _named_grads(model))
+        log(tag, f"{name} classifier fp32 step on {device}: {time.perf_counter() - t0:.1f} s, "
+                 f"loss {loss:.6f}")
+        del model, state
+    (l_g, z_g, g_g), (l_c, z_c, g_c) = out["cuda"], out["cpu"]
+    cos = _cosine(g_g, g_c)
+    zerr = ((z_g - z_c).abs().max() / z_c.abs().max()).item()
+    log(tag, f"{name} classifier card vs CPU: logits max |diff| {zerr:.2e} of their max, loss "
+             f"|diff| {abs(l_g - l_c):.2e}, gradient cosine {cos:.8f}")
+    if not (zerr <= 1e-3 and abs(l_g - l_c) <= 1e-3 and cos >= 0.9999):
+        raise AssertionError("the classifier's card step differs from the CPU's")
+
+
 def phase_spectrogram(tag: str, _) -> None:
     """spectrogram_torch on the card against the host stft_power, on the
     windows predict_video cuts from the synthetic waveform (len_snippet
@@ -2059,7 +2446,9 @@ def main() -> None:
     counts = {name: 0 for name in KERNELS}
     runners = {"main": phase_main_path, "parity": phase_parity, "training": phase_training,
                "train_parity": phase_train_parity, "options_parity": phase_options_parity,
-               "spectrogram": phase_spectrogram, "remat_training": phase_remat_training}
+               "spectrogram": phase_spectrogram, "remat_training": phase_remat_training,
+               "ddp_training": phase_ddp_training, "cls_training": phase_cls_training,
+               "cls_parity": phase_cls_parity}
     kernel_phases = {"kernels": phase_kernels, "backward": phase_backward,
                      "layout_kernels": phase_layout_kernels,
                      "layout_backward": phase_layout_backward}

@@ -19,6 +19,7 @@ cudaError_t dispatch_int8(const void* x, const float* g, const float* be, const 
                           float eps, cudaStream_t s) {
   switch (C) {
     case 256: return launch_int8_sm90<T, 256>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);
+    case 320: return launch_int8_sm90<T, 320>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);
     case 384: return launch_int8_sm90<T, 384>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);
     case 512: return launch_int8_sm90<T, 512>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);
     case 768: return launch_int8_sm90<T, 768>(x, g, be, w1q, s1, b1, w2q, s2, b2, y, M, H, eps, s);

@@ -202,6 +202,10 @@ constexpr int kStatic = 1280;
 //     registers): each consumer owns 64 of a block's 128 rows, steps are 64
 //     units, and y's columns come in parts of 256 over the grid's y, each
 //     part recomputing fc1 and the GELU.
+//   C = 320 (UniFormer-B's stage 3) is a SHARED form: y's 160 columns a
+//     consumer by one s8 wgmma n160 per k-step of fc2; the z codes fill three
+//     k boxes to k = 320, fc1 runs the 10 k-steps of 32 that cover them, over
+//     W1 boxes that TMA fills with zeros past k = 320; 6 W1 slots.
 //   C = 96 (the int8 lab): as the parts form with three consumers, each
 //     owning 64 of a block's 192 rows and all 96 columns of y (s8 wgmma
 //     n96), so that the consumers' timelines run apart; one z box of 128 k
@@ -232,7 +236,8 @@ struct Form {
   // the consumers' registers by setmaxnreg, the producer's 24 beside them
   // within the launch's share: 2 x 240 + 24 = 3 x 168; 3 x 160 + 24 <= 4 x 128
   static constexpr int kConsumerRegs = NC == 2 ? 240 : 160;
-  static_assert((C % kBox == 0 || C == 96) && C % CN == 0 && CN % 16 == 0 && CN <= 256,
+  static_assert((C % kBox == 0 || C == 96 || C == 320) && C % CN == 0 && CN % 16 == 0 &&
+                    CN <= 256,
                 "widths");
   static_assert(W1S >= 3 && kSmem + kStatic <= kSmemLimit, "shared memory");
   static_assert(kZBox % 1024 == 0 && kW1Box % 1024 == 0 && kW2Slot % 1024 == 0,
@@ -243,21 +248,26 @@ struct Form {
 // 128 columns and a 64- or 96-column rest, each reading hq's descriptor again. y's
 // registers stay in the m64nN layout (y[4 j + e]: column 8 j + 2 (t % 4) +
 // (e % 2) of the consumer's columns, row + 8 (e / 2)).
+// At CN = 160 (C = 320) one s8 wgmma n160 takes all the consumer's columns.
 template <int CN>
 __device__ __forceinline__ void fc2_kstep(int (&y)[CN / 2], uint64_t da,
                                           const unsigned char* w2k) {
+  if constexpr (CN == 160) {
+    wg::wgmma_m64n160k32_s8(y, da, wg::desc_sw128(w2k, 16, 1024));
+  } else {
 #pragma unroll
-  for (int p = 0; p < CN / 128; ++p)
-    wg::wgmma_m64n128k32_s8(*reinterpret_cast<int(*)[64]>(&y[64 * p]), da,
-                            wg::desc_sw128(w2k + p * 128 * kBox, 16, 1024));
-  if constexpr (CN % 128 == 64)
-    wg::wgmma_m64n64k32_s8(*reinterpret_cast<int(*)[32]>(&y[64 * (CN / 128)]), da,
-                           wg::desc_sw128(w2k + (CN / 128) * 128 * kBox, 16, 1024));
-  else if constexpr (CN % 128 == 96)
-    wg::wgmma_m64n96k32_s8(*reinterpret_cast<int(*)[48]>(&y[64 * (CN / 128)]), da,
-                           wg::desc_sw128(w2k + (CN / 128) * 128 * kBox, 16, 1024));
-  else
-    static_assert(CN % 128 == 0, "fc2's rest: 64 or 96 columns");
+    for (int p = 0; p < CN / 128; ++p)
+      wg::wgmma_m64n128k32_s8(*reinterpret_cast<int(*)[64]>(&y[64 * p]), da,
+                              wg::desc_sw128(w2k + p * 128 * kBox, 16, 1024));
+    if constexpr (CN % 128 == 64)
+      wg::wgmma_m64n64k32_s8(*reinterpret_cast<int(*)[32]>(&y[64 * (CN / 128)]), da,
+                             wg::desc_sw128(w2k + (CN / 128) * 128 * kBox, 16, 1024));
+    else if constexpr (CN % 128 == 96)
+      wg::wgmma_m64n96k32_s8(*reinterpret_cast<int(*)[48]>(&y[64 * (CN / 128)]), da,
+                             wg::desc_sw128(w2k + (CN / 128) * 128 * kBox, 16, 1024));
+    else
+      static_assert(CN % 128 == 0, "fc2's rest: 64 or 96 columns");
+  }
 }
 
 // Byte (r, k) of a swizzled K-major int8 tile of 128-byte rows: chunk k / 16
@@ -505,7 +515,7 @@ __global__ void __launch_bounds__(Form<C>::kThreads, 1)
         wg::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBox / 32; ++kk)
-          if (kb * kBox + kk * 32 < C)  // C = 96: the box's first three k-steps
+          if (kb * kBox + kk * 32 < C)  // C = 96, 320: the last box's first k-steps
             wg::wgmma_m64n64k32_s8(
                 u, wg::desc_sw128(za + kb * F::kZBox + kk * 32, 16, 1024),
                 wg::desc_sw128(w1s + sl * F::kW1Box + w1_off + kk * 32, 16, 1024));

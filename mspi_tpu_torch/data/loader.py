@@ -18,9 +18,15 @@ import numpy as np
 
 
 class DataLoader:
+    """rows: the slice of every batch's sample indices this loader decodes
+    and yields (a data-parallel rank's share, `parallel.data_rows`); the
+    order and the batches are the seed's, the same on every rank."""
+
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, drop_last: bool = False,
-                 num_workers: int = 4, prefetch: int = 4, seed: int = 2023):
+                 num_workers: int = 4, prefetch: int = 4, seed: int = 2023,
+                 rows: slice = slice(None)):
         self.dataset = dataset
+        self.rows = rows
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -50,7 +56,7 @@ class DataLoader:
             pending = []
 
             def submit(i):
-                idxs = order[i * self.batch_size:(i + 1) * self.batch_size]
+                idxs = order[i * self.batch_size:(i + 1) * self.batch_size][self.rows]
                 pending.append([pool.submit(self.dataset.__getitem__, int(j)) for j in idxs])
 
             for i in range(min(self.prefetch, n)):

@@ -25,7 +25,7 @@ def build_backbone(cfg: MSPIConfig) -> nn.Module:
     if name == "uniformerb":
         from mspi_tpu_torch.models.uniformer import UniFormerFeatures
 
-        return UniFormerFeatures(cfg.model.uniformer)
+        return UniFormerFeatures(cfg.model.uniformer, cfg.model.quant)
     if name == "s3d":
         from mspi_tpu_torch.models.s3d import S3DFeatures
 

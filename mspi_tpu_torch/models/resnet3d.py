@@ -1,4 +1,5 @@
-"""3-D ResNet building blocks, channels-last: what X3D and SlowFast need.
+"""3-D ResNet building blocks, channels-last: what X3D, SlowFast and the
+classifier zoo's ResNets need.
 
 Counterpart of the X3D and SlowFast parts of `mspi_tpu/models/resnet3d.py`
 (reference SlowFast stem_helper.py and resnet_helper.py): X3D's channel
@@ -6,9 +7,10 @@ rounding, Swish, Squeeze-Excitation, the ResNet stem (a Tx7x7 conv,
 BatchNorm, ReLU and a 1x3x3 max-pool) and the X3D stem (a 1xkxk conv, then
 a channelwise kx1x1 conv, BatchNorm and ReLU), the per-pathway
 `VideoModelStem` with its stem chosen by name, the ResNet bottleneck
-`BottleneckTransform` (Tx1x1, 1x3x3, 1x1x1) and the X3D bottleneck
+`BottleneckTransform` (Tx1x1, 1x3x3, 1x1x1), the X3D bottleneck
 `X3DTransform` (1x1x1, channelwise Tx3x3 with SE every other block and
-Swish, 1x1x1), chosen by name (`TRANS_FUNCS`), `ResBlock` with its
+Swish, 1x1x1), `BasicTransform` (Tx3x3, 1x3x3), the ir-CSN `CSNTransform`
+and the (2+1)D `R2Plus1DTransform`, chosen by name (`TRANS_FUNCS`), `ResBlock` with its
 projection shortcut, and `ResStage` with its optional non-local blocks
 (`models/nonlocal_block.py`, which no MSPI config enables).
 
@@ -115,6 +117,24 @@ class VideoModelStem(nn.Module):
         return [getattr(self, f"pathway{p}_stem")(x) for p, x in enumerate(xs)]
 
 
+class BasicTransform(nn.Module):
+    """Tx3x3 (strided) -> 1x3x3, BN after each, ReLU between
+    (resnet_helper.py:122-208)."""
+
+    def __init__(self, dim_in: int, dim_out: int, temp_kernel_size: int, stride: int,
+                 dim_inner: int = None, num_groups: int = 1, block_idx: int = 0):
+        super().__init__()
+        t = temp_kernel_size
+        self.a = Conv3d(dim_in, dim_out, (t, 3, 3), (1, stride, stride), (t // 2, 1, 1),
+                        bias=False)
+        self.a_bn = BatchNorm(dim_out)
+        self.b = Conv3d(dim_out, dim_out, (1, 3, 3), 1, (0, 1, 1), bias=False)
+        self.b_bn = BatchNorm(dim_out)
+
+    def forward(self, x):
+        return self.b_bn(self.b(torch.relu(self.a_bn(self.a(x)))))
+
+
 class BottleneckTransform(nn.Module):
     """Tx1x1 -> 1x3x3 (grouped, strided) -> 1x1x1, each with BN, ReLU after
     the first two (resnet_helper.py:355-487)."""
@@ -164,7 +184,61 @@ class X3DTransform(nn.Module):
         return self.c_bn(self.c(swish(x)))
 
 
-TRANS_FUNCS = {"bottleneck_transform": BottleneckTransform, "x3d_transform": X3DTransform}
+class CSNTransform(nn.Module):
+    """ir-CSN bottleneck: 1x1x1 -> channel-separated Tx3x3 (groups =
+    dim_inner, strided) -> 1x1x1, BN after each, ReLU after the first two
+    (pytorchvideo's create_csn bottleneck, ptv_model_builder.py:14);
+    num_groups is unread."""
+
+    def __init__(self, dim_in: int, dim_out: int, temp_kernel_size: int, stride: int,
+                 dim_inner: int, num_groups: int = 1, block_idx: int = 0):
+        super().__init__()
+        t = temp_kernel_size
+        self.a = Conv3d(dim_in, dim_inner, 1, bias=False)
+        self.a_bn = BatchNorm(dim_inner)
+        self.b = Conv3d(dim_inner, dim_inner, (t, 3, 3), (1, stride, stride), (t // 2, 1, 1),
+                        groups=dim_inner, bias=False)
+        self.b_bn = BatchNorm(dim_inner)
+        self.c = Conv3d(dim_inner, dim_out, 1, bias=False)
+        self.c_bn = BatchNorm(dim_out)
+
+    def forward(self, x):
+        x = torch.relu(self.a_bn(self.a(x)))
+        x = torch.relu(self.b_bn(self.b(x)))
+        return self.c_bn(self.c(x))
+
+
+class R2Plus1DTransform(nn.Module):
+    """(2+1)D bottleneck: 1x1x1 -> 1x3x3 spatial (strided) -> Tx1x1 temporal
+    -> 1x1x1, BN after each, ReLU after all but the last (pytorchvideo's
+    create_2plus1d_bottleneck_block, ptv_model_builder.py:20). The spatial
+    conv's width is the R(2+1)D paper's floor(t 9 Ci Co / (9 Ci + t Co)),
+    Ci = Co = dim_inner: the 3-D conv's parameter count."""
+
+    def __init__(self, dim_in: int, dim_out: int, temp_kernel_size: int, stride: int,
+                 dim_inner: int, num_groups: int = 1, block_idx: int = 0):
+        super().__init__()
+        t, ci = temp_kernel_size, dim_inner
+        mid = (t * 9 * ci * ci) // (9 * ci + t * ci)
+        self.a = Conv3d(dim_in, dim_inner, 1, bias=False)
+        self.a_bn = BatchNorm(dim_inner)
+        self.b_xy = Conv3d(dim_inner, mid, (1, 3, 3), (1, stride, stride), (0, 1, 1), bias=False)
+        self.b_xy_bn = BatchNorm(mid)
+        self.b_t = Conv3d(mid, dim_inner, (t, 1, 1), 1, (t // 2, 0, 0), bias=False)
+        self.b_bn = BatchNorm(dim_inner)
+        self.c = Conv3d(dim_inner, dim_out, 1, bias=False)
+        self.c_bn = BatchNorm(dim_out)
+
+    def forward(self, x):
+        x = torch.relu(self.a_bn(self.a(x)))
+        x = torch.relu(self.b_xy_bn(self.b_xy(x)))
+        x = torch.relu(self.b_bn(self.b_t(x)))
+        return self.c_bn(self.c(x))
+
+
+TRANS_FUNCS = {"basic_transform": BasicTransform, "bottleneck_transform": BottleneckTransform,
+               "x3d_transform": X3DTransform, "csn_transform": CSNTransform,
+               "r2plus1d_transform": R2Plus1DTransform}
 
 
 class ResBlock(nn.Module):

@@ -17,7 +17,9 @@ Kernels on the path (activations channels-last [B,T,H,W,C]):
   The JAX package takes its kernel only up to N = 4096 (its VMEM gate) and
   the plain einsum above; the port takes K4 at every N on the card;
 - every `SABlock`'s norm2 + MLP runs K2 (`ln_mlp`, through `ln_mlp_block`)
-  at C = 320 and 512;
+  at C = 320 and 512; at inference with quant="int8" row 12 (`ln_mlp_int8`)
+  instead, at both widths, as the JAX block's `maybe_fused_ln_mlp` routes it
+  under MSPI_QUANT=int8;
 - the CBlocks' 3x3x3 and 5x5x5 depthwise convs, the 1x1x1 convs, the patch
   embeds and the BatchNorms are plain PyTorch (cuDNN), as the JAX package
   runs them outside Pallas. `SplitSABlock` (cfg.split) runs its MLP plain,
@@ -29,6 +31,7 @@ converted variables load unchanged (the split qkv is one `qkv` linear).
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import torch
@@ -110,8 +113,9 @@ class CBlock(nn.Module):
 class SABlock(nn.Module):
     """Global joint space-time attention block (uniformer.py:140-163)."""
 
-    def __init__(self, dim: int, num_heads: int, drop_path: float = 0.0):
+    def __init__(self, dim: int, num_heads: int, drop_path: float = 0.0, quant: str = ""):
         super().__init__()
+        self.quant = quant
         self.pos_embed = Conv3d(dim, dim, 3, 1, 1, groups=dim)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads)
@@ -124,7 +128,8 @@ class SABlock(nn.Module):
         B, T, H, W, C = x.shape
         t = x.reshape(B, T * H * W, C)
         t = (t + self.drop_path(self.attn(self.norm1(t)))).contiguous()
-        t = t + self.drop_path(ln_mlp_block(self.norm2, self.mlp, t, False))
+        int8 = self.quant == "int8" and not self.training
+        t = t + self.drop_path(ln_mlp_block(self.norm2, self.mlp, t, int8))
         return t.reshape(B, T, H, W, C)
 
 
@@ -187,9 +192,11 @@ class PatchEmbed(nn.Module):
 
 class UniFormerFeatures(nn.Module):
     """[B,16,H,W,3] normalised clip -> 4-level pyramid (64, 128, 320, 512),
-    T = 8. Drop-path rates rise linearly from 0 to 0.1 over the blocks."""
+    T = 8. Drop-path rates rise linearly from 0 to 0.1 over the blocks.
+    quant="int8" reaches the SABlocks (SplitSABlock's MLP stays plain, as
+    in the JAX block)."""
 
-    def __init__(self, cfg: UniFormerConfig):
+    def __init__(self, cfg: UniFormerConfig, quant: str = ""):
         super().__init__()
         dims, depths = cfg.embed_dim, cfg.depth
         heads = [d // cfg.head_dim for d in dims]
@@ -199,7 +206,7 @@ class UniFormerFeatures(nn.Module):
         self.patch_embed2 = PatchEmbed(dims[0], dims[1])
         self.patch_embed3 = PatchEmbed(dims[1], dims[2])
         self.patch_embed4 = PatchEmbed(dims[2], dims[3])
-        sa = SplitSABlock if cfg.split else SABlock
+        sa = SplitSABlock if cfg.split else functools.partial(SABlock, quant=quant)
         off = [sum(depths[:i]) for i in range(4)]
         self.blocks1 = nn.Sequential(*(CBlock(dims[0], dpr[off[0] + i])
                                        for i in range(depths[0])))

@@ -44,8 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from mspi_tpu_torch.ops import kernels
-from mspi_tpu_torch.ops.kernels.ln_mlp import (INT8_C, INT8_LAB_C, _int_products,
-                                               int8_sm90_form, sm90_form)
+from mspi_tpu_torch.ops.kernels.ln_mlp import (INT8_LAB_C, _int_products, int8_sm90_form,
+                                               sm90_form)
 
 LAB_VARIANTS = ("matmul", "matmul_gelu", "ln_matmul", "pipe2", "pipe4", "mxu_stats")
 _MLP_BF16_CODE = len(LAB_VARIANTS)  # the K2-body variant code of mlp_bf16 (csrc/lnmlp_lab.cuh)
@@ -53,7 +53,8 @@ LAB_C = 96  # the labs' default width (ConvNeXt stage 0)
 # row 20's bodies and mlp_bf16: K2's widths up to PR 16, a translation unit
 # each (`csrc/lnmlp_lab_c<C>.cu`); K2's C = 320 (UniFormer-B) has no lab body
 LAB_WIDTHS = (96, 192, 384, 512, 768)
-INT8_LAB_WIDTHS = (INT8_LAB_C,) + INT8_C  # mlp_int8w: its own 96 and row 12's widths
+# mlp_int8w: its own 96 and row 12's widths but 320 (row 12's C = 320 form has no lab body)
+INT8_LAB_WIDTHS = (INT8_LAB_C, 256, 384, 512, 768)
 LAB_HC = 64  # every lab body takes H % 64 == 0
 EPS = 1e-6  # the lab's LayerNorm eps
 _INT8_CODE = 2  # mspi_gemm_lab's dtype code for int8

@@ -57,7 +57,7 @@ from mspi_tpu_torch.ops import kernels
 
 SUPPORTED_C = (96, 192, 320, 384, 512, 768)  # MViT / Swin stages, UniFormer-B's stage 3
 SM90_HC = 64  # the bf16 body's hidden units per chunk (H % 64 == 0)
-INT8_C = (256, 384, 512, 768)  # widths the int8 kernel is compiled for
+INT8_C = (256, 320, 384, 512, 768)  # widths the int8 kernel is compiled for
 INT8_HC = 128  # the int8 kernel's W2 box: two 64-unit chunks (H % 128 == 0)
 INT8_LAB_C = 96  # the int8 lab's width (`lab.mlp_int8w`), a form of the same body
 QUANT_MIN_C = 256  # the JAX package's QUANT_MIN_C: narrower blocks stay on K2
@@ -227,9 +227,12 @@ def int8_sm90_form(C: int) -> Tuple[int, int, int, int, int]:
     nothing is computed twice. At C = 768 (a [64, 384] s32 accumulator
     would take 192 registers a thread) each consumer owns 64 of 128 rows
     and y's columns come in parts of 256, each part recomputing fc1's two
-    passes. Shared memory holds the block's z codes [rows, C], a 2-slot
-    ring of W2 for 128 hidden units (all C columns, or the part's 256), two
-    [64, 128] tiles of h codes and 1024 bytes of alignment; the ring of W1
+    passes. C = 320 (UniFormer-B's stage 3) is a shared form: y's 160
+    columns a consumer (s8 wgmma n160), z codes in three 128-k boxes of
+    which C fills 320 (TMA fills W1 with zeros past k = 320). Shared
+    memory holds the block's z codes [rows, C], a 2-slot ring of W2 for 128
+    hidden units (all C columns, or the part's 256), two [64, 128] tiles of
+    h codes and 1024 bytes of alignment; the ring of W1
     boxes (128 or 64 units by 128 k) takes what is left of the block's
     227 KiB less 1280 bytes of static memory, at most 12 slots. The grid is
     (ceil(M / rows), parts). The int8 lab's C = 96 takes the parts form

@@ -7,6 +7,10 @@ state, the epoch and the drop-path generator's state; `latest_checkpoint`
 finds the newest for auto-resume. `load_pretrained_encoders` loads the
 released torch encoder checkpoints straight into their submodules (the
 port keeps the reference's parameter names) and skips missing files.
+
+With a mesh, rank 0 writes the one-device form: the SyncBlock's split
+tensors (and their AdamW moments) gathered over the model group, so any
+run reads the file; on resume each model rank takes its part of them.
 """
 
 from __future__ import annotations
@@ -21,10 +25,36 @@ from mspi_tpu_torch.config import MSPIConfig
 from mspi_tpu_torch.train.engine import TrainState
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int) -> str:
+def _moments(opt_sd: dict, names, fn) -> dict:
+    """opt_sd with its parameter-shaped state tensors (AdamW's moments)
+    passed through fn, a map of {parameter name: tensor}."""
+    state = {i: dict(st) for i, st in opt_sd["state"].items()}
+    keys = {k for st in state.values() for k, v in st.items() if torch.is_tensor(v) and v.dim()}
+    for key in sorted(keys):
+        got = fn({names[i]: st[key] for i, st in state.items()})
+        for i, st in state.items():
+            st[key] = got[names[i]]
+    return {**opt_sd, "state": state}
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int, mesh=None) -> Optional[str]:
+    """Write ckpt_{epoch}; with a mesh, every rank of data index 0 calls it
+    (the gather over the model group) and rank 0 writes."""
+    model_sd, opt_sd = state.model.state_dict(), state.optimizer.state_dict()
+    if mesh is not None:
+        if mesh.data_rank:
+            return None
+        if mesh.tp > 1:
+            from mspi_tpu_torch.parallel.tensor_parallel import gather_sync_block
+
+            model_sd = gather_sync_block(state.model, mesh, model_sd)
+            opt_sd = _moments(opt_sd, state.param_names,
+                              lambda t: gather_sync_block(state.model, mesh, t))
+        if mesh.rank:
+            return None
     path = os.path.abspath(os.path.join(ckpt_dir, f"ckpt_{epoch}"))
     tmp = path + ".tmp"
-    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+    torch.save({"model": model_sd, "optimizer": opt_sd,
                 "param_names": list(state.param_names), "epoch": int(epoch),
                 "generator": state.generator.get_state()}, tmp)
     os.replace(tmp, path)
@@ -43,13 +73,20 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return best
 
 
-def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
-    """Load a checkpoint into `state` in place; returns (state, epoch)."""
+def restore_checkpoint(path: str, state: TrainState, mesh=None) -> Tuple[TrainState, int]:
+    """Load a checkpoint into `state` in place (with a mesh of tp > 1, each
+    split tensor's part for this model rank); returns (state, epoch)."""
     blob = torch.load(path, map_location="cpu", weights_only=False)
     if blob["param_names"] != list(state.param_names):
         raise ValueError(f"{path}: trainable parameters differ from this model's")
-    state.model.load_state_dict(blob["model"], strict=True)
-    state.optimizer.load_state_dict(blob["optimizer"])
+    model_sd, opt_sd = blob["model"], blob["optimizer"]
+    if mesh is not None and mesh.tp > 1:
+        from mspi_tpu_torch.parallel.tensor_parallel import split_whole
+
+        model_sd = split_whole(state.model, mesh, model_sd)
+        opt_sd = _moments(opt_sd, state.param_names, lambda t: split_whole(state.model, mesh, t))
+    state.model.load_state_dict(model_sd, strict=True)
+    state.optimizer.load_state_dict(opt_sd)
     state.generator.set_state(blob["generator"])
     state.epoch = int(blob["epoch"])
     return state, state.epoch

@@ -99,10 +99,12 @@ def _port_int8(x, g, be, w1, b1, w2, b2, eps=1e-6):
     return ln_mlp_int8(t(x), t(g), t(be), w1q, s1, t(b1), w2q, s2, t(b2), eps)
 
 
-@pytest.mark.parametrize("B,N,C,H", [(2, 200, 256, 1024), (1, 77, 384, 1536)])
+@pytest.mark.parametrize("B,N,C,H", [(2, 200, 256, 1024), (1, 77, 384, 1536),
+                                     (1, 99, 320, 1280)])
 def test_ln_mlp_int8_matches_pallas(rng, B, N, C, H):
     """At the JAX package's own test shape (N = 200 pads to the TPU's row
-    tile) and at the MViT stage-3 width with a ragged N."""
+    tile), at the MViT stage-3 width with a ragged N, and at UniFormer-B's
+    stage-3 width (C = 320, which the JAX package quantises too)."""
     x = _randn(rng, B, N, C)
     params = _int8_params(rng, C, H)
     want = fused_ln_mlp_int8(jnp.asarray(x), *map(jnp.asarray, params), interpret=True)

@@ -294,7 +294,9 @@ def test_int8_sm90_form(C):
     rows and all 96 columns (the parts form, one part) and its own h code
     tile, its z codes and W1 boxes of 64 units 128 k wide (zero-filled past
     k = 96), 12 W1 slots, the y accumulator's 48 registers beside u's 32
-    within a consumer's 160. Other widths refuse."""
+    within a consumer's 160. C = 320 (UniFormer-B's stage 3) is a shared
+    form whose consumers take 160 columns each, its z codes in three 128-k
+    boxes, 6 W1 slots. Other widths refuse."""
     rows, cn, parts, slots, smem = K2.int8_sm90_form(C)
     with pytest.raises(ValueError):
         K2.int8_sm90_form(C + 32)
@@ -305,10 +307,15 @@ def test_int8_sm90_form(C):
         assert cn // 2 + 32 <= 160 - 64
         return
     consumers = 2 if rows == 64 else 1  # consumers per row: the column split
-    assert cn * consumers * parts == C and cn % 64 == 0 and 3 <= slots <= 12
+    # C = 320: 160 columns a consumer, one s8 wgmma n160 (N % 32 == 0)
+    assert cn * consumers * parts == C and cn % (32 if C == 320 else 64) == 0
+    assert 3 <= slots <= 12
     assert (rows, parts) == ((64, 1) if C <= 512 else (128, 3))
     assert cn // 2 + 32 <= CONSUMER_REGS[2] - 64
     assert smem + 1280 <= SMEM_LIMIT
+    if C == 320:
+        assert (cn, slots, smem) == (160, 6, 3 * 64 * 128 + 2 * 320 * 128 + 2 * 64 * 128
+                                     + 1024 + 6 * 128 * 128)
     assert 4 * C % K2.INT8_HC == 0  # H = 4C: whole W2 slots of 128 hidden units
 
 

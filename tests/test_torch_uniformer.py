@@ -10,8 +10,9 @@
 - the `uniformerb` AudioVisualSaliencyModel forward at 64x96;
 - one training step of that model (loss, aux, gradients, BatchNorm
   statistics) against `jax.value_and_grad` of the JAX engine's loss;
-- the config tables, `quant="int8"`'s refusal at config time, and both
-  CLIs' `--motion_encoder`.
+- the config tables, `quant="int8"` taken at config time, the int8 model
+  (row 12 at C = 320 and 512) against JAX under MSPI_QUANT=int8 with its
+  routing counted, and both CLIs' `--motion_encoder`.
 
 Weights are seeded variables over the JAX module's tree, moved into the port
 by `state_dict_from_jax` (strict). Tolerances (fp32) are stated per test;
@@ -293,17 +294,59 @@ def test_uniformer_config_matches_jax():
             assert getattr(config, table)[enc] == getattr(jax_config, table)[enc], (table, enc)
 
 
-def test_uniformer_int8_refused_at_config():
-    """quant="int8" would send stage 3's C = 320 blocks to row 12, which has
-    no C = 320 form: the config refuses it, naming the width and INT8_C;
-    through both CLIs too."""
-    assert 320 not in K2.INT8_C
-    with pytest.raises(ValueError, match=r"C = 320.*INT8_C"):
-        get_config("uniformerb", {"model": {"quant": "int8"}})
-    with pytest.raises(ValueError, match="C = 320"):
-        inference.config_from_args(inference.parse_args(
-            ["--motion_encoder", "uniformerb", "--quant", "int8"]))
+def test_uniformer_int8_taken_at_config():
+    """quant="int8" sends stages 3-4's SABlocks (C = 320 and 512) to row 12,
+    which has a C = 320 form: the config takes it, and so do both CLIs."""
+    assert 320 in K2.INT8_C
+    assert get_config("uniformerb", {"model": {"quant": "int8"}}).model.quant == "int8"
+    cfg = inference.config_from_args(inference.parse_args(
+        ["--motion_encoder", "uniformerb", "--quant", "int8"]))
+    assert (cfg.model.motion_encoder, cfg.model.quant) == ("uniformerb", "int8")
     assert get_config("s3d", {"model": {"quant": "int8"}}).model.quant == "int8"
+
+
+def test_uniformer_int8_av_model_matches_jax(rng, monkeypatch):
+    """The uniformerb AudioVisualSaliencyModel (one block a stage, one
+    SyncBlock block) at 64x96, batch 1, with quant="int8", against JAX under
+    MSPI_QUANT=int8 with every Pallas kernel in interpret mode.
+
+    Routing: both sides send the stage-3 SABlock (C = 320), the stage-4 one
+    (C = 512) and the SyncBlock block to the int8 kernel, 3 calls; the
+    decoder's LN+MLPs stay on K2. The map is held as the MViT int8 model is
+    (`tests/test_torch_prior_options.py`): the port's int8 map lies closer to
+    JAX's int8 map than to its own float map, CC 0.9999 against JAX's, the
+    loss within 1e-3."""
+    monkeypatch.setenv("MSPI_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("MSPI_QUANT", "int8")
+    jax_calls, port_calls = {}, {}
+    count_calls(((jax_mlp, "fused_ln_mlp_int8"),), jax_calls, monkeypatch)
+    count_calls(((K2, "ln_mlp_int8_reference"),), port_calls, monkeypatch)
+    model = {**SHALLOW, "sync_num_blocks": 1, "simsiam_hidden": 128}
+    cfg, port, variables = _port_av(rng, {**model, "quant": "int8"})
+    _, flt_port, _ = _port_av(rng, model)
+    assert sum(hasattr(m, "int8_w1q") for m in port.modules()) == 3
+    jax_model = JaxModel(cfg=jax_get_config("uniformerb", overrides={
+        "data": {"resolution": RES}, "model": model}))
+    clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
+    auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
+    want, want_loss = jax.jit(jax_model.apply)(variables, jnp.asarray(clips), jnp.asarray(auds))
+    jax.clear_caches()
+    assert jax_calls == {"fused_ln_mlp_int8": 3}
+    load_port(port, variables)
+    load_port(flt_port, variables)
+    with torch.no_grad():
+        got, got_loss = port(torch.from_numpy(clips), torch.from_numpy(auds))
+        assert port_calls == {"ln_mlp_int8_reference": 3}
+        flt, _ = flt_port(torch.from_numpy(clips), torch.from_numpy(auds))
+    assert got.shape == (1, *RES)
+    want = np.asarray(want, np.float64)
+    got, flt = got.double().numpy(), flt.double().numpy()
+
+    def rms(a):  # log-densities: about their means
+        return np.sqrt(np.mean((a - a.mean()) ** 2))
+    assert rms(got - want) <= rms(got - flt)
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] >= 0.9999
+    assert abs(float(got_loss) - float(want_loss)) < 1e-3
 
 
 def test_clis_take_uniformerb():
