@@ -157,10 +157,27 @@ first failure (there is no CPU path):
    classifier step card against CPU (logits, loss, gradient cosine);
    cls_uni_training: 4 steps of the uniformerb classifier (K4 and row 7,
    K2 and row 9 in its 27 SABlocks).
+32. ssl_training: `run_net --task ssl`'s step, a ContrastiveNet on the
+   MViTv2-S trunk at 16x224x224, 2 clips per view, bf16, SSL_STEPS steps of
+   each objective (moco with a 4096-entry queue, swav with 300 prototypes):
+   the momentum tree against its EMA, the queue pointer and keys, the
+   prototypes' norms, steps/s; K1 and K2 per trunk forward (the momentum
+   net's too), rows 5 and 9 per online forward; ssl_parity: one fp32 MoCo
+   step card against CPU (loss, gradient cosine, the queue's new keys);
+33. masked_training: `run_net --task masked`'s step, MaskedMViT with the
+   HOG target (token grid 8x14x14) on MViTv2-S, batch 2, bf16, three AdamW
+   steps on fresh masks, steps/s and peak memory; masked_parity: one fp32
+   step card against CPU on the same mask (loss, gradient cosine, the HOG
+   targets);
+34. rev_training: ReversibleMViTFeatures (MViTv2-S, depth 16), batch 2,
+   fp32: one forward, then `reversible_sequence` over stage 3's ten
+   reversible blocks against plain autograd through them (every gradient,
+   peak memory, which must be lower), K1 and row 5 counted inside the
+   custom backward.
 
-Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22, 23, 25-31) sets the
+Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22, 23, 25-34) sets the
 launch counts to 0 just before it and reads them just after; the kernels'
-record sums them.
+record sums them. Each phase logs its time on the host clock.
 The last two lines are the kernels' JSON record and the device JSON record.
 `--phases` runs a subset (2 always runs; the records then cover only what
 ran and no device record is printed).
@@ -319,6 +336,9 @@ PATH_PHASES = {
     "ddp_training": ("ddp_training", "mvitv2s"),
     "cls_training": ("cls_training", "mvitv2s"), "cls_parity": ("cls_parity", "mvitv2s"),
     "cls_uni_training": ("cls_training", "uniformerb"),
+    "ssl_training": ("ssl_training", None), "ssl_parity": ("ssl_parity", None),
+    "masked_training": ("masked_training", None), "masked_parity": ("masked_parity", None),
+    "rev_training": ("rev_training", None),
     "spectrogram": ("spectrogram", None),
     "vis_main": ("main", "mvitv2s+visual"),
     "remat_training": ("remat_training", "mvitv2s+remat"),
@@ -347,7 +367,8 @@ PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity", "
           "s3d_main", "s3d_parity", "spectrogram", "vis_main", "remat_training", "x3d_main",
           "x3d_parity", "x3d_training", "sf_main", "sf_parity", "sf_training", "morph_main",
           "morph_parity", "morph_training", "uni_int8_main", "uni_int8_parity", "ddp_training",
-          "cls_training", "cls_parity", "cls_uni_training")
+          "cls_training", "cls_parity", "cls_uni_training", "ssl_training", "ssl_parity",
+          "masked_training", "masked_parity", "rev_training")
 BATCH = 8
 TRAIN_BATCH = 2
 STEPS = 5
@@ -2391,6 +2412,335 @@ RETIRED = {"flash_attention_tc_kernel": "WMMA flash body (row 6 runs the sm90 bo
            "mlp_int8_lab_kernel": "mma.sync int8 lab body (mlp_int8w runs row 12's)"}
 
 
+# the self-supervised and masked paths: MViTv2-S at 16x224x224, its 16
+# blocks' K1 and K2 per trunk forward, rows 5 and 9 per backward
+SSL_CLIP = (16, 224, 224)
+SSL_BATCH = 2  # clips per view
+SSL_STEPS = 3  # per objective
+# trunk forwards of one step: (online, momentum); the backward runs once per
+# online forward
+SSL_FORWARDS = {"moco": (1, 1), "byol": (2, 2), "simclr": (2, 0), "swav": (2, 0)}
+MASK_GRID = (8, 14, 14)  # the HOG target's token grid at 16x224x224
+MASKED_STEPS = 3
+HOG_TOL = 1e-5  # fp32 HOG targets (unit-norm cells), card vs CPU
+
+
+def _trunk_counts(forwards: int, backwards: int) -> dict:
+    return {k: forwards * CLS_FWD["mvitv2s"].get(k, 0) + backwards * CLS_BWD["mvitv2s"].get(k, 0)
+            for k in KERNELS}
+
+
+def _ssl_model(objective: str, device: str):
+    """The ContrastiveNet of `run_net --task ssl --model mvitv2s`, built on
+    the CPU from seed 0 (so every device gets the same weights)."""
+    from mspi_tpu_torch.config import get_config
+    from mspi_tpu_torch.models.registry import build_backbone
+    from mspi_tpu_torch.train.ssl import ContrastiveNet
+
+    cfg = get_config("mvitv2s")
+    torch.manual_seed(0)
+    return ContrastiveNet(build_backbone(cfg), dim_in=cfg.model.embed_dims[-1],
+                          use_predictor=objective in ("moco", "byol"),
+                          num_prototypes=300 if objective == "swav" else 0).to(device)
+
+
+def _views(seed: int, batch: int, device: str) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    return {k: torch.randn(batch, *SSL_CLIP, 3, generator=g).to(device)
+            for k in ("clips1", "clips2")}
+
+
+def phase_ssl_training(tag: str, _) -> dict:
+    """`run_net --task ssl`'s step on the card: for each objective a
+    ContrastiveNet on the mvitv2s trunk (dim_in 768; moco with its 4096-entry
+    queue, swav with 300 prototypes), SSL_STEPS bf16 steps of SSL_BATCH clips
+    per view with SGD; after the last step the momentum tree must equal m t
+    + (1 - m) o (t before the step, o the updated online tensors), the queue
+    pointer must have advanced by the batch over unit-norm keys, and the
+    prototypes must have unit norm. The launches: K1 and K2 per trunk
+    forward (the momentum net's too), rows 5 and 9 per online forward."""
+    from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.train.ssl import OBJECTIVES, create_ssl_state, make_ssl_train_step
+
+    batch = _views(21, SSL_BATCH, "cuda")
+    mom = 0.99
+    want = {k: 0 for k in KERNELS}
+    kernels.reset_launch_counts()
+    for objective in OBJECTIVES:
+        state = create_ssl_state(_ssl_model(objective, "cuda"), _sgd,
+                                 queue_size=4096 if objective == "moco" else 0)
+        step = make_ssl_train_step(objective, compute_dtype=torch.bfloat16)
+        walls, losses = [], []
+        for _ in range(SSL_STEPS):
+            target = [p.detach().clone() for p in state.momentum_model.parameters()]
+            ptr = state.queue_ptr
+            t0 = time.perf_counter()
+            losses.append(step(state, batch, 0.01, mom))  # the loss's read syncs
+            walls.append(time.perf_counter() - t0)
+        online, model = list(state.model.parameters()), state.model
+        checks = []
+        if objective in ("moco", "byol"):
+            err = max((m - (mom * t + (1.0 - mom) * o)).abs().max().item()
+                      for t, m, o in zip(target, state.momentum_model.parameters(), online))
+            checks.append(f"momentum tree vs m t + (1 - m) o: max |diff| {err:.2e}")
+            if err != 0.0:
+                raise AssertionError(f"{objective}: the momentum tree is {err} off its EMA")
+        if objective == "moco":
+            rows = state.queue[ptr:ptr + SSL_BATCH].norm(dim=-1)
+            checks.append(f"queue pointer {ptr} -> {state.queue_ptr}, new keys' norms "
+                          f"{[round(v, 6) for v in rows.tolist()]}")
+            if state.queue_ptr != (ptr + SSL_BATCH) % 4096 or (rows - 1).abs().max() > 1e-5:
+                raise AssertionError("the MoCo queue did not take the batch's unit keys")
+        if objective == "swav":
+            norms = model.prototypes.norm(dim=-1)
+            checks.append(f"prototype norms {norms.min().item():.7f}..{norms.max().item():.7f}")
+            if (norms - 1).abs().max() > 1e-5:
+                raise AssertionError("the SwAV prototypes left the unit sphere")
+        steady = statistics.median(walls[1:])
+        log(tag, f"{objective}: {SSL_STEPS} steps bf16 batch {SSL_BATCH} per view {SSL_CLIP}: "
+                 f"first {walls[0]:.2f} s, then median {steady * 1e3:.1f} ms = "
+                 f"{1 / steady:.3f} steps/s (host clock around synced steps); losses "
+                 f"{[round(v, 4) for v in losses]}; " + "; ".join(checks))
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{objective}: non-finite loss")
+        on, mo = SSL_FORWARDS[objective]
+        for k, v in _trunk_counts(SSL_STEPS * (on + mo), SSL_STEPS * on).items():
+            want[k] += v
+        del state, model, online, target
+        torch.cuda.empty_cache()
+    counts = dict(kernels.launches)
+    log(tag, f"launches {counts}")
+    for k in KERNELS:
+        if counts[k] != want[k]:
+            raise AssertionError(f"{k}: {counts[k]} launches, expected {want[k]}")
+    return counts
+
+
+def phase_ssl_parity(tag: str, _) -> None:
+    """One fp32 MoCo step (TF32 off; one clip per view, the same weights,
+    queue and drop-path seed) on the card against the CPU: the loss (1e-3),
+    the gradients' cosine (need >= 0.9999) and the keys the queue took
+    (max |diff| <= 1e-4, unit vectors)."""
+    from mspi_tpu_torch.train.ssl import create_ssl_state, make_ssl_train_step
+
+    batch = _views(22, 1, "cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        state = create_ssl_state(_ssl_model("moco", device), _sgd, queue_size=4096, seed=3)
+        t0 = time.perf_counter()
+        loss = make_ssl_train_step("moco")(state, {k: v.to(device) for k, v in batch.items()},
+                                           0.01, 0.99)
+        out[device] = (loss, _named_grads(state.model), state.queue[:1].cpu().double())
+        log(tag, f"moco fp32 step on {device}: {time.perf_counter() - t0:.1f} s, loss {loss:.6f}")
+        del state
+    (l_g, g_g, q_g), (l_c, g_c, q_c) = out["cuda"], out["cpu"]
+    cos, qerr = _cosine(g_g, g_c), (q_g - q_c).abs().max().item()
+    log(tag, f"moco card vs CPU: loss |diff| {abs(l_g - l_c):.2e}, gradient cosine {cos:.8f}, "
+             f"queue keys max |diff| {qerr:.2e}")
+    if not (abs(l_g - l_c) <= 1e-3 * max(1.0, abs(l_c)) and cos >= 0.9999 and qerr <= 1e-4):
+        raise AssertionError("the MoCo step on the card differs from the CPU's")
+
+
+def _masked_model(device: str):
+    from mspi_tpu_torch.config import get_config
+    from mspi_tpu_torch.models.masked import MaskedMViT
+
+    torch.manual_seed(0)
+    return MaskedMViT(get_config("mvitv2s").model.mvit, target="hog").to(device)
+
+
+def _adamw(model):
+    from mspi_tpu_torch.train.optim import construct_optimizer
+
+    return construct_optimizer(list(model.named_parameters()), "adamw", base_lr=1e-4,
+                               weight_decay=0.05, zero_wd_1d_param=False)
+
+
+def phase_masked_training(tag: str, _) -> dict:
+    """`run_net --task masked`'s step on the card: MaskedMViT (HOG target,
+    token grid MASK_GRID) on MViTv2-S, MASKED_STEPS bf16 AdamW steps of
+    SSL_BATCH clips at 16x224x224, each on a fresh 40% mask drawn on the
+    card; finite losses, steps/s, peak memory, and K1 / K2 per forward and
+    rows 5 / 9 per backward."""
+    from mspi_tpu_torch.models.masked import random_patch_mask
+    from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.run_net import masked_train_step
+
+    model = _masked_model("cuda")
+    opt = _adamw(model)
+    clips = _views(23, SSL_BATCH, "cuda")["clips1"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls, losses, fracs = [], [], []
+    for _ in range(MASKED_STEPS):
+        t0 = time.perf_counter()
+        mask = random_patch_mask(gen, SSL_BATCH, MASK_GRID)
+        losses.append(masked_train_step(model, opt, clips, mask, False,
+                                        compute_dtype=torch.bfloat16))  # the read syncs
+        walls.append(time.perf_counter() - t0)
+        fracs.append(mask.float().mean().item())
+    counts = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(walls[1:])
+    log(tag, f"MaskedMViT hog {MASKED_STEPS} steps bf16 batch {SSL_BATCH} {SSL_CLIP}: first "
+             f"{walls[0]:.2f} s, then median {steady * 1e3:.1f} ms = {1 / steady:.3f} steps/s "
+             f"(host clock around synced steps); peak memory {peak:.2f} GiB; losses "
+             f"{[round(v, 5) for v in losses]}; masked share {fracs}; launches {counts}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite masked loss")
+    want = _trunk_counts(MASKED_STEPS, MASKED_STEPS)
+    for k in KERNELS:
+        if counts[k] != want[k]:
+            raise AssertionError(f"{k}: {counts[k]} launches, expected {want[k]}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_masked_parity(tag: str, _) -> None:
+    """One fp32 MaskFeat step (HOG target, TF32 off, one clip) on the card
+    against the CPU on the same mask: the loss (1e-3 relative), the
+    gradients' cosine (need >= 0.9999) and the HOG targets (max |diff| <=
+    HOG_TOL)."""
+    from mspi_tpu_torch.models.masked import hog_targets, random_patch_mask
+    from mspi_tpu_torch.run_net import masked_train_step
+
+    clips = _views(24, 1, "cpu")["clips1"]
+    mask = random_patch_mask(torch.Generator().manual_seed(4), 1, MASK_GRID)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = _masked_model(device)
+        t0 = time.perf_counter()
+        loss = masked_train_step(model, _adamw(model), clips.to(device), mask.to(device), False)
+        out[device] = (loss, _named_grads(model), hog_targets(clips.to(device)).cpu())
+        log(tag, f"masked fp32 step on {device}: {time.perf_counter() - t0:.1f} s, "
+                 f"loss {loss:.6f}")
+        del model
+    (l_g, g_g, h_g), (l_c, g_c, h_c) = out["cuda"], out["cpu"]
+    cos = _cosine(g_g, g_c)
+    herr = (h_g - h_c).abs()
+    log(tag, f"masked card vs CPU: loss |diff| {abs(l_g - l_c):.2e}, gradient cosine "
+             f"{cos:.8f}; HOG targets max |diff| {herr.max().item():.2e}, "
+             f"{int((herr > 1e-4).sum())} of {herr.numel()} off by more than 1e-4")
+    if not (abs(l_g - l_c) <= 1e-3 * max(1.0, abs(l_c)) and cos >= 0.9999):
+        raise AssertionError("the masked step on the card differs from the CPU's")
+    if not herr.max().item() <= HOG_TOL:
+        raise AssertionError("the HOG targets on the card differ from the CPU's")
+
+
+REV_TOL = 1e-3  # relative L2 of each gradient, fp32, reversible vs plain
+
+
+def phase_rev_training(tag: str, _) -> dict:
+    """ReversibleMViTFeatures on the mvitv2s config (depth 16), batch 2 at
+    16x224x224, fp32 (TF32 off): one forward (K1 in each of the 16 blocks,
+    output [2, 1536]); then over its longest span of reversible blocks
+    (stage 3, 10 blocks at C 384), from the forward's activations there,
+    the loss mean(y1^2) + mean(y2) / 2 through `reversible_sequence` and
+    through plain autograd: every gradient (inputs and the span's
+    parameters) within REV_TOL of its norm in L2 (or, for norm_k's bias,
+    whose gradient is 0 in exact arithmetic, within 1e-6 of the largest
+    gradient's norm) and the peak memory of the
+    reversible run below the plain one's; inside the custom backward K1
+    recomputes each block's F and row 5 differentiates it."""
+    from mspi_tpu_torch.config import get_config
+    from mspi_tpu_torch.models.reversible_mvit import ReversibleMViTFeatures, reversible_sequence
+    from mspi_tpu_torch.ops import kernels
+
+    torch.manual_seed(0)
+    model = ReversibleMViTFeatures(get_config("mvitv2s").model.mvit).cuda()
+    clips = _views(25, SSL_BATCH, "cuda")["clips1"]
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        feats = model(clips)
+        x, thw = model.patch_embed(clips)
+        runs, start = [], 0
+        for i, kind in enumerate(model.kinds + ("end",)):
+            if kind != "rev":
+                runs.append((start, i))
+                start = i + 1
+        lo, hi = max(runs, key=lambda r: r[1] - r[0])
+        x1 = x2 = x
+        for blk, kind in zip(model.blocks[:lo], model.kinds[:lo]):
+            x1, x2, *rest = blk(x1, x2, thw)
+            thw = rest[0] if rest else thw
+    log(tag, f"forward {tuple(feats.shape)}, finite {bool(torch.isfinite(feats).all())}; "
+             f"longest reversible span blocks {lo}-{hi - 1} at {tuple(x1.shape)} thw {thw}")
+    if feats.shape != (SSL_BATCH, 1536) or not torch.isfinite(feats).all():
+        raise AssertionError("the reversible encoder's output is wrong")
+    span = list(model.blocks[lo:hi])
+    params = {f"blocks.{lo + j}.{name}": p for j, blk in enumerate(span)
+              for name, p in blk.named_parameters()}
+
+    def run(reversible: bool):
+        a, b = (t.detach().clone().requires_grad_(True) for t in (x1, x2))
+        for p in params.values():
+            p.grad = None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(kernels.launches)
+        if reversible:
+            y1, y2 = reversible_sequence(span, a, b, thw)
+        else:
+            y1, y2 = a, b
+            for blk in span:
+                y1, y2 = blk(y1, y2, thw)
+        fwd = {k: kernels.launches[k] - before[k] for k in KERNELS}
+        loss = (y1 ** 2).mean() + y2.mean() * 0.5
+        mid = dict(kernels.launches)
+        loss.backward()
+        torch.cuda.synchronize()
+        bwd = {k: kernels.launches[k] - mid[k] for k in KERNELS}
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        grads = {"x1": a.grad, "x2": b.grad, **{k: p.grad for k, p in params.items()}}
+        return loss.item(), {k: v.detach().double().flatten().cpu() for k, v in grads.items()}, \
+            peak, fwd, bwd
+
+    l_p, g_p, peak_p, fwd_p, bwd_p = run(False)
+    l_r, g_r, peak_r, fwd_r, bwd_r = run(True)
+    # a gradient that is 0 in exact arithmetic (norm_k's bias: q.b shifts every
+    # score of a row alike, which the softmax drops) is rounding noise on both
+    # sides, measured against 1e-6 of the largest gradient's norm
+    floor = 1e-6 * max(g.norm().item() for g in g_p.values())
+    # each gradient's distance over its limit, REV_TOL of its norm or the floor
+    over = {k: (g_r[k] - g_p[k]).norm().item() / max(REV_TOL * g_p[k].norm().item(), floor)
+            for k in g_p}
+    worst = max(over, key=over.get)
+    rel = max(((g_r[k] - g_p[k]).norm() / g_p[k].norm()).item() for k in g_p
+              if g_p[k].norm().item() > floor)
+    n = hi - lo
+    log(tag, f"span of {n} blocks, batch {SSL_BATCH}, fp32: loss plain {l_p:.7f} reversible "
+             f"{l_r:.7f}; gradients' relative L2 max {rel:.2e} (above the floor), the "
+             f"largest share of its limit {over[worst]:.3f} ({worst}), cosine "
+             f"{_cosine(g_r, g_p):.9f}; peak memory above the inputs plain {peak_p:.1f} MiB, "
+             f"reversible {peak_r:.1f} MiB ({peak_r / peak_p:.3f} x); launches plain forward "
+             f"{_nonzero(fwd_p)} backward {_nonzero(bwd_p)}, reversible forward "
+             f"{_nonzero(fwd_r)} backward {_nonzero(bwd_r)}")
+    if not (abs(l_r - l_p) <= 1e-5 * abs(l_p) and over[worst] <= 1.0):
+        raise AssertionError("reversible gradients differ from plain autograd's")
+    if not peak_r < peak_p:
+        raise AssertionError("the reversible span's peak memory is not below plain autograd's")
+    want_bwd = {k: n if k in ("attention_rel", "attention_rel_bwd") else 0 for k in KERNELS}
+    if fwd_r != {k: n if k == "attention_rel" else 0 for k in KERNELS} or bwd_r != want_bwd:
+        raise AssertionError("the custom backward did not run K1 and row 5 once per block")
+    counts = dict(kernels.launches)
+    want = {k: 0 for k in KERNELS}
+    want["attention_rel"] = 16 + lo + 3 * n
+    want["attention_rel_bwd"] = 2 * n
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}")
+    del model, span, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
 def check_ptxas() -> None:
     """The register-resident bodies (the sm90 flash forward of K1, K4, rows
     8 and 15, the bf16 window, K1 and K4 backwards' passes, rows 18 and 19,
@@ -2448,7 +2798,9 @@ def main() -> None:
                "train_parity": phase_train_parity, "options_parity": phase_options_parity,
                "spectrogram": phase_spectrogram, "remat_training": phase_remat_training,
                "ddp_training": phase_ddp_training, "cls_training": phase_cls_training,
-               "cls_parity": phase_cls_parity}
+               "cls_parity": phase_cls_parity, "ssl_training": phase_ssl_training,
+               "ssl_parity": phase_ssl_parity, "masked_training": phase_masked_training,
+               "masked_parity": phase_masked_parity, "rev_training": phase_rev_training}
     kernel_phases = {"kernels": phase_kernels, "backward": phase_backward,
                      "layout_kernels": phase_layout_kernels,
                      "layout_backward": phase_layout_backward}
@@ -2456,6 +2808,7 @@ def main() -> None:
     for phase in PHASES:
         if phase not in phases:
             continue
+        t_phase = time.perf_counter()
         if phase in kernel_phases:
             kernel_phases[phase](records)
         elif phase in kernel_paths:
@@ -2466,6 +2819,7 @@ def main() -> None:
             path_counts = runners[path_kind](phase, encoder, *res)
             if path_counts is not None:  # a path: its launches count
                 counts = {k: counts[k] + path_counts[k] for k in KERNELS}
+        log(phase, f"phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
 
     log("total", f"{time.perf_counter() - t_start:.1f} s since start, the build included")
     print(json.dumps({"kernels": [

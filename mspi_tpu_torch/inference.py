@@ -233,10 +233,11 @@ def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     """Load `--weight` into the model as the JAX CLI does: the state dict
     out of the reference's checkpoint containers (`model_state`,
     `state_dict`, or a training checkpoint's `model`), merged with
-    strict=False, so keys the model lacks are ignored."""
-    from mspi_tpu_torch.train.checkpoints import load_torch_checkpoint
+    strict=False, so keys the model lacks are ignored; it prints how many
+    were, and how many of the model's tensors it left at init."""
+    from mspi_tpu_torch.train.checkpoints import load_non_strict, load_torch_checkpoint
 
-    model.load_state_dict(load_torch_checkpoint(path), strict=False)
+    load_non_strict(model, load_torch_checkpoint(path))
     return model
 
 

@@ -41,7 +41,6 @@ from torch import nn
 from mspi_tpu_torch.config import MSPIConfig
 from mspi_tpu_torch.models.audio_resnet import AudioResNet18
 from mspi_tpu_torch.models.convnext import ConvNeXtBlock2d, ConvNeXtTinyFeatures, Mlp2d
-from mspi_tpu_torch.models.mvit import MultiScaleAttention
 from mspi_tpu_torch.models.registry import build_backbone
 from mspi_tpu_torch.models.s3d import BasicConv3d, SepConv3d
 from mspi_tpu_torch.models.videoswin import WindowAttention3D
@@ -302,9 +301,10 @@ class Readout(nn.Sequential):
 def _init_weights(model: nn.Module, gen: torch.Generator) -> None:
     """Draw every parameter from `gen` with the JAX package's initialisers:
     torch's default for convs and linears, xavier for the fusion
-    transformer, truncated normal(0.02) for ConvNeXt, the rel-pos tables and
-    the window-attention bias tables, zero biases where the JAX module asks
-    for them, and UniFormer's temporal attention at qkv 0 and proj 1."""
+    transformer, truncated normal(0.02) for ConvNeXt and the window-attention
+    bias tables, zero biases where the JAX module asks for them, and
+    UniFormer's temporal attention at qkv 0 and proj 1. MViT's rel-pos
+    tables keep the draw of MViTFeatures' own __init__."""
     layers.init_default(model, gen)
     for m in model.modules():
         if isinstance(m, (Mlp, Attention)):
@@ -327,9 +327,6 @@ def _init_weights(model: nn.Module, gen: torch.Generator) -> None:
             layers.trunc_normal_(m.stem[0].weight, 0.02, gen)
             for i in (1, 2, 3):
                 layers.trunc_normal_(getattr(m, f"stages_{i}").downsample[1].weight, 0.02, gen)
-        elif isinstance(m, MultiScaleAttention):
-            for t in (m.rel_pos_h, m.rel_pos_w, m.rel_pos_t):
-                layers.trunc_normal_(t, 0.02, gen)
         elif isinstance(m, WindowAttention3D):
             layers.trunc_normal_(m.relative_position_bias_table, 0.02, gen)
         elif getattr(m, "temporal_init", False):  # UniFormer's SplitSABlock t_attn

@@ -51,7 +51,7 @@ from mspi_tpu_torch.ops.kernels.dwconv import supported as dwconv_supported
 from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp_block
 from mspi_tpu_torch.ops.kernels.pooled_attention import (attention, attention_rel,
                                                          attention_rel_packed, key_expansion)
-from mspi_tpu_torch.ops.layers import Conv3d, DropPath, checkpoint_block, max_pool
+from mspi_tpu_torch.ops.layers import Conv3d, DropPath, checkpoint_block, max_pool, trunc_normal_
 
 PACKED_MAX_KEYS = 4096  # the JAX package's bound on the packed path's pooled keys
 
@@ -241,11 +241,29 @@ class MultiScaleAttention(nn.Module):
         return self.proj(out.transpose(1, 2).reshape(B, -1, self.dim_out)), q_shape
 
 
+def init_rel_pos_(model: nn.Module) -> None:
+    """Draw the rel-pos tables of every MultiScaleAttention in `model` as the
+    JAX package initialises them (truncated normal, std 0.02), in module
+    order off a generator seeded 0. The encoders call it last in __init__."""
+    gen = torch.Generator().manual_seed(0)
+    for m in model.modules():
+        if isinstance(m, MultiScaleAttention):
+            for t in (m.rel_pos_h, m.rel_pos_w, m.rel_pos_t):
+                trunc_normal_(t, 0.02, gen)
+
+
 class Mlp(nn.Module):
+    """fc1 -> erf GELU -> fc2. The blocks run it with its LayerNorm through
+    K2 (`ln_mlp_block`); called alone it is the plain chain, as the JAX
+    package's `Mlp` is (reversible MViT's `MLPSubblock`)."""
+
     def __init__(self, dim: int, hidden: int, out: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, out)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
 
 
 class MultiScaleBlock(nn.Module):
@@ -348,6 +366,7 @@ class MViTFeatures(nn.Module):
         self.taps = tuple(c.out_indices)
         self.patch_embed = PatchEmbedMViT(c.patch_kernel, c.patch_stride,
                                           c.patch_padding, c.embed_dim)
+        init_rel_pos_(self)
 
     def forward(self, x) -> List[torch.Tensor]:
         x, thw = self.patch_embed(x)

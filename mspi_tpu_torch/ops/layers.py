@@ -189,6 +189,21 @@ def resize_scale(x: torch.Tensor, scale: Sequence[float]) -> torch.Tensor:
     return _to_cl(y)
 
 
+def resize_to(x: torch.Tensor, sizes: Sequence[int], axes: Sequence[int]) -> torch.Tensor:
+    """Linear resize of a channels-last tensor's spatial axes `axes` (1, 2,
+    ... in order) to `sizes`: `jax.image.resize(..., "linear",
+    antialias=False)`, which is half-pixel linear interpolation, as
+    `F.interpolate(..., align_corners=False)` computes it."""
+    if tuple(axes) != tuple(range(1, 1 + len(axes))):
+        raise ValueError(f"resize_to takes the leading spatial axes, not {tuple(axes)}")
+    if tuple(x.shape[1:1 + len(axes)]) == tuple(sizes):
+        return x
+    mode = {1: "linear", 2: "bilinear", 3: "trilinear"}[len(axes)]
+    ncl = _to_ncl(x.reshape(*x.shape[:1 + len(axes)], -1))
+    y = F.interpolate(ncl, size=tuple(int(s) for s in sizes), mode=mode, align_corners=False)
+    return _to_cl(y).reshape(x.shape[0], *sizes, *x.shape[1 + len(axes):])
+
+
 class Upsample(nn.Module):
     """nn.Upsample(scale, trilinear/bilinear, align_corners=False) on
     channels-last tensors; `scale` is per leading spatial axis."""

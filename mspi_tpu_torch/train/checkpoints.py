@@ -5,8 +5,11 @@ checkpoint directory (written with `torch.save`) hold the model's state
 dict (parameters, frozen parameters and BatchNorm statistics), the AdamW
 state, the epoch and the drop-path generator's state; `latest_checkpoint`
 finds the newest for auto-resume. `load_pretrained_encoders` loads the
-released torch encoder checkpoints straight into their submodules (the
-port keeps the reference's parameter names) and skips missing files.
+released encoder checkpoints straight into their submodules (the port keeps
+the reference's parameter names) and skips missing files: torch files, and
+caffe2 pickles (`.pkl`, and every motion-encoder file of `slowfast4x16`)
+through `mspi_tpu_torch.caffe2`. Its merges, and the inference CLI's, are
+non-strict and say what they left out (`load_non_strict`).
 
 With a mesh, rank 0 writes the one-device form: the SyncBlock's split
 tensors (and their AdamW moments) gathered over the model group, so any
@@ -19,6 +22,7 @@ import os
 import re
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from mspi_tpu_torch.config import MSPIConfig
@@ -102,24 +106,47 @@ def load_torch_checkpoint(path: str):
     return blob
 
 
+def load_non_strict(module: torch.nn.Module, sd) -> None:
+    """`module.load_state_dict(sd, strict=False)` that prints, as the JAX
+    package's `merge_converted(strict=False)` does, how many checkpoint keys
+    went unused, how many of the model's tensors were left at init and the
+    first unused key, when either count is not 0. BatchNorm's
+    `num_batches_tracked`, which JAX trees do not hold, is not counted.
+    Shapes must still match."""
+    result = module.load_state_dict(sd, strict=False)
+    unexpected = list(result.unexpected_keys)
+    missing = [k for k in result.missing_keys if not k.endswith("num_batches_tracked")]
+    if unexpected or missing:
+        print(f"[convert] non-strict merge: {len(unexpected)} checkpoint keys "
+              f"unused, {len(missing)} model leaves left at init"
+              + (f"; first unused: {unexpected[0]}" if unexpected else ""))
+
+
 def load_pretrained_encoders(cfg: MSPIConfig, model: torch.nn.Module) -> torch.nn.Module:
     """Load the released audio, image-saliency and motion encoder weights
     into `audnet`, `image_encoder` and `visnet` when their files exist;
-    missing files are skipped (random initialisation stays). mmaction
-    VideoSwin checkpoints prefix the trunk with 'backbone.'
-    (video_swin_transformer.py:593-605), which is stripped for
-    `videoswins`."""
+    missing files are skipped (random initialisation stays). A `.pkl` file,
+    and every motion-encoder file of `slowfast4x16`, is a caffe2 pickle
+    (`caffe2.load_caffe2_pickle`). mmaction VideoSwin checkpoints prefix the
+    trunk with 'backbone.' (video_swin_transformer.py:593-605), which is
+    stripped for `videoswins`."""
+    from mspi_tpu_torch.caffe2 import load_caffe2_pickle
+
     mc = cfg.model
     for path, name in ((mc.audio_encoder_weight, "audnet"),
                        (mc.image_saliency_encoder_weight, "image_encoder"),
                        (mc.motion_encoder_weight, "visnet")):
         if path and os.path.exists(path) and hasattr(model, name):
             module = getattr(model, name)
-            sd = load_torch_checkpoint(path)
+            if (name == "visnet" and mc.motion_encoder == "slowfast4x16") or path.endswith(".pkl"):
+                sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+                      for k, v in load_caffe2_pickle(path).items()}
+            else:
+                sd = load_torch_checkpoint(path)
             if name == "visnet" and mc.motion_encoder == "videoswins":
                 sd = {k[len("backbone."):] if k.startswith("backbone.") else k: v
                       for k, v in sd.items()}
             ref = next(module.parameters())
-            module.load_state_dict({k: v.to(ref.dtype) if v.is_floating_point() else v
-                                    for k, v in sd.items()}, strict=False)
+            load_non_strict(module, {k: v.to(ref.dtype) if v.is_floating_point() else v
+                                     for k, v in sd.items()})
     return model

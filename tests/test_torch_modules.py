@@ -3,6 +3,7 @@ JAX module on the CPU, with the JAX side's Pallas kernels on in interpret
 mode. Weights are the JAX module's seeded variables, moved into the port by
 `state_dict_from_jax` (strict). Tolerance atol 1e-4, rtol 1e-4 (fp32)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -58,11 +59,12 @@ def test_multiscale_block(rng, dim, dim_out, heads, input_size, thw, stride_q, s
                                 stride_q, stride_kv)
     x = rng.standard_normal((2, int(np.prod(thw)), dim)).astype(np.float32)
     variables = jax_module_variables(jax_block, rng, jnp.asarray(x), thw, False)
-    want, want_thw = jax_block.apply(variables, jnp.asarray(x), thw, False)
+    want, want_thw = jax.jit(jax_block.apply, static_argnums=(2, 3))(
+        variables, jnp.asarray(x), thw, False)
     load_port(port, variables)
     with torch.no_grad():
         got, got_thw = port(torch.from_numpy(x), thw)
-    assert tuple(got_thw) == tuple(want_thw)
+    assert tuple(got_thw) == tuple(int(t) for t in want_thw)
     np.testing.assert_allclose(to_np(got), np.asarray(want), **TOL)
 
 

@@ -44,7 +44,7 @@ from mspi_tpu_torch.ops.kernels import ln_mlp as K2
 from mspi_tpu_torch.ops.kernels import pooled_attention as PA
 from mspi_tpu_torch.train import __main__ as train_cli
 from tests.torch_port_utils import (count_calls, cpu_share, jax_module_variables,  # noqa: F401
-                                    load_port, seeded_variables, to_np)
+                                    jit_fast, load_port, seeded_variables, to_np)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
@@ -139,7 +139,7 @@ def test_morphmlp_features_match_flax(rng):
     assert set(state_dict_from_jax(variables)) == set(port.state_dict())
     assert "blocks1.0.t_fc.mlp_t.weight" in port.state_dict()
     assert "blocks4.0.fc.reweight.fc1.weight" in port.state_dict()
-    want = jax.jit(jax_model.apply)(variables, jnp.asarray(x))
+    want = jit_fast(jax_model.apply, variables, jnp.asarray(x))
     with torch.no_grad():
         got = load_port(port, variables)(torch.from_numpy(x))
     for g, w, c, s in zip(got, want, (112, 224, 392, 784), (4, 8, 16, 32)):
@@ -160,7 +160,7 @@ def test_morphmlp_av_model_matches_jax(rng, monkeypatch):
     variables = seeded_variables(convert_state_dict(port.state_dict()), rng)
     clips = rng.integers(0, 256, (1, 16, *AV_RES, 3), dtype=np.uint8)
     auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
-    want, want_loss = jax.jit(jax_model.apply)(variables, jnp.asarray(clips), jnp.asarray(auds))
+    want, want_loss = jit_fast(jax_model.apply, variables, jnp.asarray(clips), jnp.asarray(auds))
     calls = {}
     count_calls(((PA, "_self_attention_fwd"), (K2, "ln_mlp"), (fusion, "ln_mlp")), calls,
                 monkeypatch)

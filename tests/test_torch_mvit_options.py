@@ -51,10 +51,10 @@ from mspi_tpu_torch.ops.kernels.pooled_attention import key_expansion
 from mspi_tpu_torch.train import __main__ as train_cli
 from mspi_tpu_torch.train import engine
 from mspi_tpu_torch.train.synthetic import make_batch
-from tests.test_torch_train import (_assert_leaves_close, _FixedDropPathJax,
-                                    _fixed_drop_path_port)
-from tests.torch_port_utils import (SHALLOW_MVIT, count_calls, cpu_share, jax_module_variables,
-                                    load_port, seeded_variables, to_np)
+from tests.test_torch_train import _assert_leaves_close
+from tests.torch_port_utils import (SHALLOW_MVIT, FixedDropPathJax, compile_fast, count_calls,
+                                    cpu_share, fixed_drop_path_port, jax_module_variables,
+                                    jit_fast, load_port, seeded_variables, to_np)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
@@ -241,12 +241,13 @@ def test_multiscale_block_option_matches_flax(rng, monkeypatch, option):
     x = rng.standard_normal((2, int(np.prod(thw)), dim)).astype(np.float32)
     variables = jax_module_variables(jax_block, rng, jnp.asarray(x), thw, False)
     jax_calls.clear()
-    want, want_thw = jax_block.apply(variables, jnp.asarray(x), thw, False)
+    want, want_thw = jax.jit(jax_block.apply, static_argnums=(2, 3))(  # counted as it traces
+        variables, jnp.asarray(x), thw, False)
     load_port(port, variables)
     with torch.no_grad():
         got, got_thw = port(torch.from_numpy(x), thw)
     assert (port_calls, jax_calls) == (port_want, jax_want)
-    assert tuple(got_thw) == tuple(want_thw)
+    assert tuple(got_thw) == tuple(int(t) for t in want_thw)
     np.testing.assert_allclose(to_np(got), np.asarray(want), atol=1e-4, rtol=1e-4)
 
 
@@ -320,7 +321,7 @@ def test_av_model_with_all_layout_options_matches_jax(rng, monkeypatch):
     clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
     auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
     jax_model = JaxModel(cfg=jax_get_config("mvitv2s", cfg))
-    want, want_loss = jax.jit(jax_model.apply)(variables, jnp.asarray(clips),
+    want, want_loss = jit_fast(jax_model.apply, variables, jnp.asarray(clips),
                                                jnp.asarray(auds))
     jax.clear_caches()
     load_port(port, variables)
@@ -345,8 +346,8 @@ def test_relk0_train_step_grads_match_jax(rng, monkeypatch):
     (fp32, two frameworks summing in different orders)."""
     monkeypatch.setenv("MSPI_ATTN_RELK", "0")
     monkeypatch.setenv("MSPI_DWCONV", "1")
-    monkeypatch.setattr(jax_mvit, "DropPath", _FixedDropPathJax)
-    monkeypatch.setattr(layers.DropPath, "forward", _fixed_drop_path_port)
+    monkeypatch.setattr(jax_mvit, "DropPath", FixedDropPathJax)
+    monkeypatch.setattr(layers.DropPath, "forward", fixed_drop_path_port)
     port_calls, jax_calls = {}, {}
     count_calls(PORT_FNS, port_calls, monkeypatch)
     count_calls(JAX_FNS, jax_calls, monkeypatch)
@@ -359,11 +360,15 @@ def test_relk0_train_step_grads_match_jax(rng, monkeypatch):
     trainable, frozen = jax_engine.split_frozen(variables["params"])
     grad_fn = jax.jit(jax.value_and_grad(jax_engine._make_loss_fn(jmodel, 1.0, True),
                                          has_aux=True))
-    (_, (aux, _)), grads = grad_fn(trainable, frozen, variables["batch_stats"],
-                                   jax.tree.map(jnp.asarray, batch), jax.random.PRNGKey(1))
-    grads = jax.tree.map(np.asarray, grads)
-    jax.clear_caches()
+    args = (trainable, frozen, variables["batch_stats"], jax.tree.map(jnp.asarray, batch),
+            jax.random.PRNGKey(1))
 
+    def jax_run():
+        (_, (aux, _)), grads = compile_fast(grad_fn, *args)(*args)
+        return aux, jax.tree.map(np.asarray, grads)
+
+    aux, grads = jax_run()
+    jax.clear_caches()
     state = engine.create_train_state(port_cfg, load_port(port, variables))
     got = engine.make_train_step(1.0)(state, engine.to_device(batch, "cpu"), 1e-4)
     assert port_calls == {"_attention_fwd": 4, "_dwconv3d_fwd": 6}  # 3 forward + 3 dx

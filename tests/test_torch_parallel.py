@@ -68,9 +68,10 @@ from mspi_tpu_torch.parallel.tensor_parallel import TensorParallelBlock
 from mspi_tpu_torch.train import __main__ as train_cli
 from mspi_tpu_torch.train import checkpoints, engine
 from mspi_tpu_torch.train.synthetic import make_batch
-from tests.test_torch_train import _adam, _assert_leaves_close, _FixedDropPathJax
+from tests.test_torch_train import _adam, _assert_leaves_close
 from tests.torch_dist_worker import cls_history, fixed_drop_path
-from tests.torch_port_utils import SHALLOW_MVIT, cpu_share, seeded_variables  # noqa: F401
+from tests.torch_port_utils import (SHALLOW_MVIT, FixedDropPathJax, compile_fast,  # noqa: F401
+                                    cpu_share, seeded_variables)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")
 
@@ -93,27 +94,38 @@ def _setup(rng):
     return variables, port.state_dict(), batch
 
 
-def _spawn(tmp_path, mode, world, *args):
-    """The worker in `mode` on `world` gloo ranks, each its own process."""
+def _start(tmp_path, mode, world, *args):
+    """The worker in `mode` on `world` gloo ranks, each its own process
+    (one thread each), started; `_wait` joins them."""
     port = free_port()
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_dist_worker", mode,
-                               str(tmp_path), str(r), str(world), str(port),
-                               *map(str, args)],
-                              cwd=REPO, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT)
-             for r in range(world)]
+    return [subprocess.Popen([sys.executable, "-m", "tests.torch_dist_worker", mode,
+                              str(tmp_path), str(r), str(world), str(port), *map(str, args)],
+                             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(world)]
+
+
+def _wait(procs):
     for p in procs:
         out, _ = p.communicate(timeout=300)
         assert p.returncode == 0, out.decode()[-3000:]
 
 
-def _run_ranks(tmp_path, dp, tp, state_dict, batch):
-    """One step on dp * tp gloo ranks; rank 0's results."""
+def _spawn(tmp_path, mode, world, *args):
+    _wait(_start(tmp_path, mode, world, *args))
+
+
+def _start_ranks(tmp_path, dp, tp, state_dict, batch):
+    """One step on dp * tp gloo ranks, started: the test computes JAX's step
+    meanwhile, and `_ranks_result` joins them for rank 0's results."""
     torch.save({"overrides": OVERRIDES, "state_dict": state_dict, "lr": LR,
                 "batch": {k: torch.from_numpy(np.ascontiguousarray(v))
                           for k, v in batch.items()}}, tmp_path / "in.pt")
-    _spawn(tmp_path, "step", dp * tp, dp, tp)
+    return _start(tmp_path, "step", dp * tp, dp, tp)
+
+
+def _ranks_result(tmp_path, procs):
+    _wait(procs)
     return torch.load(tmp_path / "out.pt", weights_only=False)
 
 
@@ -141,7 +153,8 @@ def _jax_step(variables, batch, dp, tp):
         jbatch = {k: jax.device_put(jnp.asarray(v), batch_sharding(mesh, v.ndim))
                   for k, v in batch.items()}
         step = jax_engine.make_train_step(model, tx, 1.0, donate=False)
-    jstate, jmetrics = step(jstate, jbatch, jnp.float32(LR))
+    lr = jnp.float32(LR)
+    jstate, jmetrics = compile_fast(step, jstate, jbatch, lr)(jstate, jbatch, lr)
     jmetrics = {k: float(v) for k, v in jmetrics.items()}
     grads = dict(state_dict_from_jax({"params": jax.tree.map(
         lambda m: np.asarray(m) / 0.1, _adam(jstate.opt_state).mu)}))
@@ -181,31 +194,36 @@ def _check_checkpoint(got, cfg):
 
 def test_ddp_step_matches_jax(rng, monkeypatch, tmp_path):
     monkeypatch.delenv("MSPI_PALLAS_INTERPRET", raising=False)
-    monkeypatch.setattr(jax_mvit, "DropPath", _FixedDropPathJax)
+    monkeypatch.setattr(jax_mvit, "DropPath", FixedDropPathJax)
     variables, state_dict, batch = _setup(rng)
-    want = _jax_step(variables, batch, 2, 1)
-
-    got = _run_ranks(tmp_path, 2, 1, state_dict, batch)
-    assert got["all_reduce"] == 1
-    _check_against_jax(got, want, 5e-3)
+    ranks = _start_ranks(tmp_path, 2, 1, state_dict, batch)
 
     # the port alone: the mean of one-process steps on each sample, on one
     # thread as the ranks run (the same sums in the same order)
     monkeypatch.setattr(layers.DropPath, "forward", fixed_drop_path)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     cfg = get_config("mvitv2s", OVERRIDES)
-    runs = []
-    for i in range(2):
-        model = AudioVisualSaliencyModel(cfg, device="cpu")
-        model.load_state_dict(state_dict)
-        state = engine.create_train_state(cfg, model)
-        metrics = engine.make_ddp_train_step(1.0, None)(
-            state, engine.to_device({k: v[i:i + 1] for k, v in batch.items()}, "cpu"), LR)
-        params = dict(model.named_parameters())
-        runs.append((metrics, {n: params[n].grad for n in state.param_names},
-                     _stats(model.state_dict())))
-    torch.set_num_threads(threads)
+
+    def port_alone():
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        runs = []
+        for i in range(2):
+            model = AudioVisualSaliencyModel(cfg, device="cpu")
+            model.load_state_dict(state_dict)
+            state = engine.create_train_state(cfg, model)
+            metrics = engine.make_ddp_train_step(1.0, None)(
+                state, engine.to_device({k: v[i:i + 1] for k, v in batch.items()}, "cpu"), LR)
+            params = dict(model.named_parameters())
+            runs.append((metrics, {n: params[n].grad for n in state.param_names},
+                         _stats(model.state_dict())))
+        torch.set_num_threads(threads)
+        return runs
+
+    want = _jax_step(variables, batch, 2, 1)
+    runs = port_alone()
+    got = _ranks_result(tmp_path, ranks)
+    assert got["all_reduce"] == 1
+    _check_against_jax(got, want, 5e-3)
     for k in ("kl", "cc", "sim", "loss_va", "loss"):
         assert abs(got["metrics"][k] - (runs[0][0][k] + runs[1][0][k]) / 2) <= 1e-5, k
     for j, (what, have) in enumerate((("grad", got["grads"]),
@@ -219,22 +237,27 @@ def test_tp_step_matches_one_process(rng, monkeypatch, tmp_path):
     """TP 2 against JAX's TP step on a (1, 2) mesh and against the port's
     one-process step (the module docstring gives the tolerances)."""
     monkeypatch.delenv("MSPI_PALLAS_INTERPRET", raising=False)
-    monkeypatch.setattr(jax_mvit, "DropPath", _FixedDropPathJax)
+    monkeypatch.setattr(jax_mvit, "DropPath", FixedDropPathJax)
     variables, state_dict, batch = _setup(rng)
-    want_jax = _jax_step(variables, batch, 1, 2)
-
-    got = _run_ranks(tmp_path, 1, 2, state_dict, batch)
-    _check_against_jax(got, want_jax, 2e-3)
+    ranks = _start_ranks(tmp_path, 1, 2, state_dict, batch)
 
     monkeypatch.setattr(layers.DropPath, "forward", fixed_drop_path)
     cfg = get_config("mvitv2s", OVERRIDES)
     model = AudioVisualSaliencyModel(cfg, device="cpu")
     model.load_state_dict(state_dict)
     state = engine.create_train_state(cfg, model)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # as the ranks run
-    want = engine.make_ddp_train_step(1.0, None)(state, engine.to_device(batch, "cpu"), LR)
-    torch.set_num_threads(threads)
+
+    def port_alone():
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # as the ranks run
+        metrics = engine.make_ddp_train_step(1.0, None)(state, engine.to_device(batch, "cpu"), LR)
+        torch.set_num_threads(threads)
+        return metrics
+
+    want_jax = _jax_step(variables, batch, 1, 2)
+    want = port_alone()
+    got = _ranks_result(tmp_path, ranks)
+    _check_against_jax(got, want_jax, 2e-3)
     params = dict(model.named_parameters())
     for k, v in want.items():
         assert abs(got["metrics"][k] - v) <= 1e-5 * max(1.0, abs(v)), (k, got["metrics"], want)

@@ -40,7 +40,8 @@ from mspi_tpu_torch.ops.kernels import layernorm as LN
 from mspi_tpu_torch.ops.kernels import ln_mlp as K2
 from mspi_tpu_torch.ops.kernels.layernorm import layernorm_tokens
 from mspi_tpu_torch.ops.kernels.ln_mlp import ln_mlp_prior_res
-from tests.torch_port_utils import SHALLOW_MVIT, cpu_share, load_port, seeded_variables, to_np
+from tests.torch_port_utils import (SHALLOW_MVIT, cpu_share, jit_fast, load_port, seeded_variables,
+                                    to_np)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
@@ -198,7 +199,7 @@ def test_av_model_with_serving_options_matches_jax(rng, monkeypatch):
     clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
     auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
     jax_model = JaxModel(cfg=jax_get_config("mvitv2s", cfg))
-    want, want_loss = jax.jit(jax_model.apply)(variables, jnp.asarray(clips),
+    want, want_loss = jit_fast(jax_model.apply, variables, jnp.asarray(clips),
                                                jnp.asarray(auds))
     jax.clear_caches()
     assert jax_calls == {"fused_ln_mlp_int8": 3, "fused_ln_mlp_t_res": 15, "fused_ln_t": 4}

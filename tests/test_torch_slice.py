@@ -26,7 +26,7 @@ from mspi_tpu_torch import inference
 from mspi_tpu_torch.config import get_config
 from mspi_tpu_torch.data import audio
 from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel, VisualSaliencyModel
-from tests.torch_port_utils import SHALLOW_MVIT, cpu_share, load_port, seeded_variables
+from tests.torch_port_utils import SHALLOW_MVIT, cpu_share, jit_fast, load_port, seeded_variables
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
@@ -42,7 +42,7 @@ def test_flagship_forward_matches_jax(rng, monkeypatch):
     shapes = jax.eval_shape(lambda: jax_model.init(
         jax.random.PRNGKey(0), jnp.zeros((1, 16, *RES, 3)), jnp.zeros((1, 257, 111, 1))))
     variables = seeded_variables(shapes, rng)
-    want, want_loss = jax.jit(jax_model.apply)(variables, jnp.asarray(clips),
+    want, want_loss = jit_fast(jax_model.apply, variables, jnp.asarray(clips),
                                                jnp.asarray(auds))
 
     port = load_port(AudioVisualSaliencyModel(get_config("mvitv2s", cfg), device="cpu"),
@@ -65,7 +65,7 @@ def test_visual_model_matches_jax(rng, monkeypatch):
     shapes = jax.eval_shape(lambda: jax_model.init(jax.random.PRNGKey(0),
                                                    jnp.zeros((1, 16, *RES, 3))))
     variables = seeded_variables(shapes, rng)
-    want, _ = jax.jit(jax_model.apply)(variables, jnp.asarray(clips))
+    want, _ = jit_fast(jax_model.apply, variables, jnp.asarray(clips))
 
     port = load_port(VisualSaliencyModel(get_config("mvitv2s", cfg), device="cpu"), variables)
     with torch.no_grad():

@@ -50,7 +50,7 @@ from mspi_tpu_torch.ops.kernels import ln_mlp as K2
 from mspi_tpu_torch.ops.kernels import pooled_attention as PA
 from mspi_tpu_torch.train import __main__ as train_cli
 from tests.torch_port_utils import (count_calls, cpu_share, jax_module_variables,  # noqa: F401
-                                    load_port, seeded_variables, to_np)
+                                    jit_fast, load_port, seeded_variables, to_np)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
@@ -97,7 +97,7 @@ def _check(jax_module, port, variables, x, train, tol):
             if not k.endswith("num_batches_tracked"):
                 np.testing.assert_allclose(sd[k].numpy(), v.numpy(), **tol, err_msg=k)
     else:
-        want = jax.jit(jax_module.apply)(variables, jx)
+        want = jit_fast(jax_module.apply, variables, jx)
         with torch.no_grad():
             got = port(tx)
     return got, want
@@ -234,7 +234,7 @@ def test_slowfast_av_model_matches_jax(rng, monkeypatch):
     variables = seeded_variables(convert_state_dict(port.state_dict()), rng)
     clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
     auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
-    want, want_loss = jax.jit(jax_model.apply)(variables, jnp.asarray(clips), jnp.asarray(auds))
+    want, want_loss = jit_fast(jax_model.apply, variables, jnp.asarray(clips), jnp.asarray(auds))
     calls = {}
     count_calls(((PA, "_self_attention_fwd"), (K2, "ln_mlp"), (fusion, "ln_mlp")), calls,
                 monkeypatch)

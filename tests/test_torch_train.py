@@ -12,7 +12,6 @@ import subprocess
 import sys
 from pathlib import Path
 
-import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +21,7 @@ import torch
 
 import mspi_tpu.models.mvit as jax_mvit
 from mspi_tpu.config import get_config as jax_get_config
+from mspi_tpu.convert import convert_state_dict
 from mspi_tpu.data import datasets as jax_datasets
 from mspi_tpu.data import loader as jax_loader
 from mspi_tpu.data import video as jax_video
@@ -38,11 +38,151 @@ from mspi_tpu_torch.ops import layers
 from mspi_tpu_torch.train import checkpoints, engine, loss, metrics
 from mspi_tpu_torch.train.synthetic import make_batch
 from tests.synthetic_data import build_avsp_tree
-from tests.torch_port_utils import (SHALLOW_MVIT, cpu_share, load_port, seeded_variables,
+from tests.torch_port_utils import (SHALLOW_MVIT, FixedDropPathJax, compile_fast, cpu_share,
+                                    fixed_drop_path_port, load_port, seeded_variables,
                                     xdist_thread_share)
 
 RES = (64, 96)
 TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def test_train_step_matches_jax(rng, monkeypatch):
+    """One port training step of the full-depth flagship at 64x96, batch 2,
+    fp32, against `jax.value_and_grad(_make_loss_fn(...))` plus the JAX
+    AdamW update, from one set of seeded variables; drop-path is made
+    deterministic on both sides. Then the port resumes from the JAX
+    TrainState after step 1 (parameters, batch statistics and the AdamW
+    moments converted) and its step 2 matches JAX's step 2.
+
+    Tolerances (fp32, CPU kernels of two frameworks summing in different
+    orders through 16 blocks and the decoder): loss and aux 1e-4 absolute,
+    grad norm 1e-3 relative, each gradient and each AdamW moment 2e-3 of
+    its own largest magnitude, BatchNorm statistics 1e-4 of theirs (with
+    the ReLU-boundary allowance of `_assert_leaves_close`)."""
+    monkeypatch.delenv("MSPI_PALLAS_INTERPRET", raising=False)
+    monkeypatch.setattr(jax_mvit, "DropPath", FixedDropPathJax)
+    monkeypatch.setattr(layers.DropPath, "forward", fixed_drop_path_port)
+    jcfg = jax_get_config("mvitv2s", overrides={"data": {"resolution": RES}})
+    jmodel = JaxModel(cfg=jcfg)
+    # the JAX variable tree from the port model's (the strict loads below
+    # hold the two trees leaf for leaf), which spares tracing JAX's init
+    cfg, model = _port_model()
+    variables = _np_tree(dict(seeded_variables(convert_state_dict(model.state_dict()), rng)))
+    batches = [_batch(rng) for _ in range(2)]
+    lr = 1e-4
+
+    # JAX: value_and_grad of the engine's loss plus make_train_step's update,
+    # in one program compiled once (lr is a float32 array so that step 2
+    # does not retrace)
+    tx = jax_engine.make_optimizer(jcfg)
+    grad_fn = jax.value_and_grad(jax_engine._make_loss_fn(jmodel, 1.0, True), has_aux=True)
+
+    @jax.jit
+    def jax_step(state, batch):
+        (_, (aux, new_bs)), grads = grad_fn(state.params, state.frozen, state.batch_stats,
+                                            batch, jax.random.PRNGKey(1))
+        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        aux = dict(aux, grad_norm=optax.global_norm(grads))
+        return aux, grads, state.replace(params=optax.apply_updates(state.params, updates),
+                                         opt_state=opt_state, batch_stats=new_bs)
+
+    def jax_run():
+        jstate = jax_engine.create_train_state(jcfg, variables, tx)
+        steps, compiled = [], None
+        for batch in batches:
+            jstate.opt_state.hyperparams["learning_rate"] = jnp.asarray(lr, jnp.float32)
+            jbatch = jax.tree.map(jnp.asarray, batch)
+            compiled = compiled or compile_fast(jax_step, jstate, jbatch)
+            aux, grads, jstate = compiled(jstate, jbatch)
+            aux = {k: float(v) for k, v in aux.items()}
+            steps.append((aux, _np_tree(grads), _np_tree(jstate.batch_stats), _np_tree(jstate)))
+        return steps
+
+    def check_metrics(got, want):
+        for k in ("kl", "cc", "sim", "loss_va", "loss"):
+            assert abs(got[k] - want[k]) <= 1e-4, (k, got[k], want[k])
+        assert abs(got["grad_norm"] - want["grad_norm"]) <= 1e-3 * want["grad_norm"]
+
+    def check_moments(state, jax_state):
+        adam = _adam(jax_state.opt_state)
+        want = adamw_state_dict_from_jax(adam.count, adam.mu, adam.nu, state.optimizer,
+                                         state.param_names)["state"]
+        got = state.optimizer.state_dict()["state"]
+        assert float(got[0]["step"]) == float(want[0]["step"])
+        for key in ("exp_avg", "exp_avg_sq"):
+            _assert_leaves_close({n: got[i][key] for i, n in enumerate(state.param_names)},
+                                 {n: want[i][key] for i, n in enumerate(state.param_names)},
+                                 2e-3, key)
+
+    jax_steps = jax_run()
+    jax.clear_caches()  # the compiled step is the largest thing this worker holds
+    step = engine.make_train_step(1.0)
+    port = load_port(model, variables)
+    state = engine.create_train_state(cfg, port)
+    got = step(state, engine.to_device(batches[0], "cpu"), lr)
+
+    # step 1 from the same variables
+    aux, grads, new_bs, jstate1 = jax_steps[0]
+    check_metrics(got, aux)
+    params = dict(port.named_parameters())
+    _assert_leaves_close({n: params[n].grad for n in state.param_names},
+                         dict(state_dict_from_jax({"params": grads})), 2e-3, "grad")
+    want_bs = {k: v for k, v in state_dict_from_jax({"batch_stats": new_bs}).items()
+               if not k.endswith("num_batches_tracked")}
+    _assert_leaves_close({k: port.state_dict()[k] for k in want_bs}, want_bs, 1e-4, "stats")
+    check_moments(state, jstate1)
+
+    # step 2, resumed from the converted JAX TrainState after step 1
+    _, model = _port_model(1)
+    port = load_port(model, {"params": {**jstate1.params, **jstate1.frozen},
+                             "batch_stats": jstate1.batch_stats})
+    state = engine.create_train_state(cfg, port)
+    adam = _adam(jstate1.opt_state)
+    state.optimizer.load_state_dict(adamw_state_dict_from_jax(
+        adam.count, adam.mu, adam.nu, state.optimizer, state.param_names))
+    aux, _, _, jstate2 = jax_steps[1]
+    check_metrics(step(state, engine.to_device(batches[1], "cpu"), lr), aux)
+    check_moments(state, jstate2)
+
+
+def test_train_cli_runs_on_cpu(tmp_path):
+    root = build_avsp_tree(str(tmp_path / "data"))
+    logs = tmp_path / "logs"
+    share = xdist_thread_share()  # see cpu_share
+    env = {**os.environ, **({"OMP_NUM_THREADS": str(share)} if share else {})}
+    subprocess.run([sys.executable, "-m", "mspi_tpu_torch.train", "--data_root", root,
+                    "--resolution", "64", "96", "--epochs", "1", "--monitored_epochs", "1",
+                    "--device", "cpu", "--num_workers", "2", "--log_dir", str(logs)],
+                   check=True, timeout=300, cwd=Path(__file__).resolve().parents[1],
+                   capture_output=True, env=env)
+    (run,) = logs.iterdir()
+    assert (run / "checkpoints" / "ckpt_1").exists()
+    (line,) = (run / "log" / "log.txt").read_text().splitlines()
+    assert "train_loss" in line and "val_cc" in line
+
+
+@pytest.mark.usefixtures("cpu_share")
+def test_checkpoint_save_restore_then_identical_step(rng, tmp_path):
+    """save after step 1, restore into a fresh model, step 2: bit-identical
+    to the uninterrupted run (parameters, BN statistics, AdamW state and
+    the drop-path generator all come back). The four-block MViT keeps the
+    three steps cheap; its blocks 1-3 draw drop-path."""
+    batches = [engine.to_device(_batch(rng), "cpu") for _ in range(2)]
+    step = engine.make_train_step(1.0)
+    cfg, model = _port_model(0, SHALLOW_MVIT)
+    state = engine.create_train_state(cfg, model)
+    step(state, batches[0], 1e-4)
+    path = checkpoints.save_checkpoint(str(tmp_path), state, 1)
+    assert checkpoints.latest_checkpoint(str(tmp_path)) == path
+    want = step(state, batches[1], 1e-4)
+
+    _, fresh = _port_model(1, SHALLOW_MVIT)
+    restored, epoch = checkpoints.restore_checkpoint(path, engine.create_train_state(cfg, fresh))
+    assert epoch == 1
+    got = step(restored, batches[1], 1e-4)
+    assert got == want
+    for (name, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("momentum,eps", [(0.1, 1e-5), (0.001, 1e-3)])
@@ -199,69 +339,6 @@ def _port_model(seed=0, mvit=None):
                                          generator=torch.Generator().manual_seed(seed))
 
 
-@pytest.mark.usefixtures("cpu_share")
-def test_checkpoint_save_restore_then_identical_step(rng, tmp_path):
-    """save after step 1, restore into a fresh model, step 2: bit-identical
-    to the uninterrupted run (parameters, BN statistics, AdamW state and
-    the drop-path generator all come back). The four-block MViT keeps the
-    three steps cheap; its blocks 1-3 draw drop-path."""
-    batches = [engine.to_device(_batch(rng), "cpu") for _ in range(2)]
-    step = engine.make_train_step(1.0)
-    cfg, model = _port_model(0, SHALLOW_MVIT)
-    state = engine.create_train_state(cfg, model)
-    step(state, batches[0], 1e-4)
-    path = checkpoints.save_checkpoint(str(tmp_path), state, 1)
-    assert checkpoints.latest_checkpoint(str(tmp_path)) == path
-    want = step(state, batches[1], 1e-4)
-
-    _, fresh = _port_model(1, SHALLOW_MVIT)
-    restored, epoch = checkpoints.restore_checkpoint(path, engine.create_train_state(cfg, fresh))
-    assert epoch == 1
-    got = step(restored, batches[1], 1e-4)
-    assert got == want
-    for (name, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
-        assert torch.equal(a, b), name
-
-
-def test_train_cli_runs_on_cpu(tmp_path):
-    root = build_avsp_tree(str(tmp_path / "data"))
-    logs = tmp_path / "logs"
-    share = xdist_thread_share()  # see cpu_share
-    env = {**os.environ, **({"OMP_NUM_THREADS": str(share)} if share else {})}
-    subprocess.run([sys.executable, "-m", "mspi_tpu_torch.train", "--data_root", root,
-                    "--resolution", "64", "96", "--epochs", "1", "--monitored_epochs", "1",
-                    "--device", "cpu", "--num_workers", "2", "--log_dir", str(logs)],
-                   check=True, timeout=300, cwd=Path(__file__).resolve().parents[1],
-                   capture_output=True, env=env)
-    (run,) = logs.iterdir()
-    assert (run / "checkpoints" / "ckpt_1").exists()
-    (line,) = (run / "log" / "log.txt").read_text().splitlines()
-    assert "train_loss" in line and "val_cc" in line
-
-
-class _FixedDropPathJax(fnn.Module):
-    """Drop-path with a fixed mask: in train mode, blocks with rate > 0.1
-    drop sample 1, every kept sample is scaled by 1 / (1 - rate)."""
-
-    rate: float = 0.0
-
-    @fnn.compact
-    def __call__(self, x, deterministic: bool = True):
-        if deterministic or self.rate == 0.0:
-            return x
-        mask = np.array([not (b == 1 and self.rate > 0.1) for b in range(x.shape[0])])
-        mask = mask.reshape((-1,) + (1,) * (x.ndim - 1))
-        return jnp.where(mask, x / (1.0 - self.rate), jnp.zeros_like(x))
-
-
-def _fixed_drop_path_port(self, x):
-    if not self.training or self.rate == 0.0:
-        return x
-    mask = torch.tensor([not (b == 1 and self.rate > 0.1) for b in range(x.shape[0])])
-    mask = mask.view(-1, *([1] * (x.dim() - 1)))
-    return torch.where(mask, x / (1.0 - self.rate), torch.zeros_like(x))
-
-
 def _adam(opt_state):
     (adam,) = [s for s in jax.tree.leaves(opt_state, is_leaf=lambda s: hasattr(s, "mu"))
                if hasattr(s, "mu")]
@@ -297,96 +374,3 @@ def _assert_leaves_close(got: dict, want: dict, rel: float, what: str):
         if bad.any():
             assert np.linalg.norm(g - w) <= max(5e-2 * np.linalg.norm(w), 10 * floor), \
                 f"{what} {name}"
-
-
-def test_train_step_matches_jax(rng, monkeypatch):
-    """One port training step of the full-depth flagship at 64x96, batch 2,
-    fp32, against `jax.value_and_grad(_make_loss_fn(...))` plus the JAX
-    AdamW update, from one set of seeded variables; drop-path is made
-    deterministic on both sides. Then the port resumes from the JAX
-    TrainState after step 1 (parameters, batch statistics and the AdamW
-    moments converted) and its step 2 matches JAX's step 2.
-
-    Tolerances (fp32, CPU kernels of two frameworks summing in different
-    orders through 16 blocks and the decoder): loss and aux 1e-4 absolute,
-    grad norm 1e-3 relative, each gradient and each AdamW moment 2e-3 of
-    its own largest magnitude, BatchNorm statistics 1e-4 of theirs (with
-    the ReLU-boundary allowance of `_assert_leaves_close`)."""
-    monkeypatch.delenv("MSPI_PALLAS_INTERPRET", raising=False)
-    monkeypatch.setattr(jax_mvit, "DropPath", _FixedDropPathJax)
-    monkeypatch.setattr(layers.DropPath, "forward", _fixed_drop_path_port)
-    jcfg = jax_get_config("mvitv2s", overrides={"data": {"resolution": RES}})
-    jmodel = JaxModel(cfg=jcfg)
-    shapes = jax.eval_shape(lambda: jmodel.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 16, *RES, 3)), jnp.zeros((1, 257, 111, 1))))
-    variables = _np_tree(dict(seeded_variables(shapes, rng)))
-    batches = [_batch(rng) for _ in range(2)]
-    lr = 1e-4
-
-    # JAX: value_and_grad of the engine's loss plus make_train_step's update,
-    # in one program compiled once (lr is a float32 array so that step 2
-    # does not retrace)
-    tx = jax_engine.make_optimizer(jcfg)
-    grad_fn = jax.value_and_grad(jax_engine._make_loss_fn(jmodel, 1.0, True), has_aux=True)
-
-    @jax.jit
-    def jax_step(state, batch):
-        (_, (aux, new_bs)), grads = grad_fn(state.params, state.frozen, state.batch_stats,
-                                            batch, jax.random.PRNGKey(1))
-        updates, opt_state = tx.update(grads, state.opt_state, state.params)
-        aux = dict(aux, grad_norm=optax.global_norm(grads))
-        return aux, grads, state.replace(params=optax.apply_updates(state.params, updates),
-                                         opt_state=opt_state, batch_stats=new_bs)
-
-    jstate = jax_engine.create_train_state(jcfg, variables, tx)
-    jax_steps = []
-    for batch in batches:
-        jstate.opt_state.hyperparams["learning_rate"] = jnp.asarray(lr, jnp.float32)
-        aux, grads, jstate = jax_step(jstate, jax.tree.map(jnp.asarray, batch))
-        aux = {k: float(v) for k, v in aux.items()}
-        jax_steps.append((aux, _np_tree(grads), _np_tree(jstate.batch_stats), _np_tree(jstate)))
-    jax.clear_caches()  # the compiled step is the largest thing this worker holds
-
-    def check_metrics(got, want):
-        for k in ("kl", "cc", "sim", "loss_va", "loss"):
-            assert abs(got[k] - want[k]) <= 1e-4, (k, got[k], want[k])
-        assert abs(got["grad_norm"] - want["grad_norm"]) <= 1e-3 * want["grad_norm"]
-
-    def check_moments(state, jax_state):
-        adam = _adam(jax_state.opt_state)
-        want = adamw_state_dict_from_jax(adam.count, adam.mu, adam.nu, state.optimizer,
-                                         state.param_names)["state"]
-        got = state.optimizer.state_dict()["state"]
-        assert float(got[0]["step"]) == float(want[0]["step"])
-        for key in ("exp_avg", "exp_avg_sq"):
-            _assert_leaves_close({n: got[i][key] for i, n in enumerate(state.param_names)},
-                                 {n: want[i][key] for i, n in enumerate(state.param_names)},
-                                 2e-3, key)
-
-    step = engine.make_train_step(1.0)
-    cfg, model = _port_model()
-    port = load_port(model, variables)
-    state = engine.create_train_state(cfg, port)
-
-    # step 1 from the same variables
-    aux, grads, new_bs, jstate1 = jax_steps[0]
-    check_metrics(step(state, engine.to_device(batches[0], "cpu"), lr), aux)
-    params = dict(port.named_parameters())
-    _assert_leaves_close({n: params[n].grad for n in state.param_names},
-                         dict(state_dict_from_jax({"params": grads})), 2e-3, "grad")
-    want_bs = {k: v for k, v in state_dict_from_jax({"batch_stats": new_bs}).items()
-               if not k.endswith("num_batches_tracked")}
-    _assert_leaves_close({k: port.state_dict()[k] for k in want_bs}, want_bs, 1e-4, "stats")
-    check_moments(state, jstate1)
-
-    # step 2, resumed from the converted JAX TrainState after step 1
-    _, model = _port_model(1)
-    port = load_port(model, {"params": {**jstate1.params, **jstate1.frozen},
-                             "batch_stats": jstate1.batch_stats})
-    state = engine.create_train_state(cfg, port)
-    adam = _adam(jstate1.opt_state)
-    state.optimizer.load_state_dict(adamw_state_dict_from_jax(
-        adam.count, adam.mu, adam.nu, state.optimizer, state.param_names))
-    aux, _, _, jstate2 = jax_steps[1]
-    check_metrics(step(state, engine.to_device(batches[1], "cpu"), lr), aux)
-    check_moments(state, jstate2)

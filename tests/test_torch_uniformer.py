@@ -48,8 +48,8 @@ from mspi_tpu_torch.ops.kernels import pooled_attention as PA
 from mspi_tpu_torch.train import engine
 from mspi_tpu_torch.train.__main__ import parse_args as train_parse_args
 from mspi_tpu_torch.train.synthetic import make_batch
-from tests.torch_port_utils import (count_calls, cpu_share, jax_module_variables, load_port,
-                                    seeded_variables, to_np)
+from tests.torch_port_utils import (compile_fast, count_calls, cpu_share, jax_module_variables,
+                                    jit_fast, load_port, seeded_variables, to_np)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
@@ -74,6 +74,114 @@ def no_launches():
 def free_jax_programs():
     yield
     jax.clear_caches()
+
+
+def test_uniformer_train_step_matches_jax(rng, monkeypatch):
+    """One fp32 training step of the one-block-a-stage uniformerb model at
+    64x96, batch 2 (train-mode BatchNorm in the CBlocks, drop-path made
+    deterministic on both sides), against `jax.value_and_grad` of the JAX
+    engine's loss from the same variables: loss and aux within 1e-4, the
+    gradient norm within 1e-3 relative and the cosine of the whole gradient
+    vectors >= 0.9999; each backbone gradient (`visnet.*`, this slice's
+    parameters) within 2e-3 of its own largest magnitude and the backbone's
+    BatchNorm statistics within 1e-4 of theirs (the ReLU-boundary allowance
+    of `test_torch_train`). The shared decoder is held leaf by leaf in
+    `test_torch_train.test_train_step_matches_jax`: at this seed the
+    adapter's train-mode BatchNorms over the frozen prior's features amplify
+    the two frameworks' rounding in a few of its leaves (branch1's conv_t
+    weight to 13% of its scale), which its whole-vector cosine here still
+    bounds."""
+    from tests.test_torch_train import _assert_leaves_close
+
+    monkeypatch.delenv("MSPI_PALLAS_INTERPRET", raising=False)
+    monkeypatch.setattr(jax_uni, "DropPath", _FixedDropPathJax)
+    monkeypatch.setattr(layers.DropPath, "forward", _fixed_drop_path_port)
+    cfg, port, variables = _port_av(rng)
+    jcfg = jax_get_config("uniformerb", overrides={"data": {"resolution": RES}, "model": SHALLOW})
+    jmodel = JaxModel(cfg=jcfg)
+    batch = make_batch(rng, 2, 16, RES, (257, 111))
+    batch["clips"] = (batch["clips"] * 255).astype(np.uint8)
+    params = {k: v for k, v in variables["params"].items()
+              if k not in jax_engine.FROZEN_TOPLEVEL}
+    frozen = {k: v for k, v in variables["params"].items() if k in jax_engine.FROZEN_TOPLEVEL}
+    grad_fn = jax.value_and_grad(jax_engine._make_loss_fn(jmodel, 1.0, True), has_aux=True)
+    args = (params, frozen, variables["batch_stats"], jax.tree.map(jnp.asarray, batch),
+            jax.random.PRNGKey(1))
+
+    def jax_run():
+        def with_norm(*a):
+            out, grads = grad_fn(*a)
+            return out, grads, jnp.sqrt(sum(jnp.sum(g * g) for g in jax.tree.leaves(grads)))
+
+        (_, (aux, new_bs)), grads, grad_norm = compile_fast(jax.jit(with_norm), *args)(*args)
+        return ({k: float(v) for k, v in aux.items()}, float(grad_norm),
+                jax.tree.map(np.asarray, grads), jax.tree.map(np.asarray, new_bs))
+
+    aux, grad_norm, grads, new_bs = jax_run()
+    jax.clear_caches()
+    load_port(port, variables)
+    state = engine.create_train_state(cfg, port)
+    got = engine.make_train_step(1.0)(state, engine.to_device(batch, "cpu"), 1e-4)
+    for k in ("kl", "cc", "sim", "loss_va", "loss"):
+        assert abs(got[k] - aux[k]) <= 1e-4, (k, got[k], aux[k])
+    assert abs(got["grad_norm"] - grad_norm) <= 1e-3 * grad_norm
+    named = dict(port.named_parameters())
+    want_grads = dict(state_dict_from_jax({"params": grads}))
+    assert set(want_grads) == set(state.param_names)
+    a, b = (torch.cat([t.double().flatten() for t in ts]) for ts in (
+        [named[n].grad for n in state.param_names], [want_grads[n] for n in state.param_names]))
+    assert float(a @ b / (a.norm() * b.norm())) >= 0.9999
+    backbone = [n for n in state.param_names if n.startswith("visnet.")]
+    _assert_leaves_close({n: named[n].grad for n in backbone},
+                         {n: want_grads[n] for n in backbone}, 2e-3, "grad")
+    want_bs = {k: v for k, v in state_dict_from_jax({"batch_stats": new_bs}).items()
+               if k.startswith("visnet.") and not k.endswith("num_batches_tracked")}
+    assert any(k.startswith("visnet.blocks1") for k in want_bs)  # the CBlocks' statistics
+    _assert_leaves_close({k: port.state_dict()[k] for k in want_bs}, want_bs, 1e-4, "stats")
+
+
+def test_uniformer_int8_av_model_matches_jax(rng, monkeypatch):
+    """The uniformerb AudioVisualSaliencyModel (one block a stage, one
+    SyncBlock block) at 64x96, batch 1, with quant="int8", against JAX under
+    MSPI_QUANT=int8 with every Pallas kernel in interpret mode.
+
+    Routing: both sides send the stage-3 SABlock (C = 320), the stage-4 one
+    (C = 512) and the SyncBlock block to the int8 kernel, 3 calls; the
+    decoder's LN+MLPs stay on K2. The map is held as the MViT int8 model is
+    (`tests/test_torch_prior_options.py`): the port's int8 map lies closer to
+    JAX's int8 map than to its own float map, CC 0.9999 against JAX's, the
+    loss within 1e-3."""
+    monkeypatch.setenv("MSPI_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("MSPI_QUANT", "int8")
+    jax_calls, port_calls = {}, {}
+    count_calls(((jax_mlp, "fused_ln_mlp_int8"),), jax_calls, monkeypatch)
+    count_calls(((K2, "ln_mlp_int8_reference"),), port_calls, monkeypatch)
+    model = {**SHALLOW, "sync_num_blocks": 1, "simsiam_hidden": 128}
+    cfg, port, variables = _port_av(rng, {**model, "quant": "int8"})
+    _, flt_port, _ = _port_av(rng, model)
+    assert sum(hasattr(m, "int8_w1q") for m in port.modules()) == 3
+    jax_model = JaxModel(cfg=jax_get_config("uniformerb", overrides={
+        "data": {"resolution": RES}, "model": model}))
+    clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
+    auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
+    want, want_loss = jit_fast(jax_model.apply, variables, jnp.asarray(clips), jnp.asarray(auds))
+    jax.clear_caches()
+    assert jax_calls == {"fused_ln_mlp_int8": 3}
+    load_port(port, variables)
+    load_port(flt_port, variables)
+    with torch.no_grad():
+        got, got_loss = port(torch.from_numpy(clips), torch.from_numpy(auds))
+        assert port_calls == {"ln_mlp_int8_reference": 3}
+        flt, _ = flt_port(torch.from_numpy(clips), torch.from_numpy(auds))
+    assert got.shape == (1, *RES)
+    want = np.asarray(want, np.float64)
+    got, flt = got.double().numpy(), flt.double().numpy()
+
+    def rms(a):  # log-densities: about their means
+        return np.sqrt(np.mean((a - a.mean()) ** 2))
+    assert rms(got - want) <= rms(got - flt)
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] >= 0.9999
+    assert abs(float(got_loss) - float(want_loss)) < 1e-3
 
 
 def test_k4_head_dim_64_matches_pallas(rng):
@@ -154,7 +262,8 @@ def test_uniformer_features_match_flax(rng, monkeypatch, split):
     port_calls, jax_calls = {}, {}
     count_calls(PORT_FNS, port_calls, monkeypatch)
     count_calls(JAX_FNS, jax_calls, monkeypatch)
-    want = jax_model.apply(variables, jnp.asarray(x))
+    want = jit_fast(jax_model.apply, variables, jnp.asarray(x))  # counted as it traces
+    jax.clear_caches()
     load_port(port, variables)
     with torch.no_grad():
         got = port(torch.from_numpy(x))
@@ -183,7 +292,7 @@ def test_uniformer_av_model_matches_jax(rng, monkeypatch):
         "data": {"resolution": RES}, "model": SHALLOW}))
     clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
     auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
-    want, want_loss = jax.jit(jax_model.apply)(variables, jnp.asarray(clips), jnp.asarray(auds))
+    want, want_loss = jit_fast(jax_model.apply, variables, jnp.asarray(clips), jnp.asarray(auds))
     jax.clear_caches()
     load_port(port, variables)
     with torch.no_grad():
@@ -217,65 +326,6 @@ def _fixed_drop_path_port(self, x):
     return torch.where(mask, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
-def test_uniformer_train_step_matches_jax(rng, monkeypatch):
-    """One fp32 training step of the one-block-a-stage uniformerb model at
-    64x96, batch 2 (train-mode BatchNorm in the CBlocks, drop-path made
-    deterministic on both sides), against `jax.value_and_grad` of the JAX
-    engine's loss from the same variables: loss and aux within 1e-4, the
-    gradient norm within 1e-3 relative and the cosine of the whole gradient
-    vectors >= 0.9999; each backbone gradient (`visnet.*`, this slice's
-    parameters) within 2e-3 of its own largest magnitude and the backbone's
-    BatchNorm statistics within 1e-4 of theirs (the ReLU-boundary allowance
-    of `test_torch_train`). The shared decoder is held leaf by leaf in
-    `test_torch_train.test_train_step_matches_jax`: at this seed the
-    adapter's train-mode BatchNorms over the frozen prior's features amplify
-    the two frameworks' rounding in a few of its leaves (branch1's conv_t
-    weight to 13% of its scale), which its whole-vector cosine here still
-    bounds."""
-    from tests.test_torch_train import _assert_leaves_close
-
-    monkeypatch.delenv("MSPI_PALLAS_INTERPRET", raising=False)
-    monkeypatch.setattr(jax_uni, "DropPath", _FixedDropPathJax)
-    monkeypatch.setattr(layers.DropPath, "forward", _fixed_drop_path_port)
-    cfg, port, variables = _port_av(rng)
-    jcfg = jax_get_config("uniformerb", overrides={"data": {"resolution": RES}, "model": SHALLOW})
-    jmodel = JaxModel(cfg=jcfg)
-    batch = make_batch(rng, 2, 16, RES, (257, 111))
-    batch["clips"] = (batch["clips"] * 255).astype(np.uint8)
-    params = {k: v for k, v in variables["params"].items()
-              if k not in jax_engine.FROZEN_TOPLEVEL}
-    frozen = {k: v for k, v in variables["params"].items() if k in jax_engine.FROZEN_TOPLEVEL}
-    grad_fn = jax.value_and_grad(jax_engine._make_loss_fn(jmodel, 1.0, True), has_aux=True)
-    (_, (aux, new_bs)), grads = jax.jit(grad_fn)(
-        params, frozen, variables["batch_stats"], jax.tree.map(jnp.asarray, batch),
-        jax.random.PRNGKey(1))
-    aux = {k: float(v) for k, v in aux.items()}
-    grad_norm = float(jnp.sqrt(sum(jnp.sum(g * g) for g in jax.tree.leaves(grads))))
-    grads = jax.tree.map(np.asarray, grads)
-    new_bs = jax.tree.map(np.asarray, new_bs)
-    jax.clear_caches()
-
-    load_port(port, variables)
-    state = engine.create_train_state(cfg, port)
-    got = engine.make_train_step(1.0)(state, engine.to_device(batch, "cpu"), 1e-4)
-    for k in ("kl", "cc", "sim", "loss_va", "loss"):
-        assert abs(got[k] - aux[k]) <= 1e-4, (k, got[k], aux[k])
-    assert abs(got["grad_norm"] - grad_norm) <= 1e-3 * grad_norm
-    named = dict(port.named_parameters())
-    want_grads = dict(state_dict_from_jax({"params": grads}))
-    assert set(want_grads) == set(state.param_names)
-    a, b = (torch.cat([t.double().flatten() for t in ts]) for ts in (
-        [named[n].grad for n in state.param_names], [want_grads[n] for n in state.param_names]))
-    assert float(a @ b / (a.norm() * b.norm())) >= 0.9999
-    backbone = [n for n in state.param_names if n.startswith("visnet.")]
-    _assert_leaves_close({n: named[n].grad for n in backbone},
-                         {n: want_grads[n] for n in backbone}, 2e-3, "grad")
-    want_bs = {k: v for k, v in state_dict_from_jax({"batch_stats": new_bs}).items()
-               if k.startswith("visnet.") and not k.endswith("num_batches_tracked")}
-    assert any(k.startswith("visnet.blocks1") for k in want_bs)  # the CBlocks' statistics
-    _assert_leaves_close({k: port.state_dict()[k] for k in want_bs}, want_bs, 1e-4, "stats")
-
-
 def test_uniformer_config_matches_jax():
     """The motion-encoder tables, the backbone config and the SyncBlock's
     token count against `mspi_tpu.config`."""
@@ -303,50 +353,6 @@ def test_uniformer_int8_taken_at_config():
         ["--motion_encoder", "uniformerb", "--quant", "int8"]))
     assert (cfg.model.motion_encoder, cfg.model.quant) == ("uniformerb", "int8")
     assert get_config("s3d", {"model": {"quant": "int8"}}).model.quant == "int8"
-
-
-def test_uniformer_int8_av_model_matches_jax(rng, monkeypatch):
-    """The uniformerb AudioVisualSaliencyModel (one block a stage, one
-    SyncBlock block) at 64x96, batch 1, with quant="int8", against JAX under
-    MSPI_QUANT=int8 with every Pallas kernel in interpret mode.
-
-    Routing: both sides send the stage-3 SABlock (C = 320), the stage-4 one
-    (C = 512) and the SyncBlock block to the int8 kernel, 3 calls; the
-    decoder's LN+MLPs stay on K2. The map is held as the MViT int8 model is
-    (`tests/test_torch_prior_options.py`): the port's int8 map lies closer to
-    JAX's int8 map than to its own float map, CC 0.9999 against JAX's, the
-    loss within 1e-3."""
-    monkeypatch.setenv("MSPI_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("MSPI_QUANT", "int8")
-    jax_calls, port_calls = {}, {}
-    count_calls(((jax_mlp, "fused_ln_mlp_int8"),), jax_calls, monkeypatch)
-    count_calls(((K2, "ln_mlp_int8_reference"),), port_calls, monkeypatch)
-    model = {**SHALLOW, "sync_num_blocks": 1, "simsiam_hidden": 128}
-    cfg, port, variables = _port_av(rng, {**model, "quant": "int8"})
-    _, flt_port, _ = _port_av(rng, model)
-    assert sum(hasattr(m, "int8_w1q") for m in port.modules()) == 3
-    jax_model = JaxModel(cfg=jax_get_config("uniformerb", overrides={
-        "data": {"resolution": RES}, "model": model}))
-    clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
-    auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
-    want, want_loss = jax.jit(jax_model.apply)(variables, jnp.asarray(clips), jnp.asarray(auds))
-    jax.clear_caches()
-    assert jax_calls == {"fused_ln_mlp_int8": 3}
-    load_port(port, variables)
-    load_port(flt_port, variables)
-    with torch.no_grad():
-        got, got_loss = port(torch.from_numpy(clips), torch.from_numpy(auds))
-        assert port_calls == {"ln_mlp_int8_reference": 3}
-        flt, _ = flt_port(torch.from_numpy(clips), torch.from_numpy(auds))
-    assert got.shape == (1, *RES)
-    want = np.asarray(want, np.float64)
-    got, flt = got.double().numpy(), flt.double().numpy()
-
-    def rms(a):  # log-densities: about their means
-        return np.sqrt(np.mean((a - a.mean()) ** 2))
-    assert rms(got - want) <= rms(got - flt)
-    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] >= 0.9999
-    assert abs(float(got_loss) - float(want_loss)) < 1e-3
 
 
 def test_clis_take_uniformerb():

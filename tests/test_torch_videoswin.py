@@ -36,13 +36,39 @@ from mspi_tpu_torch.convert import state_dict_from_jax
 from mspi_tpu_torch.models import videoswin
 from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
 from mspi_tpu_torch.train.checkpoints import load_pretrained_encoders
-from tests.torch_port_utils import (cpu_share, jax_module_variables, load_port,
+from tests.torch_port_utils import (cpu_share, jax_module_variables, jit_fast, load_port,
                                     seeded_variables, to_np)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
 RES = (64, 96)
 TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def test_videoswin_av_model_matches_jax(rng, monkeypatch):
+    """The whole videoswins AudioVisualSaliencyModel at 64x96, batch 1,
+    uint8 clips, with a (2,2,2,2)-deep backbone (the full depth is held to
+    flax above; JAX's compile of the whole model grows with it);
+    tolerances as the MViT flagship's (atol 5e-4, rtol 1e-3). The variable
+    tree comes from the port's state_dict through the JAX package's
+    converter (flax's init trace of the whole model takes longer than the
+    comparison itself)."""
+    monkeypatch.delenv("MSPI_PALLAS_INTERPRET", raising=False)
+    cfg = {"data": {"resolution": RES}, "model": {"videoswin": {"depths": (2, 2, 2, 2)}}}
+    jax_model = JaxModel(cfg=jax_get_config("videoswins", overrides=cfg))
+    port = AudioVisualSaliencyModel(get_config("videoswins", cfg), device="cpu")
+    variables = seeded_variables(convert_state_dict(port.state_dict()), rng)
+    clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
+    auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
+    want, want_loss = jit_fast(jax_model.apply, variables, jnp.asarray(clips),
+                                               jnp.asarray(auds))
+    jax.clear_caches()
+    load_port(port, variables)
+    with torch.no_grad():
+        got, got_loss = port(torch.from_numpy(clips), torch.from_numpy(auds))
+    assert got.shape == (1, *RES) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4, rtol=1e-3)
+    assert abs(float(got_loss) - float(want_loss)) < 1e-4
 
 
 def test_window_attention_module_matches_flax(rng, monkeypatch):
@@ -55,7 +81,8 @@ def test_window_attention_module_matches_flax(rng, monkeypatch):
     variables = jax_module_variables(jax_attn, rng, jnp.asarray(x))
     port = load_port(videoswin.WindowAttention3D(64, window, heads), variables)
     for m in (None, mask):
-        want = jax_attn.apply(variables, jnp.asarray(x), None if m is None else jnp.asarray(m))
+        want = jit_fast(jax_attn.apply, variables, jnp.asarray(x),
+                        None if m is None else jnp.asarray(m))
         with torch.no_grad():
             got = port(torch.from_numpy(x), None if m is None else torch.from_numpy(m))
         np.testing.assert_allclose(to_np(got), np.asarray(want), **TOL)
@@ -73,7 +100,7 @@ def test_swin_block_matches_flax(rng, monkeypatch, shift):
     jax_block = jax_swin.SwinTransformerBlock3D(dim=64, num_heads=2, window_size=window,
                                                 shift_size=shift)
     variables = jax_module_variables(jax_block, rng, jnp.asarray(x), jnp.asarray(mask))
-    want = jax_block.apply(variables, jnp.asarray(x), jnp.asarray(mask))
+    want = jit_fast(jax_block.apply, variables, jnp.asarray(x), jnp.asarray(mask))
     port = load_port(videoswin.SwinTransformerBlock3D(64, 2, window, shift), variables)
     with torch.no_grad():
         got = port(torch.from_numpy(x), torch.from_numpy(mask))
@@ -96,7 +123,7 @@ def test_videoswin_features_match_flax(rng, monkeypatch):
     jax_model, port = _backbone((2, 2, 18, 2))
     x = rng.standard_normal((1, 16, *RES, 3)).astype(np.float32)
     variables = seeded_variables(convert_state_dict(port.state_dict()), rng)
-    want = jax.jit(jax_model.apply)(variables, jnp.asarray(x))
+    want = jit_fast(jax_model.apply, variables, jnp.asarray(x))
     load_port(port, variables)
     with torch.no_grad():
         got = port(torch.from_numpy(x))
@@ -145,32 +172,6 @@ def test_videoswin_grads_match_jax(shallow_backbone, monkeypatch, sep_dtable):
         w = want[name].numpy()
         np.testing.assert_allclose(p.grad.numpy(), w, rtol=0, atol=1e-4 * np.abs(w).max(),
                                    err_msg=name)
-
-
-def test_videoswin_av_model_matches_jax(rng, monkeypatch):
-    """The whole videoswins AudioVisualSaliencyModel at 64x96, batch 1,
-    uint8 clips, with a (2,2,2,2)-deep backbone (the full depth is held to
-    flax above; JAX's compile of the whole model grows with it);
-    tolerances as the MViT flagship's (atol 5e-4, rtol 1e-3). The variable
-    tree comes from the port's state_dict through the JAX package's
-    converter (flax's init trace of the whole model takes longer than the
-    comparison itself)."""
-    monkeypatch.delenv("MSPI_PALLAS_INTERPRET", raising=False)
-    cfg = {"data": {"resolution": RES}, "model": {"videoswin": {"depths": (2, 2, 2, 2)}}}
-    jax_model = JaxModel(cfg=jax_get_config("videoswins", overrides=cfg))
-    port = AudioVisualSaliencyModel(get_config("videoswins", cfg), device="cpu")
-    variables = seeded_variables(convert_state_dict(port.state_dict()), rng)
-    clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
-    auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
-    want, want_loss = jax.jit(jax_model.apply)(variables, jnp.asarray(clips),
-                                               jnp.asarray(auds))
-    jax.clear_caches()
-    load_port(port, variables)
-    with torch.no_grad():
-        got, got_loss = port(torch.from_numpy(clips), torch.from_numpy(auds))
-    assert got.shape == (1, *RES) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4, rtol=1e-3)
-    assert abs(float(got_loss) - float(want_loss)) < 1e-4
 
 
 def test_videoswins_config_matches_jax():

@@ -21,6 +21,7 @@ the whole-model one is the flagship's (`tests/test_torch_slice.py`: atol
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +45,7 @@ from mspi_tpu_torch.ops.kernels import ln_mlp as K2
 from mspi_tpu_torch.ops.kernels import pooled_attention as PA
 from mspi_tpu_torch.train import __main__ as train_cli
 from tests.torch_port_utils import (count_calls, cpu_share, jax_module_variables,  # noqa: F401
-                                    load_port, seeded_variables, to_np)
+                                    jit_fast, load_port, seeded_variables, to_np)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
@@ -75,11 +76,11 @@ def _leaves(tree, prefix=()):
 
 
 def _check(jax_module, port, variables, x, train, tol):
-    """The port against the flax module on x; in train mode also every
+    """The port against the flax module (jitted) on x; in train mode also every
     BatchNorm's running statistics after the call."""
     if train:
-        want, upd = jax_module.apply(variables, jnp.asarray(x), train=True,
-                                     mutable=["batch_stats"])
+        want, upd = jax.jit(functools.partial(jax_module.apply, train=True,
+                                              mutable=["batch_stats"]))(variables, jnp.asarray(x))
         port.train()
         got = port(torch.from_numpy(x))
         stats = state_dict_from_jax({"batch_stats": upd["batch_stats"]})
@@ -88,10 +89,35 @@ def _check(jax_module, port, variables, x, train, tol):
             if not k.endswith("num_batches_tracked"):
                 np.testing.assert_allclose(sd[k].numpy(), v.numpy(), **TOL, err_msg=k)
     else:
-        want = jax_module.apply(variables, jnp.asarray(x))
+        want = jit_fast(jax_module.apply, variables, jnp.asarray(x))
         with torch.no_grad():
             got = port(torch.from_numpy(x))
     return got, want
+
+
+def test_x3d_av_model_matches_jax(rng, monkeypatch):
+    """The x3dl AudioVisualSaliencyModel (depth_factor 0.4) at 64x96, batch
+    1, uint8 clips, JAX on its plain path; the SyncBlock's 3 K4 and 3 K2
+    calls and the decoder's 4 K2 calls on the port's side. atol 5e-4, rtol
+    1e-3 on the log-density map, 1e-4 on the loss."""
+    monkeypatch.delenv("MSPI_PALLAS_INTERPRET", raising=False)
+    overrides = {"data": {"resolution": RES}, "model": {"x3d": SMALL}}
+    port = AudioVisualSaliencyModel(get_config("x3dl", overrides), device="cpu")
+    jax_model = JaxModel(cfg=jax_get_config("x3dl", overrides=overrides))
+    variables = seeded_variables(convert_state_dict(port.state_dict()), rng)
+    clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
+    auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
+    want, want_loss = jit_fast(jax_model.apply, variables, jnp.asarray(clips), jnp.asarray(auds))
+    calls = {}
+    count_calls(((PA, "_self_attention_fwd"), (K2, "ln_mlp"), (fusion, "ln_mlp")), calls,
+                monkeypatch)
+    load_port(port, variables)
+    with torch.no_grad():
+        got, got_loss = port(torch.from_numpy(clips), torch.from_numpy(auds))
+    assert calls == {"_self_attention_fwd": 3, "ln_mlp": 3 + 4}
+    assert got.shape == (1, *RES) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4, rtol=1e-3)
+    assert abs(float(got_loss) - float(want_loss)) < 1e-4
 
 
 @pytest.mark.parametrize("train", [False, True])
@@ -143,31 +169,6 @@ def test_x3d_features_match_flax(rng, train):
     for g, w, c, s in zip(got, want, (24, 48, 96, 192), (4, 8, 16, 32)):
         assert tuple(g.shape) == tuple(w.shape) == (1, 16, RES[0] // s, RES[1] // s, c)
         np.testing.assert_allclose(to_np(g), np.asarray(w), atol=2e-4, rtol=1e-3)
-
-
-def test_x3d_av_model_matches_jax(rng, monkeypatch):
-    """The x3dl AudioVisualSaliencyModel (depth_factor 0.4) at 64x96, batch
-    1, uint8 clips, JAX on its plain path; the SyncBlock's 3 K4 and 3 K2
-    calls and the decoder's 4 K2 calls on the port's side. atol 5e-4, rtol
-    1e-3 on the log-density map, 1e-4 on the loss."""
-    monkeypatch.delenv("MSPI_PALLAS_INTERPRET", raising=False)
-    overrides = {"data": {"resolution": RES}, "model": {"x3d": SMALL}}
-    port = AudioVisualSaliencyModel(get_config("x3dl", overrides), device="cpu")
-    jax_model = JaxModel(cfg=jax_get_config("x3dl", overrides=overrides))
-    variables = seeded_variables(convert_state_dict(port.state_dict()), rng)
-    clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
-    auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
-    want, want_loss = jax.jit(jax_model.apply)(variables, jnp.asarray(clips), jnp.asarray(auds))
-    calls = {}
-    count_calls(((PA, "_self_attention_fwd"), (K2, "ln_mlp"), (fusion, "ln_mlp")), calls,
-                monkeypatch)
-    load_port(port, variables)
-    with torch.no_grad():
-        got, got_loss = port(torch.from_numpy(clips), torch.from_numpy(auds))
-    assert calls == {"_self_attention_fwd": 3, "ln_mlp": 3 + 4}
-    assert got.shape == (1, *RES) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4, rtol=1e-3)
-    assert abs(float(got_loss) - float(want_loss)) < 1e-4
 
 
 def test_x3d_config_matches_jax():

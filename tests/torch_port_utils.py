@@ -4,12 +4,14 @@ modules."""
 
 import os
 
+import flax.linen as fnn
 import jax
 import numpy as np
 import pytest
 import torch
 
 from mspi_tpu_torch.convert import state_dict_from_jax
+from tests.torch_dist_worker import fixed_drop_path as fixed_drop_path_port  # noqa: F401
 
 
 def _leaf(rng, path, shape):
@@ -100,3 +102,43 @@ SHALLOW_MVIT = {"depth": 4, "dim_mul": ((1, 2.0), (2, 2.0), (3, 2.0)),
                 "head_mul": ((1, 2.0), (2, 2.0), (3, 2.0)),
                 "pool_q_stride": ((0, 1, 1, 1), (1, 1, 2, 2), (2, 1, 2, 2), (3, 1, 2, 2)),
                 "out_indices": (0, 1, 2, 3)}
+
+
+class FixedDropPathJax(fnn.Module):
+    """Drop-path with a fixed mask, for a step compared across the two
+    frameworks: in train mode, blocks with rate > 0.1 drop sample 1 and
+    every kept sample is scaled by 1 / (1 - rate). Patch it over
+    `mspi_tpu.models.mvit.DropPath`, and `fixed_drop_path_port` (the same
+    masks, `tests.torch_dist_worker.fixed_drop_path`) over the port's
+    `DropPath.forward`."""
+
+    rate: float = 0.0
+
+    @fnn.compact
+    def __call__(self, x, deterministic: bool = True):
+        if deterministic or self.rate == 0.0:
+            return x
+        mask = np.array([not (b == 1 and self.rate > 0.1) for b in range(x.shape[0])])
+        mask = mask.reshape((-1,) + (1,) * (x.ndim - 1))
+        return jax.numpy.where(mask, x / (1.0 - self.rate), jax.numpy.zeros_like(x))
+
+
+
+# XLA's backend (LLVM) optimisation off for the JAX reference programs of the
+# port's tests: a full training step compiles in about two thirds of the
+# time, and runs as fast, to the same results within rounding (its loss
+# moves by 1e-7 relative)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def compile_fast(jitted, *args):
+    """`jitted` (a `jax.jit` function) compiled for `args` with
+    FAST_COMPILE; call the result with the same args."""
+    return jitted.lower(*args).compile(compiler_options=FAST_COMPILE)
+
+
+def jit_fast(fn, *args):
+    """fn(*args) as one JAX program compiled with FAST_COMPILE (every
+    argument a pytree of arrays)."""
+    return compile_fast(jax.jit(fn), *args)(*args)
+
