@@ -174,8 +174,22 @@ first failure (there is no CPU path):
    reversible blocks against plain autograd through them (every gradient,
    peak memory, which must be lower), K1 and row 5 counted inside the
    custom backward.
+35. det_training: AVA detection, `VideoDetector` on the MViTv2-S trunk
+   (the ROI head on tap 2) at 16x224x224, batch 2, 16 boxes a clip, from
+   the port's `AvaDataset` over a synthetic AVA tree in a temporary
+   directory: 5 bf16 AdamW steps (finite losses; the trunk's blocks 14-15,
+   which feed nothing, moved by the weight decay alone), then
+   `run_ava_eval` (mAP in [0, 1]); K1 and K2 per forward, rows 5 and 9 in
+   the 14 blocks a backward reaches; det_parity: the detector in fp32 at
+   64x96, card against CPU (eval probabilities, one step's loss and
+   gradient cosine);
+36. demo_main: `tools.demo_net.main` (s3d, bf16, batch 4) on 24 synthetic
+   JPEG frames at 224x384: 9 heatmap PNGs, each map equal to the direct
+   forward's; K2, K3 and K4 per forward;
+37. gradcam_main: `tools.visualize.main --model mvitv2s` at 16x224x224:
+   8 CAM frames in [0, 1]; K1 and K2 once each in the 16 blocks.
 
-Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22, 23, 25-34) sets the
+Each path (4, 7, 9, 11, 13, 15, 18, 20, 21, 22, 23, 25-37) sets the
 launch counts to 0 just before it and reads them just after; the kernels'
 record sums them. Each phase logs its time on the host clock.
 The last two lines are the kernels' JSON record and the device JSON record.
@@ -339,6 +353,8 @@ PATH_PHASES = {
     "ssl_training": ("ssl_training", None), "ssl_parity": ("ssl_parity", None),
     "masked_training": ("masked_training", None), "masked_parity": ("masked_parity", None),
     "rev_training": ("rev_training", None),
+    "det_training": ("det_training", None), "det_parity": ("det_parity", None),
+    "demo_main": ("demo_main", None), "gradcam_main": ("gradcam_main", None),
     "spectrogram": ("spectrogram", None),
     "vis_main": ("main", "mvitv2s+visual"),
     "remat_training": ("remat_training", "mvitv2s+remat"),
@@ -368,7 +384,8 @@ PHASES = ("kernels", "main", "parity", "backward", "training", "train_parity", "
           "x3d_parity", "x3d_training", "sf_main", "sf_parity", "sf_training", "morph_main",
           "morph_parity", "morph_training", "uni_int8_main", "uni_int8_parity", "ddp_training",
           "cls_training", "cls_parity", "cls_uni_training", "ssl_training", "ssl_parity",
-          "masked_training", "masked_parity", "rev_training")
+          "masked_training", "masked_parity", "rev_training", "det_training", "det_parity",
+          "demo_main", "gradcam_main")
 BATCH = 8
 TRAIN_BATCH = 2
 STEPS = 5
@@ -2737,6 +2754,312 @@ def phase_rev_training(tag: str, _) -> dict:
     return counts
 
 
+# AVA detection: VideoDetector on the MViTv2-S trunk, the ROI head on tap 2
+# (block 13's output, stride 16, 384 channels), batches from AvaDataset over
+# a synthetic AVA tree. Blocks 14-15 feed nothing: their forward runs (K1
+# and K2 in all 16 blocks) but autograd skips their backward (rows 5 and 9
+# in blocks 0-13)
+DET_CLIP = (16, 224, 224)
+DET_BATCH, DET_STEPS, DET_MAX_BOXES, DET_CLASSES, DET_POOL = 2, 5, 16, 80, 7
+DET_FWD = {"attention_rel": 16, "ln_mlp": 16}
+DET_BWD = {"attention_rel_bwd": 14, "ln_mlp_bwd": 14}
+DET_PARITY_RES = (64, 96)
+DEMO_FRAMES, DEMO_BATCH = 24, 4  # 9 clips of 16 frames: 3 forwards of the s3d model
+GRADCAM_CLIP = (16, 224, 224)
+CARD = "card not read"  # nvidia-smi's name and power limit, set by main, on each figure's line
+
+
+def _det_counts(steps: int, evals: int) -> dict:
+    return {k: steps * (DET_FWD.get(k, 0) + DET_BWD.get(k, 0)) + evals * DET_FWD.get(k, 0)
+            for k in KERNELS}
+
+
+def _detector(device: str):
+    """The VideoDetector of the flagship's MViTv2-S trunk (seed 0), 80
+    classes, pool 7, head dropout 0.5."""
+    from mspi_tpu_torch.config import get_config
+    from mspi_tpu_torch.models.registry import build_backbone
+    from mspi_tpu_torch.train.detection import VideoDetector
+
+    cfg = get_config("mvitv2s")
+    torch.manual_seed(0)
+    return VideoDetector(build_backbone(cfg), dim_in=cfg.model.embed_dims[2],
+                         num_classes=DET_CLASSES, pool_size=DET_POOL).to(device)
+
+
+def _ava_tree(root: str, size=(240, 320), boxes_per_frame: int = 6) -> dict:
+    """tests/test_ava_pipeline.py's synthetic AVA tree at `size`: 2 videos
+    of 150 JPEG frames, frame lists, and `boxes_per_frame` GT boxes (1-3
+    labels each) at seconds 902 and 904 of vidA and 904 of vidB."""
+    import cv2
+
+    rng = np.random.default_rng(9)
+    lines = ["original_vido_id video_id frame_id path labels\n"]
+    gt = []
+    for vi, vid in enumerate(("vidA", "vidB")):
+        os.makedirs(f"{root}/frames/{vid}")
+        for i in range(150):
+            path = f"{vid}/{vid}_{i:06d}.jpg"
+            cv2.imwrite(f"{root}/frames/{path}",
+                        rng.integers(0, 256, (*size, 3), dtype=np.uint8))
+            lines.append(f'{vid} {vi} {i} {path} ""\n')
+        for sec in ((902, 904) if vid == "vidA" else (904,)):
+            for _ in range(boxes_per_frame):
+                x0, y0 = rng.uniform(0.0, 0.6, 2)
+                x1, y1 = x0 + rng.uniform(0.1, 0.4), y0 + rng.uniform(0.1, 0.4)
+                for label in rng.choice(np.arange(1, 81), rng.integers(1, 4), replace=False):
+                    gt.append(f"{vid},{sec},{x0:.3f},{y0:.3f},{x1:.3f},{y1:.3f},{label}\n")
+    os.makedirs(f"{root}/frame_lists")
+    os.makedirs(f"{root}/annotations")
+    for split in ("train", "val"):
+        with open(f"{root}/frame_lists/{split}.csv", "w") as fh:
+            fh.write("".join(lines))
+    with open(f"{root}/annotations/gt.csv", "w") as fh:
+        fh.write("".join(gt))
+    return dict(frame_list_dir=f"{root}/frame_lists", frame_dir=f"{root}/frames",
+                annotation_dir=f"{root}/annotations")
+
+
+def _det_batches(ds, n: int, device: str):
+    """n batches of DET_BATCH samples, cycling over the dataset, as tensors
+    on `device`."""
+    out = []
+    for b in range(n):
+        items = [ds[(b * DET_BATCH + i) % len(ds)] for i in range(DET_BATCH)]
+        out.append({k: torch.from_numpy(np.stack([it[k] for it in items])).to(device)
+                    for k in items[0]})
+    return out
+
+
+def phase_det_training(tag: str, _) -> dict:
+    """AVA detection on the card: `VideoDetector` on the MViTv2-S trunk at
+    full width and depth (`_detector`), DET_STEPS bf16 AdamW steps (weight
+    decay 0.05) of DET_BATCH clips at DET_CLIP with DET_MAX_BOXES padded
+    boxes, the batches from the port's `AvaDataset` over a synthetic AVA
+    tree in a temporary directory (train split: scale jitter, crop, flip);
+    the losses finite, and blocks 14-15, which feed nothing, moved by the
+    weight decay alone; then `run_ava_eval` (bf16) on the dataset's three
+    keyframes, its mAP in [0, 1]. The launches: K1 and K2 per forward
+    (DET_FWD), rows 5 and 9 per backward (DET_BWD)."""
+    import tempfile
+
+    from mspi_tpu_torch.data.ava import AvaDataset
+    from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.train.detection import (create_det_state, make_det_eval_step,
+                                                make_det_train_step, run_ava_eval)
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ds = AvaDataset(split="train", train_lists=("train.csv",),
+                        train_gt_box_lists=("gt.csv",), num_frames=DET_CLIP[0],
+                        crop_size=DET_CLIP[1], max_boxes=DET_MAX_BOXES,
+                        num_classes=DET_CLASSES, **_ava_tree(root))
+        batches = _det_batches(ds, DET_STEPS, "cuda")
+        eval_batches = _det_batches(ds, -(-len(ds) // DET_BATCH), "cuda")
+        log(tag, f"AvaDataset: {len(ds)} keyframes, {DET_STEPS + len(eval_batches)} batches "
+                 f"decoded in {time.perf_counter() - t0:.1f} s; real boxes per batch "
+                 f"{[int(b['box_mask'].sum()) for b in batches]}")
+    model = _detector("cuda")
+    unused = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith(("trunk.blocks.14.", "trunk.blocks.15."))}
+    state = create_det_state(model, lambda p: torch.optim.AdamW(
+        [t for _, t in p], lr=1e-4, weight_decay=0.05))
+    step = make_det_train_step(compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(step(state, batch, 1e-4))  # the loss's read syncs
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    stats = run_ava_eval(state, make_det_eval_step(torch.bfloat16), eval_batches,
+                         num_classes=DET_CLASSES)
+    eval_wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(walls[1:])
+    decayed = {n: bool(torch.allclose(p, unused[n] * (1 - 1e-4 * 0.05) ** DET_STEPS,
+                                      rtol=1e-6, atol=1e-9))
+               for n, p in model.named_parameters() if n in unused}
+    log(tag, f"VideoDetector mvitv2s {DET_STEPS} steps bf16 batch {DET_BATCH} {DET_CLIP}, "
+             f"{DET_MAX_BOXES} boxes a clip: first {walls[0]:.2f} s, then median "
+             f"{steady * 1e3:.1f} ms = {1 / steady:.3f} steps/s (host clock around synced "
+             f"steps); peak memory {peak:.2f} GiB; losses {[round(v, 5) for v in losses]}; "
+             f"run_ava_eval over {len(eval_batches)} batches {eval_wall:.2f} s: {stats}; "
+             f"blocks 14-15 moved by the decay alone: {sum(decayed.values())} of "
+             f"{len(decayed)} tensors; launches {counts}; {CARD}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite detection loss")
+    if not (0.0 <= stats["mAP"] <= 1.0 and stats["num_classes_evaluated"] > 0):
+        raise AssertionError(f"AVA eval {stats}")
+    if not all(decayed.values()):
+        raise AssertionError("the unused blocks 14-15 did not take AdamW's weight decay alone")
+    want = _det_counts(DET_STEPS, len(eval_batches))
+    for k in KERNELS:
+        if counts[k] != want[k]:
+            raise AssertionError(f"{k}: {counts[k]} launches, expected {want[k]}")
+    del model, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_det_parity(tag: str, _) -> None:
+    """The detector (`_detector`, head dropout drawn from the same seed)
+    at DET_PARITY_RES in fp32 (TF32 off), card against CPU on one batch of
+    2 clips with 16 boxes each (4 real): the eval probabilities (max |diff|
+    <= 1e-4), then one AdamW step's loss (1e-4 relative) and gradients'
+    cosine (need >= 0.9999)."""
+    from mspi_tpu_torch.train.detection import (create_det_state, make_det_eval_step,
+                                                make_det_train_step)
+
+    g = torch.Generator().manual_seed(31)
+    h, w = DET_PARITY_RES
+    boxes = torch.zeros(DET_BATCH, DET_MAX_BOXES, 4)
+    xy = torch.rand(DET_BATCH, 4, 2, generator=g) * torch.tensor([w * 0.6, h * 0.6])
+    wh = torch.rand(DET_BATCH, 4, 2, generator=g) * torch.tensor([w * 0.4, h * 0.4]) + 4
+    boxes[:, :4] = torch.cat([xy, xy + wh], -1)
+    mask = torch.zeros(DET_BATCH, DET_MAX_BOXES, dtype=torch.bool)
+    mask[:, :4] = True
+    batch = {"clips": torch.randn(DET_BATCH, DET_CLIP[0], h, w, 3, generator=g),
+             "boxes": boxes, "box_mask": mask,
+             "labels": (torch.rand(DET_BATCH, DET_MAX_BOXES, DET_CLASSES, generator=g) < 0.05)
+             .int() * mask[..., None]}
+    out = {}
+    for device in ("cuda", "cpu"):
+        state = create_det_state(_detector(device), lambda p: torch.optim.AdamW(
+            [t for _, t in p], lr=1e-4, weight_decay=0.05), seed=3)
+        b = {k: v.to(device) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        probs = make_det_eval_step()(state, b).cpu().double()
+        loss = make_det_train_step()(state, b, 1e-4)
+        out[device] = (probs, loss, _named_grads(state.model))
+        log(tag, f"detector fp32 at {h}x{w} on {device}: eval + step "
+                 f"{time.perf_counter() - t0:.1f} s, loss {loss:.6f}; {CARD}")
+        del state
+    (p_g, l_g, g_g), (p_c, l_c, g_c) = out["cuda"], out["cpu"]
+    perr, cos = (p_g - p_c).abs().max().item(), _cosine(g_g, g_c)
+    log(tag, f"detector card vs CPU: probabilities max |diff| {perr:.2e}, loss |diff| "
+             f"{abs(l_g - l_c):.2e}, gradient cosine {cos:.8f}")
+    if not (perr <= 1e-4 and abs(l_g - l_c) <= 1e-4 * abs(l_c) and cos >= 0.9999):
+        raise AssertionError("the detector on the card differs from the CPU's")
+
+
+def _write_jpegs(root: str, n: int, size, seed: int) -> None:
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    base = rng.integers(0, 256, (*size, 3), dtype=np.uint8)
+    for i in range(n):  # a drifting image, so that the clips differ
+        cv2.imwrite(f"{root}/img_{i + 1:05d}.jpg", np.roll(base, 3 * i, axis=1))
+
+
+def phase_demo_main(tag: str, _) -> dict:
+    """`python -m mspi_tpu_torch.tools.demo_net`'s main on the card:
+    DEMO_FRAMES synthetic JPEG frames at the s3d config's 224x384,
+    `--batch DEMO_BATCH --bf16`, silent audio: one `sal_{idx:05d}.png` per
+    16-frame clip (9), and every map the AsyncDemo pipeline wrote equal to
+    the port's direct bf16 forward of the same clip (the same weights, seed
+    0, in the same batches). The launches: K2, K3 and K4 per forward of the
+    s3d model (PER_FORWARD["s3d"])."""
+    import tempfile
+
+    from mspi_tpu_torch.config import get_config
+    from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.tools import demo_net
+    from mspi_tpu_torch.utils.demo import FrameDirSource
+
+    maps = []
+    build = demo_net.build_predictor
+
+    def recording(*args, **kwargs):  # keeps each map the pipeline predicts
+        model, predict = build(*args, **kwargs)
+
+        def predict_and_keep(clips):
+            out = predict(clips)
+            maps.extend(out)
+            return out
+        return model, predict_and_keep
+
+    with tempfile.TemporaryDirectory() as root:
+        _write_jpegs(f"{root}/frames", DEMO_FRAMES, RES, 12)
+        demo_net.build_predictor = recording
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            demo_net.main(["--frames", f"{root}/frames", "--out", f"{root}/out", "--batch",
+                           str(DEMO_BATCH), "--bf16"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(kernels.launches)
+        finally:
+            demo_net.build_predictor = build
+        written = sorted(os.listdir(f"{root}/out"))
+        source = FrameDirSource(f"{root}/frames", 16, RES)
+        clips = np.stack([c for _, c in source])
+        idxs = [i for i, _ in source]
+    n = DEMO_FRAMES - 16 + 1
+    forwards = -(-n // DEMO_BATCH)
+    _, predict = build(get_config("s3d"), DEMO_BATCH, torch.device("cuda"), torch.bfloat16)
+    direct = np.concatenate([predict(clips[i:i + DEMO_BATCH])
+                             for i in range(0, n, DEMO_BATCH)])
+    err = max(float(np.abs(a - b).max()) for a, b in zip(maps, direct))
+    log(tag, f"demo_net.main s3d bf16 on {DEMO_FRAMES} frames at {RES[0]}x{RES[1]}, batch "
+             f"{DEMO_BATCH}: {n} maps in {forwards} forwards, {wall:.2f} s wall with the model "
+             f"build and JPEG decode; files {written[0]}..{written[-1]} ({len(written)}); the "
+             f"pipeline's maps against the direct bf16 forward: max |diff| {err:.3e}; "
+             f"launches {counts}; {CARD}")
+    if written != [f"sal_{i:05d}.png" for i in idxs] or len(written) != n:
+        raise AssertionError(f"demo wrote {written}")
+    if len(maps) != n or err != 0.0 or not np.isfinite(direct).all():
+        raise AssertionError("the demo's maps differ from the direct forward's")
+    for k in KERNELS:
+        want = forwards * PER_FORWARD["s3d"].get(k, 0)
+        if counts[k] != want:
+            raise AssertionError(f"{k}: {counts[k]} launches, expected {want}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gradcam_main(tag: str, _) -> dict:
+    """`python -m mspi_tpu_torch.tools.visualize --model mvitv2s`'s main on
+    the card: 16 synthetic JPEG frames at 224x224, the MViTv2-S classifier
+    (400 classes, seed 0) in fp32, Grad-CAM of the last level (the head
+    differentiated alone): 8 CAM frames [8, 7, 7], finite, in [0, 1], and
+    8 PNG files. The launches: K1 and K2 in the trunk's 16 blocks, once."""
+    import tempfile
+
+    from mspi_tpu_torch.ops import kernels
+    from mspi_tpu_torch.tools import visualize
+
+    with tempfile.TemporaryDirectory() as root:
+        _write_jpegs(f"{root}/frames", GRADCAM_CLIP[0], GRADCAM_CLIP[1:], 13)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        cams, scores = visualize.main(["--model", "mvitv2s", "--frames", f"{root}/frames",
+                                       "--out", f"{root}/cams", "--num_frames",
+                                       str(GRADCAM_CLIP[0]), "--crop_size",
+                                       str(GRADCAM_CLIP[1])])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        written = sorted(os.listdir(f"{root}/cams"))
+    log(tag, f"visualize.main mvitv2s fp32 {GRADCAM_CLIP}: CAMs {cams.shape} in "
+             f"[{cams.min():.4f}, {cams.max():.4f}], {len(written)} files, {wall:.2f} s wall "
+             f"with the model build; launches {counts}; {CARD}")
+    if cams.shape != (8, 7, 7) or not np.isfinite(cams).all() or cams.min() < 0 \
+            or cams.max() > 1 or len(written) != 8 or not np.isfinite(scores).all():
+        raise AssertionError("Grad-CAM output is wrong")
+    for k in KERNELS:
+        want = DET_FWD.get(k, 0)
+        if counts[k] != want:
+            raise AssertionError(f"{k}: {counts[k]} launches, expected {want}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
@@ -2785,6 +3108,8 @@ def main() -> None:
                          check=True).stdout.strip().splitlines()[0]
     log("device", f"{kind}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi, flush=True)
+    global CARD
+    CARD = smi
 
     seconds = kernels.build()
     kernels.lib()
@@ -2800,7 +3125,9 @@ def main() -> None:
                "ddp_training": phase_ddp_training, "cls_training": phase_cls_training,
                "cls_parity": phase_cls_parity, "ssl_training": phase_ssl_training,
                "ssl_parity": phase_ssl_parity, "masked_training": phase_masked_training,
-               "masked_parity": phase_masked_parity, "rev_training": phase_rev_training}
+               "masked_parity": phase_masked_parity, "rev_training": phase_rev_training,
+               "det_training": phase_det_training, "det_parity": phase_det_parity,
+               "demo_main": phase_demo_main, "gradcam_main": phase_gradcam_main}
     kernel_phases = {"kernels": phase_kernels, "backward": phase_backward,
                      "layout_kernels": phase_layout_kernels,
                      "layout_backward": phase_layout_backward}

@@ -13,6 +13,12 @@
 
 Kernels: [I, O] -> [O, I] (Linear), [k, I, O] -> [O, I, k] (Conv1d),
 [kh, kw, I, O] -> [O, I, kh, kw], [kt, kh, kw, I, O] -> [O, I, kt, kh, kw].
+The mapping places every tree of the JAX package's models, the detector's
+(`trunk.*` and `head.projection`) and `SubBatchNorm`'s (`scale`, `bias`,
+and `mean` / `var` of shape [splits, C] as `running_mean` / `running_var`)
+included; `tests/test_torch_detection.py` and `tests/test_torch_misc_ops.py`
+hold them. `inflate` holds the weight inflation and interpolation
+utilities on the port's state dicts.
 
 `adamw_state_dict_from_jax` carries the training state across as well: the
 optax AdamW moments of a JAX TrainState (`count`, `mu`, `nu`, trees shaped
@@ -65,27 +71,28 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> "OrderedDict[str, torch
         for path, value in _leaves(tree):
             *scope, leaf = path
             prefix = _torch_scope(tuple(scope))
+            dot = prefix + "." if prefix else ""  # a leaf of the root module: no dot
             arr = np.asarray(value)
             where = "/".join((collection,) + path)
             if collection == "batch_stats":
                 if leaf not in ("mean", "var"):
                     raise ValueError(f"cannot place batch_stats leaf {where}")
-                put(f"{prefix}.running_{leaf}", arr)
+                put(f"{dot}running_{leaf}", arr)
                 if leaf == "mean":
-                    put(f"{prefix}.num_batches_tracked", np.zeros((), np.int64))
+                    put(f"{dot}num_batches_tracked", np.zeros((), np.int64))
             elif leaf == "kernel":
                 if arr.ndim not in _KERNEL_AXES:
                     raise ValueError(f"cannot place {arr.ndim}-D kernel {where}")
-                put(f"{prefix}.weight", arr.transpose(_KERNEL_AXES[arr.ndim]))
+                put(f"{dot}weight", arr.transpose(_KERNEL_AXES[arr.ndim]))
             elif leaf == "scale":
                 if arr.ndim != 1:
                     raise ValueError(f"cannot place {arr.ndim}-D scale {where}")
-                put(f"{prefix}.weight", arr)
+                put(f"{dot}weight", arr)
             elif leaf in ("weight", "running_mean", "running_var", "num_batches_tracked"):
                 # convert_state_dict would not send such a torch key back here
                 raise ValueError(f"cannot place params leaf {where}")
             else:
-                put(f"{prefix}.{leaf}" if prefix else leaf, arr)
+                put(f"{dot}{leaf}", arr)
     return sd
 
 

@@ -1,6 +1,10 @@
-"""The port's kernel labs: `python -m mspi_tpu_torch.tools.bench_dwconv`,
-`bench_lnmlp` and `bench_int8`, the counterparts of the JAX package's
-`tools/bench_*.py`, with their variant names and environment.
+"""The port's tools. `python -m mspi_tpu_torch.tools.demo_net` (the saliency
+demo over a frame directory) and `tools.visualize` (Grad-CAM of a zoo
+classifier) are the counterparts of the repository's `tools/demo_net.py`
+and `tools/visualize.py`. The kernel labs, `python -m
+mspi_tpu_torch.tools.bench_dwconv`, `bench_lnmlp` and `bench_int8`, are the
+counterparts of the JAX package's `tools/bench_*.py`, with their variant
+names and environment.
 
 Each lab runs on a CUDA card and raises without one, unless `--device cpu`
 asks for the plain versions (the tests run them so; nothing is timed

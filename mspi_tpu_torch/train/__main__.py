@@ -8,9 +8,12 @@
 The same arguments, seed (2023), 6-dataset mixture, frozen encoders,
 AdamW (lr 1e-4, weight decay 0), step LR schedule, validation at the
 monitored epochs, JSONL logs, periodic `ckpt_{epoch}` checkpoints and
-auto-resume; a non-finite loss stops the run with "Loss is NaN.". It runs
-on one CUDA device unless `--device cpu` is given. `--dp` / `--tp` are the
-JAX CLI's mesh: dp = `--dp` or the devices // tp, then gcd(dp, batch); with
+auto-resume; a non-finite loss stops the run with "Loss is NaN.". The
+iteration lines (every 10th, with an ETA) and the epoch's averages in
+`log/log.txt` come from `utils.logging.MetricLogger`, as `train.py` logs
+them. It runs on one CUDA device unless `--device cpu` is given. `--dp` /
+`--tp` are the JAX CLI's mesh: dp = `--dp` or the devices // tp, then
+gcd(dp, batch); with
 dp * tp > 1 the CLI starts dp * tp ranks itself (one per GPU with NCCL, or
 gloo ranks with `--device cpu`, where `--dp` defaults to 1), through the
 single-collective DDP step (`engine.make_ddp_train_step`), the SyncBlock
@@ -41,11 +44,9 @@ from __future__ import annotations
 
 import argparse
 import datetime
-import json
 import math
 import os
 import time
-from collections import defaultdict
 
 import numpy as np
 import torch
@@ -108,14 +109,6 @@ def config_from_args(args):
                    **({"monitored_epochs": tuple(args.monitored_epochs)}
                       if args.monitored_epochs else {})},
     })
-
-
-def _mean(rows):
-    sums = defaultdict(float)
-    for row in rows:
-        for k, v in row.items():
-            sums[k] += v
-    return {k: v / max(1, len(rows)) for k, v in sums.items()}
 
 
 def mesh_shape(dp, tp: int, n_dev: int, batch_size: int):
@@ -187,6 +180,7 @@ def run(args, cfg, log_dir: str, mesh=None) -> None:
     from mspi_tpu_torch.train.engine import (create_train_state, make_ddp_train_step,
                                              make_eval_step, make_train_step,
                                              step_lr_schedule, to_device)
+    from mspi_tpu_torch.utils.logging import MetricLogger, append_jsonl
 
     device = mesh.device if mesh is not None else torch.device(args.device)
     rank = mesh.rank if mesh is not None else 0
@@ -240,30 +234,31 @@ def run(args, cfg, log_dir: str, mesh=None) -> None:
         mesh_note = f", mesh dp {mesh.dp} tp {mesh.tp}" if mesh is not None else ""
         print(f"trainable parameters: {n_parameters / 1e6:.2f}M on {device}{mesh_note}")
 
+    def logged(logger, iterable, header):  # rank 0 prints the iteration lines
+        return logger.log_every(iterable, 10, header) if rank == 0 else iterable
+
     start_time = time.time()
     for epoch in range(start_epoch, cfg.solver.max_epoch):
         lr = lr_by_epoch[epoch]
-        rows = []
-        for i, batch in enumerate(loader_train):
+        logger = MetricLogger()
+        for batch in logged(logger, loader_train, f"Epoch: [{epoch}]"):
             metrics = train_step(state, to_device(batch, device), lr)
             if not math.isfinite(metrics["loss"]):
                 raise RuntimeError("Loss is NaN.")
-            rows.append(dict(metrics, lr=lr))
-            if i % 10 == 0 and rank == 0:
-                print(f"Epoch: [{epoch}] [{i}/{len(loader_train)}] "
-                      + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()), flush=True)
+            logger.update(lr=lr, **metrics)
         state.epoch = epoch + 1
         if args.save_ckpt and ((epoch + 1) % args.save_ckpt_freq == 0
                                or epoch + 1 == cfg.solver.max_epoch):
             ckpt_lib.save_checkpoint(checkpoint_dir, state, epoch + 1, mesh)
-        log_stats = {f"train_{k}": v for k, v in _mean(rows).items()}
+        log_stats = {f"train_{k}": v for k, v in logger.stats().items()}
         if epoch + 1 in set(cfg.solver.monitored_epochs):
-            val = [eval_step(state, to_device(batch, device))[1] for batch in loader_val]
-            log_stats.update({f"val_{k}": v for k, v in _mean(val).items()})
+            vlogger = MetricLogger()
+            for batch in logged(vlogger, loader_val, "Val:"):
+                vlogger.update(**eval_step(state, to_device(batch, device))[1])
+            log_stats.update({f"val_{k}": v for k, v in vlogger.stats().items()})
         log_stats.update(epoch=epoch, n_parameters=n_parameters)
         if rank == 0:
-            with open(os.path.join(log_path, "log.txt"), "a") as f:
-                f.write(json.dumps(log_stats) + "\n")
+            append_jsonl(os.path.join(log_path, "log.txt"), log_stats)
     if rank == 0:
         print(f"Training time {datetime.timedelta(seconds=int(time.time() - start_time))}")
 

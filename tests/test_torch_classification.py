@@ -52,9 +52,10 @@ from mspi_tpu_torch.utils import meters
 from mspi_tpu_torch.utils import tensorboard
 from tests.test_run_net_cli import _build_k400_tree
 from tests.test_torch_train import _assert_leaves_close
-from tests.torch_port_utils import (SHALLOW_MVIT, FixedDropPathJax, count_calls,  # noqa: F401
-                                    cpu_share, fixed_drop_path_port, jax_module_variables,
-                                    jit_fast, load_port, seeded_variables, to_np)
+from tests.torch_port_utils import (SHALLOW_MVIT, FixedDropPathJax,  # noqa: F401
+                                    assert_imports_no_jax, count_calls, cpu_share,
+                                    fixed_drop_path_port, jax_module_variables, jit_fast,
+                                    load_port, seeded_variables, to_np)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
@@ -463,21 +464,11 @@ def test_new_modules_import_no_jax():
     """The modules of the classification surface and the parallel layer
     import neither JAX, flax nor the JAX package (as
     `tests/test_torch_slice.py::test_port_imports_no_jax` holds the rest)."""
-    import subprocess
-    import sys
-    from pathlib import Path
-
-    modules = ("run_net", "parallel", "parallel.tensor_parallel", "train.optim",
-               "train.classification", "train.multigrid", "train.precise_bn",
-               "models.video_zoo", "models.heads", "models.weight_init", "data.augment",
-               "data.kinetics", "utils.meters", "utils.tensorboard")
-    code = ("import sys; before = set(sys.modules); "
-            + "; ".join(f"import mspi_tpu_torch.{m}" for m in modules)
-            + "; new = set(sys.modules) - before; "
-            "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'flax', 'mspi_tpu')); "
-            "assert not bad, bad")
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
-                   cwd=Path(__file__).resolve().parents[1])
+    assert_imports_no_jax(("run_net", "parallel", "parallel.tensor_parallel", "train.optim",
+                           "train.classification", "train.multigrid", "train.precise_bn",
+                           "models.video_zoo", "models.heads", "models.weight_init",
+                           "data.augment", "data.kinetics", "utils.meters",
+                           "utils.tensorboard"))
 
 
 class _ToyClassifier(torch.nn.Module):

@@ -15,7 +15,7 @@ from mspi_tpu.models.fusion import AudioVisualSaliencyModel as JaxModel
 from mspi_tpu_torch.config import get_config
 from mspi_tpu_torch.convert import state_dict_from_jax
 from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
-from tests.torch_port_utils import cpu_share, seeded_variables
+from tests.torch_port_utils import cpu_share, seeded_variables, skipped_init
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
@@ -39,8 +39,9 @@ def test_flagship_round_trip_is_exact(rng):
     variables = seeded_variables(shapes, rng)
     variables = jax.tree.map(np.asarray, dict(variables))
 
-    port = AudioVisualSaliencyModel(get_config("mvitv2s", {"data": {"resolution": RES}}),
-                                    device="cpu")
+    with skipped_init():
+        port = AudioVisualSaliencyModel(get_config("mvitv2s", {"data": {"resolution": RES}}),
+                                        device="cpu")
     port.load_state_dict(state_dict_from_jax(variables), strict=True)
     back = convert_state_dict(port.state_dict())
 

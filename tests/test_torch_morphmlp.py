@@ -44,7 +44,7 @@ from mspi_tpu_torch.ops.kernels import ln_mlp as K2
 from mspi_tpu_torch.ops.kernels import pooled_attention as PA
 from mspi_tpu_torch.train import __main__ as train_cli
 from tests.torch_port_utils import (count_calls, cpu_share, jax_module_variables,  # noqa: F401
-                                    jit_fast, load_port, seeded_variables, to_np)
+                                    jit_fast, load_port, seeded_variables, to_np, skipped_init)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
@@ -155,7 +155,8 @@ def test_morphmlp_av_model_matches_jax(rng, monkeypatch):
     5e-4, rtol 1e-3 on the log-density map, 1e-4 on the loss."""
     monkeypatch.delenv("MSPI_PALLAS_INTERPRET", raising=False)
     overrides = {"data": {"resolution": AV_RES}, "model": {"morph": AV_MORPH}}
-    port = AudioVisualSaliencyModel(get_config("morphmlps", overrides), device="cpu")
+    with skipped_init():
+        port = AudioVisualSaliencyModel(get_config("morphmlps", overrides), device="cpu")
     jax_model = JaxModel(cfg=jax_get_config("morphmlps", overrides=overrides))
     variables = seeded_variables(convert_state_dict(port.state_dict()), rng)
     clips = rng.integers(0, 256, (1, 16, *AV_RES, 3), dtype=np.uint8)

@@ -54,11 +54,11 @@ from mspi_tpu_torch.train.synthetic import make_batch
 from tests.test_torch_train import _assert_leaves_close
 from tests.torch_port_utils import (SHALLOW_MVIT, FixedDropPathJax, compile_fast, count_calls,
                                     cpu_share, fixed_drop_path_port, jax_module_variables,
-                                    jit_fast, load_port, seeded_variables, to_np)
+                                    jit_fast, load_port, seeded_variables, to_np, skipped_init)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
-RES = (64, 96)
+RES = (32, 64)
 # the JAX switches of each option set
 ENV = {"attn_relk": {"MSPI_ATTN_RELK": "0"},
        "attn_packed": {"MSPI_POOL_FAT": "1", "MSPI_ATTN_PACKED": "1"},
@@ -288,7 +288,7 @@ def test_cli_layout_flags():
 
 
 def _small_cfg(options):
-    """The four-block MViT (`SHALLOW_MVIT`) AV model at 64x96 with one
+    """The four-block MViT (`SHALLOW_MVIT`) AV model at 32x64 with one
     SyncBlock block and 128-wide SimSiam heads, for both packages."""
     cfg = {"data": {"resolution": RES},
            "model": {"mvit": SHALLOW_MVIT, "sync_num_blocks": 1, "simsiam_hidden": 128}}
@@ -316,7 +316,8 @@ def test_av_model_with_all_layout_options_matches_jax(rng, monkeypatch):
     count_calls(PORT_FNS, port_calls, monkeypatch)
     count_calls(JAX_FNS, jax_calls, monkeypatch)
     cfg, port_cfg = _small_cfg(options)
-    port = AudioVisualSaliencyModel(port_cfg, device="cpu")
+    with skipped_init():
+        port = AudioVisualSaliencyModel(port_cfg, device="cpu")
     variables = seeded_variables(convert_state_dict(port.state_dict()), rng)
     clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
     auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
@@ -352,7 +353,8 @@ def test_relk0_train_step_grads_match_jax(rng, monkeypatch):
     count_calls(PORT_FNS, port_calls, monkeypatch)
     count_calls(JAX_FNS, jax_calls, monkeypatch)
     cfg, port_cfg = _small_cfg({"attn_relk": False, "dwconv": True})
-    port = AudioVisualSaliencyModel(port_cfg, device="cpu")
+    with skipped_init():
+        port = AudioVisualSaliencyModel(port_cfg, device="cpu")
     variables = seeded_variables(convert_state_dict(port.state_dict()), rng)
     batch = make_batch(rng, 2, 16, RES, (257, 111))
     jcfg = jax_get_config("mvitv2s", cfg)

@@ -8,9 +8,6 @@ inversion's rounding differs), and 2e-3 against JAX's `custom_vjp`, as the
 port's other gradient tests; the depth-4 encoder 1e-4.
 """
 
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -24,8 +21,9 @@ from mspi_tpu.models import reversible_mvit as jax_rev
 from mspi_tpu_torch.config import MViTConfig
 from mspi_tpu_torch.convert import state_dict_from_jax
 from mspi_tpu_torch.models import reversible_mvit
-from tests.torch_port_utils import (cpu_share, jax_module_variables, jit_fast,  # noqa: F401
-                                    load_port, seeded_variables, to_np)
+from tests.torch_port_utils import (assert_imports_no_jax, cpu_share,  # noqa: F401
+                                    jax_module_variables, jit_fast, load_port,
+                                    seeded_variables, to_np)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
@@ -192,12 +190,6 @@ def test_variable_tree_converts_leaf_for_leaf(name):
 def test_slice_modules_import_no_jax():
     """The modules of the ssl, masked and reversible slice and the caffe2
     loader import neither JAX, flax nor the JAX package."""
-    modules = ("caffe2", "models.contrastive", "models.masked", "models.reversible_mvit",
-               "train.ssl", "train.checkpoints", "run_net")
-    code = ("import sys; before = set(sys.modules); "
-            + "; ".join(f"import mspi_tpu_torch.{m}" for m in modules)
-            + "; new = set(sys.modules) - before; "
-            "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'flax', 'mspi_tpu')); "
-            "assert not bad, bad")
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
-                   cwd=Path(__file__).resolve().parents[1])
+    assert_imports_no_jax(("caffe2", "models.contrastive", "models.masked",
+                           "models.reversible_mvit", "train.ssl", "train.checkpoints",
+                           "run_net"))

@@ -1,15 +1,12 @@
 """The ported slice as a whole against the JAX package on the CPU:
 
 - the full MViTv2-S AudioVisualSaliencyModel (production depth 16) at
-  64x96, batch 1, uint8 clips; JAX runs its default CPU path (Pallas off);
+  32x64, batch 1, uint8 clips; JAX runs its default CPU path (Pallas off);
 - the inference post-processing, window schedule and host spectrogram;
 - the port's imports (inference, training and data modules) stay free of
   jax, flax and mspi_tpu.
 """
 
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,11 +23,14 @@ from mspi_tpu_torch import inference
 from mspi_tpu_torch.config import get_config
 from mspi_tpu_torch.data import audio
 from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel, VisualSaliencyModel
-from tests.torch_port_utils import SHALLOW_MVIT, cpu_share, jit_fast, load_port, seeded_variables
+from tests.torch_port_utils import (SHALLOW_MVIT, assert_imports_no_jax,  # noqa: F401
+                                    assert_tree_declared, cpu_share,
+                                    declared_leaves, jit_fast, load_port, port_variables,
+                                    skipped_init)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
-RES = (64, 96)  # every level still halves exactly down to /32
+RES = (32, 64)  # every level still halves exactly down to /32
 
 
 def test_flagship_forward_matches_jax(rng, monkeypatch):
@@ -39,14 +39,14 @@ def test_flagship_forward_matches_jax(rng, monkeypatch):
     jax_model = JaxModel(cfg=jax_get_config("mvitv2s", overrides=cfg))
     clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
     auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
-    shapes = jax.eval_shape(lambda: jax_model.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 16, *RES, 3)), jnp.zeros((1, 257, 111, 1))))
-    variables = seeded_variables(shapes, rng)
-    want, want_loss = jit_fast(jax_model.apply, variables, jnp.asarray(clips),
-                                               jnp.asarray(auds))
-
-    port = load_port(AudioVisualSaliencyModel(get_config("mvitv2s", cfg), device="cpu"),
-                     variables)
+    with skipped_init():
+        port = AudioVisualSaliencyModel(get_config("mvitv2s", cfg), device="cpu")
+    variables = port_variables(port, rng)
+    with declared_leaves() as declared:
+        want, want_loss = jit_fast(jax_model.apply, variables, jnp.asarray(clips),
+                                   jnp.asarray(auds))
+    assert_tree_declared(declared, variables)
+    load_port(port, variables)
     with torch.no_grad():
         got, got_loss = port(torch.from_numpy(clips), torch.from_numpy(auds))
 
@@ -62,12 +62,13 @@ def test_visual_model_matches_jax(rng, monkeypatch):
     cfg = {"data": {"resolution": RES}}
     jax_model = JaxVisualModel(cfg=jax_get_config("mvitv2s", overrides=cfg))
     clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
-    shapes = jax.eval_shape(lambda: jax_model.init(jax.random.PRNGKey(0),
-                                                   jnp.zeros((1, 16, *RES, 3))))
-    variables = seeded_variables(shapes, rng)
-    want, _ = jit_fast(jax_model.apply, variables, jnp.asarray(clips))
-
-    port = load_port(VisualSaliencyModel(get_config("mvitv2s", cfg), device="cpu"), variables)
+    with skipped_init():
+        port = VisualSaliencyModel(get_config("mvitv2s", cfg), device="cpu")
+    variables = port_variables(port, rng)
+    with declared_leaves() as declared:
+        want, _ = jit_fast(jax_model.apply, variables, jnp.asarray(clips))
+    assert_tree_declared(declared, variables)
+    load_port(port, variables)
     with torch.no_grad():
         got, _ = port(torch.from_numpy(clips))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4, rtol=1e-3)
@@ -129,19 +130,12 @@ def test_predict_video_shapes_and_order(rng):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys; before = set(sys.modules); "
-            "import mspi_tpu_torch, mspi_tpu_torch.inference, mspi_tpu_torch.convert, "
-            "mspi_tpu_torch.models.fusion, mspi_tpu_torch.models.videoswin, "
-            "mspi_tpu_torch.models.uniformer, mspi_tpu_torch.models.s3d, "
-            "mspi_tpu_torch.ops.kernels.window_attention, mspi_tpu_torch.data.video, "
-            "mspi_tpu_torch.data.datasets, mspi_tpu_torch.data.loader, "
-            "mspi_tpu_torch.train.engine, mspi_tpu_torch.train.loss, "
-            "mspi_tpu_torch.train.metrics, mspi_tpu_torch.train.checkpoints, "
-            "mspi_tpu_torch.train.synthetic, mspi_tpu_torch.train.__main__, "
-            "mspi_tpu_torch.evaluate, mspi_tpu_torch.data.native, mspi_tpu_torch.models.x3d, "
-            "mspi_tpu_torch.models.resnet3d; "
-            "new = set(sys.modules) - before; "
-            "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'flax', 'mspi_tpu')); "
-            "assert not bad, bad")
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
-                   cwd=Path(__file__).resolve().parents[1])
+    """The slice's modules (the package, inference, training and data)
+    import neither JAX, flax nor the JAX package (`assert_imports_no_jax`,
+    which imports every module of the port)."""
+    assert_imports_no_jax((
+        "", "inference", "convert", "models.fusion", "models.videoswin", "models.uniformer",
+        "models.s3d", "ops.kernels.window_attention", "data.video", "data.datasets",
+        "data.loader", "train.engine", "train.loss", "train.metrics", "train.checkpoints",
+        "train.synthetic", "train.__main__", "evaluate", "data.native", "models.x3d",
+        "models.resnet3d"))

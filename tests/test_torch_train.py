@@ -1,12 +1,13 @@
 """The port's training path (mspi_tpu_torch.train, the BatchNorm and
 drop-path layers, the host data pipeline) against the JAX package on the
-CPU, and the whole training step of the full-depth flagship at 64x96.
+CPU, and the whole training step of the full-depth flagship at 32x64.
 
 Tolerances: metrics and losses 1e-5 (fp32, the same formulas); BatchNorm
 1e-5 (fp32 statistics in both); the whole step as stated in
 `test_train_step_matches_jax`.
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -40,14 +41,14 @@ from mspi_tpu_torch.train.synthetic import make_batch
 from tests.synthetic_data import build_avsp_tree
 from tests.torch_port_utils import (SHALLOW_MVIT, FixedDropPathJax, compile_fast, cpu_share,
                                     fixed_drop_path_port, load_port, seeded_variables,
-                                    xdist_thread_share)
+                                    skipped_init, xdist_thread_share)
 
-RES = (64, 96)
+RES = (32, 64)
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def test_train_step_matches_jax(rng, monkeypatch):
-    """One port training step of the full-depth flagship at 64x96, batch 2,
+    """One port training step of the full-depth flagship at 32x64, batch 2,
     fp32, against `jax.value_and_grad(_make_loss_fn(...))` plus the JAX
     AdamW update, from one set of seeded variables; drop-path is made
     deterministic on both sides. Then the port resumes from the JAX
@@ -66,7 +67,7 @@ def test_train_step_matches_jax(rng, monkeypatch):
     jmodel = JaxModel(cfg=jcfg)
     # the JAX variable tree from the port model's (the strict loads below
     # hold the two trees leaf for leaf), which spares tracing JAX's init
-    cfg, model = _port_model()
+    cfg, model = _port_model(init=False)
     variables = _np_tree(dict(seeded_variables(convert_state_dict(model.state_dict()), rng)))
     batches = [_batch(rng) for _ in range(2)]
     lr = 1e-4
@@ -133,7 +134,7 @@ def test_train_step_matches_jax(rng, monkeypatch):
     check_moments(state, jstate1)
 
     # step 2, resumed from the converted JAX TrainState after step 1
-    _, model = _port_model(1)
+    _, model = _port_model(1, init=False)
     port = load_port(model, {"params": {**jstate1.params, **jstate1.frozen},
                              "batch_stats": jstate1.batch_stats})
     state = engine.create_train_state(cfg, port)
@@ -151,7 +152,7 @@ def test_train_cli_runs_on_cpu(tmp_path):
     share = xdist_thread_share()  # see cpu_share
     env = {**os.environ, **({"OMP_NUM_THREADS": str(share)} if share else {})}
     subprocess.run([sys.executable, "-m", "mspi_tpu_torch.train", "--data_root", root,
-                    "--resolution", "64", "96", "--epochs", "1", "--monitored_epochs", "1",
+                    "--resolution", *map(str, RES), "--epochs", "1", "--monitored_epochs", "1",
                     "--device", "cpu", "--num_workers", "2", "--log_dir", str(logs)],
                    check=True, timeout=300, cwd=Path(__file__).resolve().parents[1],
                    capture_output=True, env=env)
@@ -332,11 +333,14 @@ def _batch(rng, batch=2):
     return b
 
 
-def _port_model(seed=0, mvit=None):
+def _port_model(seed=0, mvit=None, init=True):
+    """The flagship at RES; init=False: its tensors left as allocated, for a
+    strict load to fill (`skipped_init`)."""
     model_cfg = {} if mvit is None else {"mvit": mvit}
     cfg = get_config("mvitv2s", {"data": {"resolution": RES}, "model": model_cfg})
-    return cfg, AudioVisualSaliencyModel(cfg, device="cpu",
-                                         generator=torch.Generator().manual_seed(seed))
+    with contextlib.nullcontext() if init else skipped_init():
+        return cfg, AudioVisualSaliencyModel(cfg, device="cpu",
+                                             generator=torch.Generator().manual_seed(seed))
 
 
 def _adam(opt_state):

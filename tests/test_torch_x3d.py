@@ -7,7 +7,7 @@
   blocks a stage, X3D-L's widths) at 16x64x96, in both BatchNorm modes, and
   the converter both ways: `convert_state_dict` of the port's state dict is
   the flax module's whole variable tree, leaf for leaf and shape for shape;
-- the x3dl AudioVisualSaliencyModel forward at 64x96 on that backbone, the
+- the x3dl AudioVisualSaliencyModel forward at 32x64 on that backbone, the
   JAX side on its plain path (Pallas off), with the port's SyncBlock K4 and
   K2 calls and the decoder's K2 calls counted;
 - the config tables, the SyncBlock's tokens (1344 at 224x384: X3D keeps T
@@ -45,11 +45,12 @@ from mspi_tpu_torch.ops.kernels import ln_mlp as K2
 from mspi_tpu_torch.ops.kernels import pooled_attention as PA
 from mspi_tpu_torch.train import __main__ as train_cli
 from tests.torch_port_utils import (count_calls, cpu_share, jax_module_variables,  # noqa: F401
-                                    jit_fast, load_port, seeded_variables, to_np)
+                                    jit_fast, load_port, seeded_variables, to_np, skipped_init)
 
 pytestmark = pytest.mark.usefixtures("cpu_share")  # xdist: the worker's CPU share
 
 RES = (64, 96)
+AV_RES = (32, 64)  # the AV model test's input; the backbone tests run at RES
 TOL = dict(atol=1e-4, rtol=1e-4)
 SMALL = {"depth_factor": 0.4}  # 1, 1, 2, 2 blocks a stage
 
@@ -96,16 +97,17 @@ def _check(jax_module, port, variables, x, train, tol):
 
 
 def test_x3d_av_model_matches_jax(rng, monkeypatch):
-    """The x3dl AudioVisualSaliencyModel (depth_factor 0.4) at 64x96, batch
+    """The x3dl AudioVisualSaliencyModel (depth_factor 0.4) at 32x64, batch
     1, uint8 clips, JAX on its plain path; the SyncBlock's 3 K4 and 3 K2
     calls and the decoder's 4 K2 calls on the port's side. atol 5e-4, rtol
     1e-3 on the log-density map, 1e-4 on the loss."""
     monkeypatch.delenv("MSPI_PALLAS_INTERPRET", raising=False)
-    overrides = {"data": {"resolution": RES}, "model": {"x3d": SMALL}}
-    port = AudioVisualSaliencyModel(get_config("x3dl", overrides), device="cpu")
+    overrides = {"data": {"resolution": AV_RES}, "model": {"x3d": SMALL}}
+    with skipped_init():
+        port = AudioVisualSaliencyModel(get_config("x3dl", overrides), device="cpu")
     jax_model = JaxModel(cfg=jax_get_config("x3dl", overrides=overrides))
     variables = seeded_variables(convert_state_dict(port.state_dict()), rng)
-    clips = rng.integers(0, 256, (1, 16, *RES, 3), dtype=np.uint8)
+    clips = rng.integers(0, 256, (1, 16, *AV_RES, 3), dtype=np.uint8)
     auds = rng.standard_normal((1, 257, 111, 1)).astype(np.float32)
     want, want_loss = jit_fast(jax_model.apply, variables, jnp.asarray(clips), jnp.asarray(auds))
     calls = {}
@@ -115,7 +117,7 @@ def test_x3d_av_model_matches_jax(rng, monkeypatch):
     with torch.no_grad():
         got, got_loss = port(torch.from_numpy(clips), torch.from_numpy(auds))
     assert calls == {"_self_attention_fwd": 3, "ln_mlp": 3 + 4}
-    assert got.shape == (1, *RES) and got.dtype == torch.float32
+    assert got.shape == (1, *AV_RES) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4, rtol=1e-3)
     assert abs(float(got_loss) - float(want_loss)) < 1e-4
 

@@ -2,6 +2,7 @@
 
     python -m tests.torch_dist_worker step IO_DIR RANK WORLD PORT DP TP
     python -m tests.torch_dist_worker cls IO_DIR RANK WORLD PORT DP
+    python -m tests.torch_dist_worker syncbn IO_DIR RANK WORLD PORT
 
 step: reads IO_DIR/in.pt (the model's overrides and state dict, the global
 batch, the LR), joins a gloo group over tcp://localhost:PORT, builds the
@@ -17,9 +18,15 @@ whether the resumed state equals the saved one on every rank.
 
 cls: `run_classification_training` of `ToyClassifier` on `ToyClips` over
 DP data ranks, 2 epochs at batch 4; rank 0 writes IO_DIR/cls_out.pt, the
-history. `cls_history` runs the same without a mesh. Imports no JAX.
+history. `cls_history` runs the same without a mesh.
+
+syncbn: `ops.subbn.sync_batchnorm` in training on this rank's shard of
+IO_DIR/syncbn_in.pt's global batch x (weight and bias from the file), the
+gradient of sum(w * y) in x; each rank writes IO_DIR/syncbn_out_RANK.pt:
+its y, its x gradient and the running statistics. Imports no JAX.
 """
 
+import contextlib
 import sys
 
 import torch
@@ -34,6 +41,40 @@ def fixed_drop_path(self, x):
     mask = torch.tensor([not (b == 1 and self.rate > 0.1) for b in range(x.shape[0])])
     mask = mask.view(-1, *([1] * (x.dim() - 1)))
     return torch.where(mask, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+@contextlib.contextmanager
+def skipped_init():
+    """Build port modules inside the block without drawing their initial
+    weights: torch's default initialisers and the port's own draws
+    (`ops.layers.uniform_` / `trunc_normal_`, which every init scheme of the
+    port goes through) leave the tensors as allocated. Only for a module
+    whose every parameter and persistent buffer a strict load overwrites
+    next (`load_port`, `load_state_dict`): drawing ~100 M initial values
+    takes ~3 s per AV model on one core, and the load discards them."""
+    from torch.nn import init
+
+    from mspi_tpu_torch.models import masked, mvit
+    from mspi_tpu_torch.ops import layers
+
+    def keep(tensor, *args, **kwargs):
+        return tensor
+
+    def skip(*args, **kwargs):
+        return None
+
+    targets = [(init, name, keep) for name in ("kaiming_uniform_", "uniform_", "normal_",
+                                                "trunc_normal_", "xavier_uniform_")]
+    targets += [(mod, name, skip) for mod in (layers, mvit, masked)
+                for name in ("uniform_", "trunc_normal_") if hasattr(mod, name)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+    for mod, name, fn in targets:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 class ToyClassifier(torch.nn.Module):
@@ -97,6 +138,26 @@ def cls_main(io_dir: str, rank: int, world: int, port: int, dp: int) -> None:
     dist.destroy_process_group()
 
 
+def syncbn_main(io_dir: str, rank: int, world: int, port: int) -> None:
+    from mspi_tpu_torch.ops.subbn import sync_batchnorm
+
+    torch.set_num_threads(1)
+    blob = torch.load(f"{io_dir}/syncbn_in.pt", weights_only=False)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    n = blob["x"].shape[0] // world
+    x = blob["x"][rank * n:(rank + 1) * n].clone().requires_grad_(True)
+    bn = sync_batchnorm(x.shape[-1])
+    with torch.no_grad():
+        bn.weight.copy_(blob["weight"])
+        bn.bias.copy_(blob["bias"])
+    y = bn(x)
+    (y * blob["w"][rank * n:(rank + 1) * n]).sum().backward()
+    torch.save({"y": y.detach(), "grad": x.grad, "mean": bn.running_mean,
+                "var": bn.running_var}, f"{io_dir}/syncbn_out_{rank}.pt")
+    dist.destroy_process_group()
+
+
 def main(io_dir: str, rank: int, world: int, port: int, dp: int, tp: int) -> None:
     from mspi_tpu_torch.config import get_config
     from mspi_tpu_torch.models.fusion import AudioVisualSaliencyModel
@@ -112,7 +173,8 @@ def main(io_dir: str, rank: int, world: int, port: int, dp: int, tp: int) -> Non
                             rank=rank)
     mesh = create_mesh((dp, tp), "cpu")
     cfg = get_config("mvitv2s", blob["overrides"])
-    model = AudioVisualSaliencyModel(cfg, device="cpu")
+    with skipped_init():  # every rank's tensors come from in.pt, loaded or replicated
+        model = AudioVisualSaliencyModel(cfg, device="cpu")
     if mesh.data_rank == 0:  # the other replicas take these weights from `replicated`
         model.load_state_dict(blob["state_dict"])
     replicated(model.state_dict().values(), mesh)
@@ -139,7 +201,8 @@ def main(io_dir: str, rank: int, world: int, port: int, dp: int, tp: int) -> Non
     # resumes its part of them into a fresh split model
     path = checkpoints.save_checkpoint(io_dir, state, 1, mesh)
     dist.barrier()
-    fresh = AudioVisualSaliencyModel(cfg, device="cpu")
+    with skipped_init():  # restored from the checkpoint
+        fresh = AudioVisualSaliencyModel(cfg, device="cpu")
     shard_sync_block(fresh, mesh)
     resumed, _ = checkpoints.restore_checkpoint(f"{io_dir}/ckpt_1", engine.create_train_state(
         cfg, fresh), mesh)
@@ -157,5 +220,5 @@ def main(io_dir: str, rank: int, world: int, port: int, dp: int, tp: int) -> Non
 
 
 if __name__ == "__main__":
-    entry = {"step": main, "cls": cls_main}[sys.argv[1]]
+    entry = {"step": main, "cls": cls_main, "syncbn": syncbn_main}[sys.argv[1]]
     entry(sys.argv[2], *map(int, sys.argv[3:]))

@@ -2,7 +2,12 @@
 against the JAX package: seeded variable trees and their transfer into port
 modules."""
 
+import contextlib
+import functools
+import json
 import os
+import subprocess
+import sys
 
 import flax.linen as fnn
 import jax
@@ -12,6 +17,7 @@ import torch
 
 from mspi_tpu_torch.convert import state_dict_from_jax
 from tests.torch_dist_worker import fixed_drop_path as fixed_drop_path_port  # noqa: F401
+from tests.torch_dist_worker import skipped_init  # noqa: F401
 
 
 def _leaf(rng, path, shape):
@@ -142,3 +148,99 @@ def jit_fast(fn, *args):
     argument a pytree of arrays)."""
     return compile_fast(jax.jit(fn), *args)(*args)
 
+
+
+def port_variables(port: torch.nn.Module, rng):
+    """Seeded numpy variables over the port module's own tree (its state
+    dict through the JAX package's converter), at `seeded_variables`'
+    scales. This spares tracing the JAX model's init; hold the JAX model's
+    tree against it with `declared_leaves` around the JAX program's trace."""
+    from mspi_tpu.convert import convert_state_dict
+
+    return jax.tree.map(np.asarray, dict(seeded_variables(convert_state_dict(port.state_dict()),
+                                                          rng)))
+
+
+@contextlib.contextmanager
+def declared_leaves():
+    """Record every parameter and BatchNorm statistic that flax modules
+    declare while traced inside the block, as (collection, *path, name):
+    a JAX program traced on `port_variables` declares each leaf of the JAX
+    model's own tree (apply raises on a declared leaf that is missing, and
+    on one of another shape), so `assert_tree_declared` holds the two trees
+    leaf for leaf, as a strict load from JAX's init tree would."""
+    from flax.core import scope as flax_scope
+
+    found = set()
+    reserve = flax_scope.Scope.reserve
+
+    def recording(self, name, col=None):
+        if col in ("params", "batch_stats"):
+            found.add((col, *self.path, name))
+        return reserve(self, name, col)
+
+    flax_scope.Scope.reserve = recording
+    try:
+        yield found
+    finally:
+        flax_scope.Scope.reserve = reserve
+
+
+def assert_tree_declared(declared, variables) -> None:
+    """The leaves of `variables` are exactly those `declared_leaves`
+    recorded."""
+    want = {(col, *path) for col, tree in variables.items()
+            for path, _ in _tree_leaves(tree)}
+    assert declared == want, (f"port-only leaves {sorted(want - declared)[:5]}, "
+                              f"JAX-only leaves {sorted(declared - want)[:5]}")
+
+
+def _tree_leaves(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _tree_leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+
+_IMPORT_CHECK = """
+import importlib, json, pkgutil, sys
+bad = {}
+names = ["mspi_tpu_torch"]
+for name in names:
+    before = set(sys.modules)
+    importlib.import_module(name)
+    new = sorted(m for m in set(sys.modules) - before
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "mspi_tpu"))
+    if new:
+        bad[name] = new
+    if name == "mspi_tpu_torch":
+        pkg = sys.modules[name]
+        names += sorted(m.name for m in pkgutil.walk_packages(pkg.__path__, name + "."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def port_import_check():
+    """Every module of `mspi_tpu_torch`, imported one after another in one
+    fresh interpreter: ({module names}, {module: the JAX, flax or
+    mspi_tpu modules its import added}). Computed once per test process
+    and shared by the tests that hold the port free of JAX."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], check=True, timeout=300,
+                         capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    return set(result["modules"]), result["bad"]
+
+
+def assert_imports_no_jax(modules) -> None:
+    """The port imports neither JAX, flax nor the JAX package: no module of
+    `mspi_tpu_torch` (the package first) adds one when imported, and
+    `modules` (names under mspi_tpu_torch; "" the package) are among those
+    imported."""
+    names, bad = port_import_check()
+    assert not bad, bad
+    missing = sorted(m for m in modules if ("mspi_tpu_torch." + m).rstrip(".") not in names)
+    assert not missing, missing
